@@ -1,0 +1,92 @@
+"""Prenorm residual block and MLP (mirrors `hyena_dna_tpu/models/blocks.py`).
+
+Block, in the flash-attn "dropout -> add -> LN" order (dropout is the
+identity at inference):
+
+  residual = hidden + residual   (hidden alone in the first block)
+  hidden   = mixer(norm1(residual))
+  residual = hidden + residual
+  hidden   = mlp(norm2(residual))
+
+The adds run in float32 and round once to the residual dtype (float32 when
+`residual_in_fp32`). The matmuls are plain `nn.Linear`, as the JAX package
+left them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hyena_dna_tpu_torch.models.hyena import HyenaOperator
+from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
+
+# Hyena config keys that only steer the optimizer or training-time dropout
+# (ROADMAP.md Queue 1 item 5); they do not change the forward pass.
+_TRAINING_ONLY_KEYS = ("lr", "lr_pos_emb", "wd", "dropout", "filter_dropout",
+                       "fused_bias_fc", "fused_fft_conv", "jit_filter")
+_FILTER_KEYS = {"emb_dim": "emb_dim", "w": "w", "num_inner_mlps": "num_inner_mlps",
+                "modulate": "modulate", "shift": "modulation_shift",
+                "fast_decay_pct": "fast_decay_pct", "slow_decay_pct": "slow_decay_pct",
+                "target": "modulation_target"}
+# (key, value the ported path takes, ROADMAP.md item that ports the rest)
+_UNPORTED = (("num_heads", 1, "Queue 1 item 4"), ("num_blocks", 1, "Queue 1 item 4"),
+             ("inner_factor", 1, "Queue 1 item 4"), ("outer_mixing", False, "Queue 1 item 4"),
+             ("post_order_ffn", False, "Queue 1 item 4"), ("bias", True, "Queue 1 item 4"),
+             ("normalized", False, "Queue 1 item 4"), ("linear_mixer", False, "Queue 1 item 4"),
+             ("bidirectional", False, "Queue 1 item 4"))
+
+
+def make_mixer(d_model: int, layer_cfg: dict | None) -> HyenaOperator:
+    """Hyena mixer from a reference-style layer config (`_name_: hyena`)."""
+    cfg = dict(layer_cfg or {})
+    name = cfg.pop("_name_", "hyena")
+    if name != "hyena":
+        raise NotImplementedError(
+            f"mixer {name!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
+    for key in _TRAINING_ONLY_KEYS:
+        cfg.pop(key, None)
+    for key, value, item in _UNPORTED:
+        if key in cfg and cfg.pop(key) != value:
+            raise NotImplementedError(
+                f"Hyena {key}={layer_cfg[key]!r} is not ported yet (ROADMAP.md {item})")
+    filter_cfg = {_FILTER_KEYS[k]: cfg.pop(k) for k in list(cfg) if k in _FILTER_KEYS}
+    return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, **cfg)
+
+
+class Mlp(nn.Module):
+    """fc1 -> tanh-approximate GeLU -> fc2."""
+
+    def __init__(self, d_model: int, hidden_features: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d_model, hidden_features)
+        self.fc2 = nn.Linear(hidden_features, d_model)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    def __init__(self, d_model: int, d_inner: int, layer_cfg: dict | None,
+                 residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5):
+        super().__init__()
+        self.resid_dtype = torch.float32 if residual_in_fp32 else None
+        self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon)
+        self.mixer = make_mixer(d_model, layer_cfg)
+        self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon)
+        self.mlp = Mlp(d_model, d_inner)
+
+    def _add_norm(self, norm: LayerNormF32, hidden: torch.Tensor, residual):
+        if residual is None:
+            residual = hidden if self.resid_dtype is None else hidden.to(self.resid_dtype)
+            return norm(residual), residual
+        if self.resid_dtype is not None:
+            residual = residual.to(self.resid_dtype)
+        return norm(hidden, residual)
+
+    def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None):
+        hidden, residual = self._add_norm(self.norm1, hidden, residual)
+        hidden = self.mixer(hidden)
+        hidden, residual = self._add_norm(self.norm2, hidden, residual)
+        return self.mlp(hidden), residual
