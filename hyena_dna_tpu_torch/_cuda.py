@@ -3,7 +3,8 @@
 Each kernel is one `csrc/<name>.cu` file with a plain C interface. At first
 use it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 under `hyena_dna_tpu_torch/_build/` (listed in `.gitignore`; the file name
-carries a hash of the source, so an edited source is rebuilt) and loaded
+carries a hash of the source and the shared `csrc/*.cuh` headers, so an
+edited source is rebuilt) and loaded
 with `ctypes`. Every C entry point returns the `cudaError_t` of its
 launches; `Kernel.launch` raises on a non-zero code and counts the launch.
 
@@ -55,8 +56,10 @@ class Kernel:
 
     @property
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
-        return BUILD_DIR / f"lib{self.name}_{digest}.so"
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):  # shared pieces a source may include
+            h.update(header.read_bytes())
+        return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
 
     def build_command(self) -> list:
         """The nvcc command line, writing to a temporary name first."""
@@ -106,6 +109,16 @@ def build_all(kernels: Sequence[Kernel]) -> None:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
 
 
+def on_card(tensor) -> bool:
+    """True for a CUDA tensor (a wrapper launches its kernel), False for a
+    CPU tensor (it runs the plain version); raises for any other device."""
+    if tensor.device.type == "cpu":
+        return False
+    if tensor.device.type != "cuda":
+        raise ValueError(f"no kernel for device {tensor.device}")
+    return True
+
+
 def stream_handle(tensor) -> ctypes.c_void_p:
     """The current CUDA stream of the tensor's device, for a C launch."""
     import torch
@@ -115,3 +128,8 @@ def stream_handle(tensor) -> ctypes.c_void_p:
 
 def ptr(tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(tensor.data_ptr())
+
+
+def ptr_or_null(tensor) -> ctypes.c_void_p:
+    """`ptr`, or a null pointer for None (an optional input or output)."""
+    return ctypes.c_void_p(None if tensor is None else tensor.data_ptr())

@@ -1,11 +1,11 @@
 """Prenorm residual block and MLP (mirrors `hyena_dna_tpu/models/blocks.py`).
 
 Block, in the flash-attn "dropout -> add -> LN" order (dropout is the
-identity at inference):
+identity in eval mode):
 
-  residual = hidden + residual   (hidden alone in the first block)
+  residual = dropout1(hidden) + residual   (dropout1(hidden) alone in the first block)
   hidden   = mixer(norm1(residual))
-  residual = hidden + residual
+  residual = dropout2(hidden) + residual
   hidden   = mlp(norm2(residual))
 
 The adds run in float32 and round once to the residual dtype (float32 when
@@ -20,11 +20,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from hyena_dna_tpu_torch.models.hyena import HyenaOperator
+from hyena_dna_tpu_torch.models.nn import dropout
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 
-# Hyena config keys that only steer the optimizer or training-time dropout
-# (ROADMAP.md Queue 1 item 5); they do not change the forward pass.
-_TRAINING_ONLY_KEYS = ("lr", "lr_pos_emb", "wd", "dropout", "filter_dropout",
+# Hyena config keys that do not change the computation: optimizer settings
+# (the optimizer labels parameters itself), the filter dropout (unimplemented
+# in the JAX package and the reference too) and reference CUDA switches.
+_TRAINING_ONLY_KEYS = ("lr", "lr_pos_emb", "wd", "filter_dropout",
                        "fused_bias_fc", "fused_fft_conv", "jit_filter")
 _FILTER_KEYS = {"emb_dim": "emb_dim", "w": "w", "num_inner_mlps": "num_inner_mlps",
                 "modulate": "modulate", "shift": "modulation_shift",
@@ -69,8 +71,11 @@ class Mlp(nn.Module):
 
 class Block(nn.Module):
     def __init__(self, d_model: int, d_inner: int, layer_cfg: dict | None,
-                 residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5):
+                 residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
+                 resid_dropout1: float = 0.0, resid_dropout2: float = 0.0):
         super().__init__()
+        self.resid_dropout1 = resid_dropout1
+        self.resid_dropout2 = resid_dropout2
         self.resid_dtype = torch.float32 if residual_in_fp32 else None
         self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon)
         self.mixer = make_mixer(d_model, layer_cfg)
@@ -85,8 +90,11 @@ class Block(nn.Module):
             residual = residual.to(self.resid_dtype)
         return norm(hidden, residual)
 
-    def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None):
-        hidden, residual = self._add_norm(self.norm1, hidden, residual)
-        hidden = self.mixer(hidden)
-        hidden, residual = self._add_norm(self.norm2, hidden, residual)
+    def forward(self, hidden: torch.Tensor, residual: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        dropped = dropout(hidden, self.resid_dropout1, self.training, generator)
+        hidden, residual = self._add_norm(self.norm1, dropped, residual)
+        hidden = self.mixer(hidden, generator)
+        dropped = dropout(hidden, self.resid_dropout2, self.training, generator)
+        hidden, residual = self._add_norm(self.norm2, dropped, residual)
         return self.mlp(hidden), residual

@@ -3,13 +3,15 @@
 The path is the JAX package's fused-front route (`_try_pallas_front`):
 
   u (B, L, d) --kernel A: in_proj + causal k=3 conv + first gate-->
-  vx = v * x1, x0 (B, d, L) --filter bank k (d, L)-->
+  vx = v * x1, x0 (B, d, L) --dropout on vx--> --filter bank k (d, L)-->
   y = (causal_conv(vx, k) + vx * bias) * x0 --kernel B-->
   (B, L, d) --activation, out_proj--> (B, L, d)
 
-On a CUDA tensor kernels A and B run (`ops/fused_front.py`,
-`ops/fused_fftconv.py`); on a CPU tensor the same calls run their plain
-versions. Kernel A takes any L (the Pallas front needed L % 32 == 0). From
+On a CUDA tensor kernels A and B run forward and kernels A' and C backward
+(`ops/fused_front.py`, `ops/fused_fftconv.py`, through their
+`autograd.Function`s); the second gate is a plain multiply that autograd
+differentiates, as in the JAX composite route. On a CPU tensor the same
+calls run their plain versions. Kernel A takes any L (the Pallas front needed L % 32 == 0). From
 L = 2^15 the conv I/O (signal, gate, filter bank) is bfloat16 as on the TPU
 (`CONV_IO_BF16_MIN_L`); the transforms still run in float32. When L exceeds
 `l_max` only the filter is cut to `l_max` (a causal conv with a shorter
@@ -25,7 +27,7 @@ import torch
 from torch import nn
 
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
-from hyena_dna_tpu_torch.models.nn import activation_fn
+from hyena_dna_tpu_torch.models.nn import activation_fn, dropout
 from hyena_dna_tpu_torch.ops.fftconv import fftconv_gated
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate
 
@@ -35,7 +37,8 @@ CONV_IO_BF16_MIN_L = 1 << 15
 class HyenaOperator(nn.Module):
     def __init__(self, d_model: int, l_max: int, order: int = 2,
                  filter_order: int = 64, short_filter_order: int = 3,
-                 activation: str = "id", filter_cfg: dict | None = None):
+                 activation: str = "id", filter_cfg: dict | None = None,
+                 dropout: float = 0.0):
         super().__init__()
         if order != 2:
             raise NotImplementedError(
@@ -51,15 +54,19 @@ class HyenaOperator(nn.Module):
         self.filter_fn = HyenaFilter(d_model, order=filter_order, seq_len=l_max,
                                      **(filter_cfg or {}))
         self.act = activation_fn(activation)
+        self.dropout = dropout
 
-    def forward(self, u: torch.Tensor) -> torch.Tensor:
-        """u: (B, L, d) float32 -> (B, L, d)."""
+    def forward(self, u: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """u: (B, L, d) float32 -> (B, L, d); `generator` draws the dropout
+        mask in training."""
         l_filter = min(u.shape[1], self.l_max)
         w = self.in_proj.weight.float().t().contiguous()          # (d, 3d)
         bp = self.in_proj.bias.float().contiguous()
         wc = self.short_filter.weight[:, 0, :].float().t().contiguous()  # (3, 3d)
         bc = self.short_filter.bias.float().contiguous()
         vx, x0 = fused_proj_conv_gate(u.contiguous(), w, bp, wc, bc)
+        vx = dropout(vx, self.dropout, self.training, generator)
         conv_dt = torch.bfloat16 if l_filter >= CONV_IO_BF16_MIN_L else torch.float32
         k = self.filter_fn.filter(l_filter, out_dtype=conv_dt)[0].t().contiguous()
         y = fftconv_gated(vx.to(conv_dt), x0.to(conv_dt), k,

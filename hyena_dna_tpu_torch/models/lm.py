@@ -1,7 +1,12 @@
-"""LMBackbone and ConvLMHeadModel, forward pass (mirrors `hyena_dna_tpu/models/lm.py`).
+"""LMBackbone and ConvLMHeadModel (mirrors `hyena_dna_tpu/models/lm.py`).
 
-GPT2Embeddings -> n_layer x Block -> final add + LN -> tied LM head, with
-the vocabulary padded up to `pad_vocab_size_multiple` and float32 logits.
+GPT2Embeddings -> n_layer x Block -> final dropout + add + LN -> tied LM
+head, with the vocabulary padded up to `pad_vocab_size_multiple` and
+float32 logits. Dropout as in the JAX `LMBackbone`: block 0's first
+dropout is `embed_dropout` (default 0.1), every other residual dropout and
+`drop_f` before the final LN are `resid_dropout` (default 0.0). It acts in
+`train()` mode only (JAX `deterministic=False`), with masks drawn from the
+`generator` handed to `forward`.
 Module names are the reference torch names (`backbone.embeddings...`,
 `backbone.layers.{i}...`, `backbone.ln_f`), so a reference state dict loads
 with `load_state_dict` and no key surgery.
@@ -11,8 +16,8 @@ Linear and Embedding weights N(0, 0.02) with zero biases, `out_proj` and
 `fc2` scaled by 1/sqrt(2 n_layer); the depthwise short conv U(-1/sqrt(3),
 1/sqrt(3)) as torch's Conv1d default; the filter's skip bias N(0, 1). The
 positional features, Sin frequency and modulation rates are fixed at
-construction. The remat options of the JAX model come with the training
-slice (ROADMAP.md Queue 1 item 6).
+construction. The remat options of the JAX model come with a later slice
+(ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from torch import nn
 
 from hyena_dna_tpu_torch.models.blocks import Block
 from hyena_dna_tpu_torch.models.embeddings import GPT2Embeddings
+from hyena_dna_tpu_torch.models.nn import dropout
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 
 
@@ -36,22 +42,28 @@ def _pad_vocab(vocab_size: int, multiple: int) -> int:
 class LMBackbone(nn.Module):
     def __init__(self, d_model: int, n_layer: int, d_inner: int, vocab_size: int,
                  layer: dict | None = None, residual_in_fp32: bool = False,
-                 layer_norm_epsilon: float = 1e-5):
+                 layer_norm_epsilon: float = 1e-5, resid_dropout: float = 0.0,
+                 embed_dropout: float = 0.1):
         super().__init__()
         self.embeddings = GPT2Embeddings(d_model, vocab_size)
         self.layers = nn.ModuleList(
-            Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon)
-            for _ in range(n_layer))
+            Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon,
+                  resid_dropout1=embed_dropout if i == 0 else resid_dropout,
+                  resid_dropout2=resid_dropout)
+            for i in range(n_layer))
+        self.resid_dropout = resid_dropout
         self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         hidden = self.embeddings(input_ids)
         residual = None
         for layer in self.layers:
-            hidden, residual = layer(hidden, residual)
+            hidden, residual = layer(hidden, residual, generator)
+        dropped = dropout(hidden, self.resid_dropout, self.training, generator)
         if residual is None:
-            return self.ln_f(hidden)
-        return self.ln_f(hidden, residual)[0]
+            return self.ln_f(dropped)
+        return self.ln_f(dropped, residual)[0]
 
 
 class ConvLMHeadModel(nn.Module):
@@ -61,6 +73,7 @@ class ConvLMHeadModel(nn.Module):
                  layer: dict | None = None, pad_vocab_size_multiple: int = 1,
                  residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
                  attn_layer_idx=None, max_position_embeddings: int = 0,
+                 resid_dropout: float = 0.0, embed_dropout: float = 0.1,
                  generator: torch.Generator | None = None):
         super().__init__()
         if attn_layer_idx:
@@ -72,7 +85,8 @@ class ConvLMHeadModel(nn.Module):
         self.n_layer = n_layer
         self.backbone = LMBackbone(d_model, n_layer, d_inner,
                                    _pad_vocab(vocab_size, pad_vocab_size_multiple),
-                                   layer, residual_in_fp32, layer_norm_epsilon)
+                                   layer, residual_in_fp32, layer_norm_epsilon,
+                                   resid_dropout, embed_dropout)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -95,6 +109,7 @@ class ConvLMHeadModel(nn.Module):
             elif name.endswith("filter_fn"):
                 mod.bias.normal_(0.0, 1.0, generator=generator)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        hidden = self.backbone(input_ids)
+    def forward(self, input_ids: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        hidden = self.backbone(input_ids, generator)
         return self.backbone.embeddings.attend(hidden.float())

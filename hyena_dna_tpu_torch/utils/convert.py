@@ -13,6 +13,11 @@ reference torch names the port's modules carry:
     `implicit_filter.{2j+2}`, `mlp_out` to the last index;
   * `pos_emb.t`, which flax does not store, is derived from `pos_emb.z`.
 
+The mapping holds for any pytree shaped like the parameters, not only the
+weights: with `buffers=False` it maps gradients or updated parameters the
+same way, without the derived buffer, so a test can hold the JAX step's
+grads and new params against the port's by name.
+
 `load_reference_state_dict` reads a `.pt`/`.ckpt` file the way the JAX
 package's importer does: a plain state dict or `{"state_dict": ...}`, with
 Lightning's `model.` prefix, metric buffers, remat infixes and the tied
@@ -40,8 +45,10 @@ def _torch_key(path) -> str:
     return ".".join(re.sub(r"^layers_(\d+)$", r"layers.\1", p) for p in path)
 
 
-def flax_to_torch_state_dict(params) -> Dict[str, torch.Tensor]:
-    """Flax parameter tree -> reference-named torch state dict."""
+def flax_to_torch_state_dict(params, buffers: bool = True) -> Dict[str, torch.Tensor]:
+    """A params-shaped flax pytree (weights, gradients, updates) ->
+    reference-named torch state dict, with the derived `pos_emb.t` buffer
+    unless `buffers` is False."""
     flat = dict(_flatten(params))
     n_inner = {}
     for path in flat:
@@ -63,8 +70,9 @@ def flax_to_torch_state_dict(params) -> Dict[str, torch.Tensor]:
             sd[_torch_key(base + ("short_filter", "bias"))] = val
         elif parent == "filter_fn" and leaf == "pos_emb_z":
             sd[_torch_key(base + ("pos_emb", "z"))] = val
-            t = np.linspace(0.0, 1.0, val.shape[1], dtype=np.float32)[None, :, None]
-            sd[_torch_key(base + ("pos_emb", "t"))] = t
+            if buffers:
+                t = np.linspace(0.0, 1.0, val.shape[1], dtype=np.float32)[None, :, None]
+                sd[_torch_key(base + ("pos_emb", "t"))] = t
         elif parent == "filter_fn" and leaf == "deltas":
             sd[_torch_key(base + ("modulation", "deltas"))] = val
         elif parent == "filter_fn" and leaf == "freq":

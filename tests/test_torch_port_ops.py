@@ -23,7 +23,7 @@ from hyena_dna_tpu.ops.pallas_hyena import _reference_fwd, fused_proj_conv_gate
 from hyena_dna_tpu.ops.short_conv import short_conv_1d as jax_short_conv
 
 from hyena_dna_tpu_torch.ops import fftconv as TF
-from hyena_dna_tpu_torch.ops.fused_fftconv import fftconv_fused
+from hyena_dna_tpu_torch.ops.fused_fftconv import _channel_spectra, fftconv_fused
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate as port_front
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
@@ -177,3 +177,63 @@ def test_gated_conv_matches_jax():
 @pytest.mark.parametrize("n", [10, 16, 17, 2049, 1 << 20])
 def test_next_fast_fft_size_matches_jax(n):
     assert TF.next_fast_fft_size(n) == JF.next_fast_fft_size(n)
+
+
+# The training path's pieces that need no kernel: autograd passes through
+# them, and their gradients match the JAX package's.
+
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_layer_norm_grads_match_jax(with_residual):
+    """LayerNormF32 alone and in its (y, res_out) add+LN form: gradients of
+    x, the residual, scale and bias against jax.vjp of the JAX module."""
+    rng = np.random.default_rng(2)
+    x, res, dy, dres = (rng.normal(size=(2, 16, 32)).astype(np.float32) for _ in range(4))
+    scale, bias = (rng.normal(size=(32,)).astype(np.float32) for _ in range(2))
+
+    def jax_fn(x, res, scale, bias):
+        params = {"params": {"scale": scale, "bias": bias}}
+        return JaxLayerNorm().apply(params, x, res if with_residual else None)
+
+    _, vjp = jax.vjp(jax_fn, *map(jnp.asarray, (x, res, scale, bias)))
+    ref = vjp((jnp.asarray(dy), jnp.asarray(dres)) if with_residual else jnp.asarray(dy))
+    ln = LayerNormF32(32)
+    ln.load_state_dict({"weight": _t(scale), "bias": _t(bias)})
+    xt, rt = _t(x).requires_grad_(), _t(res).requires_grad_()
+    if with_residual:
+        torch.autograd.backward(ln(xt, rt), (_t(dy), _t(dres)))
+    else:
+        ln(xt).backward(_t(dy))
+    ours = [xt.grad, rt.grad, ln.weight.grad, ln.bias.grad]
+    for a, b, name in zip(ours, ref, ("dx", "dres", "dscale", "dbias")):
+        if not with_residual and name == "dres":
+            assert a is None
+            continue
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+def test_short_conv_grads_match_jax():
+    rng = np.random.default_rng(3)
+    x, dy = (rng.normal(size=(2, 6, 40)).astype(np.float32) for _ in range(2))
+    w = rng.normal(size=(6, 3)).astype(np.float32)
+    b = rng.normal(size=(6,)).astype(np.float32)
+    _, vjp = jax.vjp(jax_short_conv, *map(jnp.asarray, (x, w, b)))
+    ref = vjp(jnp.asarray(dy))
+    args = [_t(a).requires_grad_() for a in (x, w, b)]
+    short_conv_1d(*args).backward(_t(dy))
+    for a, r in zip(args, ref):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,C,L", [(2, 3, 100), (1, 4, 2048)])
+def test_saved_spectrum_plain_version(B, C, L):
+    """Kernel B's saved spectrum (plain version): the forward returns the
+    conv unchanged, and the spectrum splits back into each channel's rfft."""
+    u, k, D = _conv_data(B, C, L, seed=L)
+    y, spec = fftconv_fused(*map(_t, (u, k, D)), save_spectrum=True)
+    n = TF.next_fast_fft_size(2 * L)
+    assert spec.shape == (B, (C + 1) // 2, n, 2) and spec.dtype == torch.float32
+    np.testing.assert_allclose(y.numpy(), TF.fftconv_ref(*map(_t, (u, k, D))).numpy(),
+                               rtol=1e-6, atol=1e-6)
+    split = _channel_spectra(spec, C, n)
+    ref = np.fft.rfft(u.astype(np.float64), n=n)
+    np.testing.assert_allclose(split.numpy(), ref, rtol=1e-4, atol=1e-4 * np.abs(ref).max())
