@@ -7,36 +7,46 @@ Phases, in order; any failure raises, exits non-zero and prints no final
 line:
 
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
-            nvcc per source, started together): kernels A and A' (the front
-            end forward and backward), B and C (the FFT conv forward and
-            backward);
+            nvcc per source, six sources, started together): kernels A and
+            A' (the front end forward and backward), B and C (the FFT conv
+            forward and backward), D and D' (the fused residual-add + LN
+            forward and backward);
 2. kernels  each kernel against its plain PyTorch version on the card, in the
             working dtype, at the shapes of the TPU routes it replaces, with
-            the tolerances below; kernel, plain and library-call times;
+            the tolerances below; kernel, plain and library-call times.
+            Kernels A and A' in float32 and in bfloat16, D and D' at the bf16
+            model's 4 x 32768 x 256 rows;
 3. parity   the full-width model (d=256 x 8 layers, random weights from a
             seeded torch.Generator) on the CPU through the plain versions and
             on the card through the kernels: logits at (B=2, L=8192)
             (float32 conv I/O) and (B=1, L=32768) (bfloat16 conv I/O), then
             the loss and every parameter's gradient at the same two shapes;
+            then the same four checks of the bf16 model (bfloat16
+            activations and residual stream, as every hg38 config trains);
 4. serving  the port's `hg38_inference.main` on a synthetic FASTA and a
             reference-named `.pt`: 2 batches of 4 x 32768 tokens, then one
             1,000,448-token window. Kernel A must run n_layer times per
             batch, kernel B at least as often;
 5. training the port's `bench.main` (forward, backward, clip, AdamW) at
-            4 x 32768 and at 1 x 131072: the loss must be finite and lower
+            4 x 32768 and at 1 x 131072 in float32, then at 4 x 32768 in
+            bf16 (`--precision bf16`): the loss must be finite and lower
             after the steps than at step 0; kernels A and A' must run
-            n_layer times per step, kernels B and C at least as often.
+            n_layer times per step, kernels B and C at least as often, and
+            in bf16 kernels D and D' 2 n_layer times per step (2 n_layer - 1
+            block units plus ln_f; never in float32).
 Launch counts are zeroed just before each request of phases 4 and 5 and
 read just after it.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches in phases 4 and 5, its error,
-times and bound at the main paths' 4 x 32768 shape, and last
+times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
+float32, with their bf16 numbers under "bf16"), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
 launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
-float32 operations at 67 TFLOP/s (H100 SXM data sheet), the least time the
-card could take.
+operations at 67 TFLOP/s for float32 inputs or at the bf16 tensor cores'
+989 TFLOP/s for bf16 inputs (H100 SXM data sheet), the least time the card
+could take.
 """
 
 from __future__ import annotations
@@ -55,7 +65,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12  # dense tensor-core rate: the least time for bf16-input products
+FLOPS = {"float32": F32_FLOPS, "bfloat16": BF16_FLOPS}
 D_MODEL, N_LAYER = 256, 8
+LN_EPS = 1e-5
 
 # Kernel vs plain: |kernel - plain| <= ATOL_FRAC * max|plain| + RTOL * |plain|.
 # float32: both sum in float32 in other orders (a 256-term dot product for
@@ -71,6 +84,15 @@ LOGIT_TOL = {"float32": 1e-3, "bfloat16": 2e-2}
 # step (2^-8) on either side, over 8 layers forward and back. Loss: relative.
 GRAD_TOL = {"float32": 2e-3, "bfloat16": 3e-2}
 LOSS_RTOL = {"float32": 1e-5, "bfloat16": 1e-3}
+# The bf16 model (bfloat16 activations and residual), card vs CPU: logits at
+# the JAX package's own bf16 model tolerance (tests/test_pallas_ln.py, 5e-2),
+# taken against max(1, max|logit|). Gradients: every activation and
+# cotangent rounds to bf16 on both sides (cuBLAS and the CPU sum bf16
+# products in other orders), so an element may land a bf16 step (2^-8)
+# apart at each of ~10 roundings per layer, over 8 layers forward and back:
+# each parameter within 5e-2 of its max |g|. Loss: float32 from bf16
+# logits, which may differ by a step.
+MODEL_BF16 = {"logits": 5e-2, "grads": 5e-2, "loss": 5e-3}
 
 
 def log(obj) -> None:
@@ -112,37 +134,50 @@ def compare(out, ref, dtype: str):
     return max_abs, max_rel
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_front(FF, B, L, seed):
+def front_inputs(B, L, dtype, seed):
+    """u in `dtype`, float32 parameters at the model's init scales."""
     import torch
-    import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     d = D_MODEL
-    u = torch.randn(B, L, d, device="cuda", generator=g)
+    u = torch.randn(B, L, d, device="cuda", generator=g).to(getattr(torch, dtype))
     w = torch.randn(d, 3 * d, device="cuda", generator=g) * 0.02
     bp = torch.randn(3 * d, device="cuda", generator=g) * 0.02
     wc = (torch.rand(3, 3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
     bc = (torch.rand(3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
+    return g, (u, w, bp, wc, bc)
+
+
+def check_front(FF, B, L, seed, dtype="float32"):
+    """Kernel A against `reference_fwd` (float32 arithmetic on u's values;
+    bf16 u: vx and x0 rounded once, see ops/fused_front.py)."""
+    import torch
+    import torch.nn.functional as F
+
+    d = D_MODEL
+    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed)
     vx, x0 = FF.fused_proj_conv_gate(u, w, bp, wc, bc)
     torch.cuda.synchronize()
     vx_ref, x0_ref = FF.reference_fwd(u, w, bp, wc, bc)
-    err = [compare(vx, vx_ref, "float32"), compare(x0, x0_ref, "float32")]
-    conv_w = wc.t().contiguous()[:, None, :]
+    err = [compare(vx, vx_ref, dtype), compare(x0, x0_ref, dtype)]
+    conv_w = wc.t().contiguous()[:, None, :].to(u.dtype)
+    lw, lbp, lbc = w.to(u.dtype), bp.to(u.dtype), bc.to(u.dtype)
 
-    def library():  # torch.matmul + cuDNN depthwise conv1d + gate
-        proj = torch.matmul(u, w) + bp
-        conv = F.conv1d(proj.transpose(1, 2), conv_w, bc, padding=2, groups=3 * d)[..., :L]
+    def library():  # torch.matmul + cuDNN depthwise conv1d + gate, in u's dtype
+        proj = torch.matmul(u, lw) + lbp
+        conv = F.conv1d(proj.transpose(1, 2), conv_w, lbc, padding=2, groups=3 * d)[..., :L]
         return conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d]
 
-    nbytes = 4 * (B * L * d + d * 3 * d + 3 * 3 * d + 2 * 3 * d + 2 * B * d * L)
+    size = u.element_size()
+    nbytes = size * (B * L * d + 2 * B * d * L) + 4 * (d * 3 * d + 3 * 3 * d + 2 * 3 * d)
     flops = B * L * (2 * d * 3 * d + 3 * d * 7 + d)
-    bound_ms, bound_by = bound(nbytes, flops)
-    return {"name": "fused_front", "shape": f"B={B} L={L} d={d} float32",
+    bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
+    return {"name": "fused_front", "shape": f"B={B} L={L} d={d} {dtype}",
             "max_abs_err": max(e[0] for e in err), "max_rel_err": max(e[1] for e in err),
             "ms": time_ms(lambda: FF.fused_proj_conv_gate(u, w, bp, wc, bc)),
             "plain_ms": time_ms(lambda: FF.reference_fwd(u, w, bp, wc, bc)),
@@ -181,29 +216,25 @@ def check_conv(FB, B, L, dtype, route, seed):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_front_bwd(FF, B, L, seed):
-    """Kernel A' against `reference_bwd` (float32)."""
+def check_front_bwd(FF, B, L, seed, dtype="float32"):
+    """Kernel A' against `reference_bwd` (du in u's dtype, the parameter
+    gradients float32)."""
     import torch
     import torch.nn.functional as F
 
-    g = torch.Generator(device="cuda").manual_seed(seed)
     d = D_MODEL
-    u = torch.randn(B, L, d, device="cuda", generator=g)
-    w = torch.randn(d, 3 * d, device="cuda", generator=g) * 0.02
-    bp = torch.randn(3 * d, device="cuda", generator=g) * 0.02
-    wc = (torch.rand(3, 3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
-    bc = (torch.rand(3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
-    dvx = torch.randn(B, d, L, device="cuda", generator=g)
-    dx0 = torch.randn(B, d, L, device="cuda", generator=g)
+    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed)
+    dvx = torch.randn(B, d, L, device="cuda", generator=g).to(u.dtype)
+    dx0 = torch.randn(B, d, L, device="cuda", generator=g).to(u.dtype)
     args = (u, w, bp, wc, bc, dvx, dx0)
     out = FF.front_bwd(*args)
     torch.cuda.synchronize()
     ref = FF.reference_bwd(*args)
-    errs = {name: compare(o, r, "float32")
+    errs = {name: compare(o, r, dtype if name == "du" else "float32")
             for name, o, r in zip(("du", "dw", "dbp", "dwc", "dbc"), out, ref)}
-    leaves = [t.detach().clone().requires_grad_() for t in (u, w, bp)]
-    conv_w = wc.t().contiguous()[:, None, :].requires_grad_()
-    conv_b = bc.clone().requires_grad_()
+    leaves = [t.detach().clone().to(u.dtype).requires_grad_() for t in (u, w, bp)]
+    conv_w = wc.t().contiguous()[:, None, :].to(u.dtype).requires_grad_()
+    conv_b = bc.detach().clone().to(u.dtype).requires_grad_()
 
     def library():  # autograd through torch.matmul + cuDNN depthwise conv1d + gate
         lu, lw, lbp = leaves
@@ -214,16 +245,76 @@ def check_front_bwd(FF, B, L, seed):
             outs = (conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d])
             return torch.autograd.grad(outs, leaves + [conv_w, conv_b], (dvx, dx0))
 
-    nbytes = 4 * (2 * B * L * d + 2 * d * 3 * d + 11 * 3 * d + 2 * B * d * L)
+    size = u.element_size()
+    nbytes = size * (2 * B * L * d + 2 * B * d * L) + 4 * (2 * d * 3 * d + 11 * 3 * d)
     flops = 3 * 2 * B * L * d * 3 * d + B * L * 3 * d * 16
-    bound_ms, bound_by = bound(nbytes, flops)
-    return {"name": "fused_front_bwd", "shape": f"B={B} L={L} d={d} float32",
+    bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
+    return {"name": "fused_front_bwd", "shape": f"B={B} L={L} d={d} {dtype}",
             "route": "pallas_hyena.py:395", "errors": {k: v[0] for k, v in errs.items()},
             "max_abs_err": max(e[0] for e in errs.values()),
             "max_rel_err": max(e[1] for e in errs.values()),
             "ms": time_ms(lambda: FF.front_bwd(*args)),
             "plain_ms": time_ms(lambda: FF.reference_bwd(*args)),
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_add_ln(AL, B, L, seed):
+    """Kernels D and D' against `add_ln_ref` and `add_ln_bwd_ref` on the bf16
+    model's B*L rows of d: res_out must be the same bits (one rounding on
+    both sides), y and d_total within one bf16 step, dscale and dbias float32
+    sums over the rows in another order. Returns the two kernels' rows."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n, d, bf = B * L, D_MODEL, torch.bfloat16
+    h = torch.randn(n, d, device="cuda", generator=g).to(bf)
+    r = (torch.randn(n, d, device="cuda", generator=g) * 3).to(bf)
+    w = 1 + 0.1 * torch.randn(d, device="cuda", generator=g)
+    b = 0.1 * torch.randn(d, device="cuda", generator=g)
+    dy = torch.randn(n, d, device="cuda", generator=g).to(bf)
+    dup = torch.randn(n, d, device="cuda", generator=g).to(bf)
+    y, ro = AL.add_ln_fwd(h, r, w, b, LN_EPS)
+    torch.cuda.synchronize()
+    y_ref, ro_ref = AL.add_ln_ref(h, r, w, b, LN_EPS)
+    if not torch.equal(ro, ro_ref):
+        raise AssertionError("kernel D's res_out differs from the plain rounding")
+    fwd_err = [compare(y, y_ref, "bfloat16"), compare(ro, ro_ref, "bfloat16")]
+    out = AL.add_ln_bwd(ro, dy, dup, w, LN_EPS)
+    torch.cuda.synchronize()
+    ref = AL.add_ln_bwd_ref(ro, dy, dup, w, LN_EPS)
+    bwd_err = {name: compare(o, rf, "bfloat16" if name == "d_total" else "float32")
+               for name, o, rf in zip(("d_total", "dscale", "dbias"), out, ref)}
+    lw, lb = w.to(bf), b.to(bf)
+
+    def library_fwd(hh=h, rr=r, ww=lw, bb=lb):  # the add, one rounding, then F.layer_norm
+        ro_l = (hh.float() + rr.float()).to(bf)
+        return F.layer_norm(ro_l, (d,), ww, bb, LN_EPS), ro_l
+
+    leaves = [t.detach().clone().requires_grad_() for t in (h, r, lw, lb)]
+
+    def library_bwd():  # torch.autograd.grad through library_fwd
+        with torch.enable_grad():
+            return torch.autograd.grad(library_fwd(*leaves), leaves, (dy, dup))
+
+    shape = f"B={B} L={L} d={d} bfloat16 (N={n} rows)"
+    # each direction reads two and writes two bf16 (N, d) tensors: 8 bytes per element
+    fwd_bytes, bwd_bytes = 8 * n * d + 8 * d, 8 * n * d + 12 * d
+    fb, fby = bound(fwd_bytes, 12 * n * d)
+    bb_, bby = bound(bwd_bytes, 16 * n * d)
+    return [
+        {"name": "add_ln", "shape": shape, "route": "pallas_ln.py:102",
+         "max_abs_err": max(e[0] for e in fwd_err), "max_rel_err": max(e[1] for e in fwd_err),
+         "ms": time_ms(lambda: AL.add_ln_fwd(h, r, w, b, LN_EPS)),
+         "plain_ms": time_ms(lambda: AL.add_ln_ref(h, r, w, b, LN_EPS)),
+         "library_ms": time_ms(library_fwd), "bound_ms": fb, "bound_by": fby},
+        {"name": "add_ln_bwd", "shape": shape, "route": "pallas_ln.py:130",
+         "errors": {k: v[0] for k, v in bwd_err.items()},
+         "max_abs_err": max(e[0] for e in bwd_err.values()),
+         "max_rel_err": max(e[1] for e in bwd_err.values()),
+         "ms": time_ms(lambda: AL.add_ln_bwd(ro, dy, dup, w, LN_EPS)),
+         "plain_ms": time_ms(lambda: AL.add_ln_bwd_ref(ro, dy, dup, w, LN_EPS)),
+         "library_ms": time_ms(library_bwd), "bound_ms": bb_, "bound_by": bby}]
 
 
 def check_conv_bwd(FB, entry, B, L, dtype, route, seed):
@@ -275,13 +366,33 @@ def check_conv_bwd(FB, entry, B, L, dtype, route, seed):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed):
-    """Loss and every parameter gradient of the full-width model, card
-    (kernels A, A', B, C) against CPU (their plain versions)."""
+def model_kwargs(precision: str) -> dict:
+    """`build_model` arguments of the float32 model (float32 residual) or the
+    bf16 model (bfloat16 activations and residual stream)."""
     import torch
 
-    model = build_model(D_MODEL, N_LAYER, 32768,
-                        generator=torch.Generator().manual_seed(seed)).eval()
+    if precision == "bf16":
+        return {"dtype": torch.bfloat16, "residual_in_fp32": False}
+    return {}
+
+
+def expected_launches(precision: str, per_pass: int) -> dict:
+    """Launches of each kernel in `per_pass` forward+backward passes: A, A',
+    B, C once per layer; D, D' 2 n_layer times in the bf16 model (2 n_layer
+    - 1 block units plus ln_f) and never with a float32 residual."""
+    fused = 2 * N_LAYER * per_pass if precision == "bf16" else 0
+    return {"fused_front": N_LAYER * per_pass, "fused_front_bwd": N_LAYER * per_pass,
+            "fftconv": N_LAYER * per_pass, "fftconv_bwd": N_LAYER * per_pass,
+            "add_ln": fused, "add_ln_bwd": fused}
+
+
+def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed, precision="fp32"):
+    """Loss and every parameter gradient of the full-width model, card
+    (kernels A, A', B, C; D, D' in bf16) against CPU (their plain versions)."""
+    import torch
+
+    model = build_model(D_MODEL, N_LAYER, 32768, generator=torch.Generator().manual_seed(seed),
+                        **model_kwargs(precision)).eval()
     tokens = torch.from_numpy(
         np.random.default_rng(seed).integers(7, 12, size=(B, L + 1)).astype(np.int64))
     x, y = tokens[:, :-1], tokens[:, 1:]
@@ -305,34 +416,41 @@ def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed):
         if not math.isfinite(ratio) or ratio > worst:
             worst, worst_name = ratio, name
     loss_err = abs(loss_card.item() - loss_cpu.item()) / abs(loss_cpu.item())
-    ok = (not missing and math.isfinite(worst) and worst <= GRAD_TOL[dtype]
-          and loss_err <= LOSS_RTOL[dtype] and all(n == N_LAYER for n in launches.values()))
-    log({"phase": "grad_parity", "B": B, "L": L, "conv_io": dtype, "loss_cpu": loss_cpu.item(),
-         "loss_card": loss_card.item(), "loss_rel_err": loss_err,
-         "worst_grad_err_over_max": worst, "worst_param": worst_name, "tol": GRAD_TOL[dtype],
+    bf16 = precision == "bf16"
+    grad_tol = MODEL_BF16["grads"] if bf16 else GRAD_TOL[dtype]
+    loss_tol = MODEL_BF16["loss"] if bf16 else LOSS_RTOL[dtype]
+    ok = (not missing and math.isfinite(worst) and worst <= grad_tol and loss_err <= loss_tol
+          and launches == expected_launches(precision, 1))
+    log({"phase": "grad_parity", "precision": precision, "B": B, "L": L, "conv_io": dtype,
+         "loss_cpu": loss_cpu.item(), "loss_card": loss_card.item(), "loss_rel_err": loss_err,
+         "worst_grad_err_over_max": worst, "worst_param": worst_name, "tol": grad_tol,
          "params": len(cpu_grads), "missing_grads": missing, "launches": launches, "ok": ok})
     if not ok:
         raise AssertionError(f"card gradients disagree with the CPU at B={B} L={L}")
 
 
-def train(bench, kernels, batch, length, seed):
+def train(bench, kernels, batch, length, seed, precision="fp32"):
     """A few timed train steps through the port's bench entry point."""
     import torch
 
     argv = ["--batch", str(batch), "--length", str(length), "--d_model", str(D_MODEL),
             "--n_layer", str(N_LAYER), "--warmup", "1", "--windows", "2", "--steps", "3",
-            "--device", "cuda", "--seed", str(seed)]
+            "--device", "cuda", "--seed", str(seed), "--precision", precision]
+    torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     result = bench.main(argv)
     launches = {k.name: k.launches for k in kernels}
     steps = result["steps_run"]
-    expect = N_LAYER * steps
+    expect = expected_launches(precision, steps)
     losses = result["losses"]
     ok = (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
-          and launches["fused_front"] == launches["fused_front_bwd"] == expect
-          and launches["fftconv"] >= expect and launches["fftconv_bwd"] >= expect)
-    log({"phase": "training", "batch": batch, "L": length, "steps": steps,
+          and all(launches[n] == expect[n]
+                  for n in ("fused_front", "fused_front_bwd", "add_ln", "add_ln_bwd"))
+          and launches["fftconv"] >= expect["fftconv"]
+          and launches["fftconv_bwd"] >= expect["fftconv_bwd"])
+    log({"phase": "training", "precision": precision, "residual": result["residual"],
+         "batch": batch, "L": length, "steps": steps,
          "step_ms": result["step_ms"], "tokens_per_s": result["value"],
          "loss_first": losses[0], "loss_last": losses[-1],
          "launches_per_step": {n: c / steps for n, c in launches.items()},
@@ -343,22 +461,23 @@ def train(bench, kernels, batch, length, seed):
     return launches
 
 
-def slice_parity(build_model, B, L, dtype, seed):
+def slice_parity(build_model, B, L, dtype, seed, precision="fp32"):
     import torch
 
-    model = build_model(D_MODEL, N_LAYER, 32768,
-                        generator=torch.Generator().manual_seed(seed)).eval()
+    model = build_model(D_MODEL, N_LAYER, 32768, generator=torch.Generator().manual_seed(seed),
+                        **model_kwargs(precision)).eval()
     tokens = torch.from_numpy(
         np.random.default_rng(seed).integers(7, 12, size=(B, L)).astype(np.int64))
     with torch.inference_mode():
         cpu = model(tokens)
         card_model = copy.deepcopy(model).to("cuda")
         card = card_model(tokens.to("cuda")).cpu()
-    err = (card - cpu).abs().max().item()
-    scale = cpu.abs().max().item()
-    ok = math.isfinite(err) and err <= LOGIT_TOL[dtype] * max(1.0, scale)
-    log({"phase": "parity", "B": B, "L": L, "conv_io": dtype, "max_abs_err": err,
-         "max_abs_logit": scale, "tol": LOGIT_TOL[dtype], "ok": ok})
+    err = (card.float() - cpu.float()).abs().max().item()
+    scale = cpu.float().abs().max().item()
+    tol = MODEL_BF16["logits"] if precision == "bf16" else LOGIT_TOL[dtype]
+    ok = math.isfinite(err) and err <= tol * max(1.0, scale) and card.dtype == cpu.dtype
+    log({"phase": "parity", "precision": precision, "B": B, "L": L, "conv_io": dtype,
+         "max_abs_err": err, "max_abs_logit": scale, "tol": tol, "ok": ok})
     if not ok or card.shape != (B, L, 16):
         raise AssertionError(f"card logits disagree with the CPU at B={B} L={L}")
 
@@ -417,13 +536,15 @@ def main() -> int:
         return 2
     from hyena_dna_tpu_torch import _cuda, bench
     from hyena_dna_tpu_torch.evals import hg38_inference as cli
+    from hyena_dna_tpu_torch.ops import add_ln as AL
     from hyena_dna_tpu_torch.ops import fused_fftconv as FB
     from hyena_dna_tpu_torch.ops import fused_front as FF
     from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD]
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    kernels = [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD]
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0)})
 
@@ -434,6 +555,9 @@ def main() -> int:
 
     rows = [check_front(FF, 4, 32768, 1), check_front(FF, 1, 1000448, 2),
             check_front_bwd(FF, 4, 32768, 8)]
+    rows += check_add_ln(AL, 4, 32768, 9)
+    bf16_rows = [check_front(FF, 4, 32768, 10, "bfloat16"),
+                 check_front_bwd(FF, 4, 32768, 18, "bfloat16")]
     rows += [check_conv(FB, 2, 8192, "float32", "XLA FFT on the TPU", 3),
              check_conv(FB, 4, 32768, "bfloat16", "pallas_fftconv.py:1119 packed", 4),
              check_conv(FB, 1, 32768, "bfloat16", "pallas_fftconv.py:296 unpacked", 5),
@@ -451,13 +575,17 @@ def main() -> int:
             (FB.fftconv_outer_bwd, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629", 27)):
         rows.append(check_conv_bwd(FB, entry or FB.fftconv_bwd_retransform, B, L, dtype,
                                    route, seed))
-    for row in rows:
+    for row in rows + bf16_rows:
         log({"phase": "kernel", **row})
 
     slice_parity(cli.build_model, 2, 8192, "float32", 11)
     slice_parity(cli.build_model, 1, 32768, "bfloat16", 12)
     grad_parity(cli.build_model, cross_entropy, kernels, 2, 8192, "float32", 15)
     grad_parity(cli.build_model, cross_entropy, kernels, 1, 32768, "bfloat16", 16)
+    slice_parity(cli.build_model, 2, 8192, "float32", 30, "bf16")
+    slice_parity(cli.build_model, 1, 32768, "bfloat16", 31, "bf16")
+    grad_parity(cli.build_model, cross_entropy, kernels, 2, 8192, "float32", 32, "bf16")
+    grad_parity(cli.build_model, cross_entropy, kernels, 1, 32768, "bfloat16", 33, "bf16")
 
     total = {k.name: 0 for k in kernels}
     with tempfile.TemporaryDirectory() as tmp:
@@ -468,8 +596,9 @@ def main() -> int:
             for name, n in serve(cli, kernels, tmp, fasta, max_length, batch_size,
                                  n_windows, seed=14).items():
                 total[name] += n
-    for batch, length in ((4, 32768), (1, 131072)):
-        for name, n in train(bench, kernels, batch, length, seed=17).items():
+    for batch, length, precision in ((4, 32768, "fp32"), (1, 131072, "fp32"),
+                                     (4, 32768, "bf16")):
+        for name, n in train(bench, kernels, batch, length, 17, precision).items():
             total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -478,8 +607,11 @@ def main() -> int:
     print(smi, flush=True)
     csrc = "hyena_dna_tpu_torch/csrc/"
     sources = {"fused_front": csrc + "fused_front.cu", "fused_front_bwd": csrc + "fused_front_bwd.cu",
-               "fftconv": csrc + "fftconv.cu", "fftconv_bwd": csrc + "fftconv_bwd.cu"}
-    replaces = {"fused_front": "hyena_dna_tpu/ops/pallas_hyena.py:85",
+               "fftconv": csrc + "fftconv.cu", "fftconv_bwd": csrc + "fftconv_bwd.cu",
+               "add_ln": csrc + "add_ln.cu", "add_ln_bwd": csrc + "add_ln_bwd.cu"}
+    replaces = {"add_ln": "hyena_dna_tpu/ops/pallas_ln.py:102",
+                "add_ln_bwd": "hyena_dna_tpu/ops/pallas_ln.py:130",
+                "fused_front": "hyena_dna_tpu/ops/pallas_hyena.py:85",
                 "fused_front_bwd": "hyena_dna_tpu/ops/pallas_hyena.py:395",
                 "fftconv": "hyena_dna_tpu/ops/pallas_fftconv.py:1119; "
                            "hyena_dna_tpu/ops/pallas_fftconv.py:296; "
@@ -492,9 +624,13 @@ def main() -> int:
                                "hyena_dna_tpu/ops/pallas_fftconv.py:775; "
                                "hyena_dna_tpu/ops/pallas_fftconv_n3.py:629"}
     # each kernel's row at the main paths' 4 x 32768 shape (the conv's
-    # backward on the spectrum route the training step takes there)
+    # backward on the spectrum route the training step takes there; kernels
+    # A and A' in float32, their bf16 rows under "bf16")
     headline = {name: next(r for r in rows if r["name"] == name and r["shape"].startswith("B=4 "))
                 for name in sources}
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    bf16 = {r["name"]: {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}}
+            for r in bf16_rows}
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -502,8 +638,7 @@ def main() -> int:
          "launches": total[name],
          "max_abs_err": max(r["max_abs_err"] for r in rows if r["name"] == name),
          "max_rel_err": max(r["max_rel_err"] for r in rows if r["name"] == name),
-         "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-         "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+         **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -1,21 +1,32 @@
 """Train-step throughput of the hg38 LM on the card (the port of `bench.py`).
 
     python -m hyena_dna_tpu_torch.bench [--batch 4 --length 32768 --d_model 256 --n_layer 8]
+                                        [--precision fp32|bf16]
 
 One train step of `ConvLMHeadModel` (forward, backward, global-norm clip,
 AdamW) as the JAX `bench.py` runs it: d_model 256, 8 layers, d_inner 4 d,
 order-2 Hyena (emb_dim 5, filter_order 64, w 10, l_max L + 2), vocabulary 12
-padded to 16, float32 residual, embedding dropout 0.1 with masks from a
-seeded `torch.Generator`, `build_optimizer(lr=6e-4, weight_decay=0.1)` and
-the tiled synthetic batch x = (t % 4) + 7, y = x rolled by one. Weights are
-random, from `--seed`. Activations are float32 (the JAX trainer's default
-precision); the conv I/O is bfloat16 from L = 2^15, as in the model.
+padded to 16, embedding dropout 0.1 with masks from a seeded
+`torch.Generator`, `build_optimizer(lr=6e-4, weight_decay=0.1)` on float32
+master parameters and the tiled synthetic batch x = (t % 4) + 7, y = x
+rolled by one. Weights are random, from `--seed`. The conv I/O is bfloat16
+from L = 2^15 at either precision, as in the model.
+
+`--precision fp32` (the default): float32 activations and residual.
+`--precision bf16`: the JAX `bench.py` headline step, bfloat16 activations
+(the model `dtype` every hg38 config sets with `precision: bf16`) and a
+bfloat16 residual stream (the JAX bench's default, `BENCH_RESIDUAL_F32`
+unset), where the residual add + LN runs kernels D and D'. The loss is
+float32 either way. Matrix products
+run without TF32 and bf16 products accumulate in float32 (no reduced-
+precision reductions), as the TPU's matrix unit does.
 
 It runs `--warmup` steps, then `--windows` windows of `--steps` steps, each
-window between `torch.cuda.synchronize()` calls, and keeps the best window.
-It prints one JSON line,
-  {"metric": "hg38_trainstep_tokens_per_sec_L{L}_d{d}x{n}_fp32", "value": ...,
-   "unit": "tokens/s", "precision": "fp32", ...}
+window between `torch.cuda.synchronize()` calls, and keeps the best window
+(every window's time per step is in `window_step_ms`). It prints one JSON
+line,
+  {"metric": "hg38_trainstep_tokens_per_sec_L{L}_d{d}x{n}_{precision}", "value": ...,
+   "unit": "tokens/s", "precision": "fp32" or "bf16", "residual": ..., ...}
 and returns it as a dict with every step's loss. It runs on the card unless
 `--device cpu` is given (the kernels' plain versions, at the shape given).
 A failure raises; there is no fallback shape.
@@ -57,18 +68,19 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"))
+    ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"),
+                    help="activation dtype (the model's `dtype`)")
     args = ap.parse_args(argv)
-    if args.precision != "fp32":
-        raise NotImplementedError(
-            "bf16 activations need a model dtype and kernels A/A' on bf16 u "
-            "(ROADMAP.md, the port's next slice, item 1: bf16 activations)")
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
+    bf16 = args.precision == "bf16"
     model = build_model(args.d_model, args.n_layer, args.length,
-                        generator=torch.Generator().manual_seed(args.seed)).to(device)
+                        generator=torch.Generator().manual_seed(args.seed),
+                        dtype=torch.bfloat16 if bf16 else torch.float32,
+                        residual_in_fp32=not bf16).to(device)
     optimizer, _ = build_optimizer(model, lr=6e-4, weight_decay=0.1)
     state = create_train_state(model, optimizer)
     step = make_train_step(LMTask())
@@ -81,21 +93,25 @@ def main(argv=None) -> dict:
             losses.append(step(state, batch, generator)["loss"])
 
     run(args.warmup)
-    best = float("inf")
+    windows = []
     for _ in range(args.windows):
         _sync(device)
         t0 = time.perf_counter()
         run(args.steps)
         _sync(device)
-        best = min(best, time.perf_counter() - t0)
+        windows.append(time.perf_counter() - t0)
+    best = min(windows)
     tokens = args.batch * args.length
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     result = {
-        "metric": f"hg38_trainstep_tokens_per_sec_L{args.length}_d{args.d_model}x{args.n_layer}_fp32",
-        "value": tokens * args.steps / best, "unit": "tokens/s", "precision": "fp32",
+        "metric": (f"hg38_trainstep_tokens_per_sec_L{args.length}_d{args.d_model}"
+                   f"x{args.n_layer}_{args.precision}"),
+        "value": tokens * args.steps / best, "unit": "tokens/s", "precision": args.precision,
+        "residual": args.precision,
         "device": name, "batch": args.batch, "length": args.length,
         "step_ms": best / args.steps * 1e3, "steps_per_window": args.steps,
-        "windows": args.windows, "steps_run": len(losses),
+        "windows": args.windows, "window_step_ms": [t / args.steps * 1e3 for t in windows],
+        "steps_run": len(losses),
         "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
     }
     print(json.dumps(result), flush=True)

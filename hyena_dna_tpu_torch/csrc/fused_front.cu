@@ -6,15 +6,21 @@
 //   [x0 | x1 | v] = conv split along channels
 //   vx = v * x1, x0                                     both (B, d, L)
 //
-// u, W, bp, wc, bc, vx and x0 are float32; u (B, L, d), W (d, 3d),
-// bp (3d), wc (3, 3d) with wc[j] multiplying proj[t - 2 + j], bc (3d).
+// u (B, L, d), vx and x0 are float32, or all three bfloat16 (the bf16
+// model: vx and x0 in u's dtype, as the Pallas kernel's out_dtype =
+// u.dtype); W (d, 3d), bp (3d), wc (3, 3d) with wc[j] multiplying
+// proj[t - 2 + j] and bc (3d) are float32. The arithmetic is float32 either
+// way: bf16 u is widened on load, so proj stays float32 and vx, x0 are
+// rounded once.
 //
 // Replaces hyena_dna_tpu/ops/pallas_hyena.py::fused_proj_conv_gate
 // (_kernel / _fwd_pallas), the front end of every order-2 Hyena layer.
 //
 // What bounds it on the H100: the projection, 2 * L * d * 3d flops per batch
 // row in float32 on the CUDA cores (about 0.8 ms at the card's 67 TFLOP/s
-// for B=4, L=32768, d=256), against 16 bytes per (t, channel) of traffic.
+// for B=4, L=32768, d=256), against 16 bytes per (t, channel) of traffic
+// (8 in bfloat16). With bf16 inputs the least time would be the tensor
+// cores' (0.05 ms at 989 TFLOP/s); this kernel keeps the CUDA-core SGEMM.
 //
 // Design (simple and correct first; no tensor cores yet):
 //  * One block per (channel group of CB=32 outputs, 64-row time tile, batch
@@ -31,11 +37,12 @@
 //    tile run together and read it from L2.
 //  * The conv, gate and the transpose to channel-major happen in shared
 //    memory; stores are coalesced along time.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "bf16_io.cuh"
 
 namespace {
+
+using bf16_io::from_f32;
+using bf16_io::to_f32;
 
 constexpr int kRows = 64;           // projected rows per block
 constexpr int kOut = kRows - 2;     // output times per block
@@ -44,10 +51,11 @@ constexpr int kCols = 3 * kCB;      // projected columns per block
 constexpr int kTK = 32;             // reduction chunk
 constexpr int kThreads = 256;       // 16 x 16; thread owns 4 rows x 6 columns
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) fused_front_kernel(
-    const float* __restrict__ u, const float* __restrict__ w, const float* __restrict__ bp,
-    const float* __restrict__ wc, const float* __restrict__ bc, float* __restrict__ vx,
-    float* __restrict__ x0, int L, int d) {
+    const T* __restrict__ u, const float* __restrict__ w, const float* __restrict__ bp,
+    const float* __restrict__ wc, const float* __restrict__ bc, T* __restrict__ vx,
+    T* __restrict__ x0, int L, int d) {
   __shared__ float us[kTK][kRows + 1];
   __shared__ float ws[kTK][kCols];
   __shared__ float ps[kRows][kCols + 1];
@@ -60,7 +68,7 @@ __global__ void __launch_bounds__(kThreads) fused_front_kernel(
   const int ty = tid / 16;
   const int d3 = 3 * d;
   const int trow0 = t0 - 2;  // time of projected row 0
-  const float* ub = u + static_cast<int64_t>(b) * L * d;
+  const T* ub = u + static_cast<int64_t>(b) * L * d;
 
   float acc[4][6];
 #pragma unroll
@@ -72,7 +80,9 @@ __global__ void __launch_bounds__(kThreads) fused_front_kernel(
     for (int i = tid; i < kRows * kTK; i += kThreads) {
       const int r = i / kTK, kk = i % kTK;
       const int t = trow0 + r;
-      us[kk][r] = (t >= 0 && t < L && k0 + kk < d) ? ub[static_cast<int64_t>(t) * d + k0 + kk] : 0.f;
+      us[kk][r] = (t >= 0 && t < L && k0 + kk < d)
+                      ? to_f32(ub[static_cast<int64_t>(t) * d + k0 + kk])
+                      : 0.f;
     }
     for (int i = tid; i < kTK * kCols; i += kThreads) {
       const int kk = i / kCols, j = i % kCols;
@@ -125,9 +135,21 @@ __global__ void __launch_bounds__(kThreads) fused_front_kernel(
                ps[r][col] * wc[2 * d3 + gc] + bc[gc];
     }
     const int64_t o = (static_cast<int64_t>(b) * d + ch) * L + t;
-    x0[o] = g[0];
-    vx[o] = g[2] * g[1];
+    x0[o] = from_f32<T>(g[0]);
+    vx[o] = from_f32<T>(g[2] * g[1]);
   }
+}
+
+template <typename T>
+int launch(const T* u, const float* w, const float* bp, const float* wc, const float* bc, T* vx,
+           T* x0, int B, int L, int d, cudaStream_t stream) {
+  const int tiles = (L + kOut - 1) / kOut;
+  if (B < 1 || L < 1 || d < 1 || tiles > 65535 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid((d + kCB - 1) / kCB, tiles, B);
+  fused_front_kernel<T><<<grid, kThreads, 0, stream>>>(u, w, bp, wc, bc, vx, x0, L, d);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -137,11 +159,13 @@ __global__ void __launch_bounds__(kThreads) fused_front_kernel(
 extern "C" int hyena_fused_front_fwd(const float* u, const float* w, const float* bp,
                                      const float* wc, const float* bc, float* vx, float* x0,
                                      int B, int L, int d, cudaStream_t stream) {
-  const int tiles = (L + kOut - 1) / kOut;
-  if (B < 1 || L < 1 || d < 1 || tiles > 65535 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((d + kCB - 1) / kCB, tiles, B);
-  fused_front_kernel<<<grid, kThreads, 0, stream>>>(u, w, bp, wc, bc, vx, x0, L, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch(u, w, bp, wc, bc, vx, x0, B, L, d, stream);
+}
+
+// As hyena_fused_front_fwd with u, vx and x0 bfloat16; the parameters float32.
+extern "C" int hyena_fused_front_fwd_bf16(const __nv_bfloat16* u, const float* w,
+                                          const float* bp, const float* wc, const float* bc,
+                                          __nv_bfloat16* vx, __nv_bfloat16* x0, int B, int L,
+                                          int d, cudaStream_t stream) {
+  return launch(u, w, bp, wc, bc, vx, x0, B, L, d, stream);
 }

@@ -10,7 +10,10 @@
 //   dproj[s] = wc[0] dconv[s+2] + wc[1] dconv[s+1] + wc[2] dconv[s]
 //   du  = dproj @ W^T        dW  = u^T @ dproj          dbp = sum_s dproj[s]
 //   dwc[j] = sum_t dconv[t] proj[t - 2 + j]             dbc = sum_t dconv[t]
-// All float32: u, W, bp, wc, bc, dvx, dx0, du, dW, and the bias/tap grads.
+// u, dvx, dx0 and du are float32, or all four bfloat16 (the bf16 model, du
+// in u's dtype as the Pallas kernel's); W, bp, wc, bc, dW, the bias/tap
+// grads and the dproj scratch are float32. The arithmetic is float32 either
+// way: bf16 inputs are widened on load and du is rounded once.
 //
 // Replaces hyena_dna_tpu/ops/pallas_hyena.py::_bwd_pallas (_bwd_kernel /
 // _bwd_body, wired in _fpcg_bwd), the backward of every order-2 Hyena layer.
@@ -18,7 +21,9 @@
 // What bounds it on the H100: three float32 matrix products of 2 * B * L *
 // d * 3d flops each (the projection recompute, du and dW; 154.6 GFLOP at
 // B=4, L=32768, d=256, about 2.3 ms at the card's 67 TFLOP/s on the CUDA
-// cores) against about 16 bytes of input and output per (t, channel).
+// cores) against about 16 bytes of input and output per (t, channel); with
+// bf16 inputs the tensor cores' bound (0.16 ms at 989 TFLOP/s) is the
+// least time, which this kernel's CUDA-core SGEMMs do not approach.
 //
 // Design (simple and correct first; no tensor cores yet):
 //  * Pass 1, front_bwd_tile_kernel: one block per (32-channel group, time
@@ -40,11 +45,12 @@
 //  * The dproj round trip through device memory (12 bytes per (t, channel)
 //    written, then read twice) is the price of keeping every pass a plain
 //    tiled loop; fusing du and dW into pass 1 is later work.
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "bf16_io.cuh"
 
 namespace {
+
+using bf16_io::from_f32;
+using bf16_io::to_f32;
 
 constexpr int kRows = 64;            // projected rows per tile: t0-2 .. t0+61
 constexpr int kConvRows = kRows - 2;  // dconv rows: t0 .. t0+61
@@ -59,10 +65,11 @@ constexpr int kUsSize = kTK * (kRows + 1);
 constexpr int kWsSize = kTK * kCols;
 constexpr size_t kTileSmem = sizeof(float) * (kUsSize + kWsSize + (kRows + kConvRows) * kStride);
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
-    const float* __restrict__ u, const float* __restrict__ w, const float* __restrict__ bp,
-    const float* __restrict__ wc, const float* __restrict__ bc, const float* __restrict__ dvx,
-    const float* __restrict__ dx0, float* __restrict__ dproj, float* __restrict__ part, int L,
+    const T* __restrict__ u, const float* __restrict__ w, const float* __restrict__ bp,
+    const float* __restrict__ wc, const float* __restrict__ bc, const T* __restrict__ dvx,
+    const T* __restrict__ dx0, float* __restrict__ dproj, float* __restrict__ part, int L,
     int d) {
   extern __shared__ float smem[];
   auto us = reinterpret_cast<float(*)[kRows + 1]>(smem);
@@ -79,7 +86,7 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
   const int ty = tid / 16;
   const int d3 = 3 * d;
   const int trow0 = t0 - 2;  // time of projected row 0
-  const float* ub = u + static_cast<int64_t>(b) * L * d;
+  const T* ub = u + static_cast<int64_t>(b) * L * d;
 
   // projection of rows t0-2 .. t0+61, columns [x0 | x1 | v] of channels c0..c0+31
   float acc[4][6];
@@ -91,7 +98,9 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
     for (int i = tid; i < kRows * kTK; i += kThreads) {
       const int r = i / kTK, kk = i % kTK;
       const int t = trow0 + r;
-      us[kk][r] = (t >= 0 && t < L && k0 + kk < d) ? ub[static_cast<int64_t>(t) * d + k0 + kk] : 0.f;
+      us[kk][r] = (t >= 0 && t < L && k0 + kk < d)
+                      ? to_f32(ub[static_cast<int64_t>(t) * d + k0 + kk])
+                      : 0.f;
     }
     for (int i = tid; i < kTK * kCols; i += kThreads) {
       const int kk = i / kCols, j = i % kCols;
@@ -145,8 +154,8 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
                      ps[rr + 2][col] * wc[2 * d3 + gc] + bc[gc];
       }
       const int64_t o = (static_cast<int64_t>(b) * d + ch) * L + t;
-      const float gvx = dvx[o];
-      g0 = dx0[o];
+      const float gvx = to_f32(dvx[o]);
+      g0 = to_f32(dx0[o]);
       g1 = gvx * x[1];  // d x1 = dvx * v
       g2 = gvx * x[0];  // d v  = dvx * x1
     }
@@ -198,11 +207,12 @@ constexpr int kGM = 128, kGN = 128, kGK = 8, kGPad = 4;
 // C[m, n] = sum_{k in this block's slice} A(m, k) B(k, n), for slice
 // blockIdx.z of width k_chunk, into C + blockIdx.z * c_slice. A(m, k) is
 // A[m * lda + k], or A[k * lda + m] with kAMContig; B(k, n) is
-// B[k * ldb + n] with kBNContig, else B[n * ldb + k].
-template <bool kAMContig, bool kBNContig>
+// B[k * ldb + n] with kBNContig, else B[n * ldb + k]. A is float32 or bf16
+// (widened on load), B float32; C is rounded once to TC.
+template <bool kAMContig, bool kBNContig, typename TA, typename TC>
 __global__ void __launch_bounds__(kThreads) front_bwd_gemm_kernel(
-    const float* __restrict__ A, int64_t lda, const float* __restrict__ Bm, int64_t ldb,
-    float* __restrict__ C, int64_t ldc, int64_t c_slice, int M, int N, int K, int k_chunk) {
+    const TA* __restrict__ A, int64_t lda, const float* __restrict__ Bm, int64_t ldb,
+    TC* __restrict__ C, int64_t ldc, int64_t c_slice, int M, int N, int K, int k_chunk) {
   __shared__ float As[kGK][kGM + kGPad];
   __shared__ float Bs[kGK][kGN + kGPad];
   const int tid = threadIdx.x;
@@ -224,7 +234,8 @@ __global__ void __launch_bounds__(kThreads) front_bwd_gemm_kernel(
       const int gm = m0 + mm, gk = k0 + kk;
       float v = 0.f;
       if (gm < M && gk < ke) {
-        v = kAMContig ? A[static_cast<int64_t>(gk) * lda + gm] : A[static_cast<int64_t>(gm) * lda + gk];
+        v = to_f32(kAMContig ? A[static_cast<int64_t>(gk) * lda + gm]
+                             : A[static_cast<int64_t>(gm) * lda + gk]);
       }
       As[kk][mm] = v;
     }
@@ -253,7 +264,7 @@ __global__ void __launch_bounds__(kThreads) front_bwd_gemm_kernel(
     }
     __syncthreads();
   }
-  float* out = C + blockIdx.z * c_slice;
+  TC* out = C + blockIdx.z * c_slice;
 #pragma unroll
   for (int r = 0; r < 8; ++r) {
     const int gm = m0 + ty + 16 * r;
@@ -261,7 +272,7 @@ __global__ void __launch_bounds__(kThreads) front_bwd_gemm_kernel(
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[static_cast<int64_t>(gm) * ldc + gn] = acc[r][j];
+      if (gn < N) out[static_cast<int64_t>(gm) * ldc + gn] = from_f32<TC>(acc[r][j]);
     }
   }
 }
@@ -288,6 +299,37 @@ __global__ void __launch_bounds__(kThreads) front_bwd_sum_kernel(
   }
 }
 
+template <typename T>
+int launch(const T* u, const float* w, const float* bp, const float* wc, const float* bc,
+           const T* dvx, const T* dx0, T* du, float* dw, float* dparams, float* dproj,
+           float* part, float* dwpart, int B, int L, int d, int tiles, int slices,
+           cudaStream_t stream) {
+  const int64_t rows = static_cast<int64_t>(B) * L;
+  if (B < 1 || L < 1 || d < 1 || B > 65535 || tiles != (L + kOut - 1) / kOut || tiles > 65535 ||
+      slices < 1 || slices > 65535 || (rows + kGM - 1) / kGM > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int d3 = 3 * d;
+  const int M = static_cast<int>(rows);
+  cudaFuncSetAttribute(front_bwd_tile_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(kTileSmem));
+  front_bwd_tile_kernel<T><<<dim3((d + kCB - 1) / kCB, tiles, B), kThreads, kTileSmem, stream>>>(
+      u, w, bp, wc, bc, dvx, dx0, dproj, part, L, d);
+  // du = dproj @ W^T: A = dproj (M, 3d), B(k, n) = W[n, k]
+  front_bwd_gemm_kernel<false, false, float, T>
+      <<<dim3((d + kGN - 1) / kGN, (M + kGM - 1) / kGM, 1), kThreads, 0, stream>>>(
+          dproj, d3, w, d3, du, d, 0, M, d, d3, d3);
+  // dW slices = u^T @ dproj over runs of rows: A(m, k) = u[k, m], B = dproj (M, 3d)
+  const int k_chunk = static_cast<int>((rows + slices - 1) / slices);
+  front_bwd_gemm_kernel<true, true, T, float>
+      <<<dim3((d3 + kGN - 1) / kGN, (d + kGM - 1) / kGM, slices), kThreads, 0, stream>>>(
+          u, d, dproj, d3, dwpart, d3, static_cast<int64_t>(d) * d3, d, d3, M, k_chunk);
+  front_bwd_sum_kernel<<<(d * d3 + 31) / 32, kThreads, 0, stream>>>(dwpart, slices, d * d3, dw);
+  front_bwd_sum_kernel<<<(kParts * d3 + 31) / 32, kThreads, 0, stream>>>(part, B * tiles,
+                                                                         kParts * d3, dparams);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // All pointers to contiguous float32 device memory: u (B, L, d), w (d, 3d),
@@ -301,28 +343,18 @@ extern "C" int hyena_fused_front_bwd(const float* u, const float* w, const float
                                      const float* dx0, float* du, float* dw, float* dparams,
                                      float* dproj, float* part, float* dwpart, int B, int L,
                                      int d, int tiles, int slices, cudaStream_t stream) {
-  const int64_t rows = static_cast<int64_t>(B) * L;
-  if (B < 1 || L < 1 || d < 1 || B > 65535 || tiles != (L + kOut - 1) / kOut || tiles > 65535 ||
-      slices < 1 || slices > 65535 || (rows + kGM - 1) / kGM > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int d3 = 3 * d;
-  const int M = static_cast<int>(rows);
-  cudaFuncSetAttribute(front_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(kTileSmem));
-  front_bwd_tile_kernel<<<dim3((d + kCB - 1) / kCB, tiles, B), kThreads, kTileSmem, stream>>>(
-      u, w, bp, wc, bc, dvx, dx0, dproj, part, L, d);
-  // du = dproj @ W^T: A = dproj (M, 3d), B(k, n) = W[n, k]
-  front_bwd_gemm_kernel<false, false><<<dim3((d + kGN - 1) / kGN, (M + kGM - 1) / kGM, 1),
-                                        kThreads, 0, stream>>>(dproj, d3, w, d3, du, d, 0, M, d,
-                                                               d3, d3);
-  // dW slices = u^T @ dproj over runs of rows: A(m, k) = u[k, m], B = dproj (M, 3d)
-  const int k_chunk = static_cast<int>((rows + slices - 1) / slices);
-  front_bwd_gemm_kernel<true, true><<<dim3((d3 + kGN - 1) / kGN, (d + kGM - 1) / kGM, slices),
-                                      kThreads, 0, stream>>>(
-      u, d, dproj, d3, dwpart, d3, static_cast<int64_t>(d) * d3, d, d3, M, k_chunk);
-  front_bwd_sum_kernel<<<(d * d3 + 31) / 32, kThreads, 0, stream>>>(dwpart, slices, d * d3, dw);
-  front_bwd_sum_kernel<<<(kParts * d3 + 31) / 32, kThreads, 0, stream>>>(part, B * tiles,
-                                                                         kParts * d3, dparams);
-  return static_cast<int>(cudaGetLastError());
+  return launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part, dwpart, B, L, d,
+                tiles, slices, stream);
+}
+
+// As hyena_fused_front_bwd with u, dvx, dx0 and du bfloat16; the rest float32.
+extern "C" int hyena_fused_front_bwd_bf16(const __nv_bfloat16* u, const float* w,
+                                          const float* bp, const float* wc, const float* bc,
+                                          const __nv_bfloat16* dvx, const __nv_bfloat16* dx0,
+                                          __nv_bfloat16* du, float* dw, float* dparams,
+                                          float* dproj, float* part, float* dwpart, int B,
+                                          int L, int d, int tiles, int slices,
+                                          cudaStream_t stream) {
+  return launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part, dwpart, B, L, d,
+                tiles, slices, stream);
 }

@@ -8,9 +8,13 @@ identity in eval mode):
   residual = dropout2(hidden) + residual
   hidden   = mlp(norm2(residual))
 
-The adds run in float32 and round once to the residual dtype (float32 when
-`residual_in_fp32`). The matmuls are plain `nn.Linear`, as the JAX package
-left them to XLA.
+Activations run in `dtype` (float32, or bfloat16 as every hg38 config
+trains); parameters stay float32 and are cast where they are used, as flax's
+`dtype` does. The residual stream is float32 when `residual_in_fp32`,
+else the dtype of the hidden states; the adds run in float32 and round once
+to it. The LNs keep float32 statistics and emit `dtype`; a bf16 residual
+with bf16 output takes kernels D and D' on the card (`ops/add_ln.py`). The MLP's products are cuBLAS calls in `dtype`, as
+the JAX package left them to XLA.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hyena_dna_tpu_torch.models.hyena import HyenaOperator
-from hyena_dna_tpu_torch.models.nn import dropout
+from hyena_dna_tpu_torch.models.nn import dropout, linear
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 
 # Hyena config keys that do not change the computation: optimizer settings
@@ -40,7 +44,8 @@ _UNPORTED = (("num_heads", 1, "Queue 1 item 4"), ("num_blocks", 1, "Queue 1 item
              ("bidirectional", False, "Queue 1 item 4"))
 
 
-def make_mixer(d_model: int, layer_cfg: dict | None) -> HyenaOperator:
+def make_mixer(d_model: int, layer_cfg: dict | None,
+               dtype: torch.dtype = torch.float32) -> HyenaOperator:
     """Hyena mixer from a reference-style layer config (`_name_: hyena`)."""
     cfg = dict(layer_cfg or {})
     name = cfg.pop("_name_", "hyena")
@@ -54,33 +59,36 @@ def make_mixer(d_model: int, layer_cfg: dict | None) -> HyenaOperator:
             raise NotImplementedError(
                 f"Hyena {key}={layer_cfg[key]!r} is not ported yet (ROADMAP.md {item})")
     filter_cfg = {_FILTER_KEYS[k]: cfg.pop(k) for k in list(cfg) if k in _FILTER_KEYS}
-    return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, **cfg)
+    return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, dtype=dtype, **cfg)
 
 
 class Mlp(nn.Module):
-    """fc1 -> tanh-approximate GeLU -> fc2."""
+    """fc1 -> tanh-approximate GeLU -> fc2, in `dtype`."""
 
-    def __init__(self, d_model: int, hidden_features: int):
+    def __init__(self, d_model: int, hidden_features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.fc1 = nn.Linear(d_model, hidden_features)
         self.fc2 = nn.Linear(hidden_features, d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        x = F.gelu(linear(x, self.fc1, self.dtype), approximate="tanh")
+        return linear(x, self.fc2, self.dtype)
 
 
 class Block(nn.Module):
     def __init__(self, d_model: int, d_inner: int, layer_cfg: dict | None,
                  residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
-                 resid_dropout1: float = 0.0, resid_dropout2: float = 0.0):
+                 resid_dropout1: float = 0.0, resid_dropout2: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resid_dropout1 = resid_dropout1
         self.resid_dropout2 = resid_dropout2
         self.resid_dtype = torch.float32 if residual_in_fp32 else None
-        self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon)
-        self.mixer = make_mixer(d_model, layer_cfg)
-        self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon)
-        self.mlp = Mlp(d_model, d_inner)
+        self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
+        self.mixer = make_mixer(d_model, layer_cfg, dtype)
+        self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
+        self.mlp = Mlp(d_model, d_inner, dtype)
 
     def _add_norm(self, norm: LayerNormF32, hidden: torch.Tensor, residual):
         if residual is None:

@@ -7,13 +7,19 @@ The path is the JAX package's fused-front route (`_try_pallas_front`):
   y = (causal_conv(vx, k) + vx * bias) * x0 --kernel B-->
   (B, L, d) --activation, out_proj--> (B, L, d)
 
+Activations run in `dtype`: in bfloat16, u enters kernel A in bf16 and vx,
+x0 come out in bf16 (the Pallas kernel's `out_dtype = u.dtype`), the gated
+conv's result is cast back to bf16 and `out_proj` is a bf16 product; the
+parameters stay float32.
+
 On a CUDA tensor kernels A and B run forward and kernels A' and C backward
 (`ops/fused_front.py`, `ops/fused_fftconv.py`, through their
 `autograd.Function`s); the second gate is a plain multiply that autograd
 differentiates, as in the JAX composite route. On a CPU tensor the same
-calls run their plain versions. Kernel A takes any L (the Pallas front needed L % 32 == 0). From
-L = 2^15 the conv I/O (signal, gate, filter bank) is bfloat16 as on the TPU
-(`CONV_IO_BF16_MIN_L`); the transforms still run in float32. When L exceeds
+calls run their plain versions. Kernel A takes any L (the Pallas front
+needed L % 32 == 0). Whatever `dtype`, from L = 2^15 the conv I/O (signal,
+gate, filter bank) is bfloat16 as on the TPU (`CONV_IO_BF16_MIN_L`), and
+below it float32; the transforms run in float32. When L exceeds
 `l_max` only the filter is cut to `l_max` (a causal conv with a shorter
 filter), as in the JAX package.
 
@@ -27,7 +33,7 @@ import torch
 from torch import nn
 
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
-from hyena_dna_tpu_torch.models.nn import activation_fn, dropout
+from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, linear
 from hyena_dna_tpu_torch.ops.fftconv import fftconv_gated
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate
 
@@ -38,8 +44,9 @@ class HyenaOperator(nn.Module):
     def __init__(self, d_model: int, l_max: int, order: int = 2,
                  filter_order: int = 64, short_filter_order: int = 3,
                  activation: str = "id", filter_cfg: dict | None = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         if order != 2:
             raise NotImplementedError(
                 "only order-2 Hyena is ported (ROADMAP.md Queue 1 item 4)")
@@ -58,8 +65,8 @@ class HyenaOperator(nn.Module):
 
     def forward(self, u: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """u: (B, L, d) float32 -> (B, L, d); `generator` draws the dropout
-        mask in training."""
+        """u: (B, L, d) in `dtype` -> (B, L, d) in `dtype`; `generator`
+        draws the dropout mask in training."""
         l_filter = min(u.shape[1], self.l_max)
         w = self.in_proj.weight.float().t().contiguous()          # (d, 3d)
         bp = self.in_proj.bias.float().contiguous()
@@ -71,4 +78,4 @@ class HyenaOperator(nn.Module):
         k = self.filter_fn.filter(l_filter, out_dtype=conv_dt)[0].t().contiguous()
         y = fftconv_gated(vx.to(conv_dt), x0.to(conv_dt), k,
                           self.filter_fn.bias.float().contiguous()).to(u.dtype)
-        return self.out_proj(self.act(y.transpose(1, 2)))
+        return linear(self.act(y.transpose(1, 2)), self.out_proj, self.dtype)

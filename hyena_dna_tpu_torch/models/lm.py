@@ -1,8 +1,13 @@
 """LMBackbone and ConvLMHeadModel (mirrors `hyena_dna_tpu/models/lm.py`).
 
 GPT2Embeddings -> n_layer x Block -> final dropout + add + LN -> tied LM
-head, with the vocabulary padded up to `pad_vocab_size_multiple` and
-float32 logits. Dropout as in the JAX `LMBackbone`: block 0's first
+head, with the vocabulary padded up to `pad_vocab_size_multiple`.
+Activations run in `dtype` (float32, or bfloat16 as every hg38 config
+trains) with float32 parameters, and the residual stream in float32 when
+`residual_in_fp32`, else in `dtype` (see `models/blocks.py`); `ln_f` emits
+`dtype` through the fused add+LN unit. The logits come out of the tied head
+in `dtype`, as flax's `Embed.attend` promotes to the module dtype; the loss
+casts them to float32. Dropout as in the JAX `LMBackbone`: block 0's first
 dropout is `embed_dropout` (default 0.1), every other residual dropout and
 `drop_f` before the final LN are `resid_dropout` (default 0.0). It acts in
 `train()` mode only (JAX `deterministic=False`), with masks drawn from the
@@ -43,16 +48,16 @@ class LMBackbone(nn.Module):
     def __init__(self, d_model: int, n_layer: int, d_inner: int, vocab_size: int,
                  layer: dict | None = None, residual_in_fp32: bool = False,
                  layer_norm_epsilon: float = 1e-5, resid_dropout: float = 0.0,
-                 embed_dropout: float = 0.1):
+                 embed_dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.embeddings = GPT2Embeddings(d_model, vocab_size)
+        self.embeddings = GPT2Embeddings(d_model, vocab_size, dtype)
         self.layers = nn.ModuleList(
             Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon,
                   resid_dropout1=embed_dropout if i == 0 else resid_dropout,
-                  resid_dropout2=resid_dropout)
+                  resid_dropout2=resid_dropout, dtype=dtype)
             for i in range(n_layer))
         self.resid_dropout = resid_dropout
-        self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon)
+        self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
 
     def forward(self, input_ids: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -67,14 +72,15 @@ class LMBackbone(nn.Module):
 
 
 class ConvLMHeadModel(nn.Module):
-    """Causal LM: forward(input_ids (B, L)) -> float32 logits (B, L, V_padded)."""
+    """Causal LM: forward(input_ids (B, L)) -> logits (B, L, V_padded) in `dtype`."""
 
     def __init__(self, d_model: int, n_layer: int, d_inner: int, vocab_size: int,
                  layer: dict | None = None, pad_vocab_size_multiple: int = 1,
                  residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
                  attn_layer_idx=None, max_position_embeddings: int = 0,
                  resid_dropout: float = 0.0, embed_dropout: float = 0.1,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if attn_layer_idx:
             raise NotImplementedError(
@@ -86,7 +92,7 @@ class ConvLMHeadModel(nn.Module):
         self.backbone = LMBackbone(d_model, n_layer, d_inner,
                                    _pad_vocab(vocab_size, pad_vocab_size_multiple),
                                    layer, residual_in_fp32, layer_norm_epsilon,
-                                   resid_dropout, embed_dropout)
+                                   resid_dropout, embed_dropout, dtype)
         self.init_weights(generator)
 
     @torch.no_grad()

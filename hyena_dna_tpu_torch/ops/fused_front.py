@@ -10,10 +10,19 @@ and its custom VJP:
 its forward is kernel A (`csrc/fused_front.cu`) and its backward kernel A'
 (`csrc/fused_front_bwd.cu`), which recomputes the projection and conv and
 emits du, dW, dbp, dwc and dbc. On a CUDA tensor each wrapper launches its
-kernel (float32 only) or raises; on a CPU tensor it runs the plain version:
-`reference_fwd` (the math of the JAX `_reference_fwd`) and `reference_bwd`
-(the math of the JAX `_fpcg_bwd_xla`, written out, not autograd). Unlike the
-Pallas kernels, which need L % tile == 0, kernels A and A' take any L.
+kernel or raises; on a CPU tensor it runs the plain version: `reference_fwd`
+(the math of the JAX `_reference_fwd`) and `reference_bwd` (the math of the
+JAX `_fpcg_bwd_xla`, written out, not autograd). Unlike the Pallas kernels,
+which need L % tile == 0, kernels A and A' take any L.
+
+u and the activations (vx, x0, dvx, dx0, du) are float32 or bfloat16, one
+dtype for all; the parameters and their gradients are float32. Both the
+kernels and the plain versions compute in float32 on the widened inputs and
+round each output once, as the Pallas kernel does in interpret mode (u bf16
+against float32 W). The JAX `_reference_fwd` instead rounds the projection
+to bf16 (`u @ w.astype(u.dtype)`); `reference_fwd` keeps it float32, the
+math the model runs on both devices, so the card is held to it at the
+tolerance of one bf16 rounding of the outputs.
 """
 
 from __future__ import annotations
@@ -27,14 +36,14 @@ import torch.nn.functional as F
 from hyena_dna_tpu_torch import _cuda
 from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
 
-KERNEL = _cuda.Kernel("fused_front", {
-    "hyena_fused_front_fwd": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                             + [ctypes.c_void_p],
-})
-KERNEL_BWD = _cuda.Kernel("fused_front_bwd", {
-    "hyena_fused_front_bwd": [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
-                             + [ctypes.c_void_p],
-})
+_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+KERNEL = _cuda.Kernel("fused_front", {"hyena_fused_front_fwd": _FWD_ARGS,
+                                      "hyena_fused_front_fwd_bf16": _FWD_ARGS})
+KERNEL_BWD = _cuda.Kernel("fused_front_bwd", {"hyena_fused_front_bwd": _BWD_ARGS,
+                                              "hyena_fused_front_bwd_bf16": _BWD_ARGS})
+# the C entry point's suffix for each activation dtype the kernels take
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
 # output times per length tile of kernel A' (`kOut` in csrc/fused_front_bwd.cu)
 BWD_TILE = 60
 # rows of B*L per split-K slice of kernel A''s dW product (at most 64 slices)
@@ -42,10 +51,11 @@ BWD_ROWS_PER_SLICE = 2048
 
 
 def reference_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version (JAX `pallas_hyena._reference_fwd`)."""
-    proj = u @ w.to(u.dtype) + bp.to(u.dtype)  # (B, L, 3d)
-    proj_t = proj.transpose(-1, -2).float()  # (B, 3d, L)
-    conv = short_conv_1d(proj_t, wc.transpose(0, 1), bc)
+    """Plain PyTorch version (JAX `pallas_hyena._reference_fwd`, with the
+    projection kept in float32: see the module docstring)."""
+    proj = u.float() @ w.float() + bp.float()  # (B, L, 3d)
+    proj_t = proj.transpose(-1, -2)  # (B, 3d, L)
+    conv = short_conv_1d(proj_t, wc.float().transpose(0, 1), bc.float())
     d = conv.shape[1] // 3
     x0, x1, v = conv[:, :d], conv[:, d:2 * d], conv[:, 2 * d:]
     return (v * x1).to(u.dtype), x0.to(u.dtype)
@@ -78,10 +88,15 @@ def reference_bwd(u, w, bp, wc, bc, dvx, dx0):
     return du, dw, dproj.sum((0, 1)), dwc, dbc
 
 
-def _check(**tensors):
+def _check(**tensors) -> str:
+    """Raise on what kernels A and A' do not take; return the C entry
+    point's dtype suffix. The activations (u, dvx, dx0) are all float32 or
+    all bfloat16, the parameters float32."""
     u = tensors["u"]
     if u.dim() != 3:
         raise ValueError(f"u must be (B, L, d), got {tuple(u.shape)}")
+    if u.dtype not in _SUFFIX:
+        raise TypeError(f"kernels A and A' take float32 or bfloat16 u; u is {u.dtype}")
     b, length, d = u.shape
     expect = {"w": (d, 3 * d), "bp": (3 * d,), "wc": (3, 3 * d), "bc": (3 * d,),
               "dvx": (b, d, length), "dx0": (b, d, length)}
@@ -90,21 +105,24 @@ def _check(**tensors):
             raise ValueError(f"{name} must be {expect[name]}, got {tuple(t.shape)}")
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernels A and A' take float32; {name} is {t.dtype}")
+        want = u.dtype if name in ("u", "dvx", "dx0") else torch.float32
+        if t.dtype != want:
+            raise TypeError(f"kernels A and A' take {name} in {want} with u in {u.dtype}; "
+                            f"{name} is {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    return _SUFFIX[u.dtype]
 
 
 def front_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vx, x0): kernel A on a CUDA tensor, `reference_fwd` on a CPU one."""
     if not _cuda.on_card(u):
         return reference_fwd(u, w, bp, wc, bc)
-    _check(u=u, w=w, bp=bp, wc=wc, bc=bc)
+    suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc)
     b, length, d = u.shape
     vx = torch.empty((b, d, length), device=u.device, dtype=u.dtype)
     x0 = torch.empty_like(vx)
-    KERNEL.launch("hyena_fused_front_fwd", *map(_cuda.ptr, (u, w, bp, wc, bc, vx, x0)),
+    KERNEL.launch("hyena_fused_front_fwd" + suffix, *map(_cuda.ptr, (u, w, bp, wc, bc, vx, x0)),
                   b, length, d, _cuda.stream_handle(u))
     return vx, x0
 
@@ -114,14 +132,14 @@ def front_bwd(u, w, bp, wc, bc, dvx, dx0):
     on a CPU one."""
     if not _cuda.on_card(u):
         return reference_bwd(u, w, bp, wc, bc, dvx, dx0)
-    _check(u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx, dx0=dx0)
+    suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx, dx0=dx0)
     b, length, d = u.shape
     tiles = -(-length // BWD_TILE)
     slices = max(1, min(64, b * length // BWD_ROWS_PER_SLICE))
     new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
-    du, dw, dparams = new(b, length, d), new(d, 3 * d), new(5, 3 * d)
+    du, dw, dparams = torch.empty_like(u), new(d, 3 * d), new(5, 3 * d)
     dproj, part, dwpart = new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d, 3 * d)
-    KERNEL_BWD.launch("hyena_fused_front_bwd",
+    KERNEL_BWD.launch("hyena_fused_front_bwd" + suffix,
                       *map(_cuda.ptr, (u, w, bp, wc, bc, dvx, dx0, du, dw, dparams,
                                        dproj, part, dwpart)),
                       b, length, d, tiles, slices, _cuda.stream_handle(u))

@@ -2,21 +2,26 @@
 
     python -m hyena_dna_tpu_torch.utils.profile_forward --batch 4 --length 32768
     python -m hyena_dna_tpu_torch.utils.profile_forward --train --batch 4 --length 32768
+    python -m hyena_dna_tpu_torch.utils.profile_forward --train --precision bf16
 
 Builds the hg38 model of `evals/hg38_inference.py` (d_model 256, 8 layers by
-default, random weights from `--seed`), warms up, then:
+default, random weights from `--seed`; float32, or with `--precision bf16`
+bfloat16 activations and residual as `bench.py --precision bf16` trains
+it), warms up, then:
 
 * times `--reps` forwards (or, with `--train`, train steps of
   `train/step.py` with `bench.py`'s optimizer and synthetic batch) with CUDA
-  events: `forward_ms` or `step_ms`. With `--train` it also splits one step
+  events: `forward_ms` or `step_ms`, their mean, and each one in `rep_ms`
+  (recorded back to back, no synchronisation between). With `--train` it also splits one step
   by CUDA events into forward (with the loss), backward and optimizer (clip
   and AdamW): `phase_ms`;
 * profiles one forward (or step) with `torch.profiler` and sums the device
   time of its kernels into groups: kernels A (`fused_front_kernel`), A'
   (`front_bwd_*`), B (`conv_fwd::*`, its four passes), C (`conv_bwd::*`),
-  matrix products (cuBLAS), and the rest (elementwise, LN, embedding,
-  filter MLP, optimizer); `device_idle_share` is 1 - busy / wall over the
-  profiled forward or step.
+  D (`add_ln_fwd_kernel`), D' (`add_ln_bwd_kernel`, `add_ln_sum_kernel`),
+  matrix products (cuBLAS, `nvjet` for bf16 on Hopper), and the rest
+  (elementwise, float32 LN, embedding, filter MLP, optimizer);
+  `device_idle_share` is 1 - busy / wall over the profiled forward or step.
 
 Prints one JSON line with the card's name and power limit. Needs a card.
 """
@@ -33,11 +38,13 @@ import torch
 
 from hyena_dna_tpu_torch.evals.hg38_inference import build_model
 
-GROUPS = (("kernel_a_bwd", ("front_bwd_",)),
+GROUPS = (("kernel_d_bwd", ("add_ln_bwd_kernel", "add_ln_sum_kernel")),
+          ("kernel_d", ("add_ln_fwd_kernel",)),
+          ("kernel_a_bwd", ("front_bwd_",)),
           ("kernel_a", ("fused_front_kernel",)),
           ("kernel_b", ("conv_fwd::",)),
           ("kernel_c", ("conv_bwd::",)),
-          ("matmul", ("gemm", "sm90_", "cutlass", "ampere_", "cublas")))
+          ("matmul", ("gemm", "sm90_", "cutlass", "ampere_", "cublas", "nvjet")))
 
 
 def _group(name: str) -> str:
@@ -100,13 +107,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--train", action="store_true",
                     help="profile a train step (forward, backward, clip, AdamW)")
+    ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"),
+                    help="activation dtype; bf16 also keeps a bf16 residual stream")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_forward measures the card; no CUDA device is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    bf16 = args.precision == "bf16"
     model = build_model(args.d_model, args.n_layer, args.length,
-                        generator=torch.Generator().manual_seed(args.seed)).to("cuda")
+                        generator=torch.Generator().manual_seed(args.seed),
+                        dtype=torch.bfloat16 if bf16 else torch.float32,
+                        residual_in_fp32=not bf16).to("cuda")
     phase_ms = None
     if args.train:
         run, phases = _train_runner(model, args)
@@ -114,17 +127,19 @@ def main(argv=None):
         run = _forward_runner(model, args)
     run()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(args.reps):
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(args.reps + 1)]
+    events[0].record()
+    for e in events[1:]:
         run()
-    end.record()
+        e.record()
     torch.cuda.synchronize()
-    mean_ms = start.elapsed_time(end) / args.reps
+    rep_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    mean_ms = sum(rep_ms) / args.reps
     if args.train:
         phase_ms = phases()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = events[:2]
     with torch.profiler.profile(activities=acts) as prof:
         start.record()
         run()
@@ -145,11 +160,12 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     what = "step" if args.train else "forward"
     print(json.dumps({
-        "card": smi, "mode": what, "batch": args.batch, "length": args.length,
-        "d_model": args.d_model, "n_layer": args.n_layer, f"{what}_ms": mean_ms,
+        "card": smi, "mode": what, "precision": args.precision,
+        "batch": args.batch, "length": args.length,
+        "d_model": args.d_model, "n_layer": args.n_layer, f"{what}_ms": mean_ms, "rep_ms": rep_ms,
         "tokens_per_s": args.batch * args.length / mean_ms * 1e3,
         "phase_ms": phase_ms, f"profiled_{what}_ms": profiled_ms, "device_busy_ms": busy,
         "device_idle_share": 1.0 - busy / profiled_ms if profiled_ms else None,

@@ -6,7 +6,8 @@ On a machine with a card:
 `python -m pytest --noconftest tests/test_torch_port_cuda.py`.
 Tolerances as in `chip_smoke.py`: float32 sums in another order; bfloat16
 I/O may land one bf16 step apart; parameter gradients are sums over every
-(batch, time) row, taken in another order (1e-3 of the largest |g|).
+(batch, time) row, taken in another order (1e-3 of the largest |g|; 3e-2
+in the bf16 model, whose cotangents round to bf16 on both sides).
 """
 
 import numpy as np
@@ -14,12 +15,15 @@ import pytest
 import torch
 
 from hyena_dna_tpu_torch.evals.hg38_inference import build_model
+from hyena_dna_tpu_torch.ops import add_ln as AL
 from hyena_dna_tpu_torch.ops import fused_fftconv as FB
 from hyena_dna_tpu_torch.ops import fused_front as FF
 from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
 from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
 
 pytestmark = pytest.mark.cuda
+BF16 = torch.bfloat16
+BF16_TOL = (2e-3, 2 ** -7)
 
 
 @pytest.fixture
@@ -152,3 +156,127 @@ def test_model_grads_on_card_match_cpu(card):
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         _close(p.grad, cpu[name], 1e-3, 1e-3)
+
+
+# kernels D and D' (the fused residual-add + LN) and kernels A, A' on bf16
+
+@pytest.mark.parametrize("n,d", [(1, 256), (7, 64), (1000, 128), (4099, 256), (333, 512),
+                                 (257, 768), (65, 1024), (20000, 256)])
+def test_add_ln_matches_plain(card, n, d):
+    """Ragged N and every width the kernels take, each direction one launch;
+    res_out is the same single rounding (equal bits), y and d_total one bf16
+    step, dscale and dbias float32 sums over N rows in another order. Kernel
+    D' sums them in a fixed order: two runs give the same bits."""
+    g = torch.Generator().manual_seed(n + d)
+    h = torch.randn(n, d, generator=g).to(BF16).to(card)
+    r = (torch.randn(n, d, generator=g) * 3).to(BF16).to(card)
+    w = (1 + 0.1 * torch.randn(d, generator=g)).to(card)
+    b = (0.1 * torch.randn(d, generator=g)).to(card)
+    dy, dup = (torch.randn(n, d, generator=g).to(BF16).to(card) for _ in range(2))
+    before = AL.KERNEL.launches
+    y, ro = AL.add_ln_fwd(h, r, w, b, 1e-5)
+    assert AL.KERNEL.launches == before + 1 and y.dtype == ro.dtype == BF16
+    y_ref, ro_ref = AL.add_ln_ref(h, r, w, b)
+    assert torch.equal(ro, ro_ref)
+    _close(y, y_ref, *BF16_TOL)
+    before = AL.KERNEL_BWD.launches
+    out = AL.add_ln_bwd(ro, dy, dup, w, 1e-5)
+    assert AL.KERNEL_BWD.launches == before + 1
+    ref = AL.add_ln_bwd_ref(ro, dy, dup, w)
+    assert [t.dtype for t in out] == [BF16, torch.float32, torch.float32]
+    _close(out[0], ref[0], *BF16_TOL)
+    _close(out[1], ref[1], 1e-4, 1e-4)
+    _close(out[2], ref[2], 1e-4, 1e-4)
+    again = AL.add_ln_bwd(ro, dy, dup, w, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+
+
+def test_add_ln_autograd_launches_d_and_d_prime(card):
+    """`add_ln` on CUDA bf16 tensors goes through kernels D and D', once each."""
+    g = torch.Generator().manual_seed(0)
+    h, r = (torch.randn(2, 300, 256, generator=g).to(BF16).to(card).requires_grad_()
+            for _ in range(2))
+    w = torch.ones(256, device=card, requires_grad=True)
+    b = torch.zeros(256, device=card, requires_grad=True)
+    counts = (AL.KERNEL.launches, AL.KERNEL_BWD.launches)
+    y, ro = AL.add_ln(h, r, w, b)
+    (y.float().sum() + ro.float().square().sum()).backward()
+    assert (AL.KERNEL.launches, AL.KERNEL_BWD.launches) == (counts[0] + 1, counts[1] + 1)
+    assert torch.equal(h.grad, r.grad) and w.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("B,L,d", [(2, 200, 64), (3, 130, 40), (1, 4096, 256)])
+def test_fused_front_bf16_matches_plain(card, B, L, d):
+    """Kernels A and A' on bf16 u, dvx, dx0 (float32 parameters): vx, x0 and
+    du in bf16, one bf16 step from the plain version, which computes in
+    float32 on the same values; dW, dbp, dwc, dbc float32."""
+    g = torch.Generator().manual_seed(L + d)
+    u = torch.randn(B, L, d, generator=g).to(BF16)
+    params = [torch.randn(d, 3 * d, generator=g) * 0.05, torch.randn(3 * d, generator=g) * 0.1,
+              torch.randn(3, 3 * d, generator=g), torch.randn(3 * d, generator=g) * 0.1]
+    cot = [torch.randn(B, d, L, generator=g).to(BF16) for _ in range(2)]
+    args = [t.to(card) for t in [u] + params]
+    before = FF.KERNEL.launches
+    vx, x0 = FF.front_fwd(*args)
+    assert FF.KERNEL.launches == before + 1 and vx.dtype == x0.dtype == BF16
+    for got, ref in zip((vx, x0), FF.reference_fwd(*args)):
+        _close(got, ref, *BF16_TOL)
+    before = FF.KERNEL_BWD.launches
+    out = FF.front_bwd(*args, *(c.to(card) for c in cot))
+    assert FF.KERNEL_BWD.launches == before + 1
+    ref = FF.reference_bwd(*args, *(c.to(card) for c in cot))
+    for i, (got, want) in enumerate(zip(out, ref)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        _close(got, want, *(BF16_TOL if i == 0 else (1e-4, 1e-4)))
+
+
+def test_bf16_wrappers_reject_what_kernels_do_not_take(card):
+    x = torch.zeros(8, 256, device=card, dtype=BF16)
+    w = torch.ones(256, device=card)
+    with pytest.raises(TypeError):
+        AL.add_ln_fwd(x.float(), x, w, w, 1e-5)
+    with pytest.raises(TypeError):
+        AL.add_ln_fwd(x, x, w.to(BF16), w, 1e-5)
+    with pytest.raises(ValueError, match="take d"):
+        AL.add_ln_fwd(x[:, :96].contiguous(), x[:, :96].contiguous(), w[:96], w[:96], 1e-5)
+    with pytest.raises(ValueError, match="contiguous"):
+        AL.add_ln_fwd(x[:, ::2], x[:, ::2], w[:128], w[:128], 1e-5)
+    with pytest.raises(ValueError):
+        AL.add_ln_fwd(x, x.cpu(), w, w, 1e-5)
+    with pytest.raises(TypeError):
+        AL.add_ln_bwd(x, x.float(), x, w, 1e-5)
+    u = torch.zeros(1, 8, 4, device=card, dtype=BF16)
+    p = [torch.zeros(4, 12, device=card), torch.zeros(12, device=card),
+         torch.zeros(3, 12, device=card), torch.zeros(12, device=card)]
+    with pytest.raises(TypeError):
+        FF.front_bwd(u, *p, torch.zeros(1, 4, 8, device=card), torch.zeros(1, 4, 8, device=card))
+    with pytest.raises(TypeError):
+        FF.front_fwd(u.half(), *p)
+
+
+def test_bf16_model_on_card_matches_cpu(card):
+    """The bf16 model with a bf16 residual (d=256, the width kernels D and D'
+    run at; 2 layers): logits within 2e-2 of max(1, max|logit|), every
+    parameter's gradient within 3e-2 of its largest entry, and each kernel
+    launched as the main path launches it (A, A', B, C once per layer; D,
+    D' 2 n_layer times: 2 n_layer - 1 block units plus ln_f)."""
+    model = build_model(256, 2, 1000, generator=torch.Generator().manual_seed(0),
+                        dtype=BF16, residual_in_fp32=False).eval()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(7, 12, size=(2, 1001)))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    logits_cpu = model(x)
+    cross_entropy(logits_cpu, y).backward()
+    cpu = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.to(card)
+    kernels = (FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD)
+    counts = [k.launches for k in kernels]
+    logits = model(x.to(card))
+    cross_entropy(logits, y.to(card)).backward()
+    assert [k.launches - n for k, n in zip(kernels, counts)] == [2, 2, 2, 2, 4, 4]
+    assert logits.dtype == BF16
+    scale = max(1.0, logits_cpu.float().abs().max().item())
+    assert (logits.float().cpu() - logits_cpu.float()).abs().max().item() <= 2e-2 * scale
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        _close(p.grad, cpu[name], 3e-2, 0.0)

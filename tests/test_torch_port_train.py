@@ -353,8 +353,3 @@ def test_bench_runs_on_cpu_at_a_tiny_shape(capsys):
     assert line["unit"] == "tokens/s" and line["precision"] == "fp32" and line["value"] > 0
     assert "vs_baseline" not in line
     assert len(result["losses"]) == 3 and all(np.isfinite(result["losses"]))
-
-
-def test_bench_bf16_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bench.main(["--device", "cpu", "--precision", "bf16"])
