@@ -7,15 +7,19 @@ Phases, in order; any failure raises, exits non-zero and prints no final
 line:
 
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
-            nvcc per source, six sources, started together): kernels A and
+            nvcc per source, eight sources, started together): kernels A and
             A' (the front end forward and backward), B and C (the FFT conv
             forward and backward), D and D' (the fused residual-add + LN
-            forward and backward);
+            forward and backward), E and E' (the gate-fused FFT conv forward
+            and backward);
 2. kernels  each kernel against its plain PyTorch version on the card, in the
             working dtype, at the shapes of the TPU routes it replaces, with
             the tolerances below; kernel, plain and library-call times.
             Kernels A and A' in float32 and in bfloat16, D and D' at the bf16
-            model's 4 x 32768 x 256 rows;
+            model's 4 x 32768 x 256 rows; E at 4 x 32768 x 256 bf16 (fft
+            2^16) with each of its outputs' sets (y; y, v and u's spectrum
+            for specv; y and the spectrum for spec) and at 2 x 65536 (fft
+            2^17); E' at 4 x 32768 on each route, and specv at 2 x 65536;
 3. parity   the full-width model (d=256 x 8 layers, random weights from a
             seeded torch.Generator) on the CPU through the plain versions and
             on the card through the kernels: logits at (B=2, L=8192)
@@ -23,6 +27,11 @@ line:
             the loss and every parameter's gradient at the same two shapes;
             then the same four checks of the bf16 model (bfloat16
             activations and residual stream, as every hg38 config trains);
+            then, with the gate-fused conv (kernels E and E'), the logits,
+            loss and every gradient of the bf16 model on the specv route at
+            (B=2, L=24576) (float32 conv I/O) and (B=2, L=32768) (bfloat16
+            conv I/O), and of the float32 model at (B=2, L=24576) on the
+            spec and the retransform routes;
 4. serving  the port's `hg38_inference.main` on a synthetic FASTA and a
             reference-named `.pt`: 2 batches of 4 x 32768 tokens, then one
             1,000,448-token window. Kernel A must run n_layer times per
@@ -33,14 +42,20 @@ line:
             after the steps than at step 0; kernels A and A' must run
             n_layer times per step, kernels B and C at least as often, and
             in bf16 kernels D and D' 2 n_layer times per step (2 n_layer - 1
-            block units plus ln_f; never in float32).
+            block units plus ln_f; never in float32). Then the bf16 step at
+            4 x 32768 with `--gated_conv` specv, spec and retransform: kernels
+            E and E' n_layer times per step, B and C never, D and D' as
+            before; each step's ms is printed beside the composite bf16
+            step's of the same run.
 Launch counts are zeroed just before each request of phases 4 and 5 and
 read just after it.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches in phases 4 and 5, its error,
 times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
-float32, with their bf16 numbers under "bf16"), and last
+float32, with their bf16 numbers under "bf16"; kernels E and E' on the
+specv route, the gated step's, with every route's numbers under "routes"),
+and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
 launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
@@ -366,6 +381,107 @@ def check_conv_bwd(FB, entry, B, L, dtype, route, seed):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def gated_inputs(B, L, dtype, seed):
+    """u, x0, dy in `dtype`, a decaying filter k, float32 D (C = d_model)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, dt = D_MODEL, getattr(torch, dtype)
+    u, x0, dy = (torch.randn(B, C, L, device="cuda", generator=g).to(dt) for _ in range(3))
+    decay = torch.exp(-torch.arange(L, device="cuda") / (L / 8))
+    k = (torch.randn(C, L, device="cuda", generator=g) * 0.05 * decay).to(dt)
+    return u, x0, dy, k, torch.randn(C, device="cuda", generator=g)
+
+
+def check_gated(GE, B, L, dtype, variant, seed):
+    """Kernel E against `fftconv_gated_ref` with one set of outputs: y alone
+    ("y"), y, v and u's spectrum ("specv"), or y and the spectrum ("spec")."""
+    import torch
+
+    from hyena_dna_tpu_torch.ops.fftconv import next_fast_fft_size
+
+    u, x0, _, k, D = gated_inputs(B, L, dtype, seed)
+    C, n = D_MODEL, next_fast_fft_size(2 * L)
+    save = {"save_v": variant == "specv", "save_spectrum": variant != "y"}
+    out = GE.fftconv_gated_fused(u, x0, k, D, **save)
+    torch.cuda.synchronize()
+    out = out if isinstance(out, tuple) else (out,)
+    ref = GE.fftconv_gated_ref(u, x0, k, D, **save)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    names = ["y"] + ["v"] * save["save_v"] + ["spectrum"] * save["save_spectrum"]
+    errs = {nm: compare(o, r, "float32" if nm == "spectrum" else dtype)
+            for nm, o, r in zip(names, out, ref)}
+    uf, x0f, kf = u.float(), x0.float(), k.float()
+
+    def library():  # cuFFT through torch.fft, the gate and skip term as elementwise work
+        v = torch.fft.irfft(torch.fft.rfft(uf, n=n) * torch.fft.rfft(kf, n=n), n=n)[..., :L]
+        v = v + uf * D[:, None]
+        return ((v * x0f).to(u.dtype), v.to(u.dtype)) if save["save_v"] else (v * x0f).to(u.dtype)
+
+    size, pairs = u.element_size(), (C + 1) // 2
+    nbytes = (size * ((3 + save["save_v"]) * B * C * L + C * L) + 4 * C
+              + save["save_spectrum"] * 8 * B * pairs * n)
+    log_n = int(math.log2(n))
+    flops = B * C * (5 * n * log_n + 3 * n + 3 * L) + C * 2.5 * n * log_n
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"name": "fftconv_gated", "shape": f"B={B} C={C} L={L} fft=2^{log_n} {dtype}",
+            "route": variant, "errors": {k_: v[0] for k_, v in errs.items()},
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": max(e[1] for e in errs.values()),
+            "ms": time_ms(lambda: GE.fftconv_gated_fused(u, x0, k, D, **save)),
+            "plain_ms": time_ms(lambda: GE.fftconv_gated_ref(u, x0, k, D, **save)),
+            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def check_gated_bwd(GE, route, B, L, dtype, seed):
+    """Kernel E' on one route, through the torch entry point of that route's
+    TPU kernel, against the route's plain version (du, dx0, dk in the I/O
+    dtype, dD float32). The saved spectrum and v come from kernel E."""
+    import torch
+
+    from hyena_dna_tpu_torch.ops.fftconv import next_fast_fft_size
+
+    u, x0, dy, k, D = gated_inputs(B, L, dtype, seed)
+    C, n = D_MODEL, next_fast_fft_size(2 * L)
+    _, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+    saved = {"specv": (spec, v), "spec": (spec,), "retransform": (u,)}[route]
+    entry = {"specv": GE.fftconv_fused_bwd_specv_packed_gated,
+             "spec": GE.fftconv_fused_bwd_spec_packed_gated,
+             "retransform": GE.fftconv_fused_bwd_packed_gated}[route]
+    plain = getattr(GE, f"fftconv_gated_bwd_{route}_ref")
+    args = saved + (dy, x0, k, D)
+    out = entry(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    errs = {nm: compare(o, r, "float32" if nm == "dD" else dtype)
+            for nm, o, r in zip(("du", "dx0", "dk", "dD"), out, ref)}
+    uf, x0f, dyf, kf = u.float(), x0.float(), dy.float(), k.float()
+
+    def library():  # cuFFT through torch.fft computing du, dx0, dk, dD from u, x0, dy, k, D
+        u_f, k_f = torch.fft.rfft(uf, n=n), torch.fft.rfft(kf, n=n)
+        vv = torch.fft.irfft(u_f * k_f, n=n)[..., :L] + uf * D[:, None]
+        dv = dyf * x0f
+        dv_f = torch.fft.rfft(dv, n=n)
+        du = torch.fft.irfft(dv_f * k_f.conj(), n=n)[..., :L] + dv * D[:, None]
+        dk = torch.fft.irfft((dv_f * u_f.conj()).sum(0), n=n)[..., :L]
+        return du.to(u.dtype), (dyf * vv).to(u.dtype), dk.to(u.dtype), (dv * uf).sum((0, 2))
+
+    size = u.element_size()
+    saved_bytes = sum(t.numel() * t.element_size() for t in saved)
+    nbytes = saved_bytes + size * (4 * B * C * L + 2 * C * L) + 8 * C
+    log_n = int(math.log2(n))
+    transforms = {"specv": 2, "spec": 3, "retransform": 4}[route] * B * C + 2 * C
+    flops = transforms * 2.5 * n * log_n + B * C * 6 * n
+    bound_ms, bound_by = bound(nbytes, flops)
+    return {"name": "fftconv_gated_bwd", "shape": f"B={B} C={C} L={L} fft=2^{log_n} {dtype}",
+            "route": route, "entry": entry.__name__,
+            "errors": {k_: v_[0] for k_, v_ in errs.items()},
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": max(e[1] for e in errs.values()),
+            "ms": time_ms(lambda: entry(*args)), "plain_ms": time_ms(lambda: plain(*args)),
+            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
 def model_kwargs(precision: str) -> dict:
     """`build_model` arguments of the float32 model (float32 residual) or the
     bf16 model (bfloat16 activations and residual stream)."""
@@ -376,34 +492,44 @@ def model_kwargs(precision: str) -> dict:
     return {}
 
 
-def expected_launches(precision: str, per_pass: int) -> dict:
-    """Launches of each kernel in `per_pass` forward+backward passes: A, A',
-    B, C once per layer; D, D' 2 n_layer times in the bf16 model (2 n_layer
-    - 1 block units plus ln_f) and never with a float32 residual."""
+def expected_launches(precision: str, per_pass: int, gated: str | None = None) -> dict:
+    """Launches of each kernel in `per_pass` forward+backward passes: A, A'
+    once per layer; B, C once per layer, or with the gate-fused conv E, E'
+    once per layer and B, C never; D, D' 2 n_layer times in the bf16 model
+    (2 n_layer - 1 block units plus ln_f) and never with a float32
+    residual."""
     fused = 2 * N_LAYER * per_pass if precision == "bf16" else 0
+    conv, gconv = (0, N_LAYER * per_pass) if gated else (N_LAYER * per_pass, 0)
     return {"fused_front": N_LAYER * per_pass, "fused_front_bwd": N_LAYER * per_pass,
-            "fftconv": N_LAYER * per_pass, "fftconv_bwd": N_LAYER * per_pass,
-            "add_ln": fused, "add_ln_bwd": fused}
+            "fftconv": conv, "fftconv_bwd": conv, "add_ln": fused, "add_ln_bwd": fused,
+            "fftconv_gated": gconv, "fftconv_gated_bwd": gconv}
 
 
-def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed, precision="fp32"):
-    """Loss and every parameter gradient of the full-width model, card
-    (kernels A, A', B, C; D, D' in bf16) against CPU (their plain versions)."""
+def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed, precision="fp32",
+                gated=None):
+    """Logits, loss and every parameter gradient of the full-width model,
+    card (kernels A, A', B, C or with `gated` E, E'; D, D' in bf16) against
+    CPU (their plain versions)."""
     import torch
 
+    t0 = time.perf_counter()
     model = build_model(D_MODEL, N_LAYER, 32768, generator=torch.Generator().manual_seed(seed),
-                        **model_kwargs(precision)).eval()
+                        gated_conv=gated, **model_kwargs(precision)).eval()
     tokens = torch.from_numpy(
         np.random.default_rng(seed).integers(7, 12, size=(B, L + 1)).astype(np.int64))
     x, y = tokens[:, :-1], tokens[:, 1:]
-    loss_cpu = cross_entropy(model(x), y)
+    logits_cpu = model(x)
+    loss_cpu = cross_entropy(logits_cpu, y)
     loss_cpu.backward()
     card_model = copy.deepcopy(model).to("cuda")
     card_model.zero_grad(set_to_none=True)
     before = {k.name: k.launches for k in kernels}
-    loss_card = cross_entropy(card_model(x.to("cuda")), y.to("cuda"))
+    logits_card = card_model(x.to("cuda"))
+    loss_card = cross_entropy(logits_card, y.to("cuda"))
     loss_card.backward()
     torch.cuda.synchronize()
+    logit_err = (logits_card.detach().float().cpu() - logits_cpu.detach().float()).abs().max().item()
+    logit_scale = max(1.0, logits_cpu.detach().float().abs().max().item())
     launches = {k.name: k.launches - before[k.name] for k in kernels}
     worst, worst_name, missing = 0.0, None, []
     cpu_grads = dict(model.named_parameters())
@@ -419,37 +545,45 @@ def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed, precisio
     bf16 = precision == "bf16"
     grad_tol = MODEL_BF16["grads"] if bf16 else GRAD_TOL[dtype]
     loss_tol = MODEL_BF16["loss"] if bf16 else LOSS_RTOL[dtype]
+    logit_tol = MODEL_BF16["logits"] if bf16 else LOGIT_TOL[dtype]
     ok = (not missing and math.isfinite(worst) and worst <= grad_tol and loss_err <= loss_tol
-          and launches == expected_launches(precision, 1))
-    log({"phase": "grad_parity", "precision": precision, "B": B, "L": L, "conv_io": dtype,
+          and math.isfinite(logit_err) and logit_err <= logit_tol * logit_scale
+          and launches == expected_launches(precision, 1, gated))
+    log({"phase": "grad_parity", "precision": precision, "gated_conv": gated or "off",
+         "B": B, "L": L, "conv_io": dtype, "logits_max_abs_err": logit_err,
+         "max_abs_logit": logit_scale, "logit_tol": logit_tol,
          "loss_cpu": loss_cpu.item(), "loss_card": loss_card.item(), "loss_rel_err": loss_err,
          "worst_grad_err_over_max": worst, "worst_param": worst_name, "tol": grad_tol,
-         "params": len(cpu_grads), "missing_grads": missing, "launches": launches, "ok": ok})
+         "params": len(cpu_grads), "missing_grads": missing, "launches": launches,
+         "seconds": time.perf_counter() - t0, "ok": ok})
     if not ok:
         raise AssertionError(f"card gradients disagree with the CPU at B={B} L={L}")
 
 
-def train(bench, kernels, batch, length, seed, precision="fp32"):
+def train(bench, kernels, batch, length, seed, precision="fp32", gated=None):
     """A few timed train steps through the port's bench entry point."""
     import torch
 
     argv = ["--batch", str(batch), "--length", str(length), "--d_model", str(D_MODEL),
             "--n_layer", str(N_LAYER), "--warmup", "1", "--windows", "2", "--steps", "3",
-            "--device", "cuda", "--seed", str(seed), "--precision", precision]
+            "--device", "cuda", "--seed", str(seed), "--precision", precision,
+            "--gated_conv", gated or "off"]
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
     result = bench.main(argv)
     launches = {k.name: k.launches for k in kernels}
     steps = result["steps_run"]
-    expect = expected_launches(precision, steps)
+    expect = expected_launches(precision, steps, gated)
     losses = result["losses"]
+    exact = ["fused_front", "fused_front_bwd", "add_ln", "add_ln_bwd", "fftconv_gated",
+             "fftconv_gated_bwd"] + (["fftconv", "fftconv_bwd"] if gated else [])
     ok = (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]
-          and all(launches[n] == expect[n]
-                  for n in ("fused_front", "fused_front_bwd", "add_ln", "add_ln_bwd"))
+          and all(launches[n] == expect[n] for n in exact)
           and launches["fftconv"] >= expect["fftconv"]
           and launches["fftconv_bwd"] >= expect["fftconv_bwd"])
-    log({"phase": "training", "precision": precision, "residual": result["residual"],
+    log({"phase": "training", "precision": precision, "gated_conv": gated or "off",
+         "residual": result["residual"],
          "batch": batch, "L": length, "steps": steps,
          "step_ms": result["step_ms"], "tokens_per_s": result["value"],
          "loss_first": losses[0], "loss_last": losses[-1],
@@ -458,7 +592,7 @@ def train(bench, kernels, batch, length, seed, precision="fp32"):
     if not ok:
         raise AssertionError(f"training at {batch} x {length} failed its checks")
     torch.cuda.empty_cache()
-    return launches
+    return launches, result["step_ms"]
 
 
 def slice_parity(build_model, B, L, dtype, seed, precision="fp32"):
@@ -539,12 +673,14 @@ def main() -> int:
     from hyena_dna_tpu_torch.ops import add_ln as AL
     from hyena_dna_tpu_torch.ops import fused_fftconv as FB
     from hyena_dna_tpu_torch.ops import fused_front as FF
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
     from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    kernels = [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD]
+    kernels = [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD,
+               GE.KERNEL, GE.KERNEL_BWD]
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0)})
 
@@ -575,6 +711,12 @@ def main() -> int:
             (FB.fftconv_outer_bwd, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629", 27)):
         rows.append(check_conv_bwd(FB, entry or FB.fftconv_bwd_retransform, B, L, dtype,
                                    route, seed))
+    rows += [check_gated(GE, 4, 32768, "bfloat16", variant, 40 + i)
+             for i, variant in enumerate(("specv", "spec", "y"))]
+    rows.append(check_gated(GE, 2, 65536, "bfloat16", "specv", 43))
+    rows += [check_gated_bwd(GE, route, 4, 32768, "bfloat16", 44 + i)
+             for i, route in enumerate(("specv", "spec", "retransform"))]
+    rows.append(check_gated_bwd(GE, "specv", 2, 65536, "bfloat16", 47))
     for row in rows + bf16_rows:
         log({"phase": "kernel", **row})
 
@@ -586,6 +728,12 @@ def main() -> int:
     slice_parity(cli.build_model, 1, 32768, "bfloat16", 31, "bf16")
     grad_parity(cli.build_model, cross_entropy, kernels, 2, 8192, "float32", 32, "bf16")
     grad_parity(cli.build_model, cross_entropy, kernels, 1, 32768, "bfloat16", 33, "bf16")
+    # the gate-fused conv (kernels E, E'): the gated route takes even B at fft 2^16
+    grad_parity(cli.build_model, cross_entropy, kernels, 2, 24576, "float32", 34, "bf16", "specv")
+    grad_parity(cli.build_model, cross_entropy, kernels, 2, 32768, "bfloat16", 35, "bf16", "specv")
+    for seed, gated in ((36, "spec"), (37, "retransform")):
+        grad_parity(cli.build_model, cross_entropy, kernels, 2, 24576, "float32", seed,
+                    gated=gated)
 
     total = {k.name: 0 for k in kernels}
     with tempfile.TemporaryDirectory() as tmp:
@@ -596,10 +744,19 @@ def main() -> int:
             for name, n in serve(cli, kernels, tmp, fasta, max_length, batch_size,
                                  n_windows, seed=14).items():
                 total[name] += n
-    for batch, length, precision in ((4, 32768, "fp32"), (1, 131072, "fp32"),
-                                     (4, 32768, "bf16")):
-        for name, n in train(bench, kernels, batch, length, 17, precision).items():
+    step_ms = {}
+    for batch, length, precision, gated in ((4, 32768, "fp32", None), (1, 131072, "fp32", None),
+                                            (4, 32768, "bf16", None), (4, 32768, "bf16", "specv"),
+                                            (4, 32768, "bf16", "spec"),
+                                            (4, 32768, "bf16", "retransform")):
+        launches, ms = train(bench, kernels, batch, length, 17, precision, gated)
+        for name, n in launches.items():
             total[name] += n
+        step_ms[f"{precision} {batch}x{length} gated_conv={gated or 'off'}"] = ms
+    composite = step_ms["bf16 4x32768 gated_conv=off"]
+    log({"phase": "gated_step", "step_ms": step_ms,
+         "vs_composite_bf16": {k: v / composite for k, v in step_ms.items()
+                               if k.startswith("bf16 4x32768")}})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -608,7 +765,9 @@ def main() -> int:
     csrc = "hyena_dna_tpu_torch/csrc/"
     sources = {"fused_front": csrc + "fused_front.cu", "fused_front_bwd": csrc + "fused_front_bwd.cu",
                "fftconv": csrc + "fftconv.cu", "fftconv_bwd": csrc + "fftconv_bwd.cu",
-               "add_ln": csrc + "add_ln.cu", "add_ln_bwd": csrc + "add_ln_bwd.cu"}
+               "add_ln": csrc + "add_ln.cu", "add_ln_bwd": csrc + "add_ln_bwd.cu",
+               "fftconv_gated": csrc + "fftconv_gated.cu",
+               "fftconv_gated_bwd": csrc + "fftconv_gated_bwd.cu"}
     replaces = {"add_ln": "hyena_dna_tpu/ops/pallas_ln.py:102",
                 "add_ln_bwd": "hyena_dna_tpu/ops/pallas_ln.py:130",
                 "fused_front": "hyena_dna_tpu/ops/pallas_hyena.py:85",
@@ -622,11 +781,18 @@ def main() -> int:
                                "hyena_dna_tpu/ops/pallas_fftconv.py:398; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:687; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:775; "
-                               "hyena_dna_tpu/ops/pallas_fftconv_n3.py:629"}
+                               "hyena_dna_tpu/ops/pallas_fftconv_n3.py:629",
+                "fftconv_gated": "hyena_dna_tpu/ops/pallas_fftconv.py:1534",
+                "fftconv_gated_bwd": "hyena_dna_tpu/ops/pallas_fftconv.py:1796; "
+                                     "hyena_dna_tpu/ops/pallas_fftconv.py:1662; "
+                                     "hyena_dna_tpu/ops/pallas_fftconv.py:1932"}
     # each kernel's row at the main paths' 4 x 32768 shape (the conv's
     # backward on the spectrum route the training step takes there; kernels
-    # A and A' in float32, their bf16 rows under "bf16")
-    headline = {name: next(r for r in rows if r["name"] == name and r["shape"].startswith("B=4 "))
+    # A and A' in float32, their bf16 rows under "bf16"; E and E' on the
+    # gated step's specv route, every route's row under "routes")
+    gated = ("fftconv_gated", "fftconv_gated_bwd")
+    headline = {name: next(r for r in rows if r["name"] == name and r["shape"].startswith("B=4 ")
+                           and (name not in gated or r["route"] == "specv"))
                 for name in sources}
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bf16 = {r["name"]: {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}}
@@ -638,7 +804,11 @@ def main() -> int:
          "launches": total[name],
          "max_abs_err": max(r["max_abs_err"] for r in rows if r["name"] == name),
          "max_rel_err": max(r["max_rel_err"] for r in rows if r["name"] == name),
-         **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {})}
+         **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {}),
+         **({"routes": {f"{r['route']} {r['shape']}": {"max_abs_err": r["max_abs_err"],
+                                                       **{k: r[k] for k in timing}}
+                        for r in rows if r["name"] == name}}
+            if name in gated else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -2,6 +2,7 @@
 
     python -m hyena_dna_tpu_torch.bench [--batch 4 --length 32768 --d_model 256 --n_layer 8]
                                         [--precision fp32|bf16]
+                                        [--gated_conv off|specv|spec|retransform]
 
 One train step of `ConvLMHeadModel` (forward, backward, global-norm clip,
 AdamW) as the JAX `bench.py` runs it: d_model 256, 8 layers, d_inner 4 d,
@@ -17,7 +18,9 @@ from L = 2^15 at either precision, as in the model.
 (the model `dtype` every hg38 config sets with `precision: bf16`) and a
 bfloat16 residual stream (the JAX bench's default, `BENCH_RESIDUAL_F32`
 unset), where the residual add + LN runs kernels D and D'. The loss is
-float32 either way. Matrix products
+float32 either way. `--gated_conv` (default `off`) folds the Hyena post-gate
+into the conv, kernels E and E' on that mode's backward route, as
+`HYENA_GATED_CONV=1 HYENA_GATED_MODE=...` does for the JAX `bench.py`. Matrix products
 run without TF32 and bf16 products accumulate in float32 (no reduced-
 precision reductions), as the TPU's matrix unit does.
 
@@ -25,8 +28,9 @@ It runs `--warmup` steps, then `--windows` windows of `--steps` steps, each
 window between `torch.cuda.synchronize()` calls, and keeps the best window
 (every window's time per step is in `window_step_ms`). It prints one JSON
 line,
-  {"metric": "hg38_trainstep_tokens_per_sec_L{L}_d{d}x{n}_{precision}", "value": ...,
-   "unit": "tokens/s", "precision": "fp32" or "bf16", "residual": ..., ...}
+  {"metric": "hg38_trainstep_tokens_per_sec_L{L}_d{d}x{n}_{precision}[_gated_{mode}]",
+   "value": ..., "unit": "tokens/s", "precision": "fp32" or "bf16", "residual": ...,
+   "gated_conv": "off" or the mode, ...}
 and returns it as a dict with every step's loss. It runs on the card unless
 `--device cpu` is given (the kernels' plain versions, at the shape given).
 A failure raises; there is no fallback shape.
@@ -42,6 +46,7 @@ import numpy as np
 import torch
 
 from hyena_dna_tpu_torch.evals.hg38_inference import build_model, resolve_device
+from hyena_dna_tpu_torch.ops.fftconv import GATED_MODES
 from hyena_dna_tpu_torch.tasks import LMTask
 from hyena_dna_tpu_torch.train import build_optimizer, create_train_state, make_train_step
 
@@ -70,6 +75,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"),
                     help="activation dtype (the model's `dtype`)")
+    ap.add_argument("--gated_conv", default="off", choices=("off",) + GATED_MODES,
+                    help="the gate-fused conv (kernels E, E') and its backward route")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -80,7 +87,8 @@ def main(argv=None) -> dict:
     model = build_model(args.d_model, args.n_layer, args.length,
                         generator=torch.Generator().manual_seed(args.seed),
                         dtype=torch.bfloat16 if bf16 else torch.float32,
-                        residual_in_fp32=not bf16).to(device)
+                        residual_in_fp32=not bf16,
+                        gated_conv=None if args.gated_conv == "off" else args.gated_conv).to(device)
     optimizer, _ = build_optimizer(model, lr=6e-4, weight_decay=0.1)
     state = create_train_state(model, optimizer)
     step = make_train_step(LMTask())
@@ -103,11 +111,12 @@ def main(argv=None) -> dict:
     best = min(windows)
     tokens = args.batch * args.length
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    gated = "" if args.gated_conv == "off" else f"_gated_{args.gated_conv}"
     result = {
         "metric": (f"hg38_trainstep_tokens_per_sec_L{args.length}_d{args.d_model}"
-                   f"x{args.n_layer}_{args.precision}"),
+                   f"x{args.n_layer}_{args.precision}{gated}"),
         "value": tokens * args.steps / best, "unit": "tokens/s", "precision": args.precision,
-        "residual": args.precision,
+        "residual": args.precision, "gated_conv": args.gated_conv,
         "device": name, "batch": args.batch, "length": args.length,
         "step_ms": best / args.steps * 1e3, "steps_per_window": args.steps,
         "windows": args.windows, "window_step_ms": [t / args.steps * 1e3 for t in windows],

@@ -38,8 +38,8 @@
 //    k's spectrum is a pass 1 + forward pass 2 of its own per call (the TPU
 //    kernels cached it in scratch across a sequential batch grid, which
 //    CUDA blocks cannot share).
-//  * Sub-FFTs are iterative radix-2 in shared memory (fft_common.cuh, shared
-//    with kernel C).
+//  * Sub-FFTs are iterative radix-2 in shared memory; the passes live in
+//    fft_common.cuh, shared with kernels C, E and E'.
 //  * save_spectrum (a non-null `uspec`): pass 2 also stores u's pair
 //    spectrum before the product, as pallas_fftconv.py::
 //    fftconv_fused_fwd_packed(save_spectrum=True) does, so kernel C's
@@ -50,70 +50,12 @@
 
 namespace FFT_NS {
 
-// Pass 2 for u: row f1 = blockIdx.x and its mirror row (N1 - f1) mod N1.
-// Forward row FFTs, split the channel pair with the Hermitian mirror, multiply
-// by k's pair spectrum, recombine, inverse row FFTs, store in place. With
-// `uspec`, the forward row spectra (u's pair spectrum at f1 + N1 f2, natural
-// f2 order, the layout kernel C reads) are stored there before the product.
-__global__ void __launch_bounds__(kThreads) rows_conv_kernel(
-    float2* __restrict__ a, const float2* __restrict__ kspec, float2* __restrict__ uspec, Plan p) {
-  extern __shared__ float2 smem[];
-  float2* tw = smem;
-  float2* buf = smem + p.n2 / 2;
-  const int r0 = blockIdx.x;
-  const int r1 = mirror_row(r0, p);
-  const int nrows = r0 == r1 ? 1 : 2;
-  const int pair = blockIdx.y;
-  const int64_t off = (static_cast<int64_t>(blockIdx.z) * gridDim.y + pair) * p.n;
-  float2* base = a + off;
-  const float2* ks = kspec + static_cast<int64_t>(pair) * p.n;
-  fill_twiddles(tw, p.n2);
-  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-    const int rr = e / p.n2;
-    const int i = e % p.n2;
-    const int r = rr ? r1 : r0;
-    buf[rr * p.n2 + bitrev(i, p.log_n2)] = base[static_cast<int64_t>(r) * p.n2 + i];
-  }
-  __syncthreads();
-  fft_dit(buf, tw, p.n2, p.log_n2, nrows, 1, p.n2, false, false);
-  if (uspec != nullptr) {
-    for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-      const int rr = e / p.n2;
-      const int i = e % p.n2;
-      const int r = rr ? r1 : r0;
-      uspec[off + static_cast<int64_t>(r) * p.n2 + i] = buf[e];
-    }
-    __syncthreads();
-  }
-  float2* z0 = buf;
-  float2* z1 = buf + (nrows - 1) * p.n2;
-  for (int i = threadIdx.x; i < p.n2; i += blockDim.x) {
-    const int m = mirror_index(r0, i, p);  // f = r0 + N1 i; -f is (r1, m)
-    if (r0 == r1 && m < i) continue;       // a self-mirrored row: each pair once
-    float2 u0, u1, k0, k1;
-    split_pair(z0[i], z1[m], u0, u1);
-    split_pair(ks[static_cast<int64_t>(r0) * p.n2 + i], ks[static_cast<int64_t>(r1) * p.n2 + m], k0, k1);
-    const float2 p0 = cmul(u0, k0);
-    const float2 p1 = cmul(u1, k1);
-    z0[i] = join_pair(p0, p1);
-    z1[m] = join_pair_mirror(p0, p1);
-  }
-  __syncthreads();
-  fft_dif(buf, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
-  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-    const int rr = e / p.n2;
-    const int i = e % p.n2;
-    const int r = rr ? r1 : r0;
-    base[static_cast<int64_t>(r) * p.n2 + i] = buf[rr * p.n2 + bitrev(i, p.log_n2)];
-  }
-}
-
 template <typename T>
 int launch_all(const T* u, const T* k, const float* D, T* y, float2* scratch, float2* kspec,
                float2* uspec, int B, int C, int L, int Lk, const Plan& p, cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
   const size_t smem_cols = cols_smem_bytes(p);
-  const size_t smem_rows = sizeof(float2) * (p.n2 / 2 + 2 * p.n2);
+  const size_t smem_rows = rows_smem_bytes(p);
   cudaFuncSetAttribute(cols_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem_cols));
   cudaFuncSetAttribute(cols_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

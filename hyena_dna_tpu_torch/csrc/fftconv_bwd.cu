@@ -50,96 +50,14 @@
 
 namespace FFT_NS {
 
-constexpr int kRowThreads = 512;
-
-// Pass 2 of the backward. gdy: dy's column pass in, du's inverse row pass
-// out, (B, pairs, n). gu: u's column pass (retransform) or u's saved pair
-// spectrum (spectrum route), (B, pairs, n). gdk: dk's inverse row pass out,
-// (pairs, n).
-__global__ void __launch_bounds__(kRowThreads) rows_bwd_kernel(
-    float2* __restrict__ gdy, const float2* __restrict__ gu, const float2* __restrict__ kspec,
-    float2* __restrict__ gdk, int B, int u_is_spectrum, Plan p) {
-  extern __shared__ float2 smem[];
-  float2* tw = smem;
-  float2* bdy = tw + p.n2 / 2;
-  float2* bu = bdy + 2 * p.n2;
-  float2* acc = bu + 2 * p.n2;
-  const int r0 = blockIdx.x;
-  const int r1 = mirror_row(r0, p);
-  const int nrows = r0 == r1 ? 1 : 2;
-  const int pair = blockIdx.y;
-  const int pairs = gridDim.y;
-  const float2* ks = kspec + static_cast<int64_t>(pair) * p.n;
-  fill_twiddles(tw, p.n2);
-  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) acc[e] = make_float2(0.f, 0.f);
-  float2* y0 = bdy;
-  float2* y1 = bdy + (nrows - 1) * p.n2;
-  const float2* v0 = bu;
-  const float2* v1 = bu + (nrows - 1) * p.n2;
-  float2* a0 = acc;
-  float2* a1 = acc + (nrows - 1) * p.n2;
-  for (int b = 0; b < B; ++b) {
-    const int64_t off = (static_cast<int64_t>(b) * pairs + pair) * p.n;
-    float2* dyb = gdy + off;
-    const float2* ub = gu + off;
-    for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-      const int rr = e / p.n2;
-      const int i = e % p.n2;
-      const int64_t src = static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i;
-      const int dst = rr * p.n2 + bitrev(i, p.log_n2);
-      bdy[dst] = dyb[src];
-      bu[u_is_spectrum ? e : dst] = ub[src];
-    }
-    __syncthreads();
-    fft_dit(bdy, tw, p.n2, p.log_n2, nrows, 1, p.n2, false, false);
-    if (!u_is_spectrum) fft_dit(bu, tw, p.n2, p.log_n2, nrows, 1, p.n2, false, false);
-    for (int i = threadIdx.x; i < p.n2; i += blockDim.x) {
-      const int m = mirror_index(r0, i, p);  // f = r0 + N1 i; -f is (r1, m)
-      if (r0 == r1 && m < i) continue;       // a self-mirrored row: each pair once
-      float2 dy0, dy1, u0, u1, k0, k1;
-      split_pair(y0[i], y1[m], dy0, dy1);
-      split_pair(v0[i], v1[m], u0, u1);
-      split_pair(ks[static_cast<int64_t>(r0) * p.n2 + i], ks[static_cast<int64_t>(r1) * p.n2 + m],
-                 k0, k1);
-      const float2 p0 = cmulc(dy0, k0);
-      const float2 p1 = cmulc(dy1, k1);
-      y0[i] = join_pair(p0, p1);
-      y1[m] = join_pair_mirror(p0, p1);
-      const float2 q0 = cmulc(dy0, u0);
-      const float2 q1 = cmulc(dy1, u1);
-      const float2 w = join_pair(q0, q1);
-      a0[i] = make_float2(a0[i].x + w.x, a0[i].y + w.y);
-      if (r0 != r1 || m != i) {  // f == -f (one bin) is accumulated once
-        const float2 wm = join_pair_mirror(q0, q1);
-        a1[m] = make_float2(a1[m].x + wm.x, a1[m].y + wm.y);
-      }
-    }
-    __syncthreads();
-    fft_dif(bdy, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
-    for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-      const int rr = e / p.n2;
-      const int i = e % p.n2;
-      dyb[static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = bdy[rr * p.n2 + bitrev(i, p.log_n2)];
-    }
-    __syncthreads();  // the next b overwrites bdy and bu
-  }
-  fft_dif(acc, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
-  float2* dk = gdk + static_cast<int64_t>(pair) * p.n;
-  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-    const int rr = e / p.n2;
-    const int i = e % p.n2;
-    dk[static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = acc[rr * p.n2 + bitrev(i, p.log_n2)];
-  }
-}
-
 template <typename T>
 int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const float* D, T* du,
                T* dk, float* dD, float2* sdy, float2* su, float2* kspec, float2* sdk, int B,
                int C, int L, int Lk, const Plan& p, cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
   const size_t smem_cols = cols_smem_bytes(p);
-  const size_t smem_krows = sizeof(float2) * (p.n2 / 2 + 2 * p.n2);
-  const size_t smem_rows = sizeof(float2) * (p.n2 / 2 + 6 * p.n2);
+  const size_t smem_krows = rows_smem_bytes(p);
+  const size_t smem_rows = rows_bwd_smem_bytes(p);
   cudaFuncSetAttribute(cols_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem_cols));
   cudaFuncSetAttribute(cols_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,0 +1,360 @@
+// Kernel E': backward of the gate-fused causal FFT conv (kernel E), for
+// Hopper.
+//
+// For v = irfft(U K)[:L] + u D, y = v x0 and the cotangent dy, with
+// dv = dy x0 (float32, never rounded):
+//   dx0[b, c] = dy[b, c] * v[b, c]
+//   du[b, c]  = irfft(DV[b, c] conj(K[c]), n)[:L] + dv[b, c] D[c]
+//   dk[c]     = irfft(sum_b DV[b, c] conj(U[b, c]), n)[:Lk]
+//   dD[c]     = sum_{b, t} dv u  (read off dk's lag 0 in float32, Parseval)
+// U, K and DV are the size-n transforms of the zero-padded rows; du is a
+// correlation, right because n >= 2L (kernel C's argument).
+//
+// u, x0, v, dy, k, du, dx0 and dk are float32 or bfloat16 (one type for
+// all); D and dD float32; every transform, product and sum runs in float32.
+//
+// Replaces the gated backward Pallas kernels of the JAX package, one C
+// entry point with three routes, as the JAX modes pick them:
+//   route 0, specv (u's saved pair spectrum and the saved v):
+//     hyena_dna_tpu/ops/pallas_fftconv.py:1796 fftconv_fused_bwd_specv_packed_gated
+//   route 1, spec (u's saved pair spectrum; v recomputed):
+//     hyena_dna_tpu/ops/pallas_fftconv.py:1662 fftconv_fused_bwd_spec_packed_gated
+//   route 2, retransform (u itself; its spectrum and v recomputed):
+//     hyena_dna_tpu/ops/pallas_fftconv.py:1932 fftconv_fused_bwd_packed_gated
+//     (there the caller inverted dk's spectrum; here dk leaves in time, as
+//     kernel C returns it).
+//
+// What bounds it on the H100: as kernel C, the float32 FFT arithmetic on
+// the CUDA cores and the complex scratch between passes, which goes through
+// device memory. Per real row pair: dv forward and du inverse (specv), plus
+// v's inverse (spec), plus u's forward (retransform); per channel pair: k
+// forward and dk inverse. The gate itself is elementwise work in the
+// column passes' prologue and epilogues, a few reads of the I/O type.
+//
+// Design: kernel C's passes (fft_common.cuh), with the gate folded in:
+//   k      pass 1 + row pass into kspec. On the spec route the source adds
+//          D at t = 0 (k + D delta), so kspec holds K + D: the TPU kernel's
+//          ks trick (pallas_fftconv.py:1430-1443), which makes inv(U ks) the
+//          whole v = conv + u D and inv(DV conj(ks)) the whole du. In the
+//          pair spectrum it adds D_c + i D_{c+1} to every bin, and
+//          split_pair, being linear, hands each channel K_c + D_c.
+//   v      (spec, retransform) a row pass of its own, rows_gate_kernel:
+//          U's rows (read from the saved spectrum, or u's column pass
+//          transformed here and stored back as a spectrum for the dk sum)
+//          times kspec, inverse row FFT; then an inverse column pass whose
+//          epilogue writes dx0 = dy v (+ u D on the retransform route,
+//          whose kspec is plain K). Running it as its own pass keeps
+//          rows_bwd_kernel's shared memory as kernel C has it (6.5 N2
+//          complex, 208 KB at N2 = 4096): a fourth two-row buffer in it
+//          would need 272 KB, over the 227 KB a block may use.
+//   dv     pass 1 whose source reads dy and x0 and transforms dv = dy x0 in
+//          float32 (the TPU kernels round dv to their store type first);
+//          on the specv route the same pass writes dx0 = dy v from the
+//          saved v.
+//   du, dk kernel C's rows_bwd_kernel on U's spectrum (dk's batch sum in a
+//          fixed order per block: no atomics, the same bits every run),
+//          then inverse column passes: du's epilogue adds dv D (dv
+//          recomputed from dy and x0) unless kspec already holds K + D;
+//          dk's reads dD off lag 0.
+// v's pass runs first and borrows dv's scratch, so the scratch is kernel
+// C's: dv's, u's (retransform only), kspec and dk's.
+#define FFT_NS conv_gbwd
+#include "fft_common.cuh"
+
+namespace FFT_NS {
+
+enum Route { kSpecV = 0, kSpec = 1, kRetransform = 2 };
+
+// Pass 1 source for the filter with the skip term folded in: k + D delta.
+template <typename T>
+struct DeltaSource {
+  const T* k;
+  const float* D;
+  int64_t row0, len;
+  bool has2;
+  float d0, d1;
+  __device__ __forceinline__ void begin(int b, int c, int C, int len_, bool has2_) {
+    row0 = (static_cast<int64_t>(b) * C + c) * len_;
+    len = len_;
+    has2 = has2_;
+    d0 = D[c];
+    d1 = has2 ? D[c + 1] : 0.f;
+  }
+  __device__ __forceinline__ float2 operator()(int t) const {
+    float re = to_f32(k[row0 + t]), im = has2 ? to_f32(k[row0 + len + t]) : 0.f;
+    if (t == 0) {
+      re += d0;
+      im += d1;
+    }
+    return make_float2(re, im);
+  }
+};
+
+// Pass 1 source dv = dy x0 in float32; with `v`, also writes dx0 = dy v.
+template <typename T>
+struct GateGradSource {
+  const T* dy;
+  const T* x0;
+  const T* v;
+  T* dx0;
+  int64_t row0, len;
+  bool has2;
+  __device__ __forceinline__ void begin(int b, int c, int C, int len_, bool has2_) {
+    row0 = (static_cast<int64_t>(b) * C + c) * len_;
+    len = len_;
+    has2 = has2_;
+  }
+  __device__ __forceinline__ float one(int64_t i) const {
+    const float g = to_f32(dy[i]);
+    if (v != nullptr) store(dx0 + i, g * to_f32(v[i]));
+    return g * to_f32(x0[i]);
+  }
+  __device__ __forceinline__ float2 operator()(int t) const {
+    const int64_t i = row0 + t;
+    return make_float2(one(i), has2 ? one(i + len) : 0.f);
+  }
+};
+
+// Pass 3 sink for du: value + dv D with dv = dy x0 recomputed, or the value
+// alone when D is null (kspec held K + D).
+template <typename T>
+struct DuSink {
+  const T* dy;
+  const T* x0;
+  const float* D;
+  T* du;
+  int64_t row0, len;
+  bool has2;
+  float d0, d1;
+  __device__ __forceinline__ void begin(int b, int c, int C, int len_, bool has2_) {
+    row0 = (static_cast<int64_t>(b) * C + c) * len_;
+    len = len_;
+    has2 = has2_;
+    d0 = D != nullptr ? D[c] : 0.f;
+    d1 = (D != nullptr && has2) ? D[c + 1] : 0.f;
+  }
+  __device__ __forceinline__ float one(int64_t i, float w, float d) const {
+    return D != nullptr ? w + to_f32(dy[i]) * to_f32(x0[i]) * d : w;
+  }
+  __device__ __forceinline__ void operator()(int t, float w0, float w1) const {
+    const int64_t i = row0 + t;
+    store(du + i, one(i, w0, d0));
+    if (has2) store(du + i + len, one(i + len, w1, d1));
+  }
+};
+
+// Pass 3 sink for the gate's gradient: v = value (+ u D when u is given),
+// dx0 = dy v.
+template <typename T>
+struct DxSink {
+  const T* dy;
+  const T* u;
+  const float* D;
+  T* dx0;
+  int64_t row0, len;
+  bool has2;
+  float d0, d1;
+  __device__ __forceinline__ void begin(int b, int c, int C, int len_, bool has2_) {
+    row0 = (static_cast<int64_t>(b) * C + c) * len_;
+    len = len_;
+    has2 = has2_;
+    d0 = u != nullptr ? D[c] : 0.f;
+    d1 = (u != nullptr && has2) ? D[c + 1] : 0.f;
+  }
+  __device__ __forceinline__ void one(int64_t i, float w, float d) const {
+    const float v = u != nullptr ? w + to_f32(u[i]) * d : w;
+    store(dx0 + i, to_f32(dy[i]) * v);
+  }
+  __device__ __forceinline__ void operator()(int t, float w0, float w1) const {
+    const int64_t i = row0 + t;
+    one(i, w0, d0);
+    if (has2) one(i + len, w1, d1);
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cols_fwd_delta_kernel(
+    const T* __restrict__ k, const float* __restrict__ D, int C, int len, Plan p,
+    float2* __restrict__ out) {
+  cols_fwd_body(DeltaSource<T>{k, D}, C, len, p, out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cols_fwd_dv_kernel(
+    const T* __restrict__ dy, const T* __restrict__ x0, const T* __restrict__ v,
+    T* __restrict__ dx0, int C, int len, Plan p, float2* __restrict__ out) {
+  cols_fwd_body(GateGradSource<T>{dy, x0, v, dx0}, C, len, p, out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cols_inv_du_kernel(
+    const float2* __restrict__ a, const T* __restrict__ dy, const T* __restrict__ x0,
+    const float* __restrict__ D, T* __restrict__ du, int C, int len, Plan p) {
+  cols_inv_body(a, DuSink<T>{dy, x0, D, du}, C, len, p);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cols_inv_dx0_kernel(
+    const float2* __restrict__ a, const T* __restrict__ dy, const T* __restrict__ u,
+    const float* __restrict__ D, T* __restrict__ dx0, int C, int len, Plan p) {
+  cols_inv_body(a, DxSink<T>{dy, u, D, dx0}, C, len, p);
+}
+
+// v's row pass: row f1 = blockIdx.x and its mirror row. `src` holds U's
+// pair spectrum (src_is_spectrum) or u's column pass, which is then row
+// transformed here and, with `spec_out`, stored there as a spectrum (in
+// the layout rows_bwd_kernel reads; spec_out may be src itself: a block
+// reads its rows whole before it writes them). Then the product with
+// kspec, the inverse row FFT, and the result in `dst`.
+__global__ void __launch_bounds__(kThreads) rows_gate_kernel(
+    const float2* src, int src_is_spectrum, const float2* __restrict__ kspec, float2* spec_out,
+    float2* __restrict__ dst, Plan p) {
+  extern __shared__ float2 smem[];
+  float2* tw = smem;
+  float2* buf = smem + p.n2 / 2;
+  const int r0 = blockIdx.x;
+  const int r1 = mirror_row(r0, p);
+  const int nrows = r0 == r1 ? 1 : 2;
+  const int pair = blockIdx.y;
+  const int64_t off = (static_cast<int64_t>(blockIdx.z) * gridDim.y + pair) * p.n;
+  const float2* ks = kspec + static_cast<int64_t>(pair) * p.n;
+  fill_twiddles(tw, p.n2);
+  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
+    const int rr = e / p.n2;
+    const int i = e % p.n2;
+    const float2 z = src[off + static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i];
+    buf[rr * p.n2 + (src_is_spectrum ? i : bitrev(i, p.log_n2))] = z;
+  }
+  __syncthreads();
+  if (!src_is_spectrum) {
+    fft_dit(buf, tw, p.n2, p.log_n2, nrows, 1, p.n2, false, false);
+    if (spec_out != nullptr) {
+      for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
+        const int rr = e / p.n2;
+        spec_out[off + static_cast<int64_t>(rr ? r1 : r0) * p.n2 + e % p.n2] = buf[e];
+      }
+      __syncthreads();
+    }
+  }
+  float2* z0 = buf;
+  float2* z1 = buf + (nrows - 1) * p.n2;
+  for (int i = threadIdx.x; i < p.n2; i += blockDim.x) {
+    const int m = mirror_index(r0, i, p);  // f = r0 + N1 i; -f is (r1, m)
+    if (r0 == r1 && m < i) continue;       // a self-mirrored row: each pair once
+    float2 u0, u1, k0, k1;
+    split_pair(z0[i], z1[m], u0, u1);
+    split_pair(ks[static_cast<int64_t>(r0) * p.n2 + i], ks[static_cast<int64_t>(r1) * p.n2 + m], k0, k1);
+    const float2 p0 = cmul(u0, k0);
+    const float2 p1 = cmul(u1, k1);
+    z0[i] = join_pair(p0, p1);
+    z1[m] = join_pair_mirror(p0, p1);
+  }
+  __syncthreads();
+  fft_dif(buf, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
+  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
+    const int rr = e / p.n2;
+    const int i = e % p.n2;
+    dst[off + static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = buf[rr * p.n2 + bitrev(i, p.log_n2)];
+  }
+}
+
+template <typename T>
+int launch_all(Route route, const T* u, const float2* uspec, const T* v, const T* dy, const T* x0,
+               const T* k, const float* D, T* du, T* dx0, T* dk, float* dD, float2* sdy,
+               float2* su, float2* kspec, float2* sdk, int B, int C, int L, int Lk,
+               const Plan& p, cudaStream_t stream) {
+  const int pairs = (C + 1) / 2;
+  const size_t smem_cols = cols_smem_bytes(p);
+  const size_t smem_rows = rows_smem_bytes(p);
+  const size_t smem_bwd = rows_bwd_smem_bytes(p);
+  auto cols = [&](const void* fn) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem_cols));
+  };
+  cols(reinterpret_cast<const void*>(cols_fwd_kernel<T>));
+  cols(reinterpret_cast<const void*>(cols_fwd_delta_kernel<T>));
+  cols(reinterpret_cast<const void*>(cols_fwd_dv_kernel<T>));
+  cols(reinterpret_cast<const void*>(cols_inv_kernel<T>));
+  cols(reinterpret_cast<const void*>(cols_inv_du_kernel<T>));
+  cols(reinterpret_cast<const void*>(cols_inv_dx0_kernel<T>));
+  cudaFuncSetAttribute(rows_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_rows));
+  cudaFuncSetAttribute(rows_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_rows));
+  cudaFuncSetAttribute(rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_bwd));
+  const dim3 cols_c(p.n2 / p.tc, pairs, 1), cols_b(p.n2 / p.tc, pairs, B);
+  const dim3 rows_b(p.n1 / 2 + 1, pairs, B);
+  const bool ks_trick = route == kSpec;  // kspec = K + D
+  if (ks_trick) {
+    cols_fwd_delta_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, D, C, Lk, p, kspec);
+  } else {
+    cols_fwd_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
+  }
+  rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_rows, stream>>>(kspec, p);
+  const float2* gu = uspec;
+  if (route != kSpecV) {  // v = inv(U K) (+ u D), dx0 = dy v; sdy is v's scratch here
+    if (route == kRetransform) {
+      cols_fwd_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(u, C, L, p, su);
+      rows_gate_kernel<<<rows_b, kThreads, smem_rows, stream>>>(su, 0, kspec, su, sdy, p);
+      gu = su;
+    } else {
+      rows_gate_kernel<<<rows_b, kThreads, smem_rows, stream>>>(uspec, 1, kspec, nullptr, sdy, p);
+    }
+    cols_inv_dx0_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(
+        sdy, dy, route == kRetransform ? u : nullptr, D, dx0, C, L, p);
+  }
+  cols_fwd_dv_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(
+      dy, x0, route == kSpecV ? v : nullptr, dx0, C, L, p, sdy);
+  rows_bwd_kernel<<<dim3(p.n1 / 2 + 1, pairs, 1), kRowThreads, smem_bwd, stream>>>(
+      sdy, gu, kspec, sdk, B, 1, p);
+  cols_inv_du_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(
+      sdy, dy, x0, ks_trick ? nullptr : D, du, C, L, p);
+  cols_inv_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(sdk, nullptr, nullptr, dk, dD, C,
+                                                              Lk, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace FFT_NS
+
+// dy, x0, du, dx0 (B, C, L), k, dk (C, Lk) contiguous, all float32
+// (is_bf16 == 0) or all bfloat16; D, dD (C,) float32. route 0 (specv):
+// uspec (kernel E's saved spectrum, B * ceil(C/2) * n complex64) and v
+// (B, C, L) given, u null. route 1 (spec): uspec given, u and v null.
+// route 2 (retransform): u (B, C, L) and su (B * ceil(C/2) * n complex64
+// scratch) given, uspec and v null. sdy holds B * ceil(C/2) * n complex64,
+// kspec and sdk ceil(C/2) * n each. Launches on `stream`, does not
+// synchronise; returns the cudaError_t of the launches (0 on success).
+extern "C" int hyena_fftconv_gated_bwd(const void* u, const void* uspec, const void* v,
+                                       const void* dy, const void* x0, const void* k,
+                                       const float* D, void* du, void* dx0, void* dk, float* dD,
+                                       void* sdy, void* su, void* kspec, void* sdk, int route,
+                                       int B, int C, int L, int Lk, int n, int is_bf16,
+                                       cudaStream_t stream) {
+  using namespace FFT_NS;
+  const bool inputs_fit =
+      (route == kSpecV && u == nullptr && uspec != nullptr && v != nullptr) ||
+      (route == kSpec && u == nullptr && uspec != nullptr && v == nullptr) ||
+      (route == kRetransform && u != nullptr && su != nullptr && uspec == nullptr && v == nullptr);
+  if (!inputs_fit || !valid_fft_size(n) || L < 1 || 2 * L > n || Lk < 1 || Lk > L || B < 1 ||
+      C < 1 || (C + 1) / 2 > 65535 || B > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Plan p = make_plan(n);
+  const Route r = static_cast<Route>(route);
+  auto* us = static_cast<const float2*>(uspec);
+  auto f2 = [](void* q) { return static_cast<float2*>(q); };
+  if (is_bf16) {
+    using bf = __nv_bfloat16;
+    return launch_all(r, static_cast<const bf*>(u), us, static_cast<const bf*>(v),
+                      static_cast<const bf*>(dy), static_cast<const bf*>(x0),
+                      static_cast<const bf*>(k), D, static_cast<bf*>(du), static_cast<bf*>(dx0),
+                      static_cast<bf*>(dk), dD, f2(sdy), f2(su), f2(kspec), f2(sdk), B, C, L,
+                      Lk, p, stream);
+  }
+  return launch_all(r, static_cast<const float*>(u), us, static_cast<const float*>(v),
+                    static_cast<const float*>(dy), static_cast<const float*>(x0),
+                    static_cast<const float*>(k), D, static_cast<float*>(du),
+                    static_cast<float*>(dx0), static_cast<float*>(dk), dD, f2(sdy), f2(su),
+                    f2(kspec), f2(sdk), B, C, L, Lk, p, stream);
+}

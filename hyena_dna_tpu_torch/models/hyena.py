@@ -15,8 +15,13 @@ parameters stay float32.
 On a CUDA tensor kernels A and B run forward and kernels A' and C backward
 (`ops/fused_front.py`, `ops/fused_fftconv.py`, through their
 `autograd.Function`s); the second gate is a plain multiply that autograd
-differentiates, as in the JAX composite route. On a CPU tensor the same
-calls run their plain versions. Kernel A takes any L (the Pallas front
+differentiates, as in the JAX composite route. With `gated_conv` set to a
+mode of `ops.fftconv.GATED_MODES` ("specv", "spec", "retransform"), the
+post-gate rides the conv instead: kernel E forward and kernel E' backward
+on that mode's route, where `gated_plan` covers the shape (as
+`HYENA_GATED_CONV=1` and `HYENA_GATED_MODE` do for the JAX package; off by
+default there and here). On a CPU tensor the same calls run their plain
+versions. Kernel A takes any L (the Pallas front
 needed L % 32 == 0). Whatever `dtype`, from L = 2^15 the conv I/O (signal,
 gate, filter bank) is bfloat16 as on the TPU (`CONV_IO_BF16_MIN_L`), and
 below it float32; the transforms run in float32. When L exceeds
@@ -34,7 +39,7 @@ from torch import nn
 
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
 from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, linear
-from hyena_dna_tpu_torch.ops.fftconv import fftconv_gated
+from hyena_dna_tpu_torch.ops.fftconv import GATED_MODES, fftconv_gated
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate
 
 CONV_IO_BF16_MIN_L = 1 << 15
@@ -44,9 +49,13 @@ class HyenaOperator(nn.Module):
     def __init__(self, d_model: int, l_max: int, order: int = 2,
                  filter_order: int = 64, short_filter_order: int = 3,
                  activation: str = "id", filter_cfg: dict | None = None,
-                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32,
+                 gated_conv: str | None = None):
         super().__init__()
         self.dtype = dtype
+        if gated_conv not in (None,) + GATED_MODES:
+            raise ValueError(f"gated_conv={gated_conv!r} is not None or one of {GATED_MODES}")
+        self.gated_conv = gated_conv
         if order != 2:
             raise NotImplementedError(
                 "only order-2 Hyena is ported (ROADMAP.md Queue 1 item 4)")
@@ -77,5 +86,6 @@ class HyenaOperator(nn.Module):
         conv_dt = torch.bfloat16 if l_filter >= CONV_IO_BF16_MIN_L else torch.float32
         k = self.filter_fn.filter(l_filter, out_dtype=conv_dt)[0].t().contiguous()
         y = fftconv_gated(vx.to(conv_dt), x0.to(conv_dt), k,
-                          self.filter_fn.bias.float().contiguous()).to(u.dtype)
+                          self.filter_fn.bias.float().contiguous(),
+                          self.gated_conv).to(u.dtype)
         return linear(self.act(y.transpose(1, 2)), self.out_proj, self.dtype)

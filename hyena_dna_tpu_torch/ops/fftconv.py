@@ -13,6 +13,10 @@ ran XLA's FFT, but on the card no library FFT sits on the path. Where the
 JAX package saved u's spectrum for the backward (`saves_spectrum`), kernel B
 saves it and kernel C reads it; elsewhere kernel C transforms u again. On a
 CPU tensor the same calls run the kernels' plain versions.
+
+`fftconv_gated` is the conv with the Hyena post-gate: the composite route
+by default, or kernels E and E' (`ops/gated_fftconv.py`) when a gated mode
+is asked for and `gated_plan` covers the shape.
 """
 
 from __future__ import annotations
@@ -109,9 +113,86 @@ def fftconv_chunked(u: torch.Tensor, k: torch.Tensor,
     return fftconv(u, k, D)
 
 
+# The gate-fused route (kernels E and E', `ops/gated_fftconv.py`), off unless
+# a mode is asked for, as in the JAX package (`HYENA_GATED_CONV`). It covers
+# the shapes of the JAX `_gated_plan`: these FFT sizes (the packed kernels'
+# 2^16-2^17; the tests lower them), even B, C % 8 == 0.
+GATED_FFT_SIZES = (1 << 16, 1 << 17)
+GATED_MODES = ("specv", "spec", "retransform")
+
+
+def gated_plan(u: torch.Tensor, k: torch.Tensor) -> bool:
+    """Whether the gate-fused route covers this conv (JAX `_gated_plan`)."""
+    if u.dim() != 3 or k.dim() != 2 or k.shape[0] != u.shape[1]:
+        return False
+    b, c, length = u.shape
+    return next_fast_fft_size(2 * length) in GATED_FFT_SIZES and b % 2 == 0 and c % 8 == 0
+
+
+def gated_mode(mode: str, u: torch.Tensor) -> str:
+    """`mode`, or "retransform" when what specv / spec would save for the
+    backward passes `SAVE_SPECTRUM_MAX_BYTES` (JAX `ops/fftconv.py:895-902`),
+    counted in the port's layout: u's float32 pair spectrum, plus v for
+    specv."""
+    from hyena_dna_tpu_torch.ops.fused_fftconv import SAVE_SPECTRUM_MAX_BYTES
+
+    if mode == "retransform":
+        return mode
+    b, c, length = u.shape
+    saved = b * ((c + 1) // 2) * next_fast_fft_size(2 * length) * 8
+    if mode == "specv":
+        saved += u.numel() * u.element_size()
+    return mode if saved <= SAVE_SPECTRUM_MAX_BYTES else "retransform"
+
+
+class GatedFFTConv(torch.autograd.Function):
+    """Kernel E forward, kernel E' backward on the route `mode` names. Saves
+    u's spectrum and v (specv), u's spectrum (spec) or u (retransform), with
+    x0, k and D; with `mode` None (no gradient needed) nothing more than its
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, u, x0, k, D, mode):
+        from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+        ctx.mode = mode
+        if mode == "specv":
+            y, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+            ctx.save_for_backward(spec, v, x0, k, D)
+        elif mode == "spec":
+            y, spec = GE.fftconv_gated_fused(u, x0, k, D, save_spectrum=True)
+            ctx.save_for_backward(spec, x0, k, D)
+        else:
+            y = GE.fftconv_gated_fused(u, x0, k, D)
+            if mode == "retransform":
+                ctx.save_for_backward(u, x0, k, D)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+        if ctx.mode is None:
+            raise RuntimeError("GatedFFTConv ran without a backward mode")
+        bwd = {"specv": GE.fftconv_gated_bwd_specv, "spec": GE.fftconv_gated_bwd_spec,
+               "retransform": GE.fftconv_gated_bwd_retransform}[ctx.mode]
+        du, dx0, dk, dD = bwd(*ctx.saved_tensors[:-3], dy.contiguous(), *ctx.saved_tensors[-3:])
+        return du, dx0, dk, dD, None
+
+
 def fftconv_gated(u: torch.Tensor, x0: torch.Tensor, k: torch.Tensor,
-                  D: torch.Tensor) -> torch.Tensor:
-    """(causal_conv(u, k) + u * D) * x0 on (B, C, L), the composite route of
-    JAX `fftconv_gated` (its gate-fused Pallas kernels are default off)."""
-    v = fftconv_chunked(u, k, D)
-    return (v * x0).to(u.dtype)
+                  D: torch.Tensor, mode: Optional[str] = None) -> torch.Tensor:
+    """(causal_conv(u, k) + u * D) * x0 on (B, C, L), in u's dtype.
+
+    With `mode` None, or where `gated_plan` does not cover the shape, the
+    composite route of JAX `fftconv_gated`: kernel B, then the gate as
+    elementwise work. With `mode` one of `GATED_MODES` and a covered shape,
+    the gate-fused kernels E and E', whose backward takes the route `mode`
+    names. The math is the same either way."""
+    if mode is not None and mode not in GATED_MODES:
+        raise ValueError(f"gated conv mode {mode!r} is not one of {GATED_MODES}")
+    if mode is None or not gated_plan(u, k):
+        v = fftconv_chunked(u, k, D)
+        return (v * x0).to(u.dtype)
+    training = torch.is_grad_enabled() and any(t.requires_grad for t in (u, x0, k, D))
+    return GatedFFTConv.apply(u, x0, k, D, gated_mode(mode, u) if training else None)

@@ -112,29 +112,35 @@ def fftconv_bwd_spectrum_ref(spec: torch.Tensor, dy: torch.Tensor, k: torch.Tens
     return fftconv_bwd_from_rfft(_channel_spectra(spec, dy.shape[1], spec.shape[2]), dy, k, D)
 
 
-def _check(u, k, D, dy=None, spec=None):
-    ref = u if u is not None else dy
+def check_args(kernels: str, signals, k, D, spec=None) -> None:
+    """Raise unless the arguments fit the conv kernels: `signals` is a list
+    of (name, (B, C, L) tensor or None), the first one given setting the
+    shape, device and dtype (float32 or bfloat16) that the others and k
+    (C, Lk <= L) share; D (C,) float32; u's saved pair spectrum, if given,
+    (B, ceil(C/2), n, 2) float32; all contiguous."""
+    ref_name, ref = next((nm, t) for nm, t in signals if t is not None)
     if ref.dim() != 3 or k.dim() != 2 or D.dim() != 1:
         raise ValueError(f"need (B, C, L) signals, k (C, Lk), D (C,); got "
                          f"{tuple(ref.shape)}, {tuple(k.shape)}, {tuple(D.shape)}")
     b, c, length = ref.shape
     if k.shape[0] != c or not 1 <= k.shape[1] <= length or D.shape[0] != c:
-        raise ValueError(f"k {tuple(k.shape)} / D {tuple(D.shape)} do not fit "
+        raise ValueError(f"k {tuple(k.shape)} / D {tuple(D.shape)} do not fit {ref_name} "
                          f"{tuple(ref.shape)}")
     n = next_fast_fft_size(2 * length)
     if n > MAX_FFT_SIZE:
         raise ValueError(f"L={length} needs an FFT above 2^21")
-    signals = [("u", u), ("dy", dy), ("k", k)]
+    given = [(nm, t) for nm, t in signals if t is not None]
     if ref.dtype not in (torch.float32, torch.bfloat16) or any(
-            t is not None and t.dtype != ref.dtype for _, t in signals):
-        raise TypeError("kernels B and C take u, dy and k all float32 or all bfloat16; got "
-                        + ", ".join(f"{nm} {t.dtype}" for nm, t in signals if t is not None))
+            t.dtype != ref.dtype for _, t in given + [("k", k)]):
+        raise TypeError(f"{kernels} take {', '.join(nm for nm, _ in signals)} and k all "
+                        "float32 or all bfloat16; got "
+                        + ", ".join(f"{nm} {t.dtype}" for nm, t in given + [("k", k)]))
     if D.dtype != torch.float32:
         raise TypeError(f"D must be float32, got {D.dtype}")
-    for name, t in signals + [("D", D), ("spectrum", spec)]:
+    for name, t in given + [("k", k), ("D", D), ("spectrum", spec)]:
         if t is None:
             continue
-        if name in ("u", "dy") and tuple(t.shape) != (b, c, length):
+        if t.dim() == 3 and tuple(t.shape) != (b, c, length):
             raise ValueError(f"{name} must be {(b, c, length)}, got {tuple(t.shape)}")
         if t.device != ref.device:
             raise ValueError(f"{name} is on {t.device}, {ref.device} expected")
@@ -155,7 +161,7 @@ def fftconv_fused(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor,
         if save_spectrum:
             return y, pair_spectrum_ref(u, next_fast_fft_size(2 * u.shape[-1]))
         return y
-    _check(u, k, D)
+    check_args("kernels B and C", [("u", u)], k, D)
     b, c, length = u.shape
     n = next_fast_fft_size(2 * length)
     pairs = (c + 1) // 2
@@ -173,7 +179,7 @@ def fftconv_fused(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor,
 
 
 def _bwd_kernel(u, spec, dy, k, D):
-    _check(u, k, D, dy=dy, spec=spec)
+    check_args("kernels B and C", [("u", u), ("dy", dy)], k, D, spec)
     b, c, length = dy.shape
     n = next_fast_fft_size(2 * length)
     pairs = (c + 1) // 2

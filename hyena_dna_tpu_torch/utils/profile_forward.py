@@ -3,11 +3,13 @@
     python -m hyena_dna_tpu_torch.utils.profile_forward --batch 4 --length 32768
     python -m hyena_dna_tpu_torch.utils.profile_forward --train --batch 4 --length 32768
     python -m hyena_dna_tpu_torch.utils.profile_forward --train --precision bf16
+    python -m hyena_dna_tpu_torch.utils.profile_forward --train --precision bf16 --gated_conv specv
 
 Builds the hg38 model of `evals/hg38_inference.py` (d_model 256, 8 layers by
 default, random weights from `--seed`; float32, or with `--precision bf16`
 bfloat16 activations and residual as `bench.py --precision bf16` trains
-it), warms up, then:
+it; with `--gated_conv` the gate-fused conv of `bench.py --gated_conv`),
+warms up, then:
 
 * times `--reps` forwards (or, with `--train`, train steps of
   `train/step.py` with `bench.py`'s optimizer and synthetic batch) with CUDA
@@ -19,6 +21,7 @@ it), warms up, then:
   time of its kernels into groups: kernels A (`fused_front_kernel`), A'
   (`front_bwd_*`), B (`conv_fwd::*`, its four passes), C (`conv_bwd::*`),
   D (`add_ln_fwd_kernel`), D' (`add_ln_bwd_kernel`, `add_ln_sum_kernel`),
+  E (`conv_gfwd::*`), E' (`conv_gbwd::*`),
   matrix products (cuBLAS, `nvjet` for bf16 on Hopper), and the rest
   (elementwise, float32 LN, embedding, filter MLP, optimizer);
   `device_idle_share` is 1 - busy / wall over the profiled forward or step.
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from hyena_dna_tpu_torch.evals.hg38_inference import build_model
+from hyena_dna_tpu_torch.ops.fftconv import GATED_MODES
 
 GROUPS = (("kernel_d_bwd", ("add_ln_bwd_kernel", "add_ln_sum_kernel")),
           ("kernel_d", ("add_ln_fwd_kernel",)),
@@ -44,6 +48,8 @@ GROUPS = (("kernel_d_bwd", ("add_ln_bwd_kernel", "add_ln_sum_kernel")),
           ("kernel_a", ("fused_front_kernel",)),
           ("kernel_b", ("conv_fwd::",)),
           ("kernel_c", ("conv_bwd::",)),
+          ("kernel_e", ("conv_gfwd::",)),
+          ("kernel_e_bwd", ("conv_gbwd::",)),
           ("matmul", ("gemm", "sm90_", "cutlass", "ampere_", "cublas", "nvjet")))
 
 
@@ -109,6 +115,8 @@ def main(argv=None):
                     help="profile a train step (forward, backward, clip, AdamW)")
     ap.add_argument("--precision", default="fp32", choices=("fp32", "bf16"),
                     help="activation dtype; bf16 also keeps a bf16 residual stream")
+    ap.add_argument("--gated_conv", default="off", choices=("off",) + GATED_MODES,
+                    help="the gate-fused conv (kernels E, E') and its backward route")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_forward measures the card; no CUDA device is available")
@@ -119,7 +127,8 @@ def main(argv=None):
     model = build_model(args.d_model, args.n_layer, args.length,
                         generator=torch.Generator().manual_seed(args.seed),
                         dtype=torch.bfloat16 if bf16 else torch.float32,
-                        residual_in_fp32=not bf16).to("cuda")
+                        residual_in_fp32=not bf16,
+                        gated_conv=None if args.gated_conv == "off" else args.gated_conv).to("cuda")
     phase_ms = None
     if args.train:
         run, phases = _train_runner(model, args)
@@ -163,7 +172,7 @@ def main(argv=None):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:20]
     what = "step" if args.train else "forward"
     print(json.dumps({
-        "card": smi, "mode": what, "precision": args.precision,
+        "card": smi, "mode": what, "precision": args.precision, "gated_conv": args.gated_conv,
         "batch": args.batch, "length": args.length,
         "d_model": args.d_model, "n_layer": args.n_layer, f"{what}_ms": mean_ms, "rep_ms": rep_ms,
         "tokens_per_s": args.batch * args.length / mean_ms * 1e3,

@@ -280,3 +280,122 @@ def test_bf16_model_on_card_matches_cpu(card):
     for name, p in model.named_parameters():
         assert p.grad is not None, name
         _close(p.grad, cpu[name], 3e-2, 0.0)
+
+
+# kernels E and E' (the gate-fused conv and its backward routes)
+
+def _gated_inputs(B, C, L, Lk, dtype, card, seed):
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    u, x0, dy = (torch.randn(B, C, L, generator=g).to(dt).to(card) for _ in range(3))
+    k = (torch.randn(C, Lk, generator=g) * torch.exp(-torch.arange(Lk) / (Lk / 8))).to(dt)
+    return u, x0, dy, k.to(card), torch.randn(C, generator=g).to(card)
+
+
+def _io_tol(dtype):
+    return (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
+
+
+@pytest.mark.parametrize("B,C,L,Lk,dtype", [
+    (1, 1, 8, 8, "float32"), (2, 3, 100, 60, "float32"), (3, 5, 5000, 5000, "bfloat16"),
+    (2, 8, 32768, 30000, "bfloat16"), (2, 6, 65536, 65536, "float32"),
+])
+def test_fftconv_gated_matches_plain(card, B, C, L, Lk, dtype):
+    """Kernel E with and without v and the spectrum: y and v within the I/O
+    tolerance, the spectrum as kernel B saves it."""
+    import time
+
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    u, x0, _, k, D = _gated_inputs(B, C, L, Lk, dtype, card, B + C + L)
+    before = GE.KERNEL.launches
+    y, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+    assert GE.KERNEL.launches == before + 1 and y.dtype == v.dtype == u.dtype
+    y_ref, v_ref, spec_ref = GE.fftconv_gated_ref(u, x0, k, D, True, True)
+    _close(y, y_ref, *_io_tol(dtype))
+    _close(v, v_ref, *_io_tol(dtype))
+    _close(spec, spec_ref, 1e-5, 1e-4)
+    assert torch.equal(GE.fftconv_gated_fused(u, x0, k, D), y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    GE.fftconv_gated_fused(u, x0, k, D)
+    torch.cuda.synchronize()
+    print(f"kernel E B={B} C={C} L={L} {dtype}: {1e3 * (time.perf_counter() - t0):.3f} ms")
+
+
+@pytest.mark.parametrize("B,C,L,Lk,dtype", [
+    (1, 1, 8, 8, "float32"), (2, 3, 100, 60, "float32"), (3, 5, 5000, 5000, "bfloat16"),
+    (2, 8, 32768, 30000, "bfloat16"), (2, 6, 65536, 65536, "float32"),
+])
+@pytest.mark.parametrize("route", ["specv", "spec", "retransform"])
+def test_fftconv_gated_bwd_matches_plain(card, B, C, L, Lk, dtype, route):
+    """Kernel E' on each route against its plain version (du, dx0, dk in the
+    I/O tolerance, dD float32), with the same bits over two runs."""
+    import time
+
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    u, x0, dy, k, D = _gated_inputs(B, C, L, Lk, dtype, card, B + C + L + 1)
+    _, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+    args = {"specv": (spec, v), "spec": (spec,), "retransform": (u,)}[route] + (dy, x0, k, D)
+    fn = getattr(GE, f"fftconv_gated_bwd_{route}")
+    ref_fn = getattr(GE, f"fftconv_gated_bwd_{route}_ref")
+    before = GE.KERNEL_BWD.launches
+    out = fn(*args)
+    assert GE.KERNEL_BWD.launches == before + 1
+    for got, want, name in zip(out, ref_fn(*args), ("du", "dx0", "dk", "dD")):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        _close(got, want, *((1e-4, 1e-4) if name == "dD" else _io_tol(dtype)))
+    assert all(torch.equal(a, b) for a, b in zip(out, fn(*args)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args)
+    torch.cuda.synchronize()
+    print(f"kernel E' {route} B={B} C={C} L={L} {dtype}: "
+          f"{1e3 * (time.perf_counter() - t0):.3f} ms")
+
+
+def test_gated_wrappers_reject_what_kernels_do_not_take(card):
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    u = torch.zeros(2, 8, 16, device=card)
+    k, D = torch.zeros(8, 16, device=card), torch.zeros(8, device=card)
+    with pytest.raises(TypeError):
+        GE.fftconv_gated_fused(u, u.to(BF16), k, D)
+    with pytest.raises(TypeError):
+        GE.fftconv_gated_fused(u.half(), u.half(), k.half(), D)
+    with pytest.raises(ValueError):
+        GE.fftconv_gated_fused(u, u.cpu(), k, D)
+    with pytest.raises(ValueError):
+        GE.fftconv_gated_fused(u, u[:, :, :8], k, D)
+    with pytest.raises(ValueError, match="contiguous"):
+        GE.fftconv_gated_fused(u, u.transpose(0, 1).contiguous().transpose(0, 1), k, D)
+    with pytest.raises(ValueError):
+        GE.fftconv_gated_bwd_spec(torch.zeros(2, 4, 16, 2, device=card), u, u, k, D)
+    with pytest.raises(ValueError):
+        GE.fftconv_fused_fwd_packed_gated(u, u, k, D)  # fft 32: not a TPU route size
+
+
+@pytest.mark.parametrize("mode", ["specv", "spec", "retransform"])
+def test_gated_conv_autograd_card_matches_cpu(card, mode, monkeypatch):
+    """`GatedFFTConv` on the card (kernels E and E') against the CPU (their
+    plain versions): y and every input's gradient."""
+    from hyena_dna_tpu_torch.ops import fftconv as F
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    monkeypatch.setattr(F, "GATED_FFT_SIZES", (4096,))
+    g = torch.Generator().manual_seed(7)
+    ins = [torch.randn(2, 16, 2048, generator=g), torch.randn(2, 16, 2048, generator=g),
+           torch.randn(16, 2000, generator=g) * 0.05, torch.randn(16, generator=g)]
+    dy = torch.randn(2, 16, 2048, generator=g)
+    results = []
+    for device in ("cpu", card):
+        leaves = [t.to(device).requires_grad_() for t in ins]
+        counts = (GE.KERNEL.launches, GE.KERNEL_BWD.launches)
+        y = F.fftconv_gated(*leaves, mode=mode)
+        grads = torch.autograd.grad(y, leaves, dy.to(device))
+        launched = (GE.KERNEL.launches - counts[0], GE.KERNEL_BWD.launches - counts[1])
+        assert launched == ((0, 0) if device == "cpu" else (1, 1))
+        results.append([y] + list(grads))
+    for got, want in zip(results[1], results[0]):
+        _close(got, want, 1e-4, 1e-4)
