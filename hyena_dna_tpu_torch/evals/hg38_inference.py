@@ -36,20 +36,27 @@ from hyena_dna_tpu_torch.utils.convert import load_reference_state_dict
 
 def build_model(d_model, n_layer, max_length, vocab_size=12,
                 generator: torch.Generator | None = None, dtype: torch.dtype = torch.float32,
-                residual_in_fp32: bool = True, gated_conv: str | None = None) -> ConvLMHeadModel:
+                residual_in_fp32: bool = True, gated_conv: str | None = None,
+                front4: bool = False, **remat) -> ConvLMHeadModel:
     """The hg38 LM (order-2 Hyena, emb_dim 5, filter_order 64, w 10). The
     eval runs it in float32 with a float32 residual; `bench.py` also builds
-    it with bfloat16 activations and a bfloat16 residual, and with the
+    it with bfloat16 activations and a bfloat16 residual, with the
     gate-fused conv (`gated_conv`, a mode of `ops.fftconv.GATED_MODES`;
-    None keeps the composite gate)."""
+    None keeps the composite gate), with the 4-D conv-layout route
+    (`front4`) and with activation checkpointing (`remat`: the
+    `ConvLMHeadModel` knobs `checkpoint_mixer`, `checkpoint_mlp`,
+    `remat_residual_only`, `remat_group_size`, `remat_save_conv`,
+    `remat_save_filter`)."""
     layer = dict(_name_="hyena", emb_dim=5, filter_order=64, short_filter_order=3,
                  l_max=max_length + 2, modulate=True, w=10)
     if gated_conv is not None:
         layer["gated_conv"] = gated_conv
+    if front4:
+        layer["front4"] = True
     return ConvLMHeadModel(d_model=d_model, n_layer=n_layer, d_inner=4 * d_model,
                            vocab_size=vocab_size, pad_vocab_size_multiple=8,
                            residual_in_fp32=residual_in_fp32, layer=layer, generator=generator,
-                           dtype=dtype)
+                           dtype=dtype, **remat)
 
 
 def load_params(ckpt: str, model: ConvLMHeadModel) -> ConvLMHeadModel:

@@ -15,6 +15,16 @@ else the dtype of the hidden states; the adds run in float32 and round once
 to it. The LNs keep float32 statistics and emit `dtype`; a bf16 residual
 with bf16 output takes kernels D and D' on the card (`ops/add_ln.py`). The MLP's products are cuBLAS calls in `dtype`, as
 the JAX package left them to XLA.
+
+`pre` and `post` cut the block at its post-mixer residual, as the JAX
+`Block.pre` / `Block.post` do for the LM's residual-only checkpoint cells:
+`pre` runs from the block boundary to that residual (dropout, add + norm1,
+mixer, dropout, add), `post` runs norm2 and the MLP from it. The second
+add is a plain float32 add rounded once to the residual dtype and norm2 a
+plain LN of the residual: the forward values are those of `forward`, and so
+are the gradients with a float32 residual. With a bf16 residual `forward`
+takes kernel D' for the second unit, whose gradient rounds once where the
+split rounds twice, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,6 +92,7 @@ class Block(nn.Module):
                  resid_dropout1: float = 0.0, resid_dropout2: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.resid_dropout1 = resid_dropout1
         self.resid_dropout2 = resid_dropout2
         self.resid_dtype = torch.float32 if residual_in_fp32 else None
@@ -106,3 +117,17 @@ class Block(nn.Module):
         dropped = dropout(hidden, self.resid_dropout2, self.training, generator)
         hidden, residual = self._add_norm(self.norm2, dropped, residual)
         return self.mlp(hidden), residual
+
+    def pre(self, hidden: torch.Tensor, residual: torch.Tensor | None = None,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+        """dropout -> add -> norm1 -> mixer -> dropout -> add: the block
+        boundary to the post-mixer residual (JAX `Block.pre`)."""
+        dropped = dropout(hidden, self.resid_dropout1, self.training, generator)
+        hidden, residual = self._add_norm(self.norm1, dropped, residual)
+        hidden = self.mixer(hidden, generator)
+        dropped = dropout(hidden, self.resid_dropout2, self.training, generator)
+        return (dropped.float() + residual.float()).to(self.resid_dtype or self.dtype)
+
+    def post(self, residual: torch.Tensor) -> torch.Tensor:
+        """norm2 -> mlp from the post-mixer residual (JAX `Block.post`)."""
+        return self.mlp(self.norm2(residual))

@@ -21,8 +21,38 @@ Linear and Embedding weights N(0, 0.02) with zero biases, `out_proj` and
 `fc2` scaled by 1/sqrt(2 n_layer); the depthwise short conv U(-1/sqrt(3),
 1/sqrt(3)) as torch's Conv1d default; the filter's skip bias N(0, 1). The
 positional features, Sin frequency and modulation rates are fixed at
-construction. The remat options of the JAX model come with a later slice
-(ROADMAP.md Queue 1 item 6).
+construction.
+
+Activation checkpointing, the JAX model's remat options
+(`ops/remat.py` has the mechanism): `checkpoint_mixer` or `checkpoint_mlp`
+turns it on (both only turn it on, as in the JAX package). By default every
+block is one cell (`Block.forward`). With `remat_residual_only` the cells
+are cut at the residual stream instead: cell 0 is block 0's `pre`, cell i
+is block i-1's `post` then block i's `pre`, and a last cell runs block
+n-1's `post` (`final_post`), so a cell keeps only its input residual (a
+float32 one with `residual_in_fp32`). With `remat_group_size` g > 1 an
+outer cell spans g such cells (the last group has min(g, n_layer - i0)),
+keeping n_layer / g residuals. `remat_save_conv` (default on) saves each
+layer's conv output across its cell and `remat_save_filter` (default off)
+its filter bank, as the JAX policy `save_only_these_names` does. Dropout
+draws the same masks with and without checkpointing, so a seed gives the
+same loss; with a float32 residual stream (or block cells) the logits and
+gradients are the same bits as without checkpointing.
+
+Runs per train step of an n-layer model (forward and backward, dropout
+active or not), counted as the CPU tests count them; a ragged group
+counts with its own size g_j:
+  * block cells: kernel A (A4 on the 4-D route) 2n; the conv forward (B)
+    n with `remat_save_conv`, else 2n; the filter bank 2n;
+  * residual cells, g = 1: the same;
+  * residual cells, groups: an outer recompute runs again the first
+    g_j - 1 cells of its group, so kernel A runs 2n + sum_j (g_j - 1)
+    times (2.5 per layer at g = 2); the conv forward n with
+    `remat_save_conv` (the outer recompute replays the saved output), else
+    as kernel A; the filter bank as kernel A;
+  * `remat_save_filter`: the filter bank 2n in every mode (the forward,
+    then once in its own backward), and never in a recompute;
+  * kernels A' and C: n, once in the backward.
 """
 
 from __future__ import annotations
@@ -35,6 +65,7 @@ from torch import nn
 from hyena_dna_tpu_torch.models.blocks import Block
 from hyena_dna_tpu_torch.models.embeddings import GPT2Embeddings
 from hyena_dna_tpu_torch.models.nn import dropout
+from hyena_dna_tpu_torch.ops import remat
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 
 
@@ -48,8 +79,16 @@ class LMBackbone(nn.Module):
     def __init__(self, d_model: int, n_layer: int, d_inner: int, vocab_size: int,
                  layer: dict | None = None, residual_in_fp32: bool = False,
                  layer_norm_epsilon: float = 1e-5, resid_dropout: float = 0.0,
-                 embed_dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+                 embed_dropout: float = 0.1, dtype: torch.dtype = torch.float32,
+                 checkpoint_mixer: bool = False, checkpoint_mlp: bool = False,
+                 remat_residual_only: bool = False, remat_group_size: int = 1,
+                 remat_save_conv: bool = True, remat_save_filter: bool = False):
         super().__init__()
+        self.remat = checkpoint_mixer or checkpoint_mlp
+        self.residual_cells = self.remat and remat_residual_only
+        self.remat_group_size = max(1, remat_group_size)
+        self.remat_names = ((remat.CONV_OUT_TAG,) * remat_save_conv
+                            + (remat.FILTER_K_TAG,) * remat_save_filter)
         self.embeddings = GPT2Embeddings(d_model, vocab_size, dtype)
         self.layers = nn.ModuleList(
             Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon,
@@ -59,12 +98,45 @@ class LMBackbone(nn.Module):
         self.resid_dropout = resid_dropout
         self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
 
+    def _cell(self, fn, *args, generator=None):
+        return remat.checkpoint_cell(fn, *args, generator=generator, names=self.remat_names)
+
+    def _residual_cell(self, carry, i: int, generator=None):
+        """Cell i of the residual cut: [post of block i-1, pre of block i]."""
+        if i == 0:
+            return self.layers[0].pre(carry, None, generator)
+        return self.layers[i].pre(self.layers[i - 1].post(carry), carry, generator)
+
+    def _residual_group(self, carry, i0: int, g: int, generator=None):
+        """An outer cell over the g residual cells from i0, each a cell."""
+        for i in range(i0, i0 + g):
+            carry = self._cell(self._residual_cell, carry, i, generator=generator)
+        return carry
+
+    def _final_post(self, residual, generator=None):
+        return self.layers[-1].post(residual)
+
     def forward(self, input_ids: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         hidden = self.embeddings(input_ids)
-        residual = None
-        for layer in self.layers:
-            hidden, residual = layer(hidden, residual, generator)
+        n, g = len(self.layers), self.remat_group_size
+        if self.residual_cells:
+            residual = hidden
+            if g > 1:
+                for i0 in range(0, n, g):
+                    residual = self._cell(self._residual_group, residual, i0, min(g, n - i0),
+                                          generator=generator)
+            else:
+                for i in range(n):
+                    residual = self._cell(self._residual_cell, residual, i, generator=generator)
+            hidden = self._cell(self._final_post, residual)
+        else:
+            residual = None
+            for layer in self.layers:
+                if self.remat:
+                    hidden, residual = self._cell(layer, hidden, residual, generator=generator)
+                else:
+                    hidden, residual = layer(hidden, residual, generator)
         dropped = dropout(hidden, self.resid_dropout, self.training, generator)
         if residual is None:
             return self.ln_f(dropped)
@@ -80,7 +152,10 @@ class ConvLMHeadModel(nn.Module):
                  attn_layer_idx=None, max_position_embeddings: int = 0,
                  resid_dropout: float = 0.0, embed_dropout: float = 0.1,
                  generator: torch.Generator | None = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, checkpoint_mixer: bool = False,
+                 checkpoint_mlp: bool = False, remat_residual_only: bool = False,
+                 remat_group_size: int = 1, remat_save_conv: bool = True,
+                 remat_save_filter: bool = False):
         super().__init__()
         if attn_layer_idx:
             raise NotImplementedError(
@@ -92,7 +167,9 @@ class ConvLMHeadModel(nn.Module):
         self.backbone = LMBackbone(d_model, n_layer, d_inner,
                                    _pad_vocab(vocab_size, pad_vocab_size_multiple),
                                    layer, residual_in_fp32, layer_norm_epsilon,
-                                   resid_dropout, embed_dropout, dtype)
+                                   resid_dropout, embed_dropout, dtype,
+                                   checkpoint_mixer, checkpoint_mlp, remat_residual_only,
+                                   remat_group_size, remat_save_conv, remat_save_filter)
         self.init_weights(generator)
 
     @torch.no_grad()

@@ -16,7 +16,14 @@ CPU tensor the same calls run the kernels' plain versions.
 
 `fftconv_gated` is the conv with the Hyena post-gate: the composite route
 by default, or kernels E and E' (`ops/gated_fftconv.py`) when a gated mode
-is asked for and `gated_plan` covers the shape.
+is asked for and `gated_plan` covers the shape. On the composite route the
+ungated conv output is tagged `CONV_OUT_TAG` for activation checkpointing
+(`ops/remat.py`), as in the JAX package; the gated output is not.
+
+`fftconv_outer_4d` (JAX `fftconv_outer_4d`, the `HYENA_FRONT4` route) is
+the `autograd.Function` over the 4-D conv entries of
+`ops/fused_fftconv.py`: kernel B forward, kernel C's retransform route
+backward, on (B, C, h1 * r, m) operands.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from hyena_dna_tpu_torch.ops import remat
 
 
 def next_fast_fft_size(n: int) -> int:
@@ -97,13 +106,22 @@ class FFTConv(torch.autograd.Function):
         return du, dk, dD, None
 
 
+def _retransform_bwd(dy, u, k, D):
+    from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+
+    return FB.fftconv_bwd_retransform(u, dy.contiguous(), k, D)
+
+
 def fftconv(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
-    """Causal conv with skip: (B, C, L) in, (B, C, L) out in u's dtype."""
+    """Causal conv with skip: (B, C, L) in, (B, C, L) out in u's dtype.
+    Under a checkpointed cell that saves the conv output, the backward takes
+    the retransform route (`ops/remat.py`)."""
     from hyena_dna_tpu_torch.ops.fused_fftconv import saves_spectrum
 
     training = torch.is_grad_enabled() and (u.requires_grad or k.requires_grad
                                             or D.requires_grad)
-    return FFTConv.apply(u, k, D, training and saves_spectrum(*u.shape))
+    spectrum = training and saves_spectrum(*u.shape) and not remat.saving(remat.CONV_OUT_TAG)
+    return FFTConv.apply(u, k, D, spectrum)
 
 
 def fftconv_chunked(u: torch.Tensor, k: torch.Tensor,
@@ -192,7 +210,42 @@ def fftconv_gated(u: torch.Tensor, x0: torch.Tensor, k: torch.Tensor,
     if mode is not None and mode not in GATED_MODES:
         raise ValueError(f"gated conv mode {mode!r} is not one of {GATED_MODES}")
     if mode is None or not gated_plan(u, k):
-        v = fftconv_chunked(u, k, D)
+        v = remat.tagged(remat.CONV_OUT_TAG, lambda: fftconv_chunked(u, k, D),
+                         lambda y: remat.replay(y, _retransform_bwd, u, k, D))
         return (v * x0).to(u.dtype)
     training = torch.is_grad_enabled() and any(t.requires_grad for t in (u, x0, k, D))
     return GatedFFTConv.apply(u, x0, k, D, gated_mode(mode, u) if training else None)
+
+
+class FFTConvOuter4D(torch.autograd.Function):
+    """Kernel B forward, kernel C's retransform route backward, on the 4-D
+    layout of the outer plan (n1, r, m); saves (u4, k4, D)."""
+
+    @staticmethod
+    def forward(ctx, u4, k4, D, n1, r, m):
+        from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+
+        ctx.plan = (n1, r, m)
+        ctx.save_for_backward(u4, k4, D)
+        return FB.fftconv_outer_fwd4(u4, k4, D, n1, r, m)
+
+    @staticmethod
+    def backward(ctx, dy4):
+        return (*_outer4_bwd(dy4, *ctx.saved_tensors, plan=ctx.plan), None, None, None)
+
+
+def _outer4_bwd(dy4, u4, k4, D, plan):
+    from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+
+    return FB.fftconv_outer_bwd4(u4, dy4.contiguous(), k4, D, *plan)
+
+
+def fftconv_outer_4d(u4: torch.Tensor, k4: torch.Tensor, D: torch.Tensor,
+                     n1: int, r: int, m: int) -> torch.Tensor:
+    """causal_conv(u, k) + u * D on the (B, C, h1 * r, m) operands of the
+    outer plan (n1, r, m) (k4 (C, h1 * r, m)), differentiable in u4, k4 and
+    D; in u4's dtype. Tagged `CONV_OUT_TAG` (JAX `hyena.py:466`)."""
+    return remat.tagged(
+        remat.CONV_OUT_TAG, lambda: FFTConvOuter4D.apply(u4, k4, D, n1, r, m),
+        lambda y: remat.replay(y, lambda dy, *saved: _outer4_bwd(dy, *saved, plan=(n1, r, m)),
+                               u4, k4, D))

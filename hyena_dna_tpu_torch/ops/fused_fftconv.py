@@ -31,6 +31,18 @@ channel after an odd C) transformed at size n and stored in the four-step
 order of the kernels: Z[f1 + N1 f2] at f1 * N2 + f2, as (B, ceil(C/2), n, 2)
 float32. It is private to kernels B and C and their plain versions.
 
+The 4-D entries `fftconv_outer_fwd4` and `fftconv_outer_bwd4` are the torch
+entry points of the JAX `pallas_fftconv_n3.py` functions of the same names,
+which the `HYENA_FRONT4` route calls: operands (B, C, h1 * r, m) and k
+(C, h1 * r, m) for an outer plan (n1, r, m) with h1 = n1 / 2, returning y,
+or (du4, dk4, dD), in the same layout. The 4-D array is the flat padded
+(B, C, lp) array, lp = h1 * r * m = n / 2, so they run kernel B and kernel
+C's retransform route on views of it; next_fast_fft_size(2 lp) is the
+outer plan's n, the flat route's own size, so both routes run the same
+transforms. `plan_outer` and `OUTER_BY_N` are the port's copy of the JAX
+outer plan table (`pallas_fftconv_n3.py::plan_outer`, `_OUTER_BY_N`): the
+fft sizes and batch parities the outer route covered, and its factors.
+
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it runs its plain version on `torch.fft`.
 """
@@ -236,7 +248,18 @@ def _tpu_entry(name: str, spectrum: bool, fft_sizes, even_batch):
     return entry
 
 
-_OUTER_SIZES = tuple(1 << e for e in range(17, 22))
+# fft size n -> outer plan (n1, r, m) with n1 * r * m = n (the JAX
+# `pallas_fftconv_n3._OUTER_BY_N`); below 2^19 the outer route took odd B
+# only (`_OUTER_NEEDS_ODD_BATCH_BELOW`). The tests patch this table.
+OUTER_BY_N = {
+    1 << 17: (4, 256, 128),
+    1 << 18: (16, 128, 128),
+    1 << 19: (16, 128, 256),
+    1 << 20: (16, 256, 256),
+    1 << 21: (16, 512, 256),
+}
+OUTER_NEEDS_ODD_BATCH_BELOW = 1 << 19
+_OUTER_SIZES = tuple(OUTER_BY_N)
 # pallas_fftconv.py:1344 / :519 / :687 + :775 (saved spectrum), :1222 / :398 (u)
 fftconv_fused_bwd_spec_packed = _tpu_entry("fftconv_fused_bwd_spec_packed", True,
                                            (1 << 16, 1 << 17), True)
@@ -247,3 +270,46 @@ fftconv_fused_bwd_packed = _tpu_entry("fftconv_fused_bwd_packed", False,
 fftconv_fused_bwd = _tpu_entry("fftconv_fused_bwd", False, (1 << 16,), False)
 # pallas_fftconv_n3.py:629: odd B below 2^19, any B from 2^19
 fftconv_outer_bwd = _tpu_entry("fftconv_outer_bwd", False, _OUTER_SIZES, None)
+
+
+def plan_outer(n: int, channels: int, length: int, batch: int):
+    """(n1, r, m) if the outer route covers a conv of `length` at fft size
+    n and batch `batch`, else None (JAX `plan_outer`; `channels` is unused
+    there too)."""
+    spec = OUTER_BY_N.get(n)
+    if spec is None or (n < OUTER_NEEDS_ODD_BATCH_BELOW and batch % 2 == 0):
+        return None
+    n1, r, m = spec
+    return None if length > (n1 // 2) * r * m else spec
+
+
+def _outer_rows(n1: int, r: int, m: int, *tensors) -> int:
+    """lp = (n1 / 2) r m, after checking each (.., C, h1 r, m) operand."""
+    rows = (n1 // 2) * r
+    for t in tensors:
+        if t.dim() < 3 or tuple(t.shape[-2:]) != (rows, m):
+            raise ValueError(f"4-D operands must end in ({rows}, {m}) for the plan "
+                             f"{(n1, r, m)}; got {tuple(t.shape)}")
+    return rows * m
+
+
+def fftconv_outer_fwd4(u4: torch.Tensor, k4: torch.Tensor, D: torch.Tensor,
+                       n1: int, r: int, m: int) -> torch.Tensor:
+    """y4 (B, C, h1 r, m) = the causal conv with skip of the flat padded
+    (B, C, lp) u against k (C, lp): kernel B on a CUDA tensor, its plain
+    version on a CPU one (JAX `fftconv_outer_fwd4`)."""
+    lp = _outer_rows(n1, r, m, u4, k4)
+    b, c = u4.shape[:2]
+    return fftconv_fused(u4.reshape(b, c, lp), k4.reshape(c, lp), D).reshape(u4.shape)
+
+
+def fftconv_outer_bwd4(u4: torch.Tensor, dy4: torch.Tensor, k4: torch.Tensor,
+                       D: torch.Tensor, n1: int, r: int, m: int):
+    """(du4, dk4, dD) of `fftconv_outer_fwd4`, du4 and dk4 in the 4-D
+    layout and dD (C,): kernel C's retransform route on a CUDA tensor, its
+    plain version on a CPU one (JAX `fftconv_outer_bwd4`)."""
+    lp = _outer_rows(n1, r, m, u4, dy4, k4)
+    b, c = u4.shape[:2]
+    du, dk, dD = fftconv_bwd_retransform(u4.reshape(b, c, lp), dy4.reshape(b, c, lp),
+                                         k4.reshape(c, lp), D)
+    return du.reshape(u4.shape), dk.reshape(k4.shape), dD

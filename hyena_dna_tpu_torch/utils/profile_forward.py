@@ -4,12 +4,16 @@
     python -m hyena_dna_tpu_torch.utils.profile_forward --train --batch 4 --length 32768
     python -m hyena_dna_tpu_torch.utils.profile_forward --train --precision bf16
     python -m hyena_dna_tpu_torch.utils.profile_forward --train --precision bf16 --gated_conv specv
+    python -m hyena_dna_tpu_torch.utils.profile_forward --train --precision bf16 --residual fp32 \
+        --batch 1 --length 1000448 --remat residual --remat_group_size 2 [--front4] --reps 1
 
 Builds the hg38 model of `evals/hg38_inference.py` (d_model 256, 8 layers by
 default, random weights from `--seed`; float32, or with `--precision bf16`
 bfloat16 activations and residual as `bench.py --precision bf16` trains
-it; with `--gated_conv` the gate-fused conv of `bench.py --gated_conv`),
-warms up, then:
+it; with `--gated_conv` the gate-fused conv of `bench.py --gated_conv`;
+`--residual`, `--front4` and the activation checkpointing flags `--remat`,
+`--remat_group_size`, `--save_filter`, `--no_save_conv` as `bench.py` has
+them), warms up, then:
 
 * times `--reps` forwards (or, with `--train`, train steps of
   `train/step.py` with `bench.py`'s optimizer and synthetic batch) with CUDA
@@ -18,8 +22,9 @@ warms up, then:
   by CUDA events into forward (with the loss), backward and optimizer (clip
   and AdamW): `phase_ms`;
 * profiles one forward (or step) with `torch.profiler` and sums the device
-  time of its kernels into groups: kernels A (`fused_front_kernel`), A'
-  (`front_bwd_*`), B (`conv_fwd::*`, its four passes), C (`conv_bwd::*`),
+  time of its kernels into groups: kernels A (`front_fwd::*`), A'
+  (`front_bwd::*`), A4 (`front4_fwd::*`), A4' (`front4_bwd::*`), B
+  (`conv_fwd::*`, its four passes), C (`conv_bwd::*`),
   D (`add_ln_fwd_kernel`), D' (`add_ln_bwd_kernel`, `add_ln_sum_kernel`),
   E (`conv_gfwd::*`), E' (`conv_gbwd::*`),
   matrix products (cuBLAS, `nvjet` for bf16 on Hopper), and the rest
@@ -44,8 +49,10 @@ from hyena_dna_tpu_torch.ops.fftconv import GATED_MODES
 
 GROUPS = (("kernel_d_bwd", ("add_ln_bwd_kernel", "add_ln_sum_kernel")),
           ("kernel_d", ("add_ln_fwd_kernel",)),
-          ("kernel_a_bwd", ("front_bwd_",)),
-          ("kernel_a", ("fused_front_kernel",)),
+          ("kernel_a_bwd", ("front_bwd::",)),
+          ("kernel_a", ("front_fwd::",)),
+          ("kernel_a4_bwd", ("front4_bwd::",)),
+          ("kernel_a4", ("front4_fwd::",)),
           ("kernel_b", ("conv_fwd::",)),
           ("kernel_c", ("conv_bwd::",)),
           ("kernel_e", ("conv_gfwd::",)),
@@ -117,6 +124,13 @@ def main(argv=None):
                     help="activation dtype; bf16 also keeps a bf16 residual stream")
     ap.add_argument("--gated_conv", default="off", choices=("off",) + GATED_MODES,
                     help="the gate-fused conv (kernels E, E') and its backward route")
+    ap.add_argument("--residual", default=None, choices=("bf16", "fp32"),
+                    help="residual stream dtype (default: as --precision)")
+    ap.add_argument("--front4", action="store_true", help="the 4-D conv-layout route")
+    ap.add_argument("--remat", default="off", choices=("off", "block", "residual"))
+    ap.add_argument("--remat_group_size", type=int, default=1)
+    ap.add_argument("--save_filter", action="store_true")
+    ap.add_argument("--no_save_conv", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_forward measures the card; no CUDA device is available")
@@ -127,8 +141,13 @@ def main(argv=None):
     model = build_model(args.d_model, args.n_layer, args.length,
                         generator=torch.Generator().manual_seed(args.seed),
                         dtype=torch.bfloat16 if bf16 else torch.float32,
-                        residual_in_fp32=not bf16,
-                        gated_conv=None if args.gated_conv == "off" else args.gated_conv).to("cuda")
+                        residual_in_fp32=(args.residual or args.precision) == "fp32",
+                        gated_conv=None if args.gated_conv == "off" else args.gated_conv,
+                        front4=args.front4, checkpoint_mixer=args.remat != "off",
+                        remat_residual_only=args.remat == "residual",
+                        remat_group_size=args.remat_group_size,
+                        remat_save_conv=not args.no_save_conv,
+                        remat_save_filter=args.save_filter).to("cuda")
     phase_ms = None
     if args.train:
         run, phases = _train_runner(model, args)
@@ -173,6 +192,10 @@ def main(argv=None):
     what = "step" if args.train else "forward"
     print(json.dumps({
         "card": smi, "mode": what, "precision": args.precision, "gated_conv": args.gated_conv,
+        "residual": args.residual or args.precision, "front4": args.front4, "remat": args.remat,
+        "remat_group_size": args.remat_group_size, "remat_save_filter": args.save_filter,
+        "remat_save_conv": not args.no_save_conv,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "batch": args.batch, "length": args.length,
         "d_model": args.d_model, "n_layer": args.n_layer, f"{what}_ms": mean_ms, "rep_ms": rep_ms,
         "tokens_per_s": args.batch * args.length / mean_ms * 1e3,

@@ -399,3 +399,94 @@ def test_gated_conv_autograd_card_matches_cpu(card, mode, monkeypatch):
         results.append([y] + list(grads))
     for got, want in zip(results[1], results[0]):
         _close(got, want, 1e-4, 1e-4)
+
+
+# kernels A4 and A4' (the 4-D conv layout): (B, L, d, rows_pad, m, tile_l)
+FRONT4_SHAPES = [(1, 1536, 8, 16, 128, 512), (2, 512, 40, 8, 128, 256),
+                 (1, 131072, 256, 1024, 128, 512)]
+
+
+def _front4_args(B, L, d, seed, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, L, d, generator=g).to(dtype), torch.randn(d, 3 * d, generator=g) * 0.05,
+            torch.randn(3 * d, generator=g) * 0.1, torch.randn(3, 3 * d, generator=g),
+            torch.randn(3 * d, generator=g) * 0.1]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,d,rows,m,tile", FRONT4_SHAPES)
+def test_fused_front4_matches_plain(card, B, L, d, rows, m, tile, dtype):
+    """Kernel A4 against `reference_fwd4`; the tail past L is exactly zero."""
+    args = _front4_args(B, L, d, L + d, getattr(torch, dtype))
+    before = FF.KERNEL4.launches
+    vx4, x04 = FF.fused_proj_conv_gate4(*(a.to(card) for a in args), rows, m, tile)
+    assert FF.KERNEL4.launches == before + 1 and vx4.shape == (B, d, rows, m)
+    ref = FF.reference_fwd4(*args, rows, m)
+    tol = (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
+    for out, want in zip((vx4, x04), ref):
+        _close(out, want, *tol)
+        assert not out.reshape(B, d, -1)[..., L:].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,d,rows,m,tile", FRONT4_SHAPES)
+def test_fused_front4_bwd_matches_plain(card, B, L, d, rows, m, tile, dtype):
+    """Kernel A4' against `reference_bwd4`, the cotangents random in the tail
+    too (both ignore it); du in the I/O dtype, the parameter gradients 1e-3
+    of their max (sums over B * L rows in another order)."""
+    dt = getattr(torch, dtype)
+    args = _front4_args(B, L, d, L + 2 * d, dt)
+    g = torch.Generator().manual_seed(7)
+    args += [torch.randn(B, d, rows, m, generator=g).to(dt) for _ in range(2)]
+    before = FF.KERNEL4_BWD.launches
+    out = FF.front4_bwd(*(a.to(card) for a in args))
+    assert FF.KERNEL4_BWD.launches == before + 1
+    ref = FF.reference_bwd4(*args)
+    _close(out[0], ref[0], *((1e-4, 1e-4) if dtype == "float32" else BF16_TOL))
+    for got, want in zip(out[1:], ref[1:]):
+        _close(got, want, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("B,L,plan", [(1, 1536, (4, 8, 128)), (3, 100000, (16, 128, 128))])
+def test_outer4_entries_are_the_flat_kernels(card, B, L, plan):
+    """`fftconv_outer_fwd4` / `fftconv_outer_bwd4` give the bits of kernel B
+    and kernel C's retransform route on the padded flat operands."""
+    n1, r, m = plan
+    rows = n1 // 2 * r
+    lp = rows * m
+    g = torch.Generator().manual_seed(L)
+    pad = lambda t: torch.nn.functional.pad(t, (0, lp - L)).to(card)
+    u, dy = (pad(torch.randn(B, 4, L, generator=g)) for _ in range(2))
+    k = pad(torch.randn(4, L, generator=g) * torch.exp(-torch.arange(L) / 64.0))
+    D = torch.randn(4, generator=g).to(card)
+    four = lambda t: t.reshape(*t.shape[:-1], rows, m)
+    y4 = FB.fftconv_outer_fwd4(four(u), four(k), D, *plan)
+    grads4 = FB.fftconv_outer_bwd4(four(u), four(dy), four(k), D, *plan)
+    flat = [FB.fftconv_fused(u, k, D), *FB.fftconv_bwd_retransform(u, dy, k, D)]
+    for a, b in zip((y4, *grads4), flat):
+        assert torch.equal(a.reshape(b.shape), b)
+
+
+@pytest.mark.parametrize("remat", [("block", 1, False), ("residual", 2, False),
+                                   ("residual", 3, True)])
+def test_remat_grads_on_card_match_plain(card, remat, monkeypatch):
+    """A 4-layer bf16 model (float32 residual) in training mode with dropout,
+    checkpointed (and on the 4-D route), against the plain model on the
+    card: logits and every gradient within 1e-6 of each max|g| (the same
+    bits are expected). The outer plan table is patched so the 4-D route
+    engages at L = 1536."""
+    monkeypatch.setitem(FB.OUTER_BY_N, 4096, (4, 8, 128))
+    mode, group, front4 = remat
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(7, 12, size=(1, 1537))).to(card)
+    runs = []
+    for kw in ({}, dict(checkpoint_mixer=True, remat_residual_only=mode == "residual",
+                        remat_group_size=group, front4=front4)):
+        model = build_model(64, 4, 1536, generator=torch.Generator().manual_seed(0),
+                            dtype=BF16, residual_in_fp32=True, **kw).to(card).train()
+        logits = model(tokens[:, :-1], generator=torch.Generator(card).manual_seed(1))
+        cross_entropy(logits, tokens[:, 1:]).backward()
+        runs.append((logits.detach().float(), {n: p.grad for n, p in model.named_parameters()}))
+    (la, ga), (lb, gb) = runs
+    assert (la - lb).abs().max() <= 1e-6 * la.abs().max()
+    for name in ga:
+        assert (ga[name] - gb[name]).abs().max() <= 1e-6 * ga[name].abs().max(), name
