@@ -7,19 +7,29 @@ Phases, in order; any failure raises, exits non-zero and prints no final
 line:
 
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
-            nvcc per source, eight sources, started together): kernels A and
-            A' (the front end forward and backward), B and C (the FFT conv
-            forward and backward), D and D' (the fused residual-add + LN
-            forward and backward), E and E' (the gate-fused FFT conv forward
-            and backward);
+            nvcc per source, twelve sources, started together): kernels A and
+            A' (the front end forward and backward), A4 and A4' (the same on
+            the 4-D conv layout), B and C (the FFT conv forward and
+            backward), D and D' (the fused residual-add + LN forward and
+            backward), E and E' (the gate-fused FFT conv forward and
+            backward), F and F' (the fused MLP forward and backward);
 2. kernels  each kernel against its plain PyTorch version on the card, in the
             working dtype, at the shapes of the TPU routes it replaces, with
             the tolerances below; kernel, plain and library-call times.
-            Kernels A and A' in float32 and in bfloat16, D and D' at the bf16
-            model's 4 x 32768 x 256 rows; E at 4 x 32768 x 256 bf16 (fft
-            2^16) with each of its outputs' sets (y; y, v and u's spectrum
-            for specv; y and the spectrum for spec) and at 2 x 65536 (fft
-            2^17); E' at 4 x 32768 on each route, and specv at 2 x 65536;
+            Kernels A and A' in float32 and in bfloat16; D and D' at the
+            bf16 model's 4 x 32768 x 256 rows; B and C through the named
+            entry of each TPU row with its plan on padded operands, and C
+            at the flat 1M step's unpadded 1 x 1,000,448, then the routes no
+            default path takes: the narrow plan at fft 2^19, the 3-factor
+            plans at fft 2^19-2^21, kernel C's dk-spectrum
+            mode at 4 x 32768; E and E' on each route at 4 x 32768 and 2 x
+            65536; A4 and A4' at 1 x 1,000,448 and 1 x 131072; F and F' at
+            the MLP width (256 -> 1024 -> 256) on 4 x 32768 bf16 rows and
+            1 x 32768 float32 rows; the 4-D conv entries bit-equal to the flat
+            kernel B / C calls. Then this slice's path: `Mlp(256, 1024,
+            use_fused=True)` in bf16, forward and backward at 4 x 32768, its
+            launch counts zeroed just before and read just after (F and F'
+            once each), held against the two-product route;
 3. parity   the full-width model (d=256 x 8 layers, random weights from a
             seeded torch.Generator) on the CPU through the plain versions and
             on the card through the kernels: logits at (B=2, L=8192)
@@ -31,7 +41,12 @@ line:
             loss and every gradient of the bf16 model on the specv route at
             (B=2, L=24576) (float32 conv I/O) and (B=2, L=32768) (bfloat16
             conv I/O), and of the float32 model at (B=2, L=24576) on the
-            spec and the retransform routes;
+            spec and the retransform routes; then, on the card alone at 1 x
+            131072 in bf16, residual cells g 2 against no checkpointing and
+            the 4-D route against the flat one, each the same bits in the
+            logits and every gradient, and the plain step's repeat the same
+            bits too; last the float32 model with residual cells and the
+            4-D route, card against CPU, at 1 x 65536;
 4. serving  the port's `hg38_inference.main` on a synthetic FASTA and a
             reference-named `.pt`: 2 batches of 4 x 32768 tokens, then one
             1,000,448-token window. Kernel A must run n_layer times per
@@ -46,22 +61,26 @@ line:
             4 x 32768 with `--gated_conv` specv, spec and retransform: kernels
             E and E' n_layer times per step, B and C never, D and D' as
             before; each step's ms is printed beside the composite bf16
-            step's of the same run.
-Launch counts are zeroed just before each request of phases 4 and 5 and
-read just after it.
+            step's of the same run. Then the long-context steps: 1 x
+            1,000,448 bf16 with a float32 residual and residual cells (g 2,
+            g 1, g 2 on the 4-D route), and 1 x 450,048 with block cells.
+            F and F' never run in a training step (`Block` does not set
+            `use_fused`, as in the JAX package).
+Launch counts are zeroed just before this slice's path in phase 2 and
+before each request of phases 4 and 5, and read just after it.
 
 It then prints the card's name and power limit, one JSON line
-{"kernels": [...]} with each kernel's launches in phases 4 and 5, its error,
+{"kernels": [...]} with each kernel's launches on those paths, its error,
 times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
 float32, with their bf16 numbers under "bf16"; kernels E and E' on the
-specv route, the gated step's, with every route's numbers under "routes"),
-and last
+specv route, the gated step's; A4 and A4' at the 1M step's shape; every
+row of B, C, E, E', A4, A4', F and F' under "routes"), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
 launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
 operations at 67 TFLOP/s for float32 inputs or at the bf16 tensor cores'
-989 TFLOP/s for bf16 inputs (H100 SXM data sheet), the least time the card
-could take.
+989 TFLOP/s for bf16 inputs and for the bf16 products of F and F' (H100
+SXM data sheet), the least time the card could take.
 """
 
 from __future__ import annotations
@@ -199,7 +218,10 @@ def check_front(FF, B, L, seed, dtype="float32"):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_conv(FB, B, L, dtype, route, seed):
+def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=()):
+    """Kernel B through `entry` (a named TPU-row entry with its plan, on
+    operands padded to L; by default the generic `fftconv_fused`) against
+    `fftconv_ref`."""
     import torch
 
     from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
@@ -211,7 +233,8 @@ def check_conv(FB, B, L, dtype, route, seed):
     decay = torch.exp(-torch.arange(L, device="cuda") / (L / 8))
     k = (torch.randn(C, L, device="cuda", generator=g) * 0.05 * decay).to(dt)
     D = torch.randn(C, device="cuda", generator=g)
-    y = FB.fftconv_fused(u, k, D)
+    entry = entry or FB.fftconv_fused
+    y = entry(u, k, D, *plan)
     torch.cuda.synchronize()
     max_abs, max_rel = compare(y, fftconv_ref(u, k, D), dtype)
     uf, kf = u.float(), k.float()
@@ -225,8 +248,9 @@ def check_conv(FB, B, L, dtype, route, seed):
     flops = B * C * (5 * n * log_n + 3 * n + 2 * L) + C * 2.5 * n * log_n
     bound_ms, bound_by = bound(nbytes, flops)
     return {"name": "fftconv", "shape": f"B={B} C={C} L={L} fft=2^{log_n} {dtype}",
-            "route": route, "max_abs_err": max_abs, "max_rel_err": max_rel,
-            "ms": time_ms(lambda: FB.fftconv_fused(u, k, D)),
+            "route": route, "entry": entry.__name__, "plan": list(plan),
+            "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "ms": time_ms(lambda: entry(u, k, D, *plan)),
             "plain_ms": time_ms(lambda: fftconv_ref(u, k, D)),
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -403,10 +427,11 @@ def card_pair(build_model, cross_entropy, kernels, B, L, seed, base, other, labe
     """The bf16 model (float32 residual, as the long-context config) on the
     card in two settings of `remat_kwargs` with the same weights, the same
     batch and the same dropout generator seed (training mode): logits and
-    every gradient within 1e-6 of each max|g| (checkpointing and the 4-D
-    route only change what is stored, and every port kernel sums in a fixed
-    order). `base` runs twice: `repeat_*` says how far the card's own
-    repeat of the same step lands."""
+    every gradient, the tied embedding's included, the same bits
+    (checkpointing and the 4-D route only change what is stored; every port
+    kernel sums in a fixed order, and the one-hot token lookup's backward is
+    a cuBLAS product). `base` runs twice, and its repeat must give the same
+    bits too."""
     import torch
 
     runs = []
@@ -444,11 +469,11 @@ def card_pair(build_model, cross_entropy, kernels, B, L, seed, base, other, labe
     launches = [r[2] for r in runs]
     expect = [expected_launches("bf16", 1, None, *kw, residual="fp32")
               for kw in (base, other, base)]
-    ok = logit_err <= 1e-6 and worst <= 1e-6 and launches == expect
+    ok = unequal == 0 and rep_unequal == 0 and launches == expect
     log({"phase": "grad_parity", "label": label, "B": B, "L": L, "precision": "bf16",
          "residual": "fp32", "base": list(base), "other": list(other),
          "logits_err_over_max": logit_err, "worst_grad_err_over_max": worst,
-         "worst_param": worst_name, "tol": 1e-6, "unequal_tensors": unequal,
+         "worst_param": worst_name, "tol": "equal bits", "unequal_tensors": unequal,
          "repeat_logits_err_over_max": rep_logit, "repeat_worst_grad_err_over_max": rep_worst,
          "repeat_worst_param": rep_name, "repeat_unequal_tensors": rep_unequal,
          "launches": launches[:2], "peak_gib": [r[3] for r in runs[:2]], "ok": ok})
@@ -515,10 +540,11 @@ def check_add_ln(AL, B, L, seed):
          "library_ms": time_ms(library_bwd), "bound_ms": bb_, "bound_by": bby}]
 
 
-def check_conv_bwd(FB, entry, B, L, dtype, route, seed):
-    """Kernel C through one TPU row's entry point against `fftconv_bwd_ref`
-    (du and dk in the I/O dtype, dD float32). A spectrum-route entry gets
-    u's spectrum from kernel B's `save_spectrum`."""
+def check_conv_bwd(FB, entry, B, L, dtype, route, seed, plan=()):
+    """Kernel C through one TPU row's entry point, with its plan on operands
+    padded to L, against `fftconv_bwd_ref` (du in the I/O dtype, dk in it
+    or float32 as the entry returns it, dD float32). A spectrum-route entry
+    gets u's spectrum from kernel B's `save_spectrum`."""
     import torch
 
     from hyena_dna_tpu_torch.ops.fftconv import next_fast_fft_size
@@ -533,12 +559,14 @@ def check_conv_bwd(FB, entry, B, L, dtype, route, seed):
     D = torch.randn(C, device="cuda", generator=g)
     spectrum = getattr(entry, "spectrum", False)  # the TPU row read u's saved spectrum
     x = FB.fftconv_fused(u, k, D, save_spectrum=True)[1] if spectrum else u
-    out = entry(x, dy, k, D)
+    out = entry(x, dy, k, D, *plan)
     torch.cuda.synchronize()
-    ref = FB.fftconv_bwd_ref(u, dy, k, D)
-    errs = {name: compare(o, r, "float32" if name == "dD" else dtype)
+    dk_dtype = out[1].dtype
+    ref = FB.fftconv_bwd_ref(u, dy, k, D, dk_dtype=dk_dtype)
+    errs = {name: compare(o, r, "float32" if o.dtype == torch.float32 else dtype)
             for name, o, r in zip(("du", "dk", "dD"), out, ref)}
-    plain_bwd = FB.fftconv_bwd_spectrum_ref if spectrum else FB.fftconv_bwd_ref
+    plain_bwd = (FB.fftconv_bwd_spectrum_ref if spectrum
+                 else lambda *a: FB.fftconv_bwd_ref(*a, dk_dtype=dk_dtype))
     uf, dyf, kf = u.float(), dy.float(), k.float()
 
     def library():  # cuFFT through torch.fft
@@ -549,17 +577,17 @@ def check_conv_bwd(FB, entry, B, L, dtype, route, seed):
 
     size = u.element_size()
     x_bytes = x.numel() * x.element_size()
-    nbytes = x_bytes + size * (2 * B * C * L + 2 * C * L) + 8 * C
+    nbytes = x_bytes + size * (2 * B * C * L + C * L) + out[1].element_size() * C * L + 8 * C
     log_n = int(math.log2(n))
     transforms = (2 if spectrum else 3) * B * C + 2 * C
     flops = transforms * 2.5 * n * log_n + B * C * 4 * n
     bound_ms, bound_by = bound(nbytes, flops)
     return {"name": "fftconv_bwd", "shape": f"B={B} C={C} L={L} fft=2^{log_n} {dtype}",
-            "route": route, "entry": entry.__name__,
+            "route": route, "entry": entry.__name__, "plan": list(plan),
             "errors": {k: v[0] for k, v in errs.items()},
             "max_abs_err": max(e[0] for e in errs.values()),
             "max_rel_err": max(e[1] for e in errs.values()),
-            "ms": time_ms(lambda: entry(x, dy, k, D)),
+            "ms": time_ms(lambda: entry(x, dy, k, D, *plan)),
             "plain_ms": time_ms(lambda: plain_bwd(x, dy, k, D)),
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -665,6 +693,159 @@ def check_gated_bwd(GE, route, B, L, dtype, seed):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def check_dk_spec(FB, B, L, dtype, plan, seed):
+    """Kernel C's dk-spectrum mode through the JAX `fftconv_fused_dk_spec`
+    entry against `fftconv_dk_spec_ref` (both (C, n) float32 re and im, in
+    natural frequency order)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, dt = D_MODEL, getattr(torch, dtype)
+    n = plan[0] * plan[1]
+    u, dy = (torch.randn(B, C, L, device="cuda", generator=g).to(dt) for _ in range(2))
+    out = FB.fftconv_fused_dk_spec(u, dy, *plan)
+    torch.cuda.synchronize()
+    ref = FB.fftconv_dk_spec_ref(u, dy, n)
+    errs = {name: compare(o, r, "float32") for name, o, r in zip(("re", "im"), out, ref)}
+    uf, dyf = u.float(), dy.float()
+
+    def library():  # cuFFT through torch.fft: the half spectrum holds the same sums
+        return (torch.fft.rfft(dyf, n=n) * torch.fft.rfft(uf, n=n).conj()).sum(0)
+
+    log_n = int(math.log2(n))
+    nbytes = u.element_size() * 2 * B * C * L + 8 * C * n
+    bound_ms, bound_by = bound(nbytes, 2 * B * C * 2.5 * n * log_n + B * C * 8 * n)
+    return {"name": "fftconv_bwd", "shape": f"B={B} C={C} L={L} fft=2^{log_n} {dtype}",
+            "route": "dk_spec pallas_fftconv.py:599", "entry": "fftconv_fused_dk_spec",
+            "plan": list(plan), "errors": {k: v[0] for k, v in errs.items()},
+            "max_abs_err": max(e[0] for e in errs.values()),
+            "max_rel_err": max(e[1] for e in errs.values()),
+            "ms": time_ms(lambda: FB.fftconv_fused_dk_spec(u, dy, *plan)),
+            "plain_ms": time_ms(lambda: FB.fftconv_dk_spec_ref(u, dy, n)),
+            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def mlp_inputs(B, L, dtype, seed):
+    """x and dy (B L rows) in `dtype`, float32 parameters at the hg38 model's
+    MLP width (d_model -> 4 d_model -> d_model) and init scales."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    d, dh, dt = D_MODEL, 4 * D_MODEL, getattr(torch, dtype)
+    x = torch.randn(B * L, d, device="cuda", generator=g).to(dt)
+    dy = torch.randn(B * L, d, device="cuda", generator=g).to(dt)
+    w1 = torch.randn(d, dh, device="cuda", generator=g) * 0.02
+    b1 = torch.randn(dh, device="cuda", generator=g) * 0.02
+    w2 = torch.randn(dh, d, device="cuda", generator=g) * 0.02 / math.sqrt(2 * N_LAYER)
+    b2 = torch.randn(d, device="cuda", generator=g) * 0.02
+    return x, dy, (w1, b1, w2, b2)
+
+
+def library_mlp(x, w1, b1, w2, b2):
+    """The cuBLAS route, `Mlp(use_fused=False)` in x's dtype with these weights."""
+    import torch
+
+    from hyena_dna_tpu_torch.models.blocks import Mlp
+
+    m = Mlp(w1.shape[0], w1.shape[1], dtype=x.dtype, out_features=w2.shape[1]).cuda()
+    with torch.no_grad():
+        for lin, w, b in ((m.fc1, w1, b1), (m.fc2, w2, b2)):
+            lin.weight.copy_(w.t())
+            lin.bias.copy_(b)
+    return m
+
+
+def check_mlp(MF, B, L, dtype, seed):
+    """Kernels F and F' against `mlp_fused_ref` and `mlp_fused_bwd_ref` at
+    the hg38 model's MLP width. Every product takes bf16 operands on both
+    sides, so a rounding of h or dh that flips between them moves a term by
+    a bf16 step: y, dx and the float32 weight gradients at the bf16 TOL.
+    Returns the two kernels' rows."""
+    import torch
+
+    x, dy, (w1, b1, w2, b2) = mlp_inputs(B, L, dtype, seed)
+    n, d = x.shape
+    dh, d_out = w1.shape[1], w2.shape[1]
+    y = MF.mlp_fused_fwd(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    fwd_err = compare(y, MF.mlp_fused_ref(x, w1, b1, w2, b2), "bfloat16")
+    out = MF.mlp_fused_bwd(x, dy, w1, b1, w2)
+    torch.cuda.synchronize()
+    ref = MF.mlp_fused_bwd_ref(x, dy, w1, b1, w2)
+    names = ("dx", "dw1", "db1", "dw2", "db2")
+    bwd_err = {nm: compare(o, r, "bfloat16") for nm, o, r in zip(names, out, ref)}
+    lib = library_mlp(x, w1, b1, w2, b2)
+    leaves = [x.detach().clone().requires_grad_(), *lib.parameters()]
+
+    def library_bwd():  # forward + backward of the cuBLAS route
+        with torch.enable_grad():
+            return torch.autograd.grad(lib(leaves[0]), leaves, dy)
+
+    size, weights = x.element_size(), d * dh + dh * d_out
+    fwd_bytes = size * n * (d + d_out) + 2 * weights + 4 * (dh + d_out)
+    bwd_bytes = size * n * (2 * d + d_out) + 2 * weights + 4 * (weights + dh + d_out) + 4 * dh
+    fb, fby = bound(fwd_bytes, 2 * n * (d * dh + dh * d_out), BF16_FLOPS)
+    bb_, bby = bound(bwd_bytes, 2 * n * dh * (3 * d + 2 * d_out), BF16_FLOPS)
+    shape = f"B={B} L={L} d={d} dh={dh} d_out={d_out} {dtype}"
+    return [
+        {"name": "mlp_fused", "shape": shape, "route": "pallas_mlp.py:104",
+         "max_abs_err": fwd_err[0], "max_rel_err": fwd_err[1],
+         "ms": time_ms(lambda: MF.mlp_fused_fwd(x, w1, b1, w2, b2)),
+         "plain_ms": time_ms(lambda: MF.mlp_fused_ref(x, w1, b1, w2, b2)),
+         "library_ms": time_ms(lambda: lib(x)), "bound_ms": fb, "bound_by": fby},
+        {"name": "mlp_fused_bwd", "shape": shape, "route": "pallas_mlp.py:129",
+         "errors": {k: v[0] for k, v in bwd_err.items()},
+         "max_abs_err": max(e[0] for e in bwd_err.values()),
+         "max_rel_err": max(e[1] for e in bwd_err.values()),
+         "ms": time_ms(lambda: MF.mlp_fused_bwd(x, dy, w1, b1, w2)),
+         "plain_ms": time_ms(lambda: MF.mlp_fused_bwd_ref(x, dy, w1, b1, w2)),
+         "library_ms": time_ms(library_bwd), "bound_ms": bb_, "bound_by": bby}]
+
+
+def mlp_module(kernels, B, L, seed):
+    """This slice's path: `Mlp(256, 1024, use_fused=True, dtype=bfloat16)`
+    forward and backward on B x L tokens, the launch counts zeroed just
+    before and read just after (kernels F and F' once each, nothing else),
+    held against `use_fused=False` on the same weights: the output within
+    the bf16 model's card-vs-CPU logit tolerance (2e-2 of its max; the
+    two-product route rounds pre to bf16 before its GeLU, F keeps it
+    float32) and every gradient within 3e-2 of its max|g| (GRAD_TOL)."""
+    import torch
+
+    from hyena_dna_tpu_torch.models.blocks import Mlp
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, L, D_MODEL, device="cuda", generator=g).to(torch.bfloat16)
+    dy = torch.randn(B, L, D_MODEL, device="cuda", generator=g).to(torch.bfloat16)
+    torch.manual_seed(seed)
+    fused = Mlp(D_MODEL, 4 * D_MODEL, dtype=torch.bfloat16, use_fused=True).cuda()
+    plain = Mlp(D_MODEL, 4 * D_MODEL, dtype=torch.bfloat16).cuda()
+    plain.load_state_dict(fused.state_dict())
+    runs = []
+    for m in (fused, plain):
+        leaf = x.clone().requires_grad_()
+        for k in kernels:
+            k.launches = 0
+        y = m(leaf)
+        grads = torch.autograd.grad(y, [leaf, *m.parameters()], dy)
+        torch.cuda.synchronize()
+        runs.append((y, grads, {k.name: k.launches for k in kernels}))
+    (y, grads, launches), (y_ref, grads_ref, _) = runs
+    y_err = ((y.float() - y_ref.float()).abs().max() / y_ref.float().abs().max()).item()
+    names = ["x", *(n for n, _ in fused.named_parameters())]
+    errs = {n: ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            for n, a, b in zip(names, grads, grads_ref)}
+    expect = {k.name: int(k.name in ("mlp_fused", "mlp_fused_bwd")) for k in kernels}
+    ok = (y_err <= LOGIT_TOL["bfloat16"] and all(v <= GRAD_TOL["bfloat16"] for v in errs.values())
+          and all(math.isfinite(v) for v in [y_err, *errs.values()]) and launches == expect)
+    log({"phase": "mlp_module", "B": B, "L": L, "d": D_MODEL, "dh": 4 * D_MODEL,
+         "dtype": "bfloat16", "y_err_over_max": y_err, "grad_err_over_max": errs,
+         "tol": [LOGIT_TOL["bfloat16"], GRAD_TOL["bfloat16"]], "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("Mlp(use_fused=True) disagrees with the two-product route")
+    return launches
+
+
 def model_kwargs(precision: str) -> dict:
     """`build_model` arguments of the float32 model (float32 residual) or the
     bf16 model (bfloat16 activations and residual stream)."""
@@ -712,7 +893,8 @@ def expected_launches(precision: str, per_pass: int, gated: str | None = None,
     return {"fused_front": a[0], "fused_front_bwd": a[1],
             "fused_front4": a4[0], "fused_front4_bwd": a4[1],
             "fftconv": conv, "fftconv_bwd": conv, "add_ln": d_fwd * per_pass,
-            "add_ln_bwd": d_bwd * per_pass, "fftconv_gated": gconv, "fftconv_gated_bwd": gconv}
+            "add_ln_bwd": d_bwd * per_pass, "fftconv_gated": gconv, "fftconv_gated_bwd": gconv,
+            "mlp_fused": 0, "mlp_fused_bwd": 0}
 
 
 def grad_parity(build_model, cross_entropy, kernels, B, L, dtype, seed, precision="fp32",
@@ -903,13 +1085,13 @@ def main() -> int:
     from hyena_dna_tpu_torch.ops import fused_fftconv as FB
     from hyena_dna_tpu_torch.ops import fused_front as FF
     from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+    from hyena_dna_tpu_torch.ops import mlp_fused as MF
     from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
+    from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    set_card_numerics()
     kernels = [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD,
-               GE.KERNEL, GE.KERNEL_BWD, FF.KERNEL4, FF.KERNEL4_BWD]
+               GE.KERNEL, GE.KERNEL_BWD, FF.KERNEL4, FF.KERNEL4_BWD, MF.KERNEL, MF.KERNEL_BWD]
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0)})
 
@@ -923,23 +1105,52 @@ def main() -> int:
     rows += check_add_ln(AL, 4, 32768, 9)
     bf16_rows = [check_front(FF, 4, 32768, 10, "bfloat16"),
                  check_front_bwd(FF, 4, 32768, 18, "bfloat16")]
+    # kernel B through each forward TPU row's named entry, with its plan on
+    # padded operands (the generic call at 2 x 8192 and at the 1M model shape)
+    p16, p18 = (256, 256, 8), (512, 512, 8)
     rows += [check_conv(FB, 2, 8192, "float32", "XLA FFT on the TPU", 3),
-             check_conv(FB, 4, 32768, "bfloat16", "pallas_fftconv.py:1119 packed", 4),
-             check_conv(FB, 1, 32768, "bfloat16", "pallas_fftconv.py:296 unpacked", 5),
-             check_conv(FB, 1, 131072, "bfloat16", "pallas_fftconv_n3.py:413 outer", 6),
+             check_conv(FB, 4, 32768, "bfloat16", "pallas_fftconv.py:1119 packed", 4,
+                        FB.fftconv_fused_fwd_packed, p16),
+             check_conv(FB, 1, 32768, "bfloat16", "pallas_fftconv.py:296 unpacked", 5,
+                        FB.fftconv_fused_fwd, p16),
+             check_conv(FB, 1, 131072, "bfloat16", "pallas_fftconv_n3.py:413 outer", 6,
+                        FB.fftconv_outer_fwd, (16, 128, 128)),
              check_conv(FB, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:413 outer", 7)]
-    for entry, B, L, dtype, route, seed in (
-            (None, 2, 8192, "float32", "XLA FFT on the TPU", 20),
-            (FB.fftconv_fused_bwd_spec_packed, 4, 32768, "bfloat16", "pallas_fftconv.py:1344", 21),
-            (FB.fftconv_fused_bwd_packed, 4, 32768, "bfloat16", "pallas_fftconv.py:1222", 22),
-            (FB.fftconv_fused_bwd_spec, 1, 32768, "bfloat16", "pallas_fftconv.py:519", 23),
-            (FB.fftconv_fused_bwd, 1, 32768, "bfloat16", "pallas_fftconv.py:398", 24),
+    for entry, B, L, dtype, route, seed, plan in (
+            (None, 2, 8192, "float32", "XLA FFT on the TPU", 20, ()),
+            (FB.fftconv_fused_bwd_spec_packed, 4, 32768, "bfloat16", "pallas_fftconv.py:1344", 21,
+             p16),
+            (FB.fftconv_fused_bwd_packed, 4, 32768, "bfloat16", "pallas_fftconv.py:1222", 22, p16),
+            (FB.fftconv_fused_bwd_spec, 1, 32768, "bfloat16", "pallas_fftconv.py:519", 23, p16),
+            (FB.fftconv_fused_bwd, 1, 32768, "bfloat16", "pallas_fftconv.py:398", 24, p16),
             (FB.fftconv_fused_bwd_split, 2, 131072, "bfloat16",
-             "pallas_fftconv.py:687 + :775", 25),
-            (FB.fftconv_outer_bwd, 1, 131072, "bfloat16", "pallas_fftconv_n3.py:629", 26),
-            (FB.fftconv_outer_bwd, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629", 27)):
+             "pallas_fftconv.py:687 + :775", 25, p18),
+            (FB.fftconv_outer_bwd, 1, 131072, "bfloat16", "pallas_fftconv_n3.py:629", 26,
+             (16, 128, 128)),
+            (FB.fftconv_outer_bwd, 1, 1 << 20, "bfloat16", "pallas_fftconv_n3.py:629", 27,
+             (16, 512, 256)),
+            # the flat 1M training step's own call: unpadded, L < n / 2
+            (None, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629 flat 1M step", 28, ())):
         rows.append(check_conv_bwd(FB, entry or FB.fftconv_bwd_retransform, B, L, dtype,
-                                   route, seed))
+                                   route, seed, plan))
+    # the routes no default path takes: the narrow plan at fft 2^19 (B 1,
+    # C 256, scripts/bench_conv_narrow.py's shape), the 3-factor plans at
+    # every size of their table, the dk spectrum
+    # at scripts/conv_micro.py's shape
+    narrow = FB.plan(1 << 19, D_MODEL, 1 << 18, FB.nat_chain(1 << 19))
+    rows += [check_conv(FB, 1, 1 << 18, "bfloat16", "pallas_fftconv.py:890 narrow", 70,
+                        FB.fftconv_fused_fwd_narrow, narrow),
+             check_conv_bwd(FB, FB.fftconv_fused_bwd_narrow, 1, 1 << 18, "bfloat16",
+                            "pallas_fftconv.py:987 narrow", 71, narrow)]
+    for i, (n, (factors, cb)) in enumerate(FB.PLAN3_BY_N.items()):
+        plan3 = (*factors, cb)
+        rows += [check_conv(FB, 1, n // 2, "bfloat16", "pallas_fftconv3.py:293", 72 + 2 * i,
+                            FB.fftconv3_fwd, plan3),
+                 check_conv_bwd(FB, FB.fftconv3_bwd, 1, n // 2, "bfloat16",
+                                "pallas_fftconv3.py:390", 73 + 2 * i, plan3)]
+    rows.append(check_dk_spec(FB, 4, 32768, "float32", p16, 79))
+    rows += check_mlp(MF, 4, 32768, "bfloat16", 80)
+    rows += check_mlp(MF, 1, 32768, "float32", 81)
     rows += [check_gated(GE, 4, 32768, "bfloat16", variant, 40 + i)
              for i, variant in enumerate(("specv", "spec", "y"))]
     rows.append(check_gated(GE, 2, 65536, "bfloat16", "specv", 43))
@@ -955,6 +1166,10 @@ def main() -> int:
         log({"phase": "kernel", **row})
     log(check_outer4(FB, 1, 1000448, (16, 512, 256), "bfloat16", 60))
     log(check_outer4(FB, 1, 131072, (16, 128, 128), "bfloat16", 61))
+    # this slice's own path, its counts read on their own
+    total = {k.name: 0 for k in kernels}
+    for name, n in mlp_module(kernels, 4, 32768, 82).items():
+        total[name] += n
 
     slice_parity(cli.build_model, 2, 8192, "float32", 11)
     slice_parity(cli.build_model, 1, 32768, "bfloat16", 12)
@@ -980,7 +1195,6 @@ def main() -> int:
     grad_parity(cli.build_model, cross_entropy, kernels, 1, 65536, "bfloat16", 64,
                 remat=("residual", 2, True))
 
-    total = {k.name: 0 for k in kernels}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         fasta = tmp / "synthetic.fa"
@@ -1030,34 +1244,44 @@ def main() -> int:
                "fftconv_gated": csrc + "fftconv_gated.cu",
                "fftconv_gated_bwd": csrc + "fftconv_gated_bwd.cu",
                "fused_front4": csrc + "fused_front4.cu",
-               "fused_front4_bwd": csrc + "fused_front4_bwd.cu"}
+               "fused_front4_bwd": csrc + "fused_front4_bwd.cu",
+               "mlp_fused": csrc + "mlp_fused.cu", "mlp_fused_bwd": csrc + "mlp_fused_bwd.cu"}
     replaces = {"add_ln": "hyena_dna_tpu/ops/pallas_ln.py:102",
                 "add_ln_bwd": "hyena_dna_tpu/ops/pallas_ln.py:130",
                 "fused_front": "hyena_dna_tpu/ops/pallas_hyena.py:85",
                 "fused_front_bwd": "hyena_dna_tpu/ops/pallas_hyena.py:395",
                 "fftconv": "hyena_dna_tpu/ops/pallas_fftconv.py:1119; "
                            "hyena_dna_tpu/ops/pallas_fftconv.py:296; "
-                           "hyena_dna_tpu/ops/pallas_fftconv_n3.py:413",
+                           "hyena_dna_tpu/ops/pallas_fftconv_n3.py:413; "
+                           "hyena_dna_tpu/ops/pallas_fftconv.py:890; "
+                           "hyena_dna_tpu/ops/pallas_fftconv3.py:293",
                 "fftconv_bwd": "hyena_dna_tpu/ops/pallas_fftconv.py:1344; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:1222; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:519; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:398; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:687; "
                                "hyena_dna_tpu/ops/pallas_fftconv.py:775; "
-                               "hyena_dna_tpu/ops/pallas_fftconv_n3.py:629",
+                               "hyena_dna_tpu/ops/pallas_fftconv_n3.py:629; "
+                               "hyena_dna_tpu/ops/pallas_fftconv.py:987; "
+                               "hyena_dna_tpu/ops/pallas_fftconv3.py:390; "
+                               "hyena_dna_tpu/ops/pallas_fftconv.py:599",
                 "fftconv_gated": "hyena_dna_tpu/ops/pallas_fftconv.py:1534",
                 "fftconv_gated_bwd": "hyena_dna_tpu/ops/pallas_fftconv.py:1796; "
                                      "hyena_dna_tpu/ops/pallas_fftconv.py:1662; "
                                      "hyena_dna_tpu/ops/pallas_fftconv.py:1932",
                 "fused_front4": "hyena_dna_tpu/ops/pallas_hyena.py:197",
-                "fused_front4_bwd": "hyena_dna_tpu/ops/pallas_hyena.py:448"}
+                "fused_front4_bwd": "hyena_dna_tpu/ops/pallas_hyena.py:448",
+                "mlp_fused": "hyena_dna_tpu/ops/pallas_mlp.py:104",
+                "mlp_fused_bwd": "hyena_dna_tpu/ops/pallas_mlp.py:129"}
     # each kernel's row at the main paths' 4 x 32768 shape (the conv's
     # backward on the spectrum route the training step takes there; kernels
     # A and A' in float32, their bf16 rows under "bf16"; E and E' on the
-    # gated step's specv route, every route's row under "routes")
+    # gated step's specv route; F and F' in bf16), and every row of B, C, E,
+    # E', F and F' under "routes"
     # (kernels A4 and A4' at the 1M step's shape in bf16, every row under "routes")
     gated = ("fftconv_gated", "fftconv_gated_bwd")
     front4 = ("fused_front4", "fused_front4_bwd")
+    routed = gated + front4 + ("fftconv", "fftconv_bwd", "mlp_fused", "mlp_fused_bwd")
     main_shape = lambda name, r: (r["shape"] == f"B=1 L=1000448 d={D_MODEL} bfloat16"
                                   if name in front4 else r["shape"].startswith("B=4 "))
     headline = {name: next(r for r in rows if r["name"] == name and main_shape(name, r)
@@ -1077,7 +1301,7 @@ def main() -> int:
          **({"routes": {f"{r['route']} {r['shape']}": {"max_abs_err": r["max_abs_err"],
                                                        **{k: r[k] for k in timing}}
                         for r in rows if r["name"] == name}}
-            if name in gated + front4 else {})}
+            if name in routed else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

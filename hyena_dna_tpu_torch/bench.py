@@ -31,8 +31,8 @@ the JAX `scripts/bench_long_context.py` modes do: `block` cells (its 450k
 mode, with `--save_filter` for `remat_save_filter`) or `residual` cells
 (its 1m mode, and `hg38_large_1m_singlechip.yaml` with
 `--remat_group_size 2`); `--no_save_conv` drops `remat_save_conv`. Matrix
-products run without TF32 and bf16 products accumulate in float32 (no
-reduced-precision reductions), as the TPU's matrix unit does.
+products run without TF32 and bf16 products accumulate in float32
+(`utils/numerics.py::set_card_numerics`), as the TPU's matrix unit does.
 
 The long-context steps on one card:
   python -m hyena_dna_tpu_torch.bench --precision bf16 --residual fp32 --batch 1 \
@@ -69,6 +69,7 @@ from hyena_dna_tpu_torch.evals.hg38_inference import build_model, resolve_device
 from hyena_dna_tpu_torch.ops.fftconv import GATED_MODES
 from hyena_dna_tpu_torch.tasks import LMTask
 from hyena_dna_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
 
 def synthetic_batch(batch: int, length: int, device) -> tuple:
@@ -111,9 +112,7 @@ def main(argv=None) -> dict:
                     help="the 4-D conv-layout route (kernels A4, A4') where it engages")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    set_card_numerics()
 
     bf16 = args.precision == "bf16"
     residual = args.residual or args.precision

@@ -388,6 +388,9 @@ constexpr int kRowThreads = 512;
 // dk's inverse row pass out, (pairs, n). One block per (row f1 and its
 // mirror, channel pair) loops over the batch and owns dk's accumulator in
 // shared memory, so the batch sum needs no atomics and is in a fixed order.
+// With kspec null (the dk-spectrum mode) there is no du: the block stops
+// after the batch sum and stores sum_b DY conj(U) as a pair spectrum, row
+// f1 in natural f2 order, with no inverse.
 __global__ void __launch_bounds__(kRowThreads) rows_bwd_kernel(
     float2* __restrict__ gdy, const float2* __restrict__ gu, const float2* __restrict__ kspec,
     float2* __restrict__ gdk, int B, int u_is_spectrum, Plan p) {
@@ -401,7 +404,8 @@ __global__ void __launch_bounds__(kRowThreads) rows_bwd_kernel(
   const int nrows = r0 == r1 ? 1 : 2;
   const int pair = blockIdx.y;
   const int pairs = gridDim.y;
-  const float2* ks = kspec + static_cast<int64_t>(pair) * p.n;
+  const bool with_du = kspec != nullptr;
+  const float2* ks = with_du ? kspec + static_cast<int64_t>(pair) * p.n : nullptr;
   fill_twiddles(tw, p.n2);
   for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) acc[e] = make_float2(0.f, 0.f);
   float2* y0 = bdy;
@@ -428,15 +432,18 @@ __global__ void __launch_bounds__(kRowThreads) rows_bwd_kernel(
     for (int i = threadIdx.x; i < p.n2; i += blockDim.x) {
       const int m = mirror_index(r0, i, p);  // f = r0 + N1 i; -f is (r1, m)
       if (r0 == r1 && m < i) continue;       // a self-mirrored row: each pair once
-      float2 dy0, dy1, u0, u1, k0, k1;
+      float2 dy0, dy1, u0, u1;
       split_pair(y0[i], y1[m], dy0, dy1);
       split_pair(v0[i], v1[m], u0, u1);
-      split_pair(ks[static_cast<int64_t>(r0) * p.n2 + i], ks[static_cast<int64_t>(r1) * p.n2 + m],
-                 k0, k1);
-      const float2 p0 = cmulc(dy0, k0);
-      const float2 p1 = cmulc(dy1, k1);
-      y0[i] = join_pair(p0, p1);
-      y1[m] = join_pair_mirror(p0, p1);
+      if (with_du) {
+        float2 k0, k1;
+        split_pair(ks[static_cast<int64_t>(r0) * p.n2 + i],
+                   ks[static_cast<int64_t>(r1) * p.n2 + m], k0, k1);
+        const float2 p0 = cmulc(dy0, k0);
+        const float2 p1 = cmulc(dy1, k1);
+        y0[i] = join_pair(p0, p1);
+        y1[m] = join_pair_mirror(p0, p1);
+      }
       const float2 q0 = cmulc(dy0, u0);
       const float2 q1 = cmulc(dy1, u1);
       const float2 w = join_pair(q0, q1);
@@ -447,20 +454,23 @@ __global__ void __launch_bounds__(kRowThreads) rows_bwd_kernel(
       }
     }
     __syncthreads();
-    fft_dif(bdy, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
-    for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-      const int rr = e / p.n2;
-      const int i = e % p.n2;
-      dyb[static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = bdy[rr * p.n2 + bitrev(i, p.log_n2)];
+    if (with_du) {
+      fft_dif(bdy, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
+      for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
+        const int rr = e / p.n2;
+        const int i = e % p.n2;
+        dyb[static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = bdy[rr * p.n2 + bitrev(i, p.log_n2)];
+      }
     }
     __syncthreads();  // the next b overwrites bdy and bu
   }
-  fft_dif(acc, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
+  if (with_du) fft_dif(acc, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
   float2* dk = gdk + static_cast<int64_t>(pair) * p.n;
   for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
     const int rr = e / p.n2;
     const int i = e % p.n2;
-    dk[static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = acc[rr * p.n2 + bitrev(i, p.log_n2)];
+    dk[static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] =
+        acc[rr * p.n2 + (with_du ? bitrev(i, p.log_n2) : i)];
   }
 }
 

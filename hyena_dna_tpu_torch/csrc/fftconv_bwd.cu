@@ -45,6 +45,15 @@
 //           C rows (no batch), first Lk outputs, with dD read off at t = 0
 //           in float32 before dk's rounding (Parseval, as the TPU kernels
 //           took dD from their dk accumulator).
+// dk comes out in the I/O dtype, or in float32 (dk_f32) as the JAX narrow
+// and 3-factor entries return it (pallas_fftconv.py::fftconv_fused_bwd_narrow,
+// pallas_fftconv3.py::fftconv3_bwd).
+//
+// dk-spectrum mode (k null), replacing
+// hyena_dna_tpu/ops/pallas_fftconv.py::fftconv_fused_dk_spec: only dy's
+// and u's transforms and pass 2's batch sum run, and sdk receives
+// sum_b DY conj(U) as a pair spectrum in the four-step layout (row f1,
+// natural f2); no du, no inverse. The wrapper splits the pairs.
 #define FFT_NS conv_bwd
 #include "fft_common.cuh"
 
@@ -52,8 +61,8 @@ namespace FFT_NS {
 
 template <typename T>
 int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const float* D, T* du,
-               T* dk, float* dD, float2* sdy, float2* su, float2* kspec, float2* sdk, int B,
-               int C, int L, int Lk, const Plan& p, cudaStream_t stream) {
+               void* dk, bool dk_f32, float* dD, float2* sdy, float2* su, float2* kspec,
+               float2* sdk, int B, int C, int L, int Lk, const Plan& p, cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
   const size_t smem_cols = cols_smem_bytes(p);
   const size_t smem_krows = rows_smem_bytes(p);
@@ -62,13 +71,18 @@ int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const f
                        static_cast<int>(smem_cols));
   cudaFuncSetAttribute(cols_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem_cols));
+  cudaFuncSetAttribute(cols_inv_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem_cols));
   cudaFuncSetAttribute(rows_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem_krows));
   cudaFuncSetAttribute(rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem_rows));
   const dim3 cols_c(p.n2 / p.tc, pairs, 1), cols_b(p.n2 / p.tc, pairs, B);
-  cols_fwd_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
-  rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_krows, stream>>>(kspec, p);
+  const bool with_du = k != nullptr;  // else the dk-spectrum mode
+  if (with_du) {
+    cols_fwd_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
+    rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_krows, stream>>>(kspec, p);
+  }
   cols_fwd_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(dy, C, L, p, sdy);
   const float2* gu = uspec;
   if (uspec == nullptr) {
@@ -76,30 +90,41 @@ int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const f
     gu = su;
   }
   rows_bwd_kernel<<<dim3(p.n1 / 2 + 1, pairs, 1), kRowThreads, smem_rows, stream>>>(
-      sdy, gu, kspec, sdk, B, uspec != nullptr, p);
-  cols_inv_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(sdy, dy, D, du, nullptr, C, L, p);
-  cols_inv_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(sdk, nullptr, nullptr, dk, dD, C,
-                                                              Lk, p);
+      sdy, gu, with_du ? kspec : nullptr, sdk, B, uspec != nullptr, p);
+  if (with_du) {
+    cols_inv_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(sdy, dy, D, du, nullptr, C, L, p);
+    if (dk_f32) {
+      cols_inv_kernel<float><<<cols_c, kThreads, smem_cols, stream>>>(
+          sdk, nullptr, nullptr, static_cast<float*>(dk), dD, C, Lk, p);
+    } else {
+      cols_inv_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(
+          sdk, nullptr, nullptr, static_cast<T*>(dk), dD, C, Lk, p);
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace FFT_NS
 
-// dy, du (B, C, L), k, dk (C, Lk) contiguous, all float32 (is_bf16 == 0) or
-// all bfloat16; D, dD (C,) float32. Exactly one of u (B, C, L) and uspec
-// (kernel B's saved spectrum, B * ceil(C/2) * n complex64) is non-null; su
-// (B * ceil(C/2) * n complex64) is scratch for u's transform and may be null
-// with uspec. sdy holds B * ceil(C/2) * n complex64, kspec and sdk
-// ceil(C/2) * n each. Launches on `stream`, does not synchronise; returns
-// the cudaError_t of the launches (0 on success).
+// dy, du (B, C, L), k (C, Lk) contiguous, all float32 (is_bf16 == 0) or all
+// bfloat16; dk (C, Lk) in that dtype, or float32 with dk_f32 != 0; D, dD
+// (C,) float32. Exactly one of u (B, C, L) and uspec (kernel B's saved
+// spectrum, B * ceil(C/2) * n complex64) is non-null; su (B * ceil(C/2) * n
+// complex64) is scratch for u's transform and may be null with uspec. sdy
+// holds B * ceil(C/2) * n complex64, kspec and sdk ceil(C/2) * n each. With
+// k null (the dk-spectrum mode) D, du, dk, dD and kspec are unused and sdk
+// receives the batch sum. Launches on `stream`, does not synchronise;
+// returns the cudaError_t of the launches (0 on success).
 extern "C" int hyena_fftconv_bwd(const void* u, const void* uspec, const void* dy, const void* k,
                                  const float* D, void* du, void* dk, float* dD, void* sdy,
                                  void* su, void* kspec, void* sdk, int B, int C, int L, int Lk,
-                                 int n, int is_bf16, cudaStream_t stream) {
+                                 int n, int is_bf16, int dk_f32, cudaStream_t stream) {
   using namespace FFT_NS;
   if (!valid_fft_size(n) || L < 1 || 2 * L > n || Lk < 1 || Lk > L || B < 1 || C < 1 ||
       (C + 1) / 2 > 65535 || B > 65535 || (u == nullptr) == (uspec == nullptr) ||
-      (u != nullptr && su == nullptr)) {
+      (u != nullptr && su == nullptr) ||
+      (k != nullptr && (D == nullptr || du == nullptr || dk == nullptr || dD == nullptr ||
+                        kspec == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Plan p = make_plan(n);
@@ -108,11 +133,10 @@ extern "C" int hyena_fftconv_bwd(const void* u, const void* uspec, const void* d
   if (is_bf16) {
     using bf = __nv_bfloat16;
     return launch_all(static_cast<const bf*>(u), us, static_cast<const bf*>(dy),
-                      static_cast<const bf*>(k), D, static_cast<bf*>(du), static_cast<bf*>(dk), dD,
+                      static_cast<const bf*>(k), D, static_cast<bf*>(du), dk, dk_f32 != 0, dD,
                       f2(sdy), f2(su), f2(kspec), f2(sdk), B, C, L, Lk, p, stream);
   }
   return launch_all(static_cast<const float*>(u), us, static_cast<const float*>(dy),
-                    static_cast<const float*>(k), D, static_cast<float*>(du),
-                    static_cast<float*>(dk), dD, f2(sdy), f2(su), f2(kspec), f2(sdk), B, C, L, Lk,
-                    p, stream);
+                    static_cast<const float*>(k), D, static_cast<float*>(du), dk, dk_f32 != 0, dD,
+                    f2(sdy), f2(su), f2(kspec), f2(sdk), B, C, L, Lk, p, stream);
 }

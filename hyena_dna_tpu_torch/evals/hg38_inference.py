@@ -32,6 +32,7 @@ from hyena_dna_tpu_torch.data.hg38 import HG38FixedDataset
 from hyena_dna_tpu_torch.models.lm import ConvLMHeadModel
 from hyena_dna_tpu_torch.tasks import metrics as M
 from hyena_dna_tpu_torch.utils.convert import load_reference_state_dict
+from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
 
 def build_model(d_model, n_layer, max_length, vocab_size=12,
@@ -112,6 +113,7 @@ def main(argv=None):
     if args.preset:
         raise NotImplementedError("--preset waits for ROADMAP.md Queue 1 item 11")
     device = resolve_device(args.device)
+    set_card_numerics()
 
     chr_ranges = {}
     for spec in args.chr_ranges:

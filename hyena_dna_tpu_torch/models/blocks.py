@@ -13,8 +13,11 @@ trains); parameters stay float32 and are cast where they are used, as flax's
 `dtype` does. The residual stream is float32 when `residual_in_fp32`,
 else the dtype of the hidden states; the adds run in float32 and round once
 to it. The LNs keep float32 statistics and emit `dtype`; a bf16 residual
-with bf16 output takes kernels D and D' on the card (`ops/add_ln.py`). The MLP's products are cuBLAS calls in `dtype`, as
-the JAX package left them to XLA.
+with bf16 output takes kernels D and D' on the card (`ops/add_ln.py`). The
+MLP's products are cuBLAS calls in `dtype`, as the JAX package left them to
+XLA; `Mlp(use_fused=True)` takes the fused kernels F and F'
+(`ops/mlp_fused.py`) under the JAX rule, and `Block` does not set it, as
+the JAX `Block` does not.
 
 `pre` and `post` cut the block at its post-mixer residual, as the JAX
 `Block.pre` / `Block.post` do for the LM's residual-only checkpoint cells:
@@ -36,6 +39,8 @@ from torch import nn
 from hyena_dna_tpu_torch.models.hyena import HyenaOperator
 from hyena_dna_tpu_torch.models.nn import dropout, linear
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
+from hyena_dna_tpu_torch.ops.mlp_fused import applies as mlp_fused_applies
+from hyena_dna_tpu_torch.ops.mlp_fused import mlp_fused
 
 # Hyena config keys that do not change the computation: optimizer settings
 # (the optimizer labels parameters itself), the filter dropout (unimplemented
@@ -73,15 +78,31 @@ def make_mixer(d_model: int, layer_cfg: dict | None,
 
 
 class Mlp(nn.Module):
-    """fc1 -> tanh-approximate GeLU -> fc2, in `dtype`."""
+    """fc1 -> tanh-approximate GeLU -> fc2 (d_model -> hidden_features ->
+    out_features, default d_model), in `dtype`.
 
-    def __init__(self, d_model: int, hidden_features: int, dtype: torch.dtype = torch.float32):
+    With `use_fused`, x cast to `dtype` goes through `ops.mlp_fused.mlp_fused`
+    (kernels F and F' on the card) where the JAX `Mlp` takes its Pallas
+    kernel: N = x.numel() / d a multiple of 128 and d, hidden_features and
+    out_features multiples of 128. Other shapes keep the two products, as in
+    the JAX package."""
+
+    def __init__(self, d_model: int, hidden_features: int, dtype: torch.dtype = torch.float32,
+                 use_fused: bool = False, out_features: int | None = None):
         super().__init__()
         self.dtype = dtype
+        self.use_fused = use_fused
         self.fc1 = nn.Linear(d_model, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, d_model)
+        self.fc2 = nn.Linear(hidden_features, out_features or d_model)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = x.shape[-1]
+        n = x.numel() // d
+        d_out = self.fc2.out_features
+        if self.use_fused and mlp_fused_applies(n, d, self.fc1.out_features, d_out):
+            y = mlp_fused(x.reshape(n, d).to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
+                          self.fc2.weight.t(), self.fc2.bias)
+            return y.reshape(*x.shape[:-1], d_out)
         x = F.gelu(linear(x, self.fc1, self.dtype), approximate="tanh")
         return linear(x, self.fc2, self.dtype)
 

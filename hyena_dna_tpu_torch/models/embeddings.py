@@ -5,11 +5,17 @@ come from the causal convolutions. The LM head is tied to the table:
 `attend` is logits = hidden @ E^T, with no `lm_head.weight` of its own (the
 reference ties it, and its state dicts may omit it).
 
-Both run in `dtype`, as flax's `Embed(dtype=...)` does: the lookup returns
-the float32 table's rows cast to `dtype` (the JAX one-hot lookup multiplies
-by the table cast to `dtype`, exact either way), and `attend` casts the
-query and the table to `dtype` before the product (flax `Embed.attend`
-promotes both), so a bfloat16 model has bfloat16 logits.
+Both run in `dtype`, as flax's `Embed(dtype=...)` does. For a vocabulary of
+at most `ONE_HOT_MAX_VOCAB` (every hg38 config: 16 after padding) the
+lookup is the JAX package's one-hot product, one_hot(ids) @ E in `dtype`:
+exact (one nonzero term per row), and its backward is a matrix product
+(cuBLAS on the card, which sums in a fixed order, so two identical steps
+give the same bits; `nn.Embedding`'s CUDA backward does not). Larger
+vocabularies index the table. Either way the table stays the float32
+parameter `word_embeddings.weight`, so reference state dicts load
+unchanged. `attend` casts the query and the table to `dtype` before the
+product (flax `Embed.attend` promotes both), so a bfloat16 model has
+bfloat16 logits.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+ONE_HOT_MAX_VOCAB = 64  # JAX `GPT2Embeddings`: vocab_size <= 64 looks up by one-hot product
 
 
 class GPT2Embeddings(nn.Module):
@@ -26,7 +34,12 @@ class GPT2Embeddings(nn.Module):
         self.word_embeddings = nn.Embedding(vocab_size, embed_dim)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.word_embeddings(input_ids).to(self.dtype)
+        table = self.word_embeddings.weight
+        if table.shape[0] > ONE_HOT_MAX_VOCAB:
+            return self.word_embeddings(input_ids).to(self.dtype)
+        vocab = torch.arange(table.shape[0], device=input_ids.device)
+        one_hot = (input_ids[..., None] == vocab).to(self.dtype)
+        return one_hot @ table.to(self.dtype)
 
     def attend(self, hidden: torch.Tensor) -> torch.Tensor:
         return F.linear(hidden.to(self.dtype), self.word_embeddings.weight.to(self.dtype))

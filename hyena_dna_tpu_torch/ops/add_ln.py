@@ -153,3 +153,18 @@ def add_ln(h, res, weight, bias, eps: float = 1e-5, out_dtype=torch.bfloat16,
                                     res.reshape(-1, d).to(torch.bfloat16).contiguous(),
                                     weight, bias, eps)
     return y.reshape(*lead, d), res_out.reshape(*lead, d)
+
+
+def add_ln_fused(h, res, scale, bias, eps: float, out_dtype=torch.bfloat16):
+    """JAX `pallas_ln.py::add_ln_fused` (TPU rows 24-25) on its contract:
+    2-D (N, d) h and res, (y in `out_dtype`, res_out in res's dtype),
+    differentiable through `AddLayerNorm` (kernels D and D' on a CUDA
+    tensor). Kernels D and D' take bfloat16 h, res and y; other dtypes
+    raise here on every device."""
+    if h.dim() != 2 or res.shape != h.shape:
+        raise ValueError(f"add_ln_fused takes 2-D (N, d) h and res; got {tuple(h.shape)}, "
+                         f"{tuple(res.shape)}")
+    if not h.dtype == res.dtype == out_dtype == torch.bfloat16:
+        raise TypeError(f"kernels D and D' take bfloat16 h, res and output; got h {h.dtype}, "
+                        f"res {res.dtype}, out {out_dtype}")
+    return AddLayerNorm.apply(h.contiguous(), res.contiguous(), scale.float(), bias.float(), eps)

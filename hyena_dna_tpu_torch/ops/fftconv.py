@@ -55,17 +55,19 @@ def fftconv_ref(u: torch.Tensor, k: torch.Tensor,
 
 
 def fftconv_bwd_ref(u: torch.Tensor, dy: torch.Tensor, k: torch.Tensor,
-                    D: torch.Tensor):
+                    D: torch.Tensor, dk_dtype: Optional[torch.dtype] = None):
     """Plain backward (JAX `ops/fftconv.py::_fftconv_bwd`) on `torch.fft`:
-    u, dy (B, C, L); k (C, Lk); D (C,). Returns du in dy's dtype, dk in k's,
-    dD float32; the batch is reduced on the spectrum before dk's inverse."""
+    u, dy (B, C, L); k (C, Lk); D (C,). Returns du in dy's dtype, dk in k's
+    (or `dk_dtype`), dD float32; the batch is reduced on the spectrum before
+    dk's inverse."""
     return fftconv_bwd_from_rfft(
         torch.fft.rfft(u.float(), n=next_fast_fft_size(2 * u.shape[-1])), dy, k, D,
-        dD=(dy.float() * u.float()).sum((0, 2)))
+        dD=(dy.float() * u.float()).sum((0, 2)), dk_dtype=dk_dtype)
 
 
 def fftconv_bwd_from_rfft(u_f: torch.Tensor, dy: torch.Tensor, k: torch.Tensor,
-                          D: torch.Tensor, dD: Optional[torch.Tensor] = None):
+                          D: torch.Tensor, dD: Optional[torch.Tensor] = None,
+                          dk_dtype: Optional[torch.dtype] = None):
     """`fftconv_bwd_ref` given u's rfft (B, C, n//2+1) in place of u; without
     `dD`, dD is read off dk's lag 0 (Parseval), as the spectrum route does."""
     length = dy.shape[-1]
@@ -76,7 +78,7 @@ def fftconv_bwd_from_rfft(u_f: torch.Tensor, dy: torch.Tensor, k: torch.Tensor,
     dk_full = torch.fft.irfft((dy_f * u_f.conj()).sum(0), n=n)
     if dD is None:
         dD = dk_full[:, 0]  # lag 0: sum_{b,t} dy u
-    return du.to(dy.dtype), dk_full[:, :k.shape[-1]].to(k.dtype), dD.float()
+    return du.to(dy.dtype), dk_full[:, :k.shape[-1]].to(dk_dtype or k.dtype), dD.float()
 
 
 class FFTConv(torch.autograd.Function):

@@ -46,6 +46,7 @@ import torch
 
 from hyena_dna_tpu_torch.evals.hg38_inference import build_model
 from hyena_dna_tpu_torch.ops.fftconv import GATED_MODES
+from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
 GROUPS = (("kernel_d_bwd", ("add_ln_bwd_kernel", "add_ln_sum_kernel")),
           ("kernel_d", ("add_ln_fwd_kernel",)),
@@ -134,9 +135,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profile_forward measures the card; no CUDA device is available")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    set_card_numerics()
     bf16 = args.precision == "bf16"
     model = build_model(args.d_model, args.n_layer, args.length,
                         generator=torch.Generator().manual_seed(args.seed),

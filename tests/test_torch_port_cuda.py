@@ -20,6 +20,7 @@ from hyena_dna_tpu_torch.ops import fused_fftconv as FB
 from hyena_dna_tpu_torch.ops import fused_front as FF
 from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
 from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
+from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
 pytestmark = pytest.mark.cuda
 BF16 = torch.bfloat16
@@ -30,8 +31,7 @@ BF16_TOL = (2e-3, 2 ** -7)
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_card_numerics()
     return torch.device("cuda")
 
 
@@ -490,3 +490,72 @@ def test_remat_grads_on_card_match_plain(card, remat, monkeypatch):
     assert (la - lb).abs().max() <= 1e-6 * la.abs().max()
     for name in ga:
         assert (ga[name] - gb[name]).abs().max() <= 1e-6 * ga[name].abs().max(), name
+
+
+@pytest.mark.parametrize("n,d,dh,d_out,dtype", [
+    (128, 128, 128, 128, "float32"), (640, 256, 1024, 256, "bfloat16"),
+    (256, 128, 192, 384, "bfloat16"), (192, 320, 64, 64, "float32"), (64, 64, 64, 64, "bfloat16"),
+])
+def test_mlp_fused_matches_plain(card, n, d, dh, d_out, dtype):
+    """Kernels F and F' against `mlp_fused_ref` / `mlp_fused_bwd_ref`: the
+    same bf16 operands, float32 sums in another order, so a rounding of h
+    or dh to bf16 may flip between them and move a term by a bf16 step:
+    every output at the bf16 tolerance, as in `chip_smoke.py`."""
+    from hyena_dna_tpu_torch.ops import mlp_fused as MF
+
+    g = torch.Generator().manual_seed(n + d_out)
+    dt = getattr(torch, dtype)
+    x = (torch.randn(n, d, generator=g) * 0.5).to(dt).to(card)
+    w1 = (torch.randn(d, dh, generator=g) * 0.05).to(card)
+    b1 = (torch.randn(dh, generator=g) * 0.1).to(card)
+    w2 = (torch.randn(dh, d_out, generator=g) * 0.05).to(card)
+    b2 = (torch.randn(d_out, generator=g) * 0.1).to(card)
+    dy = torch.randn(n, d_out, generator=g).to(dt).to(card)
+    before = (MF.KERNEL.launches, MF.KERNEL_BWD.launches)
+    y = MF.mlp_fused_fwd(x, w1, b1, w2, b2)
+    out = MF.mlp_fused_bwd(x, dy, w1, b1, w2)
+    assert (MF.KERNEL.launches, MF.KERNEL_BWD.launches) == (before[0] + 1, before[1] + 1)
+    assert y.dtype == dt and out[0].dtype == dt
+    _close(y, MF.mlp_fused_ref(x, w1, b1, w2, b2), *BF16_TOL)
+    ref = MF.mlp_fused_bwd_ref(x, dy, w1, b1, w2)
+    for got, want, name in zip(out, ref, ("dx", "dw1", "db1", "dw2", "db2")):
+        assert got.shape == want.shape, name
+        _close(got, want, *BF16_TOL)
+    again = MF.mlp_fused_bwd(x, dy, w1, b1, w2)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))  # fixed-order sums
+
+
+def test_mlp_module_fused_on_card_matches_two_products(card):
+    from hyena_dna_tpu_torch.models.blocks import Mlp
+
+    torch.manual_seed(0)
+    fused = Mlp(256, 1024, dtype=BF16, use_fused=True).to(card)
+    plain = Mlp(256, 1024, dtype=BF16).to(card)
+    plain.load_state_dict(fused.state_dict())
+    x = torch.randn(2, 512, 256, device=card)
+    outs = []
+    for m in (fused, plain):
+        xx = x.clone().requires_grad_()
+        y = m(xx)
+        y.float().square().sum().backward()
+        outs.append((y, xx.grad, *(p.grad for p in m.parameters())))
+    for a, b in zip(*outs):
+        _close(a, b, 2e-2, 2 ** -7)
+
+
+@pytest.mark.parametrize("B,C,L,dtype", [(1, 3, 64, "float32"), (3, 4, 4096, "bfloat16"),
+                                         (2, 5, 1 << 16, "float32")])
+def test_dk_spec_matches_plain(card, B, C, L, dtype):
+    """Kernel C's dk-spectrum mode (transforms and the batch sum only)
+    against `fftconv_dk_spec_ref`, in natural order, at 1e-4 of its max."""
+    g = torch.Generator().manual_seed(L + C)
+    dt = getattr(torch, dtype)
+    u, dy = (torch.randn(B, C, L, generator=g).to(dt).to(card) for _ in range(2))
+    n = 2 * L
+    r = 1 << ((n.bit_length()) // 2)
+    before = FB.KERNEL_BWD.launches
+    re, im = FB.fftconv_fused_dk_spec(u, dy, r, n // r, 1)
+    assert FB.KERNEL_BWD.launches == before + 1
+    want_re, want_im = FB.fftconv_dk_spec_ref(u, dy, n)
+    scale = torch.complex(want_re, want_im).abs().max()
+    assert (torch.complex(re, im) - torch.complex(want_re, want_im)).abs().max() <= 1e-4 * scale

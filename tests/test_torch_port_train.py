@@ -208,19 +208,22 @@ def test_spectrum_routing_mirrors_jax():
 
 def test_tpu_row_entries_take_their_routes():
     """Each backward Pallas entry of the JAX package has a torch entry point
-    on kernel C's route, taking the shapes the JAX routing gave it. dk and
-    dD sum 2 x 32768 products: held at 1e-4 of their largest entry."""
+    on kernel C's route, with the entry's plan arguments, taking the shapes
+    the JAX routing gave it. dk and dD sum 2 x 32768 products: held at 1e-4
+    of their largest entry."""
     u, k, D, dy = map(_t, _conv_data(2, 3, 32768, seed=5))  # fft 2^16, even B
     ref = FB.fftconv_bwd_ref(u, dy, k, D)
     spec = FB.pair_spectrum_ref(u, 1 << 16)
+    plan = (256, 256, 1)  # (r, m, cb): r m = 2^16, Lp = 32768, cb divides C = 3
     for entry, x in ((FB.fftconv_fused_bwd_spec_packed, spec), (FB.fftconv_fused_bwd_packed, u)):
         assert entry.spectrum == (x is spec)
-        _assert_conv_grads(entry(x, dy, k, D), ref, ("dk", "dD"), rtol=1e-4, atol=1e-4)
-    for entry, x in ((FB.fftconv_fused_bwd_spec, spec), (FB.fftconv_fused_bwd, u),
-                     (FB.fftconv_fused_bwd_split, spec), (FB.fftconv_outer_bwd, u)):
+        _assert_conv_grads(entry(x, dy, k, D, *plan), ref, ("dk", "dD"), rtol=1e-4, atol=1e-4)
+    for entry, x, p in ((FB.fftconv_fused_bwd_spec, spec, plan), (FB.fftconv_fused_bwd, u, plan),
+                        (FB.fftconv_fused_bwd_split, spec, plan),
+                        (FB.fftconv_outer_bwd, u, (2, 128, 256))):
         with pytest.raises(ValueError, match=entry.__name__):
-            entry(x, dy, k, D)  # odd B only, or another fft size
-    _assert_conv_grads(FB.fftconv_fused_bwd(u[:1], dy[:1], k, D),
+            entry(x, dy, k, D, *p)  # odd B only, or another fft size
+    _assert_conv_grads(FB.fftconv_fused_bwd(u[:1], dy[:1], k, D, *plan),
                        FB.fftconv_bwd_ref(u[:1], dy[:1], k, D), ("dk", "dD"), rtol=1e-4,
                        atol=1e-4)
 
