@@ -25,7 +25,8 @@ line:
             mode at 4 x 32768; E and E' on each route at 4 x 32768 and 2 x
             65536; A4 and A4' at 1 x 1,000,448 and 1 x 131072; F and F' at
             the MLP width (256 -> 1024 -> 256) on 4 x 32768 bf16 rows and
-            1 x 32768 float32 rows; the 4-D conv entries bit-equal to the flat
+            1 x 32768 float32 rows, and at 512 -> 2048 -> 512 on 4 x 32768
+            bf16 rows; the 4-D conv entries bit-equal to the flat
             kernel B / C calls. Then this slice's path: `Mlp(256, 1024,
             use_fused=True)` in bf16, forward and backward at 4 x 32768, its
             launch counts zeroed just before and read just after (F and F'
@@ -725,13 +726,13 @@ def check_dk_spec(FB, B, L, dtype, plan, seed):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def mlp_inputs(B, L, dtype, seed):
-    """x and dy (B L rows) in `dtype`, float32 parameters at the hg38 model's
-    MLP width (d_model -> 4 d_model -> d_model) and init scales."""
+def mlp_inputs(B, L, dtype, seed, d=D_MODEL):
+    """x and dy (B L rows) in `dtype`, float32 parameters at an MLP of width
+    d -> 4 d -> d (the hg38 model's d_model by default) and its init scales."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    d, dh, dt = D_MODEL, 4 * D_MODEL, getattr(torch, dtype)
+    dh, dt = 4 * d, getattr(torch, dtype)
     x = torch.randn(B * L, d, device="cuda", generator=g).to(dt)
     dy = torch.randn(B * L, d, device="cuda", generator=g).to(dt)
     w1 = torch.randn(d, dh, device="cuda", generator=g) * 0.02
@@ -755,15 +756,15 @@ def library_mlp(x, w1, b1, w2, b2):
     return m
 
 
-def check_mlp(MF, B, L, dtype, seed):
+def check_mlp(MF, B, L, dtype, seed, d=D_MODEL):
     """Kernels F and F' against `mlp_fused_ref` and `mlp_fused_bwd_ref` at
-    the hg38 model's MLP width. Every product takes bf16 operands on both
-    sides, so a rounding of h or dh that flips between them moves a term by
-    a bf16 step: y, dx and the float32 weight gradients at the bf16 TOL.
-    Returns the two kernels' rows."""
+    an MLP of width d -> 4 d -> d (the hg38 model's by default). Every
+    product takes bf16 operands on both sides, so a rounding of h or dh that
+    flips between them moves a term by a bf16 step: y, dx and the float32
+    weight gradients at the bf16 TOL. Returns the two kernels' rows."""
     import torch
 
-    x, dy, (w1, b1, w2, b2) = mlp_inputs(B, L, dtype, seed)
+    x, dy, (w1, b1, w2, b2) = mlp_inputs(B, L, dtype, seed, d)
     n, d = x.shape
     dh, d_out = w1.shape[1], w2.shape[1]
     y = MF.mlp_fused_fwd(x, w1, b1, w2, b2)
@@ -1151,6 +1152,7 @@ def main() -> int:
     rows.append(check_dk_spec(FB, 4, 32768, "float32", p16, 79))
     rows += check_mlp(MF, 4, 32768, "bfloat16", 80)
     rows += check_mlp(MF, 1, 32768, "float32", 81)
+    rows += check_mlp(MF, 4, 32768, "bfloat16", 83, d=512)  # a width F/F' once refused
     rows += [check_gated(GE, 4, 32768, "bfloat16", variant, 40 + i)
              for i, variant in enumerate(("specv", "spec", "y"))]
     rows.append(check_gated(GE, 2, 65536, "bfloat16", "specv", 43))

@@ -12,11 +12,18 @@
 //   hyena_dna_tpu/ops/pallas_fftconv_n3.py::fftconv_outer_fwd     (fft 2^17-2^21)
 // and the XLA FFT the TPU used below 2^16: one kernel serves every size.
 //
-// What bounds it on the H100: the FFT arithmetic in float32 on the CUDA
-// cores (about 2.5 n log2 n flops per real transform, 3 transforms per row)
-// and the complex intermediate, which does not fit in shared memory beyond
-// n = 2^14 (a 2^21 row is 16 MB of complex64) and so goes through device
-// memory between passes.
+// What bounds it on the H100: the four-step plan's complex64 scratch in
+// device memory between passes (a 2^21 row is 16 MB, past any block's
+// shared memory). Per (batch, channel pair) u's chain moves about 40 n
+// bytes (pass 1 writes 8n; pass 2 reads 8n, reads 8n of k's spectrum and
+// writes 8n; pass 3 reads 8n) and k's chain about 24 n per pair: 1.5 GB
+// (0.46 ms at 3.35 TB/s) at 4 x 32768 x 256 and 17.2 GB (5.1 ms) at
+// 1 x 1,000,448 x 256. The float32 arithmetic, about 2.5 n log2 n flops
+// per complex transform, is a few percent of the card's rate; what it
+// costs beyond that is instructions around the butterflies (index
+// arithmetic, shared-memory traffic, barriers), which the sub-FFT design
+// in fft_common.cuh keeps few: radix-16/8 passes in registers, two
+// exchanges through shared memory for a 4096-point row.
 //
 // Design (simple and correct first; no tensor cores yet):
 //  * Channel pairing: channels c and c+1 share one complex transform of
@@ -30,16 +37,17 @@
 //              loads and stores are coalesced), times the twiddle
 //              W_n^(t2 f1), into a complex scratch of n per (b, pair);
 //      pass 2  row FFTs of size N2, the pointwise product with k's
-//              spectrum in the same permuted order, and the inverse row
-//              FFTs -- fused, so the spectrum never leaves shared memory;
-//              a block owns a row f1 and its Hermitian mirror row N1 - f1;
+//              spectrum, and the inverse row FFTs -- fused, so the
+//              spectrum never leaves shared memory; a block owns rows f1
+//              and their Hermitian mirror rows N1 - f1;
 //      pass 3  conjugate twiddle and inverse column FFTs, scale 1/n,
 //              + u * D, only the first L outputs stored, in u's type.
 //    k's spectrum is a pass 1 + forward pass 2 of its own per call (the TPU
 //    kernels cached it in scratch across a sequential batch grid, which
 //    CUDA blocks cannot share).
-//  * Sub-FFTs are iterative radix-2 in shared memory; the passes live in
-//    fft_common.cuh, shared with kernels C, E and E'.
+//  * Sub-FFTs are mixed-radix Stockham passes with register-resident
+//    radix-16/8 DFTs (fft_common.cuh, shared with kernels C, E and E'); a
+//    pass-2 block owns g (row, mirror row) pairs, 2 g N2 <= 8192 values.
 //  * save_spectrum (a non-null `uspec`): pass 2 also stores u's pair
 //    spectrum before the product, as pallas_fftconv.py::
 //    fftconv_fused_fwd_packed(save_spectrum=True) does, so kernel C's
@@ -54,23 +62,20 @@ template <typename T>
 int launch_all(const T* u, const T* k, const float* D, T* y, float2* scratch, float2* kspec,
                float2* uspec, int B, int C, int L, int Lk, const Plan& p, cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
-  const size_t smem_cols = cols_smem_bytes(p);
-  const size_t smem_rows = rows_smem_bytes(p);
-  cudaFuncSetAttribute(cols_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(cols_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(rows_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  cudaFuncSetAttribute(rows_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  const dim3 cols_k(p.n2 / p.tc, pairs, 1), cols_u(p.n2 / p.tc, pairs, B);
-  cols_fwd_kernel<T><<<cols_k, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
-  rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_rows, stream>>>(kspec, p);
-  cols_fwd_kernel<T><<<cols_u, kThreads, smem_cols, stream>>>(u, C, L, p, scratch);
-  rows_conv_kernel<<<dim3(p.n1 / 2 + 1, pairs, B), kThreads, smem_rows, stream>>>(scratch, kspec,
-                                                                                  uspec, p);
-  cols_inv_kernel<T><<<cols_u, kThreads, smem_cols, stream>>>(scratch, u, D, y, nullptr, C, L, p);
+  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const dim3 cols_k = cols_grid(p, pairs, 1), cols_u = cols_grid(p, pairs, B);
+  const int tc = cols_threads(p);
+  const size_t sc = cols_smem_bytes(p), sr = rows_smem_bytes(p);
+  auto cols_fwd = [](auto w) { return cols_fwd_kernel<T, decltype(w)::value>; };
+  launch(cols_fwd, wc, cols_k, tc, sc, stream, k, C, Lk, p, kspec);
+  launch([](auto w) { return rows_fwd_kernel<decltype(w)::value>; }, wr, rows_grid(p, pairs),
+         rows_threads(p), sr, stream, kspec, p);
+  launch(cols_fwd, wc, cols_u, tc, sc, stream, u, C, L, p, scratch);
+  launch([](auto w) { return rows_conv_kernel<decltype(w)::value>; }, wr,
+         pair_rows_grid(p, pairs, B), pair_threads(p), sr, stream, scratch, 0, kspec, uspec,
+         scratch, p);
+  launch([](auto w) { return cols_inv_kernel<T, decltype(w)::value>; }, wc, cols_u, tc, sc, stream,
+         scratch, u, D, y, nullptr, C, L, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,15 +32,15 @@
 // (fft_common.cuh) and its channel pairing:
 //   pass 1  k: column + row FFTs into kspec (per call, as in kernel B);
 //           dy (and u on the retransform route): column FFTs + twiddle;
-//   pass 2  rows_bwd_kernel: one block per (row f1 and its mirror, channel
-//           pair) loops over the batch. Per b it row-transforms dy (and u),
+//   pass 2  rows_bwd_kernel: one block per (g rows f1 and their mirrors,
+//           channel pair) loops over the batch. Per b it row-transforms dy (and u),
 //           splits each pair with the Hermitian mirror, forms DY conj(K) for
 //           du (inverse row FFT, stored in place of dy's scratch) and adds
 //           DY conj(U) into a dk accumulator that the block owns in shared
 //           memory -- so the batch sum needs no atomics and is in a fixed
 //           order. After the loop it inverse-transforms the accumulator.
-//           Shared memory: twiddles N2/2 plus three two-row buffers (dy, u,
-//           dk accumulator) = 6.5 N2 complex, 208 KB at N2 = 4096;
+//           Shared memory: three buffers (dy, u, dk accumulator) of the
+//           block's 2 g padded rows, 204 KB at N2 = 4096;
 //   pass 3  du: inverse column FFTs + dy * D; dk: inverse column FFTs over
 //           C rows (no batch), first Lk outputs, with dD read off at t = 0
 //           in float32 before dk's rounding (Parseval, as the TPU kernels
@@ -64,41 +64,35 @@ int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const f
                void* dk, bool dk_f32, float* dD, float2* sdy, float2* su, float2* kspec,
                float2* sdk, int B, int C, int L, int Lk, const Plan& p, cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
-  const size_t smem_cols = cols_smem_bytes(p);
-  const size_t smem_krows = rows_smem_bytes(p);
-  const size_t smem_rows = rows_bwd_smem_bytes(p);
-  cudaFuncSetAttribute(cols_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(cols_inv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(cols_inv_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(rows_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_krows));
-  cudaFuncSetAttribute(rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  const dim3 cols_c(p.n2 / p.tc, pairs, 1), cols_b(p.n2 / p.tc, pairs, B);
+  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const dim3 cols_c = cols_grid(p, pairs, 1), cols_b = cols_grid(p, pairs, B);
+  const int tc = cols_threads(p);
+  const size_t sc = cols_smem_bytes(p);
+  auto cols_fwd = [](auto w) { return cols_fwd_kernel<T, decltype(w)::value>; };
+  auto cols_inv = [](auto w) { return cols_inv_kernel<T, decltype(w)::value>; };
   const bool with_du = k != nullptr;  // else the dk-spectrum mode
   if (with_du) {
-    cols_fwd_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
-    rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_krows, stream>>>(kspec, p);
+    launch(cols_fwd, wc, cols_c, tc, sc, stream, k, C, Lk, p, kspec);
+    launch([](auto w) { return rows_fwd_kernel<decltype(w)::value>; }, wr, rows_grid(p, pairs),
+           rows_threads(p), rows_smem_bytes(p), stream, kspec, p);
   }
-  cols_fwd_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(dy, C, L, p, sdy);
+  launch(cols_fwd, wc, cols_b, tc, sc, stream, dy, C, L, p, sdy);
   const float2* gu = uspec;
   if (uspec == nullptr) {
-    cols_fwd_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(u, C, L, p, su);
+    launch(cols_fwd, wc, cols_b, tc, sc, stream, u, C, L, p, su);
     gu = su;
   }
-  rows_bwd_kernel<<<dim3(p.n1 / 2 + 1, pairs, 1), kRowThreads, smem_rows, stream>>>(
-      sdy, gu, with_du ? kspec : nullptr, sdk, B, uspec != nullptr, p);
+  launch([](auto w) { return rows_bwd_kernel<decltype(w)::value>; }, wr,
+         pair_rows_grid(p, pairs, 1), pair_threads(p), rows_bwd_smem_bytes(p), stream, sdy, gu,
+         with_du ? kspec : nullptr, sdk, B, uspec != nullptr ? 1 : 0, p);
   if (with_du) {
-    cols_inv_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(sdy, dy, D, du, nullptr, C, L, p);
+    launch(cols_inv, wc, cols_b, tc, sc, stream, sdy, dy, D, du, nullptr, C, L, p);
     if (dk_f32) {
-      cols_inv_kernel<float><<<cols_c, kThreads, smem_cols, stream>>>(
-          sdk, nullptr, nullptr, static_cast<float*>(dk), dD, C, Lk, p);
+      launch([](auto w) { return cols_inv_kernel<float, decltype(w)::value>; }, wc, cols_c, tc, sc,
+             stream, sdk, nullptr, nullptr, static_cast<float*>(dk), dD, C, Lk, p);
     } else {
-      cols_inv_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(
-          sdk, nullptr, nullptr, static_cast<T*>(dk), dD, C, Lk, p);
+      launch(cols_inv, wc, cols_c, tc, sc, stream, sdk, nullptr, nullptr, static_cast<T*>(dk), dD,
+             C, Lk, p);
     }
   }
   return static_cast<int>(cudaGetLastError());

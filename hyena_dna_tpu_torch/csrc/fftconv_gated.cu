@@ -72,11 +72,11 @@ struct GateSink {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cols_inv_gate_kernel(
+template <typename T, int kRadix>
+__global__ void __launch_bounds__(kMaxThreads) cols_inv_gate_kernel(
     const float2* __restrict__ a, const T* __restrict__ u, const T* __restrict__ x0,
     const float* __restrict__ D, T* __restrict__ y, T* __restrict__ v, int C, int len, Plan p) {
-  cols_inv_body(a, GateSink<T>{u, x0, D, y, v}, C, len, p);
+  cols_inv_body<kRadix>(a, GateSink<T>{u, x0, D, y, v}, C, len, p);
 }
 
 template <typename T>
@@ -84,24 +84,20 @@ int launch_all(const T* u, const T* x0, const T* k, const float* D, T* y, T* v, 
                float2* kspec, float2* uspec, int B, int C, int L, int Lk, const Plan& p,
                cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
-  const size_t smem_cols = cols_smem_bytes(p);
-  const size_t smem_rows = rows_smem_bytes(p);
-  cudaFuncSetAttribute(cols_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(cols_inv_gate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_cols));
-  cudaFuncSetAttribute(rows_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  cudaFuncSetAttribute(rows_conv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  const dim3 cols_k(p.n2 / p.tc, pairs, 1), cols_u(p.n2 / p.tc, pairs, B);
-  cols_fwd_kernel<T><<<cols_k, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
-  rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_rows, stream>>>(kspec, p);
-  cols_fwd_kernel<T><<<cols_u, kThreads, smem_cols, stream>>>(u, C, L, p, scratch);
-  rows_conv_kernel<<<dim3(p.n1 / 2 + 1, pairs, B), kThreads, smem_rows, stream>>>(scratch, kspec,
-                                                                                  uspec, p);
-  cols_inv_gate_kernel<T><<<cols_u, kThreads, smem_cols, stream>>>(scratch, u, x0, D, y, v, C, L,
-                                                                   p);
+  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const dim3 cols_k = cols_grid(p, pairs, 1), cols_u = cols_grid(p, pairs, B);
+  const int tc = cols_threads(p);
+  const size_t sc = cols_smem_bytes(p), sr = rows_smem_bytes(p);
+  auto cols_fwd = [](auto w) { return cols_fwd_kernel<T, decltype(w)::value>; };
+  launch(cols_fwd, wc, cols_k, tc, sc, stream, k, C, Lk, p, kspec);
+  launch([](auto w) { return rows_fwd_kernel<decltype(w)::value>; }, wr, rows_grid(p, pairs),
+         rows_threads(p), sr, stream, kspec, p);
+  launch(cols_fwd, wc, cols_u, tc, sc, stream, u, C, L, p, scratch);
+  launch([](auto w) { return rows_conv_kernel<decltype(w)::value>; }, wr,
+         pair_rows_grid(p, pairs, B), pair_threads(p), sr, stream, scratch, 0, kspec, uspec,
+         scratch, p);
+  launch([](auto w) { return cols_inv_gate_kernel<T, decltype(w)::value>; }, wc, cols_u, tc, sc,
+         stream, scratch, u, x0, D, y, v, C, L, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -38,15 +38,15 @@
 //          whole v = conv + u D and inv(DV conj(ks)) the whole du. In the
 //          pair spectrum it adds D_c + i D_{c+1} to every bin, and
 //          split_pair, being linear, hands each channel K_c + D_c.
-//   v      (spec, retransform) a row pass of its own, rows_gate_kernel:
-//          U's rows (read from the saved spectrum, or u's column pass
-//          transformed here and stored back as a spectrum for the dk sum)
-//          times kspec, inverse row FFT; then an inverse column pass whose
-//          epilogue writes dx0 = dy v (+ u D on the retransform route,
-//          whose kspec is plain K). Running it as its own pass keeps
-//          rows_bwd_kernel's shared memory as kernel C has it (6.5 N2
-//          complex, 208 KB at N2 = 4096): a fourth two-row buffer in it
-//          would need 272 KB, over the 227 KB a block may use.
+//   v      (spec, retransform) a row pass of its own, kernel B's
+//          rows_conv_kernel: U's rows (read from the saved spectrum, or u's
+//          column pass transformed there and stored back as a spectrum for
+//          the dk sum) times kspec, inverse row FFT; then an inverse column
+//          pass whose epilogue writes dx0 = dy v (+ u D on the retransform
+//          route, whose kspec is plain K). Running it as its own pass keeps
+//          rows_bwd_kernel's shared memory as kernel C has it (three
+//          buffers of 2 g padded rows, 204 KB at N2 = 4096): a fourth would
+//          need 272 KB, over the 227 KB a block may use.
 //   dv     pass 1 whose source reads dy and x0 and transforms dv = dy x0 in
 //          float32 (the TPU kernels round dv to their store type first);
 //          on the specv route the same pass writes dx0 = dy v from the
@@ -172,90 +172,32 @@ struct DxSink {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cols_fwd_delta_kernel(
+template <typename T, int kRadix>
+__global__ void __launch_bounds__(kMaxThreads) cols_fwd_delta_kernel(
     const T* __restrict__ k, const float* __restrict__ D, int C, int len, Plan p,
     float2* __restrict__ out) {
-  cols_fwd_body(DeltaSource<T>{k, D}, C, len, p, out);
+  cols_fwd_body<kRadix>(DeltaSource<T>{k, D}, C, len, p, out);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cols_fwd_dv_kernel(
+template <typename T, int kRadix>
+__global__ void __launch_bounds__(kMaxThreads) cols_fwd_dv_kernel(
     const T* __restrict__ dy, const T* __restrict__ x0, const T* __restrict__ v,
     T* __restrict__ dx0, int C, int len, Plan p, float2* __restrict__ out) {
-  cols_fwd_body(GateGradSource<T>{dy, x0, v, dx0}, C, len, p, out);
+  cols_fwd_body<kRadix>(GateGradSource<T>{dy, x0, v, dx0}, C, len, p, out);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cols_inv_du_kernel(
+template <typename T, int kRadix>
+__global__ void __launch_bounds__(kMaxThreads) cols_inv_du_kernel(
     const float2* __restrict__ a, const T* __restrict__ dy, const T* __restrict__ x0,
     const float* __restrict__ D, T* __restrict__ du, int C, int len, Plan p) {
-  cols_inv_body(a, DuSink<T>{dy, x0, D, du}, C, len, p);
+  cols_inv_body<kRadix>(a, DuSink<T>{dy, x0, D, du}, C, len, p);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) cols_inv_dx0_kernel(
+template <typename T, int kRadix>
+__global__ void __launch_bounds__(kMaxThreads) cols_inv_dx0_kernel(
     const float2* __restrict__ a, const T* __restrict__ dy, const T* __restrict__ u,
     const float* __restrict__ D, T* __restrict__ dx0, int C, int len, Plan p) {
-  cols_inv_body(a, DxSink<T>{dy, u, D, dx0}, C, len, p);
-}
-
-// v's row pass: row f1 = blockIdx.x and its mirror row. `src` holds U's
-// pair spectrum (src_is_spectrum) or u's column pass, which is then row
-// transformed here and, with `spec_out`, stored there as a spectrum (in
-// the layout rows_bwd_kernel reads; spec_out may be src itself: a block
-// reads its rows whole before it writes them). Then the product with
-// kspec, the inverse row FFT, and the result in `dst`.
-__global__ void __launch_bounds__(kThreads) rows_gate_kernel(
-    const float2* src, int src_is_spectrum, const float2* __restrict__ kspec, float2* spec_out,
-    float2* __restrict__ dst, Plan p) {
-  extern __shared__ float2 smem[];
-  float2* tw = smem;
-  float2* buf = smem + p.n2 / 2;
-  const int r0 = blockIdx.x;
-  const int r1 = mirror_row(r0, p);
-  const int nrows = r0 == r1 ? 1 : 2;
-  const int pair = blockIdx.y;
-  const int64_t off = (static_cast<int64_t>(blockIdx.z) * gridDim.y + pair) * p.n;
-  const float2* ks = kspec + static_cast<int64_t>(pair) * p.n;
-  fill_twiddles(tw, p.n2);
-  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-    const int rr = e / p.n2;
-    const int i = e % p.n2;
-    const float2 z = src[off + static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i];
-    buf[rr * p.n2 + (src_is_spectrum ? i : bitrev(i, p.log_n2))] = z;
-  }
-  __syncthreads();
-  if (!src_is_spectrum) {
-    fft_dit(buf, tw, p.n2, p.log_n2, nrows, 1, p.n2, false, false);
-    if (spec_out != nullptr) {
-      for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-        const int rr = e / p.n2;
-        spec_out[off + static_cast<int64_t>(rr ? r1 : r0) * p.n2 + e % p.n2] = buf[e];
-      }
-      __syncthreads();
-    }
-  }
-  float2* z0 = buf;
-  float2* z1 = buf + (nrows - 1) * p.n2;
-  for (int i = threadIdx.x; i < p.n2; i += blockDim.x) {
-    const int m = mirror_index(r0, i, p);  // f = r0 + N1 i; -f is (r1, m)
-    if (r0 == r1 && m < i) continue;       // a self-mirrored row: each pair once
-    float2 u0, u1, k0, k1;
-    split_pair(z0[i], z1[m], u0, u1);
-    split_pair(ks[static_cast<int64_t>(r0) * p.n2 + i], ks[static_cast<int64_t>(r1) * p.n2 + m], k0, k1);
-    const float2 p0 = cmul(u0, k0);
-    const float2 p1 = cmul(u1, k1);
-    z0[i] = join_pair(p0, p1);
-    z1[m] = join_pair_mirror(p0, p1);
-  }
-  __syncthreads();
-  fft_dif(buf, tw, p.n2, p.log_n2, nrows, 1, p.n2, true, false);
-  for (int e = threadIdx.x; e < nrows * p.n2; e += blockDim.x) {
-    const int rr = e / p.n2;
-    const int i = e % p.n2;
-    dst[off + static_cast<int64_t>(rr ? r1 : r0) * p.n2 + i] = buf[rr * p.n2 + bitrev(i, p.log_n2)];
-  }
+  cols_inv_body<kRadix>(a, DxSink<T>{dy, u, D, dx0}, C, len, p);
 }
 
 template <typename T>
@@ -264,54 +206,45 @@ int launch_all(Route route, const T* u, const float2* uspec, const T* v, const T
                float2* su, float2* kspec, float2* sdk, int B, int C, int L, int Lk,
                const Plan& p, cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
-  const size_t smem_cols = cols_smem_bytes(p);
-  const size_t smem_rows = rows_smem_bytes(p);
-  const size_t smem_bwd = rows_bwd_smem_bytes(p);
-  auto cols = [&](const void* fn) {
-    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem_cols));
-  };
-  cols(reinterpret_cast<const void*>(cols_fwd_kernel<T>));
-  cols(reinterpret_cast<const void*>(cols_fwd_delta_kernel<T>));
-  cols(reinterpret_cast<const void*>(cols_fwd_dv_kernel<T>));
-  cols(reinterpret_cast<const void*>(cols_inv_kernel<T>));
-  cols(reinterpret_cast<const void*>(cols_inv_du_kernel<T>));
-  cols(reinterpret_cast<const void*>(cols_inv_dx0_kernel<T>));
-  cudaFuncSetAttribute(rows_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  cudaFuncSetAttribute(rows_gate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_rows));
-  cudaFuncSetAttribute(rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem_bwd));
-  const dim3 cols_c(p.n2 / p.tc, pairs, 1), cols_b(p.n2 / p.tc, pairs, B);
-  const dim3 rows_b(p.n1 / 2 + 1, pairs, B);
+  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const dim3 cols_c = cols_grid(p, pairs, 1), cols_b = cols_grid(p, pairs, B);
+  const dim3 rows_b = pair_rows_grid(p, pairs, B);
+  const int tc = cols_threads(p);
+  const size_t sc = cols_smem_bytes(p), sr = rows_smem_bytes(p);
+  auto rows_conv = [](auto w) { return rows_conv_kernel<decltype(w)::value>; };
   const bool ks_trick = route == kSpec;  // kspec = K + D
   if (ks_trick) {
-    cols_fwd_delta_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, D, C, Lk, p, kspec);
+    launch([](auto w) { return cols_fwd_delta_kernel<T, decltype(w)::value>; }, wc, cols_c, tc,
+           sc, stream, k, D, C, Lk, p, kspec);
   } else {
-    cols_fwd_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(k, C, Lk, p, kspec);
+    launch([](auto w) { return cols_fwd_kernel<T, decltype(w)::value>; }, wc, cols_c, tc, sc,
+           stream, k, C, Lk, p, kspec);
   }
-  rows_fwd_kernel<<<dim3(p.n1, pairs, 1), kThreads, smem_rows, stream>>>(kspec, p);
+  launch([](auto w) { return rows_fwd_kernel<decltype(w)::value>; }, wr, rows_grid(p, pairs),
+         rows_threads(p), sr, stream, kspec, p);
   const float2* gu = uspec;
   if (route != kSpecV) {  // v = inv(U K) (+ u D), dx0 = dy v; sdy is v's scratch here
     if (route == kRetransform) {
-      cols_fwd_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(u, C, L, p, su);
-      rows_gate_kernel<<<rows_b, kThreads, smem_rows, stream>>>(su, 0, kspec, su, sdy, p);
+      launch([](auto w) { return cols_fwd_kernel<T, decltype(w)::value>; }, wc, cols_b, tc, sc,
+             stream, u, C, L, p, su);
+      launch(rows_conv, wr, rows_b, pair_threads(p), sr, stream, su, 0, kspec, su, sdy, p);
       gu = su;
     } else {
-      rows_gate_kernel<<<rows_b, kThreads, smem_rows, stream>>>(uspec, 1, kspec, nullptr, sdy, p);
+      launch(rows_conv, wr, rows_b, pair_threads(p), sr, stream, uspec, 1, kspec, nullptr, sdy,
+             p);
     }
-    cols_inv_dx0_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(
-        sdy, dy, route == kRetransform ? u : nullptr, D, dx0, C, L, p);
+    launch([](auto w) { return cols_inv_dx0_kernel<T, decltype(w)::value>; }, wc, cols_b, tc, sc,
+           stream, sdy, dy, route == kRetransform ? u : nullptr, D, dx0, C, L, p);
   }
-  cols_fwd_dv_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(
-      dy, x0, route == kSpecV ? v : nullptr, dx0, C, L, p, sdy);
-  rows_bwd_kernel<<<dim3(p.n1 / 2 + 1, pairs, 1), kRowThreads, smem_bwd, stream>>>(
-      sdy, gu, kspec, sdk, B, 1, p);
-  cols_inv_du_kernel<T><<<cols_b, kThreads, smem_cols, stream>>>(
-      sdy, dy, x0, ks_trick ? nullptr : D, du, C, L, p);
-  cols_inv_kernel<T><<<cols_c, kThreads, smem_cols, stream>>>(sdk, nullptr, nullptr, dk, dD, C,
-                                                              Lk, p);
+  launch([](auto w) { return cols_fwd_dv_kernel<T, decltype(w)::value>; }, wc, cols_b, tc, sc,
+         stream, dy, x0, route == kSpecV ? v : nullptr, dx0, C, L, p, sdy);
+  launch([](auto w) { return rows_bwd_kernel<decltype(w)::value>; }, wr,
+         pair_rows_grid(p, pairs, 1), pair_threads(p), rows_bwd_smem_bytes(p), stream, sdy, gu,
+         kspec, sdk, B, 1, p);
+  launch([](auto w) { return cols_inv_du_kernel<T, decltype(w)::value>; }, wc, cols_b, tc, sc,
+         stream, sdy, dy, x0, ks_trick ? nullptr : D, du, C, L, p);
+  launch([](auto w) { return cols_inv_kernel<T, decltype(w)::value>; }, wc, cols_c, tc, sc, stream,
+         sdk, nullptr, nullptr, dk, dD, C, Lk, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,13 +10,17 @@
 // bias adds, the GeLU and its derivative, dh itself) stays float32.
 //
 // Shapes: a block works on tiles of TM = 64 rows; the hidden dimension dh
-// is walked in chunks of TK = 64, each chunk's weights (w1[:, chunk] and
-// w2[chunk, :]) copied whole into shared memory by 16-byte asynchronous
-// copies (cp.async), so the next chunk's copy can run under the current
-// chunk's elementwise work. A block accumulates at most SLAB = 256 output
-// columns in registers (slab_product): a warp owns a 16-row, 128-column
-// strip, eight fragments. Rows are padded by 16 bytes in shared memory,
-// which keeps every fragment pointer 32-byte aligned as WMMA requires.
+// is walked in chunks of TK = 64. A product over d or d_out (x w1[:, chunk],
+// dy w2[chunk, :]^T) streams its depth through a fixed stage of shared
+// memory in 64-deep slabs, double-buffered with 16-byte asynchronous copies
+// (cp.async; a float32 operand is rounded on its way in), so shared memory
+// does not grow with d or d_out and every width the JAX rule takes runs. A
+// block accumulates at most SLAB = 256 output columns in registers
+// (slab_product): a warp owns a 16-row, 128-column strip, eight fragments;
+// that product's 64-deep weight piece (or the slab of x or dy the weight
+// pass needs) is copied into the stage once the streamed products are done.
+// Rows are padded by 16 bytes in shared memory, which keeps every fragment
+// pointer 32-byte aligned as WMMA requires.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -47,7 +51,10 @@ constexpr int LDC = TK + PAD;      // a bf16 row of a 64-wide chunk
 constexpr int LDF = TK + FPAD;     // a float row of a 64-wide chunk
 constexpr int LDS = SLAB + PAD;    // a bf16 row of a slab
 constexpr int LDY = SLAB + FPAD;   // a float row of a slab
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use on Hopper
+// the streaming stage: A and B slabs (TM x LDC bf16) of two 64-deep steps;
+// also holds a 64 x SLAB or SLAB x 64 bf16 piece once the streaming is done
+constexpr int kStage = 4 * TM * LDC;
+static_assert(kStage >= TK * LDS && kStage >= SLAB * LDC, "the stage holds a slab piece");
 
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
@@ -123,16 +130,21 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ldd, const T* src, int6
 }
 
 // Starts 16-byte asynchronous copies of rows x cols (cols a multiple of 8)
-// of a bf16 matrix (row stride lds) into shared memory (row stride ldd) and
-// commits them as one batch; wait_copies() then waits for every batch, or
-// with `newest_pending` for all but the newest one.
-__device__ __forceinline__ void copy_async(bf16* dst, int ldd, const bf16* src, int64_t lds,
-                                           int rows, int cols) {
+// of a bf16 matrix (row stride lds) into shared memory (row stride ldd);
+// copy_async also commits them as one batch. wait_copies() then waits for
+// every batch, or with `newest_pending` for all but the newest one.
+__device__ __forceinline__ void issue_async(bf16* dst, int ldd, const bf16* src, int64_t lds,
+                                            int rows, int cols) {
   const int vec = cols / 8;
   for (int e = threadIdx.x; e < rows * vec; e += blockDim.x) {
     const int r = e / vec, c = (e % vec) * 8;
     __pipeline_memcpy_async(dst + r * ldd + c, src + r * lds + c, 16);
   }
+}
+
+__device__ __forceinline__ void copy_async(bf16* dst, int ldd, const bf16* src, int64_t lds,
+                                           int rows, int cols) {
+  issue_async(dst, ldd, src, lds, rows, cols);
   __pipeline_commit();
 }
 
@@ -178,6 +190,42 @@ __device__ __forceinline__ void chunk_product(FragC (&acc)[2], const bf16* a, in
         wmma::mma_sync(acc[f], fa, fb, acc[f]);
       }
     }
+  }
+}
+
+// The A slab of one streamed step: 64 rows x 64 columns of a bf16 operand
+// by cp.async, of a float32 one rounded to bf16 through registers.
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int64_t lds) {
+  issue_async(dst, LDC, src, lds, TM, TK);
+}
+__device__ __forceinline__ void stage_rows(bf16* dst, const float* src, int64_t lds) {
+  load_tile(dst, LDC, src, lds, TM, TK);
+}
+
+// acc += A (64 x K: row r at a + r lda, float32 or bf16) times B (K x 64,
+// bf16): B[k][n] at b[k * ldb + n], or with kTrans at b[n * ldb + k]. K (a
+// multiple of 64) streams through `stage` (kStage bf16) in 64-deep slabs,
+// double-buffered: slab s + 1 is copied while slab s is multiplied, and the
+// sum runs over k in order. Every thread of the block calls it, with no
+// copy pending; it ends with the stage free (a barrier).
+template <bool kTrans, typename T>
+__device__ __forceinline__ void stream_product(FragC (&acc)[2], const T* a, int64_t lda,
+                                               const bf16* b, int64_t ldb, int K, bf16* stage) {
+  const int slabs = K / TK;
+  auto load = [&](int s) {
+    bf16* sa = stage + (s & 1) * 2 * TM * LDC;
+    const int64_t k0 = static_cast<int64_t>(s) * TK;
+    issue_async(sa + TM * LDC, LDC, kTrans ? b + k0 : b + k0 * ldb, ldb, TK, TK);
+    stage_rows(sa, a + k0, lda);
+    __pipeline_commit();
+  };
+  load(0);
+  for (int s = 0; s < slabs; ++s) {
+    if (s + 1 < slabs) load(s + 1);
+    wait_copies(s + 1 < slabs);  // slab s is in (and, for a float32 A, visible)
+    const bf16* sa = stage + (s & 1) * 2 * TM * LDC;
+    chunk_product<kTrans>(acc, sa, LDC, sa + TM * LDC, LDC, TK);
+    __syncthreads();  // slab s's buffers are free for slab s + 2
   }
 }
 

@@ -16,30 +16,28 @@
 // tensor-core rate (N = 131072, d = d_out = 256, dh = 1024: 0.14 ms); its
 // bytes are x and y only. The TPU kernel's point is that the (N, dh) hidden
 // never reaches device memory, and that holds here:
-//  * a block owns TM = 64 rows; it keeps the x tile in shared memory as
-//    bf16 and walks dh in 64-wide chunks: pre = x w1[:, chunk], + b1, GeLU,
-//    h rounded to bf16 in shared memory, then y += h w2[chunk, :] into
-//    float32 fragments held in registers;
-//  * each chunk's w1 and w2 pieces are copied whole by cp.async; the next
-//    chunk's w1 piece is copied under the GeLU and the second product, its
-//    w2 piece under the next chunk's first product and GeLU;
+//  * a block owns TM = 64 rows and walks dh in 64-wide chunks: pre =
+//    x w1[:, chunk] with x and w1 streamed through d in 64-deep slabs
+//    (stream_product), + b1, GeLU, h rounded to bf16 in shared memory, then
+//    y += h w2[chunk, :] into float32 fragments held in registers;
+//  * the chunk's w2 piece is copied by cp.async under the GeLU;
 //  * y's columns are cut into slabs of 256 (grid.y), each with its own
 //    recompute of h, so any d_out is taken (d_out <= 256: one slab);
 //  * the epilogue adds b2 and rounds y once to its type.
-// Simple first: WMMA fragments, one block per SM (its shared memory), no
-// TMA or wgmma; the weights stream from L2 for every tile.
+// Shared memory is fixed (66.5 KB): any d, dh, d_out in multiples of 64.
+// Simple first: WMMA fragments, no TMA or wgmma; x and the weights stream
+// from L2 for every tile and chunk.
 #define MLP_NS mlp_fwd
 #include "mlp_common.cuh"
 
 namespace MLP_NS {
 
-// x tile, w1's and w2's pieces of one chunk, pre and h; the epilogue's
-// float y slab reuses the space after the x tile.
-inline size_t fwd_smem_bytes(int d) {
-  const size_t rest = sizeof(bf16) * (static_cast<size_t>(d) * LDC + TK * LDS + TM * LDC) +
-                      sizeof(float) * TM * LDF;
+// the streaming stage (the chunk's w2 piece once pre is done), h and pre;
+// the epilogue's float y slab reuses the space from the start
+inline size_t fwd_smem_bytes() {
+  const size_t work = sizeof(bf16) * (kStage + TM * LDC) + sizeof(float) * TM * LDF;
   const size_t y_slab = sizeof(float) * TM * LDY;
-  return sizeof(bf16) * TM * (static_cast<size_t>(d) + PAD) + (rest > y_slab ? rest : y_slab);
+  return work > y_slab ? work : y_slab;
 }
 
 template <typename T>
@@ -48,41 +46,31 @@ __global__ void __launch_bounds__(kThreads) mlp_fwd_kernel(
     const bf16* __restrict__ w2, const float* __restrict__ b2, T* __restrict__ y, int d, int dh,
     int dout) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldx = d + PAD;
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  bf16* w1c = xs + TM * ldx;  // w1[:, j:j+64], d x 64
-  bf16* w2c = w1c + d * LDC;  // w2[j:j+64, slab], 64 x ncol
-  bf16* hs = w2c + TK * LDS;
+  bf16* stage = reinterpret_cast<bf16*>(smem);
+  bf16* w2c = stage;  // w2[j:j+64, slab], 64 x ncol, once pre(j) is done
+  bf16* hs = stage + kStage;
   float* pre = reinterpret_cast<float*>(hs + TM * LDC);
-  float* ys = reinterpret_cast<float*>(w1c);  // epilogue only
+  float* ys = reinterpret_cast<float*>(smem);  // epilogue only
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * TM;
   const int col0 = blockIdx.y * SLAB;
   const int ncol = min(SLAB, dout - col0);
 
-  copy_async(w1c, LDC, w1, dh, d, TK);
-  copy_async(w2c, LDS, w2 + col0, dout, TK, ncol);
-  load_tile(xs, ldx, x + row0 * d, d, TM, d);
   FragC acc[8];
   zero(acc);
-  // copy batches in flight: w1c(j), then w2c(j); w1c(j + 1) starts once
-  // pre(j) is done, w2c(j + 1) once y's product for j is
   for (int j = 0; j < dh; j += TK) {
-    const bool next = j + TK < dh;
-    wait_copies(true);  // w1c(j) (and, at j = 0, the x tile); w2c(j) may be in flight
     FragC pa[2];
     zero(pa);
-    chunk_product<false>(pa, xs, ldx, w1c, LDC, d);
+    stream_product<false>(pa, x + row0 * d, d, w1 + j, dh, d, stage);
     store_chunk(pre, pa);
-    __syncthreads();
-    if (next) copy_async(w1c, LDC, w1 + j + TK, dh, d, TK);
+    copy_async(w2c, LDS, w2 + static_cast<int64_t>(j) * dout + col0, dout, TK, ncol);
+    __syncthreads();  // pre is whole
     for (int e = threadIdx.x; e < TM * TK; e += blockDim.x) {
       const int r = e / TK, c = e % TK;
       hs[r * LDC + c] = __float2bfloat16_rn(gelu_tanh(pre[r * LDF + c] + b1[j + c]));
     }
-    wait_copies(next);  // w2c(j); w1c(j + 1) may be in flight
+    wait_copies();  // w2c, and h is whole
     slab_product<false>(acc, hs, w2c, LDS, ncol);
-    __syncthreads();  // w2c and hs are free
-    if (next) copy_async(w2c, LDS, w2 + static_cast<int64_t>(j + TK) * dout + col0, dout, TK, ncol);
+    __syncthreads();  // the stage and hs are free
   }
   store_slab(ys, acc, ncol);
   __syncthreads();
@@ -99,7 +87,7 @@ __global__ void __launch_bounds__(kThreads) mlp_fwd_kernel(
 template <typename T>
 int launch(const void* x, const bf16* w1, const float* b1, const bf16* w2, const float* b2,
            void* y, int N, int d, int dh, int dout, cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes(d);
+  const size_t smem = fwd_smem_bytes();
   cudaFuncSetAttribute(mlp_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const dim3 grid(N / TM, (dout + SLAB - 1) / SLAB);
@@ -112,16 +100,14 @@ int launch(const void* x, const bf16* w1, const float* b1, const bf16* w2, const
 
 // x (N, d) and y (N, d_out) contiguous, both float32 (is_bf16 == 0) or both
 // bfloat16; w1 (d, dh) and w2 (dh, d_out) contiguous bfloat16; b1 (dh,),
-// b2 (d_out,) float32; every pointer 16-byte aligned. N a multiple of 64;
-// d, dh, d_out multiples of 64, with the x tile and w1's chunk within
-// shared memory (d <= 576). Launches on `stream`,
-// does not synchronise; returns the cudaError_t of the launch (0 on
-// success).
+// b2 (d_out,) float32; every pointer 16-byte aligned. N, d, dh, d_out
+// multiples of 64. Launches on `stream`, does not synchronise; returns the
+// cudaError_t of the launch (0 on success).
 extern "C" int hyena_mlp_fwd(const void* x, const void* w1, const float* b1, const void* w2,
                              const float* b2, void* y, int N, int d, int dh, int dout,
                              int is_bf16, cudaStream_t stream) {
   using namespace MLP_NS;
-  if (!valid_widths(N, d, dh, dout) || fwd_smem_bytes(d) > kMaxSmem) {
+  if (!valid_widths(N, d, dh, dout)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* w1b = static_cast<const bf16*>(w1);

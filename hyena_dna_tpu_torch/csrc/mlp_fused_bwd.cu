@@ -20,55 +20,51 @@
 // the (N, dh) hidden and its gradient never reach device memory. The TPU
 // kernel accumulated dw1, dw2 and db1 across its sequential grid; CUDA
 // blocks run in no order, so the work is cut in two passes and a sum:
-//  * row pass (grid N / 64 x ceil(d / 256)): a block keeps its x and dy
-//    tiles in shared memory as bf16 and walks dh in 64-wide chunks, each
-//    chunk's w1 and w2 pieces copied whole by cp.async (w2's for the next
-//    chunk under this chunk's dx product, w1's after it): pre = x w1[:, j]
-//    and dy w2[j, :]^T, dh rounded to bf16, dx += dh w1[:, j]^T (the same
-//    w1 piece read transposed) into float32 fragments; dx is written once;
+//  * row pass (grid N / 64 x ceil(d / 256)): a block walks dh in 64-wide
+//    chunks: pre = x w1[:, j] and dy w2[j, :]^T, each streamed through d or
+//    d_out in 64-deep slabs (stream_product), dh rounded to bf16, then the
+//    chunk's w1 piece for the block's 256 columns of dx (copied by cp.async
+//    under dh's elementwise work) and dx += dh w1[slab, j]^T into float32
+//    fragments; dx is written once;
 //  * weight pass (grid dh / 64 x kSplits x (ceil(d / 256) +
-//    ceil(d_out / 256))): a block owns one 64-wide dh chunk, whose w1 and
-//    w2 pieces it keeps in shared memory, one of the fixed splits of the
-//    rows, and a 256-wide slab of dw1's rows or of dw2's columns. Over its
-//    rows' tiles it recomputes pre (and dh for dw1) and accumulates x^T dh
-//    or h^T dy in registers; the dw1 blocks of the first slab also sum db1
-//    in a fixed order. Each block writes its partial sums to a float32
-//    workspace;
+//    ceil(d_out / 256))): a block owns one 64-wide dh chunk, one of the
+//    fixed splits of the rows, and a 256-wide slab of dw1's rows or of
+//    dw2's columns. Over its rows' tiles it recomputes pre (and dh for dw1)
+//    by streamed products, loads the tile's slab of x (or dy) and
+//    accumulates x^T dh or h^T dy in registers; the dw1 blocks of the first
+//    slab also sum db1 in a fixed order. Each block writes its partial sums
+//    to a float32 workspace;
 //  * a last kernel sums the splits in a fixed order: no atomics, the same
 //    bits every run, as in kernels A' and D'.
+// Shared memory is fixed (79 KB): any d, dh, d_out in multiples of 64.
 // Simple first: WMMA fragments, no TMA or wgmma; pre is recomputed by both
-// passes (eight products where five would do).
+// passes (eight products where five would do) and the weights stream from
+// L2 for every tile.
 #define MLP_NS mlp_bwd
 #include "mlp_common.cuh"
 
 namespace MLP_NS {
 
-// x and dy tiles, w1's and w2's pieces of one chunk, dh, pre and dy w2^T;
-// both passes. The row pass's float dx slab reuses the space after the
-// tiles.
-inline size_t bwd_smem_bytes(int d, int dout) {
-  const size_t tiles = sizeof(bf16) * TM * (static_cast<size_t>(d) + dout + 2 * PAD);
-  const size_t rest = sizeof(bf16) * (static_cast<size_t>(d) * LDC +
-                                      static_cast<size_t>(TK) * (dout + PAD) + TM * LDC) +
-                      sizeof(float) * 2 * TM * LDF;
-  const size_t dx_slab = sizeof(float) * TM * LDY;
-  return tiles + (rest > dx_slab ? rest : dx_slab);
-}
-
-// The shared-memory buffers of both passes, in bwd_smem_bytes' order.
+// The shared-memory buffers of both passes: the streaming stage (after a
+// chunk's streamed products: the row pass's w1 piece, the weight pass's
+// slab of x or dy), h or dh in bf16, pre and dy w2^T (then dh) in float32.
+// The row pass's float dx slab reuses the space from the start.
 struct Buffers {
-  bf16 *xs, *dys, *w1c, *w2c, *hs;
+  bf16 *stage, *hs;
   float *pre, *dg;
-  __device__ Buffers(unsigned char* smem, int d, int dout) {
-    xs = reinterpret_cast<bf16*>(smem);
-    dys = xs + TM * (d + PAD);
-    w1c = dys + TM * (dout + PAD);  // w1[:, j:j+64], d x 64
-    w2c = w1c + d * LDC;            // w2[j:j+64, :], 64 x d_out
-    hs = w2c + TK * (dout + PAD);   // h or dh, bf16
+  __device__ explicit Buffers(unsigned char* smem) {
+    stage = reinterpret_cast<bf16*>(smem);
+    hs = stage + kStage;
     pre = reinterpret_cast<float*>(hs + TM * LDC);
-    dg = pre + TM * LDF;            // dy w2^T, then dh in float32 (weight pass)
+    dg = pre + TM * LDF;
   }
 };
+
+inline size_t bwd_smem_bytes() {
+  const size_t work = sizeof(bf16) * (kStage + TM * LDC) + sizeof(float) * 2 * TM * LDF;
+  const size_t dx_slab = sizeof(float) * TM * LDY;
+  return work > dx_slab ? work : dx_slab;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) mlp_bwd_rows_kernel(
@@ -76,43 +72,35 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_rows_kernel(
     const float* __restrict__ b1, const bf16* __restrict__ w2, T* __restrict__ dx, int d, int dh,
     int dout) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Buffers sb(smem, d, dout);
-  const int ldx = d + PAD, ldy = dout + PAD;
-  float* dxs = reinterpret_cast<float*>(sb.w1c);  // epilogue only
+  const Buffers sb(smem);
+  bf16* w1c = sb.stage;  // w1[col0:col0+ncol, j:j+64], ncol x 64, after the streamed products
+  float* dxs = reinterpret_cast<float*>(smem);  // epilogue only
   const int64_t row0 = static_cast<int64_t>(blockIdx.x) * TM;
   const int col0 = blockIdx.y * SLAB;
   const int ncol = min(SLAB, d - col0);
 
-  copy_async(sb.w1c, LDC, w1, dh, d, TK);
-  copy_async(sb.w2c, ldy, w2, dout, TK, dout);
-  load_tile(sb.xs, ldx, x + row0 * d, d, TM, d);
-  load_tile(sb.dys, ldy, dy + row0 * dout, dout, TM, dout);
   FragC acc[8];
   zero(acc);
-  // w2c(j + 1) is copied under dh and dx's product for j; w1c(j + 1), read
-  // by both products of a chunk, only once dx's product for j is done
   for (int j = 0; j < dh; j += TK) {
-    const bool next = j + TK < dh;
-    wait_copies();  // this chunk's pieces (and, at j = 0, the tiles)
     FragC pa[2], ga[2];
     zero(pa);
     zero(ga);
-    chunk_product<false>(pa, sb.xs, ldx, sb.w1c, LDC, d);
-    chunk_product<true>(ga, sb.dys, ldy, sb.w2c, ldy, dout);
+    stream_product<false>(pa, x + row0 * d, d, w1 + j, dh, d, sb.stage);
+    stream_product<true>(ga, dy + row0 * dout, dout, w2 + static_cast<int64_t>(j) * dout, dout,
+                         dout, sb.stage);
     store_chunk(sb.pre, pa);
     store_chunk(sb.dg, ga);
-    __syncthreads();
-    if (next) copy_async(sb.w2c, ldy, w2 + static_cast<int64_t>(j + TK) * dout, dout, TK, dout);
+    copy_async(w1c, LDC, w1 + static_cast<int64_t>(col0) * dh + j, dh, ncol, TK);
+    __syncthreads();  // pre and dy w2^T are whole
     for (int e = threadIdx.x; e < TM * TK; e += blockDim.x) {
       const int r = e / TK, c = e % TK;
       const float g = sb.dg[r * LDF + c] * gelu_tanh_grad(sb.pre[r * LDF + c] + b1[j + c]);
       sb.hs[r * LDC + c] = __float2bfloat16_rn(g);
     }
-    __syncthreads();
-    // dx[:, slab] += dh w1[slab, j:j+64]^T: B[k][n] = w1c[(col0 + n) * LDC + k]
-    slab_product<true>(acc, sb.hs, sb.w1c + col0 * LDC, LDC, ncol);
-    __syncthreads();  // w1c and hs are free
-    if (next) copy_async(sb.w1c, LDC, w1 + j + TK, dh, d, TK);
+    wait_copies();  // w1c, and dh is whole
+    // dx[:, slab] += dh w1[slab, j:j+64]^T: B[k][n] = w1c[n * LDC + k]
+    slab_product<true>(acc, sb.hs, w1c, LDC, ncol);
+    __syncthreads();  // the stage and hs are free
   }
   store_slab(dxs, acc, ncol);
   __syncthreads();
@@ -123,8 +111,8 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_rows_kernel(
   }
 }
 
-// dw1's slab (nrow rows of d from col0) x the 64-wide chunk: A = x^T from
-// the x tile (column-major view), B = dh. The warp owns row groups
+// dw1's slab (nrow rows of d from col0 of the tile xs) x the 64-wide
+// chunk: A = x^T (column-major view of the tile), B = dh. The warp owns row groups
 // 2 warp + g (g < 2) and the chunk's four column groups: acc[4 g + cg].
 __device__ __forceinline__ void dw1_product(FragC (&acc)[8], const bf16* xs, int ldx, int col0,
                                             int nrow, const bf16* dhs) {
@@ -146,8 +134,8 @@ __device__ __forceinline__ void dw1_product(FragC (&acc)[8], const bf16* xs, int
   }
 }
 
-// dw2's chunk rows x slab (ncol columns of d_out from col0): A = h^T
-// (column-major view of h), B = the dy tile. The warp owns row group
+// dw2's chunk rows x slab (ncol columns of d_out from col0 of the tile
+// dys): A = h^T (column-major view of h), B = dy. The warp owns row group
 // warp % 4 and column groups 8 (warp / 4) + f: acc[f].
 __device__ __forceinline__ void dw2_product(FragC (&acc)[8], const bf16* hs, const bf16* dys,
                                             int ldy, int col0, int ncol) {
@@ -176,8 +164,8 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_weights_kernel(
     const float* __restrict__ b1, const bf16* __restrict__ w2, float* __restrict__ part, int N,
     int d, int dh, int dout) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const Buffers sb(smem, d, dout);
-  const int ldx = d + PAD, ldy = dout + PAD;
+  const Buffers sb(smem);
+  bf16* tile = sb.stage;  // x[rows, slab] or dy[rows, slab], TM x LDS, after the products
   const int j = blockIdx.x * TK;
   const int split = blockIdx.y, splits = gridDim.y;
   const int nd = (d + SLAB - 1) / SLAB;
@@ -187,8 +175,6 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_weights_kernel(
   const int64_t tiles = N / TM;
   const int64_t t0 = tiles * split / splits, t1 = tiles * (split + 1) / splits;
 
-  copy_async(sb.w1c, LDC, w1 + j, dh, d, TK);  // kept for every tile
-  if (is_dw1) copy_async(sb.w2c, ldy, w2 + static_cast<int64_t>(j) * dout, dout, TK, dout);
   FragC acc[8];
   zero(acc);
   // db1 (first dw1 slab only): thread t sums column t % 64 over row quarter
@@ -198,18 +184,19 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_weights_kernel(
   float db1 = 0.f;
   for (int64_t t = t0; t < t1; ++t) {
     const int64_t row0 = t * TM;
-    load_tile(sb.xs, ldx, x + row0 * d, d, TM, d);
-    load_tile(sb.dys, ldy, dy + row0 * dout, dout, TM, dout);
-    wait_copies();
     FragC pa[2];
     zero(pa);
-    chunk_product<false>(pa, sb.xs, ldx, sb.w1c, LDC, d);
+    stream_product<false>(pa, x + row0 * d, d, w1 + j, dh, d, sb.stage);
     store_chunk(sb.pre, pa);
     if (is_dw1) {
       FragC ga[2];
       zero(ga);
-      chunk_product<true>(ga, sb.dys, ldy, sb.w2c, ldy, dout);
+      stream_product<true>(ga, dy + row0 * dout, dout, w2 + static_cast<int64_t>(j) * dout, dout,
+                           dout, sb.stage);
       store_chunk(sb.dg, ga);
+      load_tile(tile, LDS, x + row0 * d + col0, d, TM, ncol);
+    } else {
+      load_tile(tile, LDS, dy + row0 * dout + col0, dout, TM, ncol);
     }
     __syncthreads();
     for (int e = threadIdx.x; e < TM * TK; e += blockDim.x) {
@@ -229,13 +216,12 @@ __global__ void __launch_bounds__(kThreads) mlp_bwd_weights_kernel(
 #pragma unroll
         for (int r = 0; r < TM / 4; ++r) db1 += sb.dg[(db_row0 + r) * LDF + db_col];
       }
-      dw1_product(acc, sb.xs, ldx, col0, ncol, sb.hs);
+      dw1_product(acc, tile, LDS, 0, ncol, sb.hs);
     } else {
-      dw2_product(acc, sb.hs, sb.dys, ldy, col0, ncol);
+      dw2_product(acc, sb.hs, tile, LDS, 0, ncol);
     }
-    __syncthreads();  // the next tile overwrites the tiles, pre, dg and hs
+    __syncthreads();  // the next tile overwrites the stage, pre, dg and hs
   }
-  wait_copies();  // a split with no tiles still retires its copies
   if (sums_db1) {
     sb.pre[threadIdx.x] = db1;  // pre is free: its last reader synchronised above
     __syncthreads();
@@ -291,7 +277,7 @@ template <typename T>
 int launch(const void* x, const void* dy, const bf16* w1, const float* b1, const bf16* w2,
            void* dx, float* part, float* grads, int N, int d, int dh, int dout, int splits,
            cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes(d, dout);
+  const size_t smem = bwd_smem_bytes();
   cudaFuncSetAttribute(mlp_bwd_rows_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   cudaFuncSetAttribute(mlp_bwd_weights_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -315,17 +301,14 @@ int launch(const void* x, const void* dy, const bf16* w1, const float* b1, const
 // 0) or all bfloat16; w1 (d, dh) and w2 (dh, d_out) contiguous bfloat16; b1
 // (dh,) float32. part holds splits x (d dh + dh d_out + dh) floats of
 // workspace; grads receives (d dh + dh d_out + dh) floats: dw1 (d, dh), dw2
-// (dh, d_out), db1 (dh); every pointer 16-byte aligned. N a multiple of
-// 64; d, dh, d_out multiples of 64 whose tiles and weight pieces fit shared
-// memory (bwd_smem_bytes: d = d_out <= 320). Launches on `stream`,
-// does not synchronise; returns the cudaError_t of the launches (0 on
-// success).
+// (dh, d_out), db1 (dh); every pointer 16-byte aligned. N, d, dh, d_out
+// multiples of 64. Launches on `stream`, does not synchronise; returns the
+// cudaError_t of the launches (0 on success).
 extern "C" int hyena_mlp_bwd(const void* x, const void* dy, const void* w1, const float* b1,
                              const void* w2, void* dx, float* part, float* grads, int N, int d,
                              int dh, int dout, int splits, int is_bf16, cudaStream_t stream) {
   using namespace MLP_NS;
-  if (!valid_widths(N, d, dh, dout) || splits < 1 || splits > 65535 ||
-      bwd_smem_bytes(d, dout) > kMaxSmem) {
+  if (!valid_widths(N, d, dh, dout) || splits < 1 || splits > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* w1b = static_cast<const bf16*>(w1);

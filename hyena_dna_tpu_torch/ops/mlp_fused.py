@@ -36,7 +36,6 @@ KERNEL_BWD = _cuda.Kernel("mlp_fused_bwd", {
 })
 TILE = 64  # rows of a tile, and the unit of d, dh and d_out, in kernels F and F'
 SPLITS = 32  # F''s fixed split of the rows for the dw1 / dw2 / db1 partial sums
-_PAD, _SLAB, _MAX_SMEM = 8, 256, 232448  # csrc/mlp_common.cuh
 _C0 = 0.7978845608028654  # sqrt(2 / pi)
 _C1 = 0.044715
 
@@ -45,19 +44,6 @@ def applies(n: int, d: int, dh: int, d_out: int) -> bool:
     """The JAX `Mlp` rule for the fused kernel (`blocks.py:150-165`): N a
     multiple of 128 (`_pick_tile`), and d, dh, d_out multiples of 128."""
     return n % 128 == 0 and d % 128 == 0 and dh % 128 == 0 and d_out % 128 == 0
-
-
-def _smem_bytes(d: int, d_out: int) -> int:
-    """The larger shared memory of kernels F and F' (`fwd_smem_bytes`,
-    `bwd_smem_bytes`): the x (and dy) tiles, then the chunk's weight
-    pieces and scratch, or the float32 output slab where that is larger."""
-    t, ldc, ldf = TILE, TILE + _PAD, TILE + 4
-    slab = 4 * t * (_SLAB + 4)
-    fwd = 2 * t * (d + _PAD) + max(2 * (d * ldc + t * (_SLAB + _PAD) + t * ldc) + 4 * t * ldf,
-                                   slab)
-    bwd = 2 * t * (d + d_out + 2 * _PAD) + max(
-        2 * (d * ldc + t * (d_out + _PAD) + t * ldc) + 8 * t * ldf, slab)
-    return max(fwd, bwd)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -112,10 +98,6 @@ def _check(x, w1, b1, w2, b2=None, dy=None):
     if n % TILE or d % TILE or dh % TILE or d_out % TILE:
         raise ValueError(f"kernels F and F' take N, d, dh, d_out in multiples of {TILE}; got "
                          f"{n}, {d}, {dh}, {d_out}")
-    if _smem_bytes(d, d_out) > _MAX_SMEM:
-        raise ValueError(f"kernels F and F' keep (64, d) and (64, d_out) tiles and a 64-wide "
-                         f"chunk of each weight in shared memory; d={d}, d_out={d_out} do not "
-                         "fit (d = d_out <= 320 does)")
 
 
 def _bf16(w: torch.Tensor) -> torch.Tensor:

@@ -495,6 +495,9 @@ def test_remat_grads_on_card_match_plain(card, remat, monkeypatch):
 @pytest.mark.parametrize("n,d,dh,d_out,dtype", [
     (128, 128, 128, 128, "float32"), (640, 256, 1024, 256, "bfloat16"),
     (256, 128, 192, 384, "bfloat16"), (192, 320, 64, 64, "float32"), (64, 64, 64, 64, "bfloat16"),
+    # the widths past the old shared-memory limit, dh = 4 d
+    (256, 384, 1536, 384, "bfloat16"), (192, 512, 2048, 512, "float32"),
+    (128, 1024, 4096, 1024, "bfloat16"), (128, 256, 1024, 512, "bfloat16"),
 ])
 def test_mlp_fused_matches_plain(card, n, d, dh, d_out, dtype):
     """Kernels F and F' against `mlp_fused_ref` / `mlp_fused_bwd_ref`: the
@@ -559,3 +562,33 @@ def test_dk_spec_matches_plain(card, B, C, L, dtype):
     want_re, want_im = FB.fftconv_dk_spec_ref(u, dy, n)
     scale = torch.complex(want_re, want_im).abs().max()
     assert (torch.complex(re, im) - torch.complex(want_re, want_im)).abs().max() <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("log_n", range(4, 22))
+def test_fftconv_every_fft_size(card, log_n, dtype):
+    """Kernel B at every power-of-two FFT size from 16 to 2^21 (the plan's
+    edges: N2 < 16 below 2^8, N1 = 512 from 2^18), odd C at odd log_n,
+    against `fftconv_ref`; its saved spectrum against `pair_spectrum_ref`
+    and read back through kernel C's spectrum route against
+    `fftconv_bwd_ref`; a second run gives the same bits."""
+    n = 1 << log_n
+    B, C, L = (2 if log_n < 18 else 1), (3 if log_n % 2 else 4), n // 2
+    g = torch.Generator().manual_seed(log_n)
+    dt = getattr(torch, dtype)
+    u = torch.randn(B, C, L, generator=g).to(dt).to(card)
+    dy = torch.randn(B, C, L, generator=g).to(dt).to(card)
+    k = (torch.randn(C, L, generator=g) * torch.exp(-torch.arange(L) / (L / 8))).to(dt).to(card)
+    D = torch.randn(C, generator=g).to(card)
+    tol = (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
+    before = FB.KERNEL.launches
+    y, spec = FB.fftconv_fused(u, k, D, save_spectrum=True)
+    again = FB.fftconv_fused(u, k, D)
+    assert FB.KERNEL.launches == before + 2
+    assert torch.equal(y, again)
+    _close(y, fftconv_ref(u, k, D), *tol)
+    _close(spec, FB.pair_spectrum_ref(u, n), 1e-5, 1e-4)
+    out = FB.fftconv_bwd_spectrum(spec, dy, k, D)
+    for got, want, name in zip(out, FB.fftconv_bwd_ref(u, dy, k, D), ("du", "dk", "dD")):
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        _close(got, want, *((1e-4, 1e-4) if name == "dD" else tol))

@@ -50,6 +50,8 @@ def _np(x):
     (256, 128, 256, 128, "float32"),
     (384, 128, 256, 256, "float32"),
     (256, 256, 128, 128, "bfloat16"),
+    (128, 384, 256, 384, "float32"),  # past the width the card path once refused
+    (128, 384, 128, 384, "bfloat16"),
 ])
 def test_mlp_fused_forward_matches_jax(n, d, dh, d_out, dtype):
     args = _inputs(n, d, dh, d_out, seed=n + d)
@@ -65,6 +67,8 @@ def test_mlp_fused_forward_matches_jax(n, d, dh, d_out, dtype):
 @pytest.mark.parametrize("n,d,dh,d_out,dtype", [
     (384, 128, 256, 128, "float32"),  # three sequential grid steps on the JAX side
     (256, 128, 128, 256, "bfloat16"),
+    (128, 384, 256, 384, "float32"),  # past the width the card path once refused
+    (256, 384, 128, 384, "bfloat16"),
 ])
 def test_mlp_fused_grads_match_jax_vjp(n, d, dh, d_out, dtype):
     args = _inputs(n, d, dh, d_out, seed=7 + n)
@@ -86,12 +90,9 @@ def test_mlp_fused_grads_match_jax_vjp(n, d, dh, d_out, dtype):
         assert err <= GRAD_TOL, (name, err)
 
 
-def test_mlp_fused_bwd_ref_is_the_autograd_of_the_forward():
-    """The plain backward is the gradient of the plain forward with its
-    bf16-rounded operands held fixed: against autograd of the same math on
-    the rounded values, in float64."""
-    x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in _inputs(128, 128, 128, 128, seed=5))
-    dy = torch.randn(128, 128, generator=torch.Generator().manual_seed(1))
+def _bwd_ref_against_autograd(n, d, dh, d_out, seed):
+    x, w1, b1, w2, b2 = (torch.from_numpy(a) for a in _inputs(n, d, dh, d_out, seed=seed))
+    dy = torch.randn(n, d_out, generator=torch.Generator().manual_seed(1))
     got = MF.mlp_fused_bwd_ref(x, dy, w1, b1, w2)
     r = lambda t: t.to(torch.bfloat16).double()
     leaves = [r(x).requires_grad_(), r(w1).requires_grad_(), b1.double().requires_grad_(),
@@ -102,6 +103,19 @@ def test_mlp_fused_bwd_ref_is_the_autograd_of_the_forward():
     for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
         err = (g.double() - w).abs().max() / w.abs().max()
         assert err <= GRAD_TOL, (name, err.item())
+
+
+def test_mlp_fused_bwd_ref_is_the_autograd_of_the_forward():
+    """The plain backward is the gradient of the plain forward with its
+    bf16-rounded operands held fixed: against autograd of the same math on
+    the rounded values, in float64."""
+    _bwd_ref_against_autograd(128, 128, 128, 128, seed=5)
+
+
+def test_mlp_fused_bwd_ref_is_the_autograd_at_a_wide_mixed_width():
+    """The same at d = 384 -> 1536 -> 256: wider than F' once took on the
+    card, with d != d_out."""
+    _bwd_ref_against_autograd(128, 384, 1536, 256, seed=6)
 
 
 def _jax_mlp(d, dh, d_out, x, use_fused):
@@ -189,21 +203,17 @@ def test_kernel_checks_refuse_what_f_does_not_take():
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         MF._check(x.half(), w1, b1, w2, b2)
     big = torch.zeros(128, 2048)
-    with pytest.raises(ValueError, match="shared"):
-        MF._check(big, torch.zeros(2048, 128), b1, w2, b2)
+    MF._check(big, torch.zeros(2048, 128), b1, w2, b2)  # any width: streamed through d
 
 
-@pytest.mark.parametrize("d,d_out,fits", [(256, 256, True), (320, 320, True),
-                                          (384, 384, False), (512, 512, False),
-                                          (256, 512, False)])
-def test_kernel_checks_hold_the_shared_memory_width_limit(d, d_out, fits):
-    """The card path keeps (64, d) and (64, d_out) tiles in shared memory:
-    d = d_out <= 320 fits; d_model 384 and 512, which the JAX rule would
-    fuse, are refused with the width in the message."""
-    args = (torch.zeros(128, d), torch.zeros(d, 128), torch.zeros(128),
-            torch.zeros(128, d_out), torch.zeros(d_out))
-    if fits:
-        MF._check(*args)
-        return
-    with pytest.raises(ValueError, match=f"d={d}, d_out={d_out} do not fit"):
-        MF._check(*args)
+@pytest.mark.parametrize("d,d_out", [(256, 256), (384, 384), (512, 512), (512, 256),
+                                     (1024, 1024), (256, 512)])
+def test_kernel_checks_take_every_width_the_jax_rule_takes(d, d_out):
+    """Kernels F and F' stream x, dy and the weights through d and d_out in
+    fixed slabs, so their shared memory does not grow with the width:
+    `_check` takes d_model 384, 512 and 1024, which the JAX rule fuses, and
+    mixed widths, with dh = 4 d."""
+    args = (torch.zeros(128, d), torch.zeros(d, 4 * d), torch.zeros(4 * d),
+            torch.zeros(4 * d, d_out), torch.zeros(d_out))
+    MF._check(*args)
+    assert MF.applies(128, d, 4 * d, d_out)
