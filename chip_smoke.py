@@ -7,13 +7,18 @@ Phases, in order; any failure raises, exits non-zero and prints no final
 line:
 
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
-            nvcc per source, twelve sources, started together): kernels A and
+            nvcc per source, twelve sources, started together; ptxas's
+            register, stack and spill readings of the bf16 front-end
+            kernels are kept for their rows): kernels A and
             A' (the front end forward and backward), A4 and A4' (the same on
             the 4-D conv layout), B and C (the FFT conv forward and
             backward), D and D' (the fused residual-add + LN forward and
             backward), E and E' (the gate-fused FFT conv forward and
             backward), F and F' (the fused MLP forward and backward);
-2. kernels  each kernel against its plain PyTorch version on the card, in the
+2. kernels  `csrc/wgmma.cuh` alone: one 64 x N x 64 bf16 product in each
+            layout the bf16 front-end kernels use, against a float32
+            matmul. Then each kernel against its plain PyTorch version on
+            the card, in the
             working dtype, at the shapes of the TPU routes it replaces, with
             the tolerances below; kernel, plain and library-call times.
             Kernels A and A' in float32 and in bfloat16; D and D' at the
@@ -75,7 +80,8 @@ It then prints the card's name and power limit, one JSON line
 times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
 float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
-row of B, C, E, E', A4, A4', F and F' under "routes"), and last
+row of B, C, E, E', A4, A4', F and F' under "routes"; the bf16 rows of A,
+A', A4, A4' with their tensor-core kernels' ptxas readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
 launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
@@ -89,6 +95,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -186,6 +193,73 @@ def front_inputs(B, L, dtype, seed):
     wc = (torch.rand(3, 3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
     bc = (torch.rand(3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
     return g, (u, w, bp, wc, bc)
+
+
+def check_wgmma(FF):
+    """`csrc/wgmma.cuh` alone (kernel A's library, test entry
+    `hyena_front_wgmma_probe`): each product form of the bf16 front-end
+    kernels against a float32 matmul of the same bf16 values (exact
+    products, 64-term sums in another order: 1e-5 relative)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(90)
+    errs = {}
+    for mode, n in FF.PROBE_MODES.items():
+        a, b = (torch.randn(64, 64, device="cuda", generator=g).to(torch.bfloat16)
+                for _ in range(2))
+        ref = a.float() @ b.float()[:, :n]
+        err = (FF.wgmma_probe(a, b, mode) - ref).abs().max().item()
+        if not err <= 1e-5 * ref.abs().max().item():
+            raise AssertionError(f"wgmma probe mode {mode} (N={n}) disagrees with matmul: "
+                                 f"{err:.3e}")
+        errs[mode] = err
+    return {"phase": "wgmma_probe", "max_abs_err": errs, "ok": True}
+
+
+# the tensor-core kernels behind each bf16 front-end entry (csrc/fused_front_tc.cuh)
+TC_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
+              "fused_front4": ("split_w_kernel", "front_fwd_tc_kernel"),
+              "fused_front_bwd": ("split_w_kernel", "front_bwd_du_kernel", "front_bwd_dw_kernel",
+                                  "front_bwd_sum_kernel"),
+              "fused_front4_bwd": ("split_w_kernel", "front_bwd_du_kernel",
+                                   "front_bwd_dw_kernel", "front_bwd_sum_kernel")}
+
+
+def ptxas_readings(build_log, function: str) -> dict:
+    """ptxas's readings (`-Xptxas -v`) in one library's nvcc output for the
+    kernels whose mangled name contains `function`: {name: {"registers",
+    "stack", "spill_stores", "spill_loads"}}; {} for no output."""
+    out, name = {}, None
+    for line in (build_log or "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None or function not in name:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {}).update(zip(("stack", "spill_stores", "spill_loads"),
+                                                map(int, m.groups())))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def tc_ptxas(kernels) -> dict:
+    """{library name: {kernel: ptxas readings}} for the bf16 front-end
+    kernels, from this run's build (empty where the library was cached);
+    a kernel instantiated per panel count is keyed `name<panels>` (d = 256
+    runs `<4>`)."""
+    out = {}
+    for k in kernels:
+        for fn in TC_KERNELS.get(k.name, ()):
+            for mangled, reading in ptxas_readings(k.build_log, fn).items():
+                inst = re.search(fn + r"ILi(\d+)E", mangled)
+                out.setdefault(k.name, {})[f"{fn}<{inst.group(1)}>" if inst else fn] = reading
+    return out
 
 
 def check_front(FF, B, L, seed, dtype="float32"):
@@ -1098,8 +1172,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build_all(kernels)
+    ptxas = tc_ptxas(kernels)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
-         "libraries": [k.library_path.name for k in kernels]})
+         "libraries": [k.library_path.name for k in kernels], "ptxas": ptxas})
+    log(check_wgmma(FF))
 
     rows = [check_front(FF, 4, 32768, 1), check_front(FF, 1, 1000448, 2),
             check_front_bwd(FF, 4, 32768, 8)]
@@ -1292,6 +1368,14 @@ def main() -> int:
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bf16 = {r["name"]: {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}}
             for r in bf16_rows}
+    for name, row in bf16.items():
+        row["ptxas"] = ptxas.get(name, {})
+
+    def route_row(r):  # a "routes" entry; A4 and A4' in bf16 with their ptxas readings
+        extra = ({"ptxas": ptxas.get(r["name"], {})}
+                 if r["name"] in front4 and r["shape"].endswith("bfloat16") else {})
+        return (f"{r['route']} {r['shape']}",
+                {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}, **extra})
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -1300,9 +1384,7 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in rows if r["name"] == name),
          "max_rel_err": max(r["max_rel_err"] for r in rows if r["name"] == name),
          **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {}),
-         **({"routes": {f"{r['route']} {r['shape']}": {"max_abs_err": r["max_abs_err"],
-                                                       **{k: r[k] for k in timing}}
-                        for r in rows if r["name"] == name}}
+         **({"routes": dict(route_row(r) for r in rows if r["name"] == name)}
             if name in routed else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,8 @@ carries a hash of the source and the shared `csrc/*.cuh` headers, so an
 edited source is rebuilt) and loaded
 with `ctypes`. Every C entry point returns the `cudaError_t` of its
 launches; `Kernel.launch` raises on a non-zero code and counts the launch.
+Each build's compiler output, ptxas's register, stack and spill readings
+among it (`-Xptxas -v`), is kept on the kernel (`build_log`).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a host with no `nvcc` and no card.
@@ -25,7 +27,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -52,6 +54,7 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.functions = dict(functions)
         self.launches = 0
+        self.build_log = None  # nvcc's output when this process built the library
         self._lib = None
 
     @property
@@ -101,6 +104,7 @@ def build_all(kernels: Sequence[Kernel]) -> None:
     failed = []
     for k, proc in procs:
         out, _ = proc.communicate()
+        k.build_log = out
         if proc.returncode != 0:
             failed.append(f"{k.source.name}:\n{out}")
         else:

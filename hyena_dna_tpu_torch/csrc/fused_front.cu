@@ -16,14 +16,16 @@
 // Replaces hyena_dna_tpu/ops/pallas_hyena.py::fused_proj_conv_gate
 // (_kernel / _fwd_pallas), the front end of every order-2 Hyena layer.
 //
-// What bounds it on the H100: the projection, 2 * L * d * 3d flops per batch
-// row in float32 on the CUDA cores (about 0.8 ms at the card's 67 TFLOP/s
-// for B=4, L=32768, d=256), against 16 bytes per (t, channel) of traffic
-// (8 in bfloat16). With bf16 inputs the least time would be the tensor
-// cores' (0.05 ms at 989 TFLOP/s); this kernel keeps the CUDA-core SGEMM.
+// What bounds it on the H100: float32 u, the projection, 2 * L * d * 3d
+// flops per batch row on the CUDA cores (about 0.8 ms at the card's 67
+// TFLOP/s for B=4, L=32768, d=256), against 16 bytes per (t, channel) of
+// traffic. bfloat16 u: 8 bytes per (t, channel), 0.06 ms at 3.35 TB/s for
+// the same shape, against 0.05 ms of tensor-core time for one product; the
+// kernel issues two (u W_hi + u W_lo, W split into bf16 pairs) on wgmma.
 //
-// The tile body, its design notes and the launcher are in
-// fused_front_common.cuh, shared with kernel A4 (fused_front4.cu).
+// The tile bodies (float32 on the CUDA cores, bfloat16 on the tensor
+// cores), their design notes and the launchers are in fused_front_common.cuh
+// and fused_front_tc.cuh, shared with kernel A4 (fused_front4.cu).
 #define FRONT_NS front_fwd
 #include "fused_front_common.cuh"
 
@@ -35,10 +37,79 @@ extern "C" int hyena_fused_front_fwd(const float* u, const float* w, const float
   return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, L, d, stream);
 }
 
-// As hyena_fused_front_fwd with u, vx and x0 bfloat16; the parameters float32.
+// As hyena_fused_front_fwd with u, vx and x0 bfloat16, the parameters
+// float32, on the tensor cores; ws: scratch for W's bf16 pairs,
+// hyena_front_ws_numel(d) bf16 values.
 extern "C" int hyena_fused_front_fwd_bf16(const __nv_bfloat16* u, const float* w,
                                           const float* bp, const float* wc, const float* bc,
-                                          __nv_bfloat16* vx, __nv_bfloat16* x0, int B, int L,
-                                          int d, cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, L, d, stream);
+                                          __nv_bfloat16* vx, __nv_bfloat16* x0,
+                                          __nv_bfloat16* ws, int B, int L, int d,
+                                          cudaStream_t stream) {
+  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, L, d, stream);
+}
+
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
+// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
+extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+
+// A check of wgmma.cuh alone, for the tests: one warpgroup computes
+// c (64 x N) = a (64 x 64) . b (64 x N) with a (64, 64) and b (64, 64)
+// row-major bf16, c row-major float32, loading both into shared memory in
+// the layout and descriptor form the kernels use for that product:
+//   form 0: a K-major, b K-major, b's rows starting at panel row `off`
+//           (the projection; off 16 and 24 as kernels A'1 and A'2 read W)
+//   form 1: a K-major, b MN-major (du)
+//   form 2: a MN-major, b MN-major (dW)
+template <int N, int TA, int TB>
+__global__ void __launch_bounds__(128) wgmma_probe_kernel(const __nv_bfloat16* __restrict__ a,
+                                                           const __nv_bfloat16* __restrict__ b,
+                                                           float* __restrict__ c, int off) {
+  __shared__ __align__(1024) uint8_t sa[64 * wgmma::kRowBytes];
+  __shared__ __align__(1024) uint8_t sb[128 * wgmma::kRowBytes];
+  const int tid = threadIdx.x;
+  for (int q = tid; q < 64 * 64; q += 128) {
+    const int r = q / 64, e = q % 64;  // a[r][e]: row m, column k
+    *reinterpret_cast<__nv_bfloat16*>(sa + (TA ? wgmma::elem_offset(e, r)
+                                               : wgmma::elem_offset(r, e))) = a[q];
+    // b[r][e]: row k, column n
+    if (e < N)
+      *reinterpret_cast<__nv_bfloat16*>(sb + (TB ? wgmma::elem_offset(r, e)
+                                                 : wgmma::elem_offset(off + e, r))) = b[q];
+  }
+  wgmma::fence_proxy_async();
+  __syncthreads();
+  float acc[N / 2];
+  wgmma::zero(acc);
+  wgmma::fence_operand(acc);
+  wgmma::fence();
+  const uint32_t ua = wgmma::smem_u32(sa), ub = wgmma::smem_u32(sb);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = TA ? wgmma::desc_mn(ua + kk * 2 * wgmma::kGroupBytes)
+                           : wgmma::desc_k(ua + 32 * kk);
+    const uint64_t db = TB ? wgmma::desc_mn(ub + kk * 2 * wgmma::kGroupBytes)
+                           : wgmma::desc_k(ub + off * wgmma::kRowBytes + 32 * kk);
+    wgmma::Mma<N, TA, TB>::run(acc, da, db);
+  }
+  wgmma::commit();
+  wgmma::wait<0>();
+  wgmma::fence_operand(acc);
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k)
+    c[wgmma::frag_row(tid, k) * N + wgmma::frag_col(tid, k)] = acc[k];
+}
+
+// mode: 0-2 form 0 with N = 48, 32, 24 (off 0, 16, 24); 3 form 1, N = 64;
+// 4 form 2, N = 48. c holds 64 x N floats. Returns the launch's cudaError_t.
+extern "C" int hyena_front_wgmma_probe(const __nv_bfloat16* a, const __nv_bfloat16* b, float* c,
+                                       int mode, cudaStream_t stream) {
+  switch (mode) {
+    case 0: wgmma_probe_kernel<48, 0, 0><<<1, 128, 0, stream>>>(a, b, c, 0); break;
+    case 1: wgmma_probe_kernel<32, 0, 0><<<1, 128, 0, stream>>>(a, b, c, 16); break;
+    case 2: wgmma_probe_kernel<24, 0, 0><<<1, 128, 0, stream>>>(a, b, c, 24); break;
+    case 3: wgmma_probe_kernel<64, 0, 1><<<1, 128, 0, stream>>>(a, b, c, 0); break;
+    case 4: wgmma_probe_kernel<48, 1, 1><<<1, 128, 0, stream>>>(a, b, c, 0); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

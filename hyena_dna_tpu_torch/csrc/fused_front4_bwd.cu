@@ -12,10 +12,12 @@
 // _bwd_body, wired in _fpcg4_bwd), the backward of the JAX HYENA_FRONT4
 // route.
 //
-// What bounds it on the H100: as kernel A', three float32 CUDA-core matrix
-// products of 2 * B * L * d * 3d flops each over the L real times.
+// What bounds it on the H100: as kernel A', three matrix products of 2 * B *
+// L * d * 3d flops each over the L real times (float32 u on the CUDA
+// cores, bfloat16 u on the tensor cores).
 //
-// Design: kernel A''s passes with the cotangents' row stride a parameter.
+// Design: kernel A''s passes (both bodies) with the cotangents' row stride a
+// parameter.
 // The TPU kernel fetched 8-row blocks of the (rows, m) layout and picked
 // its rows with a select tree, a constraint of its vector memory; here the
 // 4-D array is the flat padded array, read at stride lp, so nothing is
@@ -35,14 +37,25 @@ extern "C" int hyena_fused_front4_bwd(const float* u, const float* w, const floa
                                  dwpart, B, L, lp, d, tiles, slices, stream);
 }
 
-// As hyena_fused_front4_bwd with u, dvx, dx0 and du bfloat16; the rest float32.
+// As hyena_fused_front4_bwd with u, dvx, dx0 and du bfloat16, the rest
+// float32, on the tensor cores: the scratch and runs as
+// hyena_fused_front_bwd_bf16's (the runs depend on B, L and d, not lp, so
+// A4' gives A''s bits).
 extern "C" int hyena_fused_front4_bwd_bf16(const __nv_bfloat16* u, const float* w,
                                            const float* bp, const float* wc, const float* bc,
                                            const __nv_bfloat16* dvx, const __nv_bfloat16* dx0,
                                            __nv_bfloat16* du, float* dw, float* dparams,
-                                           float* dproj, float* part, float* dwpart, int B,
-                                           int L, int lp, int d, int tiles, int slices,
+                                           __nv_bfloat16* ws, float* part, float* dwpart,
+                                           int B, int L, int lp, int d, int runs,
                                            cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part,
-                                 dwpart, B, L, lp, d, tiles, slices, stream);
+  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, ws, part, dwpart, B,
+                               L, lp, d, runs, stream);
 }
+
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
+// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
+extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+
+// The run count `runs` the bf16 entry takes at (B, L, d); the wrapper sizes
+// part and dwpart by it.
+extern "C" int hyena_front_bwd_runs(int B, int L, int d) { return FRONT_NS::bwd_runs(B, L, d); }

@@ -8,12 +8,13 @@
 // Replaces hyena_dna_tpu/ops/pallas_hyena.py::_bwd_pallas (_bwd_kernel /
 // _bwd_body, wired in _fpcg_bwd), the backward of every order-2 Hyena layer.
 //
-// What bounds it on the H100: three float32 matrix products of 2 * B * L *
-// d * 3d flops each (the projection recompute, du and dW; 154.6 GFLOP at
-// B=4, L=32768, d=256, about 2.3 ms at the card's 67 TFLOP/s on the CUDA
-// cores) against about 16 bytes of input and output per (t, channel); with
-// bf16 inputs the tensor cores' bound (0.16 ms at 989 TFLOP/s) is the
-// least time, which this kernel's CUDA-core SGEMMs do not approach.
+// What bounds it on the H100: three matrix products of 2 * B * L * d * 3d
+// flops each (the projection recompute, du and dW; 154.6 GFLOP at B=4,
+// L=32768, d=256): float32 u on the CUDA cores, about 2.3 ms at 67 TFLOP/s;
+// bfloat16 u on the tensor cores, 0.16 ms at 989 TFLOP/s, against about 8
+// bytes of input and output per (t, channel). The bf16 passes issue the
+// projection twice (once per pass) and every product as two or three bf16
+// pair products, about 460 GFLOP, and keep dproj out of device memory.
 #define FRONT_NS front_bwd
 #include "fused_front_bwd_common.cuh"
 
@@ -32,14 +33,25 @@ extern "C" int hyena_fused_front_bwd(const float* u, const float* w, const float
                                  dwpart, B, L, L, d, tiles, slices, stream);
 }
 
-// As hyena_fused_front_bwd with u, dvx, dx0 and du bfloat16; the rest float32.
+// As hyena_fused_front_bwd with u, dvx, dx0 and du bfloat16, the rest
+// float32, on the tensor cores, with no dproj scratch. Scratch: ws
+// (hyena_front_ws_numel(d) bf16), part (runs * 5 * 3d) and dwpart (runs *
+// d * 3d) float32; runs: the dW pass's split of the B * ceil(L / 60) time
+// tiles, hyena_front_bwd_runs(B, L, d) (any other is refused).
 extern "C" int hyena_fused_front_bwd_bf16(const __nv_bfloat16* u, const float* w,
                                           const float* bp, const float* wc, const float* bc,
                                           const __nv_bfloat16* dvx, const __nv_bfloat16* dx0,
                                           __nv_bfloat16* du, float* dw, float* dparams,
-                                          float* dproj, float* part, float* dwpart, int B,
-                                          int L, int d, int tiles, int slices,
-                                          cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part,
-                                 dwpart, B, L, L, d, tiles, slices, stream);
+                                          __nv_bfloat16* ws, float* part, float* dwpart, int B,
+                                          int L, int d, int runs, cudaStream_t stream) {
+  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, ws, part, dwpart, B,
+                               L, L, d, runs, stream);
 }
+
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
+// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
+extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+
+// The run count `runs` the bf16 entry takes at (B, L, d); the wrapper sizes
+// part and dwpart by it.
+extern "C" int hyena_front_bwd_runs(int B, int L, int d) { return FRONT_NS::bwd_runs(B, L, d); }

@@ -1,0 +1,345 @@
+// The tensor-core pieces of kernels A, A', A4 and A4' for bfloat16 u: the
+// split of W into bf16 pairs, the cp.async tile loads, the projection on
+// wgmma, and the dproj pass of the backward. Included by
+// fused_front_common.cuh (forward) and fused_front_bwd_common.cuh
+// (backward) inside their FRONT_NS.
+//
+// Precision. u, dvx and dx0 are bf16 and enter the products exactly. W and
+// dproj are float32; each is split into hi = bf16(x), lo = bf16(x - hi), so
+// |x - hi - lo| <= 2^-17 |x|, and a product is the float32 sum of the wgmma
+// products of the pairs:
+//   proj = u W_hi + u W_lo,  du = dproj_hi W_hi^T + dproj_lo W_hi^T +
+//   dproj_hi W_lo^T,  dW = u^T dproj_hi + u^T dproj_lo.
+// A single rounding of W, or of dproj, misses the float32 tolerance of dW
+// by 3-17x; two products for du reach 0.7-0.8 of its bf16 tolerance, three
+// 0.002 (tests/test_torch_port_front_split.py, on ops/fused_front.py's
+// emulation `split_reference_bwd`).
+//
+// Layouts (wgmma.cuh's 128-byte swizzle panels of 64 values a row):
+//  * u tile: rows = times, panels along the d input channels i; the
+//    projection's A (K-major) and dW's A (MN-major, M = i, K = t).
+//  * W group: the 48 projected columns j of a group of 16 channels
+//    (x0 | x1 | v) as rows, panels along i, hi panels then lo panels; the
+//    projection's B (K-major, N = j) and du's B (MN-major, K = j, N = i).
+//    split_w_kernel writes it once per call into a scratch, (G, 2, P, 48,
+//    64) bf16, already swizzled, so a block copies it as it is.
+//  * dproj: rows = times, one panel along j (48 of 64 used), hi and lo;
+//    du's A (K-major, K = j) and dW's B (MN-major, K = t, N = j).
+// d <= 256 fits one chunk of 4 panels: the u tile and a group's W stay in
+// shared memory across the loops. Wider d is taken in chunks of 256
+// inputs, reloaded per step (correct, slower; no hg38 config is wider).
+#pragma once
+
+#include <type_traits>
+
+#include "bf16_io.cuh"
+#include "wgmma.cuh"
+
+namespace FRONT_NS {
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using bf16_io::to_f32;
+
+constexpr int kThreads = 256;                         // two warpgroups
+constexpr int kC = 16;                                // channels per group
+constexpr int kJ = 3 * kC;                            // projected columns per group
+constexpr int kChunkPanels = 4;                       // panels per input chunk
+constexpr int kChunk = wgmma::kPanelCols * kChunkPanels;  // 256 inputs
+constexpr int kWPanelBytes = kJ * wgmma::kRowBytes;   // 6144
+constexpr int kWPanelElems = kWPanelBytes / 2;
+
+// Sizes that follow from d, the same on host and device.
+struct Dims {
+  int P, G, nchunk, Pm;  // Pm: panels of a (full) chunk, the kernels' kP
+  __host__ __device__ explicit Dims(int d_)
+      : P((d_ + 63) / 64),
+        G((d_ + kC - 1) / kC),
+        nchunk((P + kChunkPanels - 1) / kChunkPanels),
+        Pm(P < kChunkPanels ? P : kChunkPanels) {}
+  // panels of input chunk ic
+  __device__ int panels(int ic) const {
+    const int left = P - kChunkPanels * ic;
+    return left < kChunkPanels ? left : kChunkPanels;
+  }
+  // bytes of one W group buffer (hi and lo panels of one chunk)
+  __host__ __device__ int w_bytes() const { return 2 * Pm * kWPanelBytes; }
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// W (d, 3d) float32 -> the (G, 2, P, 48, 64) bf16 hi / lo panels; one thread
+// per 8-value chunk of a panel row. Row j of group g is W's column
+// (j / 16) * d + 16 g + j % 16; values past d are zero.
+__global__ void __launch_bounds__(kThreads) split_w_kernel(const float* __restrict__ w,
+                                                           bf16* __restrict__ ws, int d) {
+  const Dims D(d);
+  const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= static_cast<int64_t>(D.G) * D.P * kJ * 8) return;
+  const int c = idx % 8;
+  const int j = (idx / 8) % kJ;
+  const int p = (idx / (8 * kJ)) % D.P;
+  const int g = idx / (8 * kJ * D.P);
+  const int ch = kC * g + j % kC;
+  const int col = (j / kC) * d + ch;
+  float hi[8], lo[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int i = 64 * p + 8 * c + e;
+    const float x = (i < d && ch < d) ? w[static_cast<int64_t>(i) * 3 * d + col] : 0.f;
+    const bf16 h = __float2bfloat16_rn(x);
+    hi[e] = __bfloat162float(h);
+    lo[e] = x - hi[e];
+  }
+  bf16* hi_at = ws + (static_cast<int64_t>(g) * 2 * D.P + p) * kWPanelElems +  // panel (g, 0, p)
+                wgmma::chunk_offset(j, c) / 2;
+  bf16_io::store_vec<8>(hi_at, hi);
+  bf16_io::store_vec<8>(hi_at + static_cast<int64_t>(D.P) * kWPanelElems, lo);  // (g, 1, p)
+}
+
+// Group g's W panels of input chunk ic -> dst: kP hi panels, then kP lo
+// panels; panels past d (the last chunk of a wide d) are zero-filled.
+template <int kP>
+__device__ __forceinline__ void load_w(uint32_t dst, const bf16* ws, const Dims& D, int g, int ic) {
+  constexpr int n = kP * (kWPanelBytes / 16);
+  const int live = D.panels(ic) * (kWPanelBytes / 16);
+  for (int q = threadIdx.x; q < 2 * n; q += kThreads) {
+    const int h = q / n, r = q % n;
+    const bf16* src =
+        ws + ((static_cast<int64_t>(g) * 2 + h) * D.P + kChunkPanels * ic) * kWPanelElems + 8 * r;
+    cp_async16(dst + h * kP * kWPanelBytes + 16 * r, r < live ? src : ws, r < live ? 16 : 0);
+  }
+}
+
+// u rows t_base .. t_base + rows - 1 of batch row b, inputs i0 .. i0 + 64 pc
+// - 1, into `pc` panels of `rows` rows at dst; zero outside [0, L) x [0, d).
+// vec: d % 8 == 0, so a row's 8-value chunks are 16-byte aligned.
+__device__ __forceinline__ void load_u(uint32_t dst, const bf16* u, int b, int t_base, int rows,
+                                       int L, int d, int i0, int pc, bool vec) {
+  const int n = rows * pc * 8;
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    const int c = q % 8, r = (q / 8) % rows, p = q / (8 * rows);
+    const int t = t_base + r;
+    const int i = i0 + 64 * p + 8 * c;
+    const uint32_t a = dst + p * rows * wgmma::kRowBytes + wgmma::chunk_offset(r, c);
+    const bool row_ok = t >= 0 && t < L;
+    const bf16* src = u + (static_cast<int64_t>(b) * L + (row_ok ? t : 0)) * d;
+    if (vec) {
+      const bool ok = row_ok && i < d;
+      cp_async16(a, ok ? src + i : u, ok ? 16 : 0);
+    } else {
+      __align__(16) bf16 v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[e] = (row_ok && i + e < d) ? src[i + e] : __float2bfloat16_rn(0.f);
+      const uint4 raw = *reinterpret_cast<const uint4*>(v);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(raw.x), "r"(raw.y),
+                   "r"(raw.z), "r"(raw.w)
+                   : "memory");
+    }
+  }
+}
+
+// The cotangents of group g's 16 channels at times tb .. tb + ct - 1 (tb a
+// multiple of 8): dvx rows at cs[c * stride], dx0 rows at cs[(16 + c) *
+// stride]; zero past L and past d. vec: ld % 8 == 0.
+__device__ __forceinline__ void load_cot(bf16* cs, int stride, const bf16* dvx, const bf16* dx0,
+                                         int b, int g, int tb, int ct, int L, int ld, int d,
+                                         bool vec) {
+  const int per_row = ct / 8;
+  const int n = 2 * kC * per_row;
+  for (int q = threadIdx.x; q < n; q += kThreads) {
+    const int k = q % per_row, row = q / per_row;  // row: which * 16 + c
+    const int c = row % kC, ch = kC * g + c;
+    const int t = tb + 8 * k;
+    const int valid = ch < d ? max(0, min(8, L - t)) : 0;
+    const bf16* base = row < kC ? dvx : dx0;
+    const bf16* src = base + (static_cast<int64_t>(b) * d + (ch < d ? ch : 0)) * ld + t;
+    bf16* dst = cs + row * stride + 8 * k;
+    if (vec) {
+      cp_async16(wgmma::smem_u32(dst), valid > 0 ? src : base, 2 * valid);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dst[e] = e < valid ? src[e] : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+// acc (u rows urow0 .. urow0 + 63, W group rows wrow0 .. wrow0 + N - 1) +=
+// the projection over one input chunk: kP panels of u at ub (panel stride
+// upanel bytes) and of W at wb, hi and lo (zero past d). No branch between
+// the products, so ptxas keeps them asynchronous.
+template <int N, int kP>
+__device__ __forceinline__ void proj_mma(float (&acc)[N / 2], uint32_t ub, int upanel, int urow0,
+                                         uint32_t wb, int wrow0) {
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint32_t a = ub + p * upanel + urow0 * wgmma::kRowBytes + 32 * kk;
+      const uint32_t h = wb + p * kWPanelBytes + wrow0 * wgmma::kRowBytes + 32 * kk;
+      const uint32_t l = h + kP * kWPanelBytes;
+      wgmma::Mma<N, 0, 0>::run(acc, wgmma::desc_k(a), wgmma::desc_k(h));
+      wgmma::Mma<N, 0, 0>::run(acc, wgmma::desc_k(a), wgmma::desc_k(l));
+    }
+  }
+}
+
+// The projection accumulator (rows row0.., W group rows j0 + col) plus bp into
+// ps[row][col] (stride floats a row); rows at times outside [0, L) are zero
+// (the conv pads proj, bias included, with zeros). tw: thread in warpgroup.
+template <int N>
+__device__ __forceinline__ void store_ps(float* ps, int stride, const float (&acc)[N / 2], int tw,
+                                         int row0, int col0, int j0, const float* bp, int g,
+                                         int d, int t_first, int L) {
+#pragma unroll
+  for (int k = 0; k < N / 2; ++k) {
+    const int row = row0 + wgmma::frag_row(tw, k);
+    const int col = col0 + wgmma::frag_col(tw, k);
+    const int j = j0 + col;
+    const int ch = kC * g + j % kC;
+    const int t = t_first + row;
+    ps[row * stride + col] =
+        (t >= 0 && t < L && ch < d) ? acc[k] + bp[(j / kC) * d + ch] : 0.f;
+  }
+}
+
+// Stores x as a bf16 pair (hi, lo) at row, column j of the dproj panels.
+__device__ __forceinline__ void put_split(uint8_t* hi, uint8_t* lo, int row, int j, float x) {
+  const bf16 h = __float2bfloat16_rn(x);
+  const uint32_t off = wgmma::elem_offset(row, j);
+  *reinterpret_cast<bf16*>(hi + off) = h;
+  *reinterpret_cast<bf16*>(lo + off) = __float2bfloat16_rn(x - __bfloat162float(h));
+}
+
+// One item of the dproj pass: channel c of group g, local rows s0 .. s0 + kR -
+// 1 (local row s is time t0 + s; ps row s + 2 is proj at that time).
+//   conv at s from ps rows s .. s + 2, dconv = [dx0 | dvx v | dvx x1] at s,
+//   dproj[s] = wc0 dconv[s + 2] + wc1 dconv[s + 1] + wc2 dconv[s]
+// into the dproj panels (row dp_row0 + s, column part * 16 + c), split hi /
+// lo. ps columns of channel c: x1 at px1 + c and v at px1 + 16 + c (x0 at
+// px1 - 16 + c when kPartials).
+// cvx / cx0 point at the cotangent rows of channel c at local row 0. With
+// kPartials, sums[] gains this item's dbp, dwc[0..2] and dbc (5 x 3 parts).
+template <int kR, bool kPartials>
+__device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1, const bf16* cvx,
+                                           const bf16* cx0, int s0, const float* wc,
+                                           const float* bc, int d, int g, int c, uint8_t* dp_hi,
+                                           uint8_t* dp_lo, int dp_row0, float (&sums)[15]) {
+  const int d3 = 3 * d, ch = kC * g + c;
+  float w0[3], w1[3], w2[3];
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    const int gc = p * d + ch;
+    w0[p] = wc[gc];
+    w1[p] = wc[d3 + gc];
+    w2[p] = wc[2 * d3 + gc];
+  }
+  const float bc1 = bc[d + ch], bcv = bc[2 * d + ch];
+  const float* r1 = ps + px1 + c;
+  const float* rv = r1 + kC;
+  const float* r0 = r1 - kC;  // read only when kPartials
+  float a1 = r1[s0 * stride], b1 = r1[(s0 + 1) * stride];
+  float av = rv[s0 * stride], bv = rv[(s0 + 1) * stride];
+  float a0 = 0.f, b0 = 0.f;
+  if (kPartials) {
+    a0 = r0[s0 * stride];
+    b0 = r0[(s0 + 1) * stride];
+  }
+  float dc[3][3] = {};  // [part][age]: dconv at s, s - 1, s - 2
+#pragma unroll
+  for (int m = 0; m < kR + 2; ++m) {
+    const int s = s0 + m;
+    const float c1 = r1[(s + 2) * stride], cv = rv[(s + 2) * stride];
+    const float x1 = a1 * w0[1] + b1 * w1[1] + c1 * w2[1] + bc1;
+    const float v = av * w0[2] + bv * w1[2] + cv * w2[2] + bcv;
+    const float gvx = to_f32(cvx[s]);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      dc[p][2] = dc[p][1];
+      dc[p][1] = dc[p][0];
+    }
+    dc[0][0] = to_f32(cx0[s]);
+    dc[1][0] = gvx * v;   // d x1 = dvx * v
+    dc[2][0] = gvx * x1;  // d v  = dvx * x1
+    if (kPartials && m < kR) {
+      const float c0 = r0[(s + 2) * stride];
+      const float win[3][3] = {{a0, b0, c0}, {a1, b1, c1}, {av, bv, cv}};
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) sums[3 + 3 * j + p] += dc[p][0] * win[p][j];
+        sums[12 + p] += dc[p][0];
+      }
+      a0 = b0;
+      b0 = c0;
+    }
+    if (m >= 2) {
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const float dp = w0[p] * dc[p][0] + w1[p] * dc[p][1] + w2[p] * dc[p][2];
+        if (kPartials) sums[p] += dp;
+        put_split(dp_hi, dp_lo, dp_row0 + s - 2, p * kC + c, dp);
+      }
+    }
+    a1 = b1;
+    b1 = c1;
+    av = bv;
+    bv = cv;
+  }
+}
+
+// Zero `bytes` (a multiple of 16) of shared memory at p.
+__device__ __forceinline__ void zero_smem(uint8_t* p, int bytes) {
+  for (int q = threadIdx.x; q < bytes / 16; q += kThreads)
+    reinterpret_cast<uint4*>(p)[q] = make_uint4(0, 0, 0, 0);
+}
+
+// The dynamic shared memory rounded up to the 1024-byte swizzle period
+// (launches ask for 1024 bytes more than they use).
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
+  const uint32_t a = wgmma::smem_u32(raw);
+  return raw + (((a + 1023) & ~1023u) - a);
+}
+
+// Calls f(std::integral_constant<int, Pm>) for Pm = Dims(d).Pm (1 to 4):
+// each kernel is instantiated per panel count so its product loops unroll.
+template <typename F>
+inline int with_panels(int d, F f) {
+  switch (Dims(d).Pm) {
+    case 1: return f(std::integral_constant<int, 1>());
+    case 2: return f(std::integral_constant<int, 2>());
+    case 3: return f(std::integral_constant<int, 3>());
+    default: return f(std::integral_constant<int, 4>());
+  }
+}
+
+// bf16 values of the split-W scratch at width d, laid out as split_w_kernel
+// writes it: (G groups, hi/lo, P panels, kJ x 64); -1 past the int range.
+inline int ws_numel(int d) {
+  const Dims D(d);
+  const int64_t n = static_cast<int64_t>(D.G) * 2 * D.P * kWPanelElems;
+  return n > 0x7fffffff ? -1 : static_cast<int>(n);
+}
+
+inline int split_w(const float* w, bf16* ws, int d, cudaStream_t stream) {
+  const Dims D(d);
+  const int64_t n = static_cast<int64_t>(D.G) * D.P * kJ * 8;
+  split_w_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      w, ws, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+}  // namespace FRONT_NS

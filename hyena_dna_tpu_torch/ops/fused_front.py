@@ -38,6 +38,14 @@ against float32 W). The JAX `_reference_fwd` instead rounds the projection
 to bf16 (`u @ w.astype(u.dtype)`); `reference_fwd` keeps it float32, the
 math the model runs on both devices, so the card is held to it at the
 tolerance of one bf16 rounding of the outputs.
+
+On bf16 u the kernels run their products on the tensor cores
+(`csrc/wgmma.cuh`, `csrc/fused_front_tc.cuh`) with W and dproj split into
+bf16 pairs, hi + lo, each product the float32 sum of two or three pair
+products; `split_reference_fwd` / `split_reference_bwd` are that scheme in
+plain PyTorch, held to the plain versions on the CPU
+(`tests/test_torch_port_front_split.py`). Kernel A' on bf16 u keeps dproj
+out of device memory; on float32 u it writes it to a scratch.
 """
 
 from __future__ import annotations
@@ -51,25 +59,43 @@ import torch.nn.functional as F
 from hyena_dna_tpu_torch import _cuda
 from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
 
-_FWD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-_BWD_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# float32 u: the CUDA-core bodies; bf16 u: the tensor-core bodies, which take
+# the split-W scratch `ws` and, backward, the dW run count instead of dproj
+_FWD_ARGS = [_P] * 7 + [_I] * 3 + [_P]
+_FWD_BF16_ARGS = [_P] * 8 + [_I] * 3 + [_P]
+_BWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+_BWD_BF16_ARGS = [_P] * 13 + [_I] * 4 + [_P]
+# the bf16 entries' scratch sizes, from the C layout (host functions, not launches)
+_SIZES = {"hyena_front_ws_numel": [_I]}
+_BWD_SIZES = {**_SIZES, "hyena_front_bwd_runs": [_I] * 3}
 KERNEL = _cuda.Kernel("fused_front", {"hyena_fused_front_fwd": _FWD_ARGS,
-                                      "hyena_fused_front_fwd_bf16": _FWD_ARGS})
+                                      "hyena_fused_front_fwd_bf16": _FWD_BF16_ARGS,
+                                      "hyena_front_wgmma_probe": [_P] * 3 + [_I, _P], **_SIZES})
 KERNEL_BWD = _cuda.Kernel("fused_front_bwd", {"hyena_fused_front_bwd": _BWD_ARGS,
-                                              "hyena_fused_front_bwd_bf16": _BWD_ARGS})
+                                              "hyena_fused_front_bwd_bf16": _BWD_BF16_ARGS,
+                                              **_BWD_SIZES})
 # kernels A4 and A4': kernel A's and A''s arguments plus lp after L
-_FWD4_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_BWD4_ARGS = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_FWD4_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_FWD4_BF16_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_BWD4_ARGS = [_P] * 13 + [_I] * 6 + [_P]
+_BWD4_BF16_ARGS = [_P] * 13 + [_I] * 5 + [_P]
 KERNEL4 = _cuda.Kernel("fused_front4", {"hyena_fused_front4_fwd": _FWD4_ARGS,
-                                        "hyena_fused_front4_fwd_bf16": _FWD4_ARGS})
+                                        "hyena_fused_front4_fwd_bf16": _FWD4_BF16_ARGS,
+                                        **_SIZES})
 KERNEL4_BWD = _cuda.Kernel("fused_front4_bwd", {"hyena_fused_front4_bwd": _BWD4_ARGS,
-                                                "hyena_fused_front4_bwd_bf16": _BWD4_ARGS})
+                                                "hyena_fused_front4_bwd_bf16": _BWD4_BF16_ARGS,
+                                                **_BWD_SIZES})
 # the C entry point's suffix for each activation dtype the kernels take
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-# output times per length tile of kernel A' (`kOut` in csrc/fused_front_bwd.cu)
+# output times per length tile of kernel A' on float32 u (`kOut` in
+# csrc/fused_front_bwd_common.cuh)
 BWD_TILE = 60
-# rows of B*L per split-K slice of kernel A''s dW product (at most 64 slices)
+# rows of B*L per split-K slice of that kernel's dW product (at most 64 slices)
 BWD_ROWS_PER_SLICE = 2048
+# wgmma_probe's modes and the width N of each one's product
+# (csrc/fused_front.cu::hyena_front_wgmma_probe)
+PROBE_MODES = {0: 48, 1: 32, 2: 24, 3: 64, 4: 48}
 
 
 def reference_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -110,6 +136,77 @@ def reference_bwd(u, w, bp, wc, bc, dvx, dx0):
     return du, dw, dproj.sum((0, 1)), dwc, dbc
 
 
+def split_bf16(x):
+    """(hi, lo), both bfloat16: hi = bf16(x), lo = bf16(x - hi), so
+    |x - hi - lo| <= 2^-17 |x|. The bf16 kernels split W and dproj so."""
+    hi = x.float().to(torch.bfloat16)
+    return hi, (x.float() - hi.float()).to(torch.bfloat16)
+
+
+def _pair_mm(a, b, terms: str):
+    """The float32 sum of the products of a's and b's bf16 pair parts named
+    in `terms` ("hh", "lh", "hl": a's part first); a tensor that is not
+    split enters as its hi part."""
+    a_parts = dict(zip("hl", a)) if isinstance(a, tuple) else {"h": a}
+    b_parts = dict(zip("hl", b)) if isinstance(b, tuple) else {"h": b}
+    return sum(a_parts[t[0]].float() @ b_parts[t[1]].float() for t in terms.split())
+
+
+def split_reference_fwd(u, w, bp, wc, bc, proj_terms="hh hl"):
+    """Kernel A's arithmetic on bf16 u in plain PyTorch, unrounded (float32
+    vx, x0): proj as the pair products `proj_terms` of u and W's pair, then
+    `reference_fwd`'s conv and gate. Not called by the kernels."""
+    proj = _pair_mm(u, split_bf16(w), proj_terms) + bp.float()
+    conv = short_conv_1d(proj.transpose(-1, -2), wc.float().transpose(0, 1), bc.float())
+    d = conv.shape[1] // 3
+    return conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d]
+
+
+def split_reference_bwd(u, w, bp, wc, bc, dvx, dx0, proj_terms="hh hl",
+                        du_terms="hh lh hl", dw_terms="hh hl"):
+    """Kernel A''s arithmetic on bf16 u, dvx, dx0 in plain PyTorch, du
+    unrounded: proj, du = dproj W^T and dW = u^T dproj as the named pair
+    products (W and dproj split, u exact), the rest as `reference_bwd`.
+    Returns (du, dw, dbp, dwc, dbc), all float32. Not called by the
+    kernels."""
+    f32 = torch.float32
+    wp = split_bf16(w)
+    proj = _pair_mm(u, wp, proj_terms) + bp.float()
+    proj_t = proj.transpose(1, 2)
+    wc = wc.to(f32)
+    conv = short_conv_1d(proj_t, wc.t(), bc.to(f32))
+    d = conv.shape[1] // 3
+    x1, v = conv[:, d:2 * d], conv[:, 2 * d:]
+    dvx = dvx.to(f32)
+    dconv = torch.cat([dx0.to(f32), dvx * v, dvx * x1], dim=1)
+    length = dconv.shape[-1]
+    dconv_r, proj_l = F.pad(dconv, (0, 2)), F.pad(proj_t, (2, 0))
+    dproj_t = sum(dconv_r[..., 2 - j:2 - j + length] * wc[j][None, :, None] for j in range(3))
+    dwc = torch.stack([(dconv * proj_l[..., j:j + length]).sum((0, 2)) for j in range(3)])
+    dproj = dproj_t.transpose(1, 2)  # (B, L, 3d)
+    dp = split_bf16(dproj)
+    du = _pair_mm(dp, tuple(t.t() for t in wp), du_terms)
+    rows = lambda t: t.reshape(-1, t.shape[-1])
+    dw = _pair_mm(rows(u).t(), tuple(rows(t) for t in dp), dw_terms)
+    return du, dw, dproj.sum((0, 1)), dwc, dconv.sum((0, 2))
+
+
+def wgmma_probe(a, b, mode: int):
+    """`csrc/wgmma.cuh` alone on the card: a (64, 64) @ b[:, :N] for bf16 a,
+    b (64, 64), as `hyena_front_wgmma_probe` loads and multiplies them in
+    the layout of one of the kernels' products (`mode`, `PROBE_MODES`).
+    Returns the (64, N) float32 product."""
+    if not (_cuda.on_card(a) and a.shape == b.shape == (64, 64) and b.device == a.device
+            and a.dtype == b.dtype == torch.bfloat16 and a.is_contiguous()
+            and b.is_contiguous() and mode in PROBE_MODES):
+        raise ValueError("wgmma_probe takes two contiguous (64, 64) bf16 CUDA tensors and a "
+                         "PROBE_MODES key")
+    c = torch.empty(64, PROBE_MODES[mode], device=a.device, dtype=torch.float32)
+    KERNEL.launch("hyena_front_wgmma_probe", _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(c), mode,
+                  _cuda.stream_handle(a))
+    return c
+
+
 def _check(out_shape=None, **tensors) -> str:
     """Raise on what kernels A, A', A4 and A4' do not take; return the C
     entry point's dtype suffix. The activations (u, dvx, dx0) are all
@@ -146,7 +243,8 @@ def front_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
     b, length, d = u.shape
     vx = torch.empty((b, d, length), device=u.device, dtype=u.dtype)
     x0 = torch.empty_like(vx)
-    KERNEL.launch("hyena_fused_front_fwd" + suffix, *map(_cuda.ptr, (u, w, bp, wc, bc, vx, x0)),
+    KERNEL.launch("hyena_fused_front_fwd" + suffix,
+                  *map(_cuda.ptr, (u, w, bp, wc, bc, vx, x0) + _w_split(KERNEL, u, d)),
                   b, length, d, _cuda.stream_handle(u))
     return vx, x0
 
@@ -158,16 +256,40 @@ def front_bwd(u, w, bp, wc, bc, dvx, dx0):
         return reference_bwd(u, w, bp, wc, bc, dvx, dx0)
     suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx, dx0=dx0)
     b, length, d = u.shape
+    du = torch.empty_like(u)
+    dw, dparams, scratch, sizes = _bwd_buffers(KERNEL_BWD, u)
+    KERNEL_BWD.launch("hyena_fused_front_bwd" + suffix,
+                      *map(_cuda.ptr, (u, w, bp, wc, bc, dvx, dx0, du, dw, dparams) + scratch),
+                      b, length, d, *sizes, _cuda.stream_handle(u))
+    return du, dw, dparams[0], dparams[1:4], dparams[4]
+
+
+def _w_split(kernel, u, d) -> tuple:
+    """The bf16 kernels' split-W scratch, as a 1-tuple, sized by `kernel`'s
+    C helper (the layout lives in `csrc/fused_front_tc.cuh`); () for
+    float32 u."""
+    if u.dtype != torch.bfloat16:
+        return ()
+    numel = kernel.lib().hyena_front_ws_numel(d)
+    return (torch.empty(numel, device=u.device, dtype=torch.bfloat16),)
+
+
+def _bwd_buffers(kernel, u):
+    """Kernel A' (A4')'s outputs dw (d, 3d) and dparams (5, 3d), its scratch
+    in its C entry's order and its trailing sizes: float32 u: (dproj, part,
+    dwpart), (tiles, slices); bf16 u: (ws, part, dwpart), (runs,), runs from
+    `kernel`'s C helper (it depends on B, L and d alone)."""
+    b, length, d = u.shape
+    new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
+    dw, dparams = new(d, 3 * d), new(5, 3 * d)
+    if u.dtype == torch.bfloat16:
+        runs = kernel.lib().hyena_front_bwd_runs(b, length, d)
+        scratch = _w_split(kernel, u, d) + (new(runs * 5 * 3 * d), new(runs, d, 3 * d))
+        return dw, dparams, scratch, (runs,)
     tiles = -(-length // BWD_TILE)
     slices = max(1, min(64, b * length // BWD_ROWS_PER_SLICE))
-    new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
-    du, dw, dparams = torch.empty_like(u), new(d, 3 * d), new(5, 3 * d)
-    dproj, part, dwpart = new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d, 3 * d)
-    KERNEL_BWD.launch("hyena_fused_front_bwd" + suffix,
-                      *map(_cuda.ptr, (u, w, bp, wc, bc, dvx, dx0, du, dw, dparams,
-                                       dproj, part, dwpart)),
-                      b, length, d, tiles, slices, _cuda.stream_handle(u))
-    return du, dw, dparams[0], dparams[1:4], dparams[4]
+    scratch = (new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d, 3 * d))
+    return dw, dparams, scratch, (tiles, slices)
 
 
 class FusedProjConvGate(torch.autograd.Function):
@@ -239,7 +361,7 @@ def front4_fwd(u, w, bp, wc, bc, rows_pad: int, m: int):
     vx4 = torch.empty((b, d, rows_pad, m), device=u.device, dtype=u.dtype)
     x04 = torch.empty_like(vx4)
     KERNEL4.launch("hyena_fused_front4_fwd" + suffix,
-                   *map(_cuda.ptr, (u, w, bp, wc, bc, vx4, x04)),
+                   *map(_cuda.ptr, (u, w, bp, wc, bc, vx4, x04) + _w_split(KERNEL4, u, d)),
                    b, length, rows_pad * m, d, _cuda.stream_handle(u))
     return vx4, x04
 
@@ -254,15 +376,11 @@ def front4_bwd(u, w, bp, wc, bc, dvx4, dx04):
     lp = dvx4.shape[2] * dvx4.shape[3]
     if lp < length:
         raise ValueError(f"cotangents hold {lp} times, fewer than L={length}")
-    tiles = -(-length // BWD_TILE)
-    slices = max(1, min(64, b * length // BWD_ROWS_PER_SLICE))
-    new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
-    du, dw, dparams = torch.empty_like(u), new(d, 3 * d), new(5, 3 * d)
-    dproj, part, dwpart = new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d, 3 * d)
+    du = torch.empty_like(u)
+    dw, dparams, scratch, sizes = _bwd_buffers(KERNEL4_BWD, u)
     KERNEL4_BWD.launch("hyena_fused_front4_bwd" + suffix,
-                       *map(_cuda.ptr, (u, w, bp, wc, bc, dvx4, dx04, du, dw, dparams,
-                                        dproj, part, dwpart)),
-                       b, length, lp, d, tiles, slices, _cuda.stream_handle(u))
+                       *map(_cuda.ptr, (u, w, bp, wc, bc, dvx4, dx04, du, dw, dparams) + scratch),
+                       b, length, lp, d, *sizes, _cuda.stream_handle(u))
     return du, dw, dparams[0], dparams[1:4], dparams[4]
 
 

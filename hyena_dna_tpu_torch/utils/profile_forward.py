@@ -180,7 +180,10 @@ def main(argv=None):
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = getattr(evt, "self_cuda_time_total", 0.0)
-        if t and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # a record_function range (the optimizer's) also shows on the device as
+        # a user annotation spanning its kernels: not device time of its own
+        if (t and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             device_ms[_group(evt.key)] += t / 1e3
             kernels[evt.key] += t / 1e3
     busy = sum(device_ms.values())

@@ -205,11 +205,14 @@ def test_add_ln_autograd_launches_d_and_d_prime(card):
     assert torch.equal(h.grad, r.grad) and w.grad.dtype == torch.float32
 
 
-@pytest.mark.parametrize("B,L,d", [(2, 200, 64), (3, 130, 40), (1, 4096, 256)])
+@pytest.mark.parametrize("B,L,d", [(2, 200, 64), (3, 130, 40), (1, 4096, 256), (1, 1, 16),
+                                   (2, 61, 128), (1, 61, 40), (1, 250, 320)])
 def test_fused_front_bf16_matches_plain(card, B, L, d):
     """Kernels A and A' on bf16 u, dvx, dx0 (float32 parameters): vx, x0 and
     du in bf16, one bf16 step from the plain version, which computes in
-    float32 on the same values; dW, dbp, dwc, dbc float32."""
+    float32 on the same values; dW, dbp, dwc, dbc float32. The tensor-core
+    bodies take d in 16-channel groups and 256-input chunks (d = 320: two),
+    K and N zero-filled past d, and any L (one 120-time tile at L <= 120)."""
     g = torch.Generator().manual_seed(L + d)
     u = torch.randn(B, L, d, generator=g).to(BF16)
     params = [torch.randn(d, 3 * d, generator=g) * 0.05, torch.randn(3 * d, generator=g) * 0.1,
@@ -445,6 +448,85 @@ def test_fused_front4_bwd_matches_plain(card, B, L, d, rows, m, tile, dtype):
     _close(out[0], ref[0], *((1e-4, 1e-4) if dtype == "float32" else BF16_TOL))
     for got, want in zip(out[1:], ref[1:]):
         _close(got, want, 1e-3, 1e-3)
+
+
+@pytest.mark.parametrize("mode", sorted(FF.PROBE_MODES))
+def test_wgmma_probe_matches_matmul(card, mode):
+    """csrc/wgmma.cuh alone: one 64 x N x 64 bf16 product in each layout and
+    descriptor form the front-end kernels use, against a float32 matmul of
+    the same values (bf16 products are exact in float32; the sums of 64
+    terms in another order)."""
+    g = torch.Generator().manual_seed(mode)
+    a, b = (torch.randn(64, 64, generator=g).to(BF16) for _ in range(2))
+    n = FF.PROBE_MODES[mode]
+    before = FF.KERNEL.launches
+    c = FF.wgmma_probe(a.to(card), b.to(card), mode)
+    assert FF.KERNEL.launches == before + 1 and c.shape == (64, n)
+    _close(c, a.float() @ b.float()[:, :n], 1e-6, 1e-5)
+
+
+def _front_bf16_args(B, L, d, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(B, L, d, generator=g).to(BF16), torch.randn(d, 3 * d, generator=g) * 0.05,
+            torch.randn(3 * d, generator=g) * 0.1, torch.randn(3, 3 * d, generator=g),
+            torch.randn(3 * d, generator=g) * 0.1, torch.randn(B, d, L, generator=g).to(BF16),
+            torch.randn(B, d, L, generator=g).to(BF16)]
+
+
+@pytest.mark.parametrize("B,L,d", [(2, 200, 64), (1, 4096, 256), (1, 250, 320)])
+def test_fused_front_bwd_bf16_same_bits_twice(card, B, L, d):
+    """Kernel A' on bf16 u twice on the same inputs: the same bits in du and
+    every parameter gradient (fixed-order sums, no atomics)."""
+    args = [a.to(card) for a in _front_bf16_args(B, L, d, 5 + d)]
+    first, second = FF.front_bwd(*args), FF.front_bwd(*args)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B,L,d,rows,m,tile", FRONT4_SHAPES)
+def test_fused_front4_bf16_bits_equal_flat(card, B, L, d, rows, m, tile):
+    """Kernels A4 and A4' against A and A' on the same bf16 values: the flat
+    view of the 4-D outputs is A's outputs bit for bit (zero past L), and
+    A4' gives A''s bits in du and every gradient (its dW runs depend on B, L
+    and d only); the 4-D cotangents are A's padded with noise past L."""
+    u, w, bp, wc, bc, dvx, dx0 = (a.to(card) for a in _front_bf16_args(B, L, d, 11 + L))
+    vx, x0 = FF.front_fwd(u, w, bp, wc, bc)
+    vx4, x04 = FF.front4_fwd(u, w, bp, wc, bc, rows, m)
+    for flat, four in ((vx, vx4), (x0, x04)):
+        four = four.reshape(B, d, -1)
+        assert torch.equal(four[..., :L], flat) and not four[..., L:].any()
+    noise = lambda t: torch.cat([t, torch.randn(B, d, rows * m - L, device=card).to(BF16)], -1)
+    cot4 = [noise(t).reshape(B, d, rows, m).contiguous() for t in (dvx, dx0)]
+    for x, y in zip(FF.front_bwd(u, w, bp, wc, bc, dvx, dx0),
+                    FF.front4_bwd(u, w, bp, wc, bc, *cot4)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("B,L,d", [(1, 1, 16), (2, 200, 64), (1, 250, 320), (4, 32768, 256),
+                                   (1, 1000448, 256)])
+def test_front_bf16_scratch_sizes_from_c(card, B, L, d, monkeypatch):
+    """The bf16 entries' scratch sizes come from their libraries' C helpers:
+    the four libraries agree on the split-W size and the two backward ones
+    on the dW run count (so A4' takes A''s runs), and kernel A' refuses a
+    run count other than its own, before any launch."""
+    libs = [k.lib() for k in (FF.KERNEL, FF.KERNEL4, FF.KERNEL_BWD, FF.KERNEL4_BWD)]
+    numel = {lib.hyena_front_ws_numel(d) for lib in libs}
+    runs = {lib.hyena_front_bwd_runs(B, L, d) for lib in libs[2:]}
+    assert len(numel) == len(runs) == 1 and min(numel) > 0 and min(runs) >= 1
+    if B * L > 4096:
+        return
+    real = FF._bwd_buffers
+
+    def one_run_more(kernel, u):
+        dw, dparams, (ws, _, _), (r,) = real(kernel, u)
+        new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
+        return dw, dparams, (ws, new((r + 1) * 5 * 3 * d), new(r + 1, d, 3 * d)), (r + 1,)
+
+    monkeypatch.setattr(FF, "_bwd_buffers", one_run_more)
+    before = FF.KERNEL_BWD.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        FF.front_bwd(*(a.to(card) for a in _front_bf16_args(B, L, d, 3)))
+    assert FF.KERNEL_BWD.launches == before
 
 
 @pytest.mark.parametrize("B,L,plan", [(1, 1536, (4, 8, 128)), (3, 100000, (16, 128, 128))])
