@@ -9,18 +9,19 @@ line:
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
             nvcc per source, twelve sources, started together; ptxas's
             register, stack and spill readings of the bf16 front-end
-            kernels are kept for their rows): kernels A and
+            kernels and of F and F' are kept for their rows): kernels A and
             A' (the front end forward and backward), A4 and A4' (the same on
             the 4-D conv layout), B and C (the FFT conv forward and
             backward), D and D' (the fused residual-add + LN forward and
             backward), E and E' (the gate-fused FFT conv forward and
             backward), F and F' (the fused MLP forward and backward);
 2. kernels  `csrc/wgmma.cuh` alone: one 64 x N x 64 bf16 product in each
-            layout the bf16 front-end kernels use, against a float32
-            matmul. Then each kernel against its plain PyTorch version on
-            the card, in the
-            working dtype, at the shapes of the TPU routes it replaces, with
-            the tolerances below; kernel, plain and library-call times.
+            layout the bf16 front-end kernels use, and in each layout F and
+            F' add (N = 128, 192, 256; MN-major operands across panels),
+            against a float32 matmul. Then each kernel against its plain
+            PyTorch version on the card, in the working dtype, at the
+            shapes of the TPU routes it replaces, with the tolerances
+            below; kernel, plain and library-call times.
             Kernels A and A' in float32 and in bfloat16; D and D' at the
             bf16 model's 4 x 32768 x 256 rows; B and C through the named
             entry of each TPU row with its plan on padded operands, and C
@@ -81,9 +82,9 @@ times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
 float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
 row of B, C, E, E', A4, A4', F and F' under "routes"; the bf16 rows of A,
-A', A4, A4' with their tensor-core kernels' ptxas readings), and last
-{"ok": true, "device": {...}}. Times come from CUDA events around repeated
-launches after a warm-up. `bound_ms` is the larger of the bytes the function
+A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
+readings), and last {"ok": true, "device": {...}}. Times come from CUDA
+events around repeated launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
 operations at 67 TFLOP/s for float32 inputs or at the bf16 tensor cores'
 989 TFLOP/s for bf16 inputs and for the bf16 products of F and F' (H100
@@ -195,34 +196,38 @@ def front_inputs(B, L, dtype, seed):
     return g, (u, w, bp, wc, bc)
 
 
-def check_wgmma(FF):
-    """`csrc/wgmma.cuh` alone (kernel A's library, test entry
-    `hyena_front_wgmma_probe`): each product form of the bf16 front-end
-    kernels against a float32 matmul of the same bf16 values (exact
-    products, 64-term sums in another order: 1e-5 relative)."""
+def check_wgmma(probe, b_cols: int, phase: str, seed: int):
+    """`csrc/wgmma.cuh` alone, through one library's test entry (kernel A's
+    `hyena_front_wgmma_probe`, b 64 x 64; kernel F's `hyena_mlp_wgmma_probe`,
+    b 64 x 256): each product form its kernels use against a float32 matmul
+    of the same bf16 values (exact products, 64-term sums in another order:
+    1e-5 relative)."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(90)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     errs = {}
-    for mode, n in FF.PROBE_MODES.items():
-        a, b = (torch.randn(64, 64, device="cuda", generator=g).to(torch.bfloat16)
-                for _ in range(2))
+    for mode, n in probe.PROBE_MODES.items():
+        a = torch.randn(64, 64, device="cuda", generator=g).to(torch.bfloat16)
+        b = torch.randn(64, b_cols, device="cuda", generator=g).to(torch.bfloat16)
         ref = a.float() @ b.float()[:, :n]
-        err = (FF.wgmma_probe(a, b, mode) - ref).abs().max().item()
+        err = (probe.wgmma_probe(a, b, mode) - ref).abs().max().item()
         if not err <= 1e-5 * ref.abs().max().item():
-            raise AssertionError(f"wgmma probe mode {mode} (N={n}) disagrees with matmul: "
-                                 f"{err:.3e}")
+            raise AssertionError(f"{phase} mode {mode} (N={n}) disagrees with matmul: {err:.3e}")
         errs[mode] = err
-    return {"phase": "wgmma_probe", "max_abs_err": errs, "ok": True}
+    return {"phase": phase, "max_abs_err": errs, "ok": True}
 
 
 # the tensor-core kernels behind each bf16 front-end entry (csrc/fused_front_tc.cuh)
+# and behind kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels
 TC_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
               "fused_front4": ("split_w_kernel", "front_fwd_tc_kernel"),
               "fused_front_bwd": ("split_w_kernel", "front_bwd_du_kernel", "front_bwd_dw_kernel",
                                   "front_bwd_sum_kernel"),
               "fused_front4_bwd": ("split_w_kernel", "front_bwd_du_kernel",
-                                   "front_bwd_dw_kernel", "front_bwd_sum_kernel")}
+                                   "front_bwd_dw_kernel", "front_bwd_sum_kernel"),
+              "mlp_fused": ("mlp_fwd_kernel", "round_bf16_kernel"),
+              "mlp_fused_bwd": ("mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel",
+                                "sum_splits_kernel", "round_bf16_kernel")}
 
 
 def ptxas_readings(build_log, function: str) -> dict:
@@ -249,16 +254,19 @@ def ptxas_readings(build_log, function: str) -> dict:
 
 
 def tc_ptxas(kernels) -> dict:
-    """{library name: {kernel: ptxas readings}} for the bf16 front-end
-    kernels, from this run's build (empty where the library was cached);
-    a kernel instantiated per panel count is keyed `name<panels>` (d = 256
-    runs `<4>`)."""
+    """{library name: {kernel: ptxas readings}} for the kernels of
+    TC_KERNELS, from this run's build (empty where the library was cached);
+    a kernel instantiated per panel count is keyed `name<panels>`, and per
+    output type too `name<bf16,panels>` or `name<f32,panels>` (d = 256 runs
+    `<4>`)."""
     out = {}
     for k in kernels:
         for fn in TC_KERNELS.get(k.name, ()):
             for mangled, reading in ptxas_readings(k.build_log, fn).items():
-                inst = re.search(fn + r"ILi(\d+)E", mangled)
-                out.setdefault(k.name, {})[f"{fn}<{inst.group(1)}>" if inst else fn] = reading
+                inst = re.search(fn + r"I(13__nv_bfloat16|f)?Li(\d+)E", mangled)
+                dtype = {"13__nv_bfloat16": "bf16,", "f": "f32,"}.get(inst and inst.group(1), "")
+                key = f"{fn}<{dtype}{inst.group(2)}>" if inst else fn
+                out.setdefault(k.name, {})[key] = reading
     return out
 
 
@@ -1175,7 +1183,8 @@ def main() -> int:
     ptxas = tc_ptxas(kernels)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "libraries": [k.library_path.name for k in kernels], "ptxas": ptxas})
-    log(check_wgmma(FF))
+    log(check_wgmma(FF, 64, "wgmma_probe", 90))
+    log(check_wgmma(MF, 256, "mlp_wgmma_probe", 91))
 
     rows = [check_front(FF, 4, 32768, 1), check_front(FF, 1, 1000448, 2),
             check_front_bwd(FF, 4, 32768, 8)]
@@ -1385,7 +1394,8 @@ def main() -> int:
          "max_rel_err": max(r["max_rel_err"] for r in rows if r["name"] == name),
          **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {}),
          **({"routes": dict(route_row(r) for r in rows if r["name"] == name)}
-            if name in routed else {})}
+            if name in routed else {}),
+         **({"ptxas": ptxas.get(name, {})} if name in ("mlp_fused", "mlp_fused_bwd") else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -66,18 +66,9 @@ struct Dims {
   __host__ __device__ int w_bytes() const { return 2 * Pm * kWPanelBytes; }
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using wgmma::cp_async16;
+using wgmma::cp_commit;
+using wgmma::cp_wait;
 
 // W (d, 3d) float32 -> the (G, 2, P, 48, 64) bf16 hi / lo panels; one thread
 // per 8-value chunk of a panel row. Row j of group g is W's column
@@ -306,12 +297,7 @@ __device__ __forceinline__ void zero_smem(uint8_t* p, int bytes) {
     reinterpret_cast<uint4*>(p)[q] = make_uint4(0, 0, 0, 0);
 }
 
-// The dynamic shared memory rounded up to the 1024-byte swizzle period
-// (launches ask for 1024 bytes more than they use).
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw) {
-  const uint32_t a = wgmma::smem_u32(raw);
-  return raw + (((a + 1023) & ~1023u) - a);
-}
+using wgmma::aligned_smem;
 
 // Calls f(std::integral_constant<int, Pm>) for Pm = Dims(d).Pm (1 to 4):
 // each kernel is instantiated per panel count so its product loops unroll.

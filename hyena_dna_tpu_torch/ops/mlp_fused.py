@@ -13,11 +13,15 @@ float32 (cast to the parameters' dtype), dx is in x's dtype.
 
 `mlp_fused` is the `torch.autograd.Function` `MlpFused`: on a CUDA tensor
 kernel F (`csrc/mlp_fused.cu`) forward and kernel F' (`csrc/mlp_fused_bwd.cu`)
-backward, which keep the (N, dh) hidden out of device memory; on a CPU
-tensor their plain versions `mlp_fused_ref` and `mlp_fused_bwd_ref`. db2 =
-sum(dy) is a torch reduction on both, as the JAX wrapper computes it
-outside its kernel. `models/blocks.py::Mlp(use_fused=True)` takes this
-route under the JAX rule (`applies`).
+backward, which keep the (N, dh) hidden out of device memory and run every
+product on the tensor cores (`wgmma`); on a CPU tensor their plain versions
+`mlp_fused_ref` and `mlp_fused_bwd_ref`. Float32 x and dy are rounded to
+bf16 once per call, by the C entry, into scratch this module allocates
+(`_bf16_scratch`); F''s partial-sum workspace is sized by its library's C
+helper `hyena_mlp_bwd_ws_numel`. db2 = sum(dy) is a torch reduction on both,
+as the JAX wrapper computes it outside its kernel.
+`models/blocks.py::Mlp(use_fused=True)` takes this route under the JAX rule
+(`applies`).
 """
 
 from __future__ import annotations
@@ -28,14 +32,16 @@ import torch
 
 from hyena_dna_tpu_torch import _cuda
 
-KERNEL = _cuda.Kernel("mlp_fused", {
-    "hyena_mlp_fwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-})
-KERNEL_BWD = _cuda.Kernel("mlp_fused_bwd", {
-    "hyena_mlp_bwd": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-})
-TILE = 64  # rows of a tile, and the unit of d, dh and d_out, in kernels F and F'
-SPLITS = 32  # F''s fixed split of the rows for the dw1 / dw2 / db1 partial sums
+_P, _I = ctypes.c_void_p, ctypes.c_int
+KERNEL = _cuda.Kernel("mlp_fused", {"hyena_mlp_fwd": [_P] * 7 + [_I] * 5 + [_P],
+                                    "hyena_mlp_wgmma_probe": [_P] * 3 + [_I, _P]})
+KERNEL_BWD = _cuda.Kernel("mlp_fused_bwd", {"hyena_mlp_bwd": [_P] * 10 + [_I] * 5 + [_P],
+                                            "hyena_mlp_bwd_ws_numel": [_I] * 3})
+TILE = 64  # the unit of N, d, dh and d_out in kernels F and F'
+# wgmma_probe's modes and the width N of each one's product: form m // 3 (0:
+# b MN-major across panels, 1: b K-major, 2: a and b MN-major) at N = 64 (2 +
+# m % 3) (csrc/mlp_fused.cu::hyena_mlp_wgmma_probe)
+PROBE_MODES = {m: 64 * (2 + m % 3) for m in range(9)}
 _C0 = 0.7978845608028654  # sqrt(2 / pi)
 _C1 = 0.044715
 
@@ -104,11 +110,50 @@ def _bf16(w: torch.Tensor) -> torch.Tensor:
     return w.to(torch.bfloat16).contiguous()
 
 
+def _bf16_scratch(t: torch.Tensor):
+    """Scratch for the C entry's bf16 copy of a float32 x or dy, rounded once
+    per call on the card; None for a bf16 tensor, which the kernels read as
+    it is."""
+    if t.dtype == torch.bfloat16:
+        return None
+    return torch.empty(t.shape, device=t.device, dtype=torch.bfloat16)
+
+
+def _workspace(numel: int, d: int, dh: int, d_out: int, device):
+    """F''s partial-sum workspace, `numel` floats as `hyena_mlp_bwd_ws_numel`
+    gives it (a whole number of (d dh + dh d_out + dh) sums of dw1, dw2 and
+    db1), and the buffer the kernel sums them into; raises for a size the C
+    helper refuses (-1: past an int)."""
+    total = d * dh + dh * d_out + dh
+    if numel <= 0 or numel % total:
+        raise ValueError(f"kernel F' has no workspace of {numel} floats for d={d}, dh={dh}, "
+                         f"d_out={d_out}")
+    f32 = dict(device=device, dtype=torch.float32)
+    return torch.empty(numel, **f32), torch.empty(total, **f32)
+
+
 def _aligned(*tensors) -> None:
     """The kernels move 16 bytes at a time: raise for a misaligned pointer."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError("kernels F and F' need 16-byte aligned tensors")
+
+
+def wgmma_probe(a, b, mode: int):
+    """The `wgmma` product forms kernels F and F' add to `csrc/wgmma.cuh`,
+    alone on the card: a (64, 64) @ b[:, :N] for bf16 a (64, 64) and b (64,
+    256), as `hyena_mlp_wgmma_probe` loads and multiplies them in the layout
+    of one of the kernels' products (`mode`, `PROBE_MODES`). Returns the
+    (64, N) float32 product."""
+    if not (_cuda.on_card(a) and a.shape == (64, 64) and b.shape == (64, 256)
+            and b.device == a.device and a.dtype == b.dtype == torch.bfloat16
+            and a.is_contiguous() and b.is_contiguous() and mode in PROBE_MODES):
+        raise ValueError("wgmma_probe takes contiguous bf16 CUDA tensors a (64, 64), b (64, 256) "
+                         "and a PROBE_MODES key")
+    c = torch.empty(64, PROBE_MODES[mode], device=a.device, dtype=torch.float32)
+    KERNEL.launch("hyena_mlp_wgmma_probe", _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(c), mode,
+                  _cuda.stream_handle(a))
+    return c
 
 
 def mlp_fused_fwd(x, w1, b1, w2, b2):
@@ -123,9 +168,10 @@ def mlp_fused_fwd(x, w1, b1, w2, b2):
     y = torch.empty((n, d_out), device=x.device, dtype=x.dtype)
     w1b, w2b = _bf16(w1), _bf16(w2)
     b1f, b2f = b1.float().contiguous(), b2.float().contiguous()
-    _aligned(x, w1b, w2b, y)
+    _aligned(x, w1b, w2b, b1f, b2f, y)
     KERNEL.launch("hyena_mlp_fwd", *map(_cuda.ptr, (x, w1b, b1f, w2b, b2f, y)),
-                  n, d, dh, d_out, int(x.dtype == torch.bfloat16), _cuda.stream_handle(x))
+                  _cuda.ptr_or_null(_bf16_scratch(x)), n, d, dh, d_out,
+                  int(x.dtype == torch.bfloat16), _cuda.stream_handle(x))
     return y
 
 
@@ -138,18 +184,19 @@ def mlp_fused_bwd(x, dy, w1, b1, w2):
     x, dy = x.contiguous(), dy.contiguous()
     n, d = x.shape
     dh, d_out = w1.shape[1], w2.shape[1]
-    total = d * dh + dh * d_out + dh
-    f32 = dict(device=x.device, dtype=torch.float32)
     dx = torch.empty_like(x)
-    part, grads = torch.empty((SPLITS, total), **f32), torch.empty(total, **f32)
+    part, grads = _workspace(KERNEL_BWD.lib().hyena_mlp_bwd_ws_numel(d, dh, d_out), d, dh, d_out,
+                             x.device)
     w1b, w2b = _bf16(w1), _bf16(w2)
     b1f = b1.float().contiguous()
-    _aligned(x, dy, w1b, w2b)
-    KERNEL_BWD.launch("hyena_mlp_bwd", *map(_cuda.ptr, (x, dy, w1b, b1f, w2b, dx, part, grads)),
-                      n, d, dh, d_out, SPLITS, int(x.dtype == torch.bfloat16),
-                      _cuda.stream_handle(x))
+    _aligned(x, dy, w1b, w2b, b1f)
+    KERNEL_BWD.launch("hyena_mlp_bwd", *map(_cuda.ptr, (x, dy, w1b, b1f, w2b, dx)),
+                      *map(_cuda.ptr_or_null, (_bf16_scratch(x), _bf16_scratch(dy))),
+                      _cuda.ptr(part), _cuda.ptr(grads), n, d, dh, d_out,
+                      int(x.dtype == torch.bfloat16), _cuda.stream_handle(x))
     dw1, dw2, db1 = grads.split((d * dh, dh * d_out, dh))
-    return dx, dw1.view(d, dh), db1, dw2.view(dh, d_out), dy.float().sum(0)
+    # db2 summed in float32 straight from dy, with no float32 copy of a bf16 dy
+    return dx, dw1.view(d, dh), db1, dw2.view(dh, d_out), dy.sum(0, dtype=torch.float32)
 
 
 class MlpFused(torch.autograd.Function):

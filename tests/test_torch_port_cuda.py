@@ -18,6 +18,7 @@ from hyena_dna_tpu_torch.evals.hg38_inference import build_model
 from hyena_dna_tpu_torch.ops import add_ln as AL
 from hyena_dna_tpu_torch.ops import fused_fftconv as FB
 from hyena_dna_tpu_torch.ops import fused_front as FF
+from hyena_dna_tpu_torch.ops import mlp_fused as MF
 from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
 from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
 from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
@@ -580,14 +581,16 @@ def test_remat_grads_on_card_match_plain(card, remat, monkeypatch):
     # the widths past the old shared-memory limit, dh = 4 d
     (256, 384, 1536, 384, "bfloat16"), (192, 512, 2048, 512, "float32"),
     (128, 1024, 4096, 1024, "bfloat16"), (128, 256, 1024, 512, "bfloat16"),
+    # 128-row tiles: N below one tile and a ragged last tile; d = 64 beside
+    # d_out = 320 (five panels); both dtypes at the hg38 width
+    (64, 256, 1024, 256, "bfloat16"), (192, 256, 512, 256, "bfloat16"),
+    (256, 64, 256, 320, "bfloat16"), (320, 256, 1024, 256, "float32"),
 ])
 def test_mlp_fused_matches_plain(card, n, d, dh, d_out, dtype):
     """Kernels F and F' against `mlp_fused_ref` / `mlp_fused_bwd_ref`: the
     same bf16 operands, float32 sums in another order, so a rounding of h
     or dh to bf16 may flip between them and move a term by a bf16 step:
     every output at the bf16 tolerance, as in `chip_smoke.py`."""
-    from hyena_dna_tpu_torch.ops import mlp_fused as MF
-
     g = torch.Generator().manual_seed(n + d_out)
     dt = getattr(torch, dtype)
     x = (torch.randn(n, d, generator=g) * 0.5).to(dt).to(card)
@@ -608,6 +611,35 @@ def test_mlp_fused_matches_plain(card, n, d, dh, d_out, dtype):
         _close(got, want, *BF16_TOL)
     again = MF.mlp_fused_bwd(x, dy, w1, b1, w2)
     assert all(torch.equal(a, b) for a, b in zip(out, again))  # fixed-order sums
+
+
+@pytest.mark.parametrize("mode", sorted(MF.PROBE_MODES))
+def test_mlp_wgmma_probe_matches_matmul(card, mode):
+    """The product forms kernels F and F' add to csrc/wgmma.cuh, alone: one
+    64 x N x 64 bf16 product at N = 128, 192, 256 with b MN-major across
+    panels, b K-major, and a and b MN-major, against a float32 matmul of the
+    same values (bf16 products are exact in float32; the sums of 64 terms in
+    another order)."""
+    g = torch.Generator().manual_seed(100 + mode)
+    a = torch.randn(64, 64, generator=g).to(BF16)
+    b = torch.randn(64, 256, generator=g).to(BF16)
+    n = MF.PROBE_MODES[mode]
+    before = MF.KERNEL.launches
+    c = MF.wgmma_probe(a.to(card), b.to(card), mode)
+    assert MF.KERNEL.launches == before + 1 and c.shape == (64, n)
+    _close(c, a.float() @ b.float()[:, :n], 1e-6, 1e-5)
+
+
+def test_mlp_bwd_workspace_from_c(card):
+    """F''s workspace size comes from its library's C helper: a whole
+    number of (d dh + dh d_out + dh) partial sums, and -1 past an int."""
+    lib = MF.KERNEL_BWD.lib()
+    for d, dh, d_out in ((256, 1024, 256), (64, 256, 320), (1024, 4096, 1024)):
+        numel = lib.hyena_mlp_bwd_ws_numel(d, dh, d_out)
+        total = d * dh + dh * d_out + dh
+        assert numel > 0 and numel % total == 0
+        MF._workspace(numel, d, dh, d_out, card)
+    assert lib.hyena_mlp_bwd_ws_numel(16384, 65536, 16384) == -1
 
 
 def test_mlp_module_fused_on_card_matches_two_products(card):

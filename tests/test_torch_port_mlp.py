@@ -217,3 +217,54 @@ def test_kernel_checks_take_every_width_the_jax_rule_takes(d, d_out):
             torch.zeros(4 * d, d_out), torch.zeros(d_out))
     MF._check(*args)
     assert MF.applies(128, d, 4 * d, d_out)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bf16_scratch_only_for_float32_inputs(dtype):
+    """The C entries round float32 x and dy to bf16 once per call, into
+    scratch the wrapper allocates with x's (dy's) shape; bf16 inputs are
+    read as they are, with no scratch."""
+    t = torch.zeros(192, 320, dtype=getattr(torch, dtype))
+    scratch = MF._bf16_scratch(t)
+    if dtype == "bfloat16":
+        assert scratch is None
+    else:
+        assert scratch.dtype == torch.bfloat16 and scratch.shape == t.shape
+
+
+@pytest.mark.parametrize("d,dh,d_out", [(256, 1024, 256), (64, 256, 320), (512, 2048, 512)])
+def test_bwd_workspace_takes_whole_partial_sums(d, dh, d_out):
+    """F''s workspace is the C helper's count of floats, a whole number of
+    (d dh + dh d_out + dh) partial sums, beside the buffer of the summed
+    gradients; a count the helper refuses (-1 past an int) or one that
+    splits a sum is refused."""
+    total = d * dh + dh * d_out + dh
+    part, grads = MF._workspace(32 * total, d, dh, d_out, "cpu")
+    assert part.shape == (32 * total,) and grads.shape == (total,)
+    assert part.dtype == grads.dtype == torch.float32
+    for bad in (-1, 0, 32 * total + 1):
+        with pytest.raises(ValueError, match="no workspace"):
+            MF._workspace(bad, d, dh, d_out, "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_backward_is_the_plain_version_bit_for_bit(dtype):
+    """On the CPU the wrapper is `mlp_fused_bwd_ref` itself, float32 x
+    included: the plain versions did not change with the kernels."""
+    x, w1, b1, w2, _ = (torch.from_numpy(a) for a in _inputs(192, 128, 256, 64, seed=9))
+    x = x.to(getattr(torch, dtype))
+    dy = torch.randn(192, 64, generator=torch.Generator().manual_seed(2)).to(x.dtype)
+    for got, want in zip(MF.mlp_fused_bwd(x, dy, w1, b1, w2),
+                         MF.mlp_fused_bwd_ref(x, dy, w1, b1, w2)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_wgmma_probe_refuses_what_it_does_not_take():
+    """The probe entry runs on the card only, on bf16 a (64, 64), b (64, 256)
+    and a mode of PROBE_MODES (N = 128, 192, 256 for each of three forms)."""
+    assert sorted(MF.PROBE_MODES.values()) == [128] * 3 + [192] * 3 + [256] * 3
+    a, b = torch.zeros(64, 64, dtype=torch.bfloat16), torch.zeros(64, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="wgmma_probe"):
+        MF.wgmma_probe(a, b, 0)  # CPU tensors
+    with pytest.raises(ValueError, match="no kernel"):
+        MF.wgmma_probe(a.to("meta"), b.to("meta"), 0)
