@@ -9,7 +9,8 @@ line:
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
             nvcc per source, twelve sources, started together; ptxas's
             register, stack and spill readings of the bf16 front-end
-            kernels and of F and F' are kept for their rows): kernels A and
+            kernels, of F and F' and of C's passes are kept for their rows,
+            read from the log beside a library built before): kernels A and
             A' (the front end forward and backward), A4 and A4' (the same on
             the 4-D conv layout), B and C (the FFT conv forward and
             backward), D and D' (the fused residual-add + LN forward and
@@ -24,8 +25,9 @@ line:
             below; kernel, plain and library-call times.
             Kernels A and A' in float32 and in bfloat16; D and D' at the
             bf16 model's 4 x 32768 x 256 rows; B and C through the named
-            entry of each TPU row with its plan on padded operands, and C
-            at the flat 1M step's unpadded 1 x 1,000,448, then the routes no
+            entry of each TPU row with its plan on padded operands, C at
+            the flat 1M step's unpadded 1 x 1,000,448, and B and C at the
+            450k step's 1 x 450,048 (fft 2^20), then the routes no
             default path takes: the narrow plan at fft 2^19, the 3-factor
             plans at fft 2^19-2^21, kernel C's dk-spectrum
             mode at 4 x 32768; E and E' on each route at 4 x 32768 and 2 x
@@ -83,7 +85,7 @@ float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
 row of B, C, E, E', A4, A4', F and F' under "routes"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
-readings), and last {"ok": true, "device": {...}}. Times come from CUDA
+readings, C with its passes' readings), and last {"ok": true, "device": {...}}. Times come from CUDA
 events around repeated launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
 operations at 67 TFLOP/s for float32 inputs or at the bf16 tensor cores'
@@ -217,17 +219,21 @@ def check_wgmma(probe, b_cols: int, phase: str, seed: int):
     return {"phase": phase, "max_abs_err": errs, "ok": True}
 
 
-# the tensor-core kernels behind each bf16 front-end entry (csrc/fused_front_tc.cuh)
-# and behind kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels
-TC_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
-              "fused_front4": ("split_w_kernel", "front_fwd_tc_kernel"),
-              "fused_front_bwd": ("split_w_kernel", "front_bwd_du_kernel", "front_bwd_dw_kernel",
-                                  "front_bwd_sum_kernel"),
-              "fused_front4_bwd": ("split_w_kernel", "front_bwd_du_kernel",
-                                   "front_bwd_dw_kernel", "front_bwd_sum_kernel"),
-              "mlp_fused": ("mlp_fwd_kernel", "round_bf16_kernel"),
-              "mlp_fused_bwd": ("mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel",
-                                "sum_splits_kernel", "round_bf16_kernel")}
+# the kernels whose ptxas readings the run prints: the tensor-core kernels
+# behind each bf16 front-end entry (csrc/fused_front_tc.cuh) and behind
+# kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels, and
+# kernel C's passes (csrc/fftconv_bwd.cu)
+PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
+                 "fused_front4": ("split_w_kernel", "front_fwd_tc_kernel"),
+                 "fused_front_bwd": ("split_w_kernel", "front_bwd_du_kernel", "front_bwd_dw_kernel",
+                                     "front_bwd_sum_kernel"),
+                 "fused_front4_bwd": ("split_w_kernel", "front_bwd_du_kernel",
+                                      "front_bwd_dw_kernel", "front_bwd_sum_kernel"),
+                 "mlp_fused": ("mlp_fwd_kernel", "round_bf16_kernel"),
+                 "mlp_fused_bwd": ("mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel",
+                                   "sum_splits_kernel", "round_bf16_kernel"),
+                 "fftconv_bwd": ("cols_in_kernel", "rows_fwd_kernel", "rows_grad_kernel",
+                                 "rows_grad_cluster_kernel", "cols_inv_kernel")}
 
 
 def ptxas_readings(build_log, function: str) -> dict:
@@ -253,19 +259,22 @@ def ptxas_readings(build_log, function: str) -> dict:
     return out
 
 
-def tc_ptxas(kernels) -> dict:
+def kernel_ptxas(kernels) -> dict:
     """{library name: {kernel: ptxas readings}} for the kernels of
-    TC_KERNELS, from this run's build (empty where the library was cached);
-    a kernel instantiated per panel count is keyed `name<panels>`, and per
-    output type too `name<bf16,panels>` or `name<f32,panels>` (d = 256 runs
-    `<4>`)."""
+    PTXAS_KERNELS, from the libraries' build logs (this run's build, or the
+    log kept beside a library built before); a kernel instantiated per
+    panel count (or FFT radix class: 16, 8, 0 for any size) is keyed
+    `name<panels>`, per output type too `name<bf16,panels>` or
+    `name<f32,panels>` (d = 256 runs `<4>`), and kernel C's row passes
+    that keep dk's batch sum (B > 1) `name<radix,sum>`."""
     out = {}
     for k in kernels:
-        for fn in TC_KERNELS.get(k.name, ()):
+        for fn in PTXAS_KERNELS.get(k.name, ()):
             for mangled, reading in ptxas_readings(k.build_log, fn).items():
-                inst = re.search(fn + r"I(13__nv_bfloat16|f)?Li(\d+)E", mangled)
+                inst = re.search(fn + r"I(13__nv_bfloat16|f)?Li(\d+)E(?:Lb([01])E)?", mangled)
                 dtype = {"13__nv_bfloat16": "bf16,", "f": "f32,"}.get(inst and inst.group(1), "")
-                key = f"{fn}<{dtype}{inst.group(2)}>" if inst else fn
+                total = ",sum" if inst and inst.group(3) == "1" else ""
+                key = f"{fn}<{dtype}{inst.group(2)}{total}>" if inst else fn
                 out.setdefault(k.name, {})[key] = reading
     return out
 
@@ -1180,7 +1189,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build_all(kernels)
-    ptxas = tc_ptxas(kernels)
+    ptxas = kernel_ptxas(kernels)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "libraries": [k.library_path.name for k in kernels], "ptxas": ptxas})
     log(check_wgmma(FF, 64, "wgmma_probe", 90))
@@ -1201,7 +1210,9 @@ def main() -> int:
                         FB.fftconv_fused_fwd, p16),
              check_conv(FB, 1, 131072, "bfloat16", "pallas_fftconv_n3.py:413 outer", 6,
                         FB.fftconv_outer_fwd, (16, 128, 128)),
-             check_conv(FB, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:413 outer", 7)]
+             check_conv(FB, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:413 outer", 7),
+             # the 450k training step's own call (fft 2^20, 256 x 4096)
+             check_conv(FB, 1, 450048, "bfloat16", "pallas_fftconv_n3.py:413 450k step", 19)]
     for entry, B, L, dtype, route, seed, plan in (
             (None, 2, 8192, "float32", "XLA FFT on the TPU", 20, ()),
             (FB.fftconv_fused_bwd_spec_packed, 4, 32768, "bfloat16", "pallas_fftconv.py:1344", 21,
@@ -1215,8 +1226,9 @@ def main() -> int:
              (16, 128, 128)),
             (FB.fftconv_outer_bwd, 1, 1 << 20, "bfloat16", "pallas_fftconv_n3.py:629", 27,
              (16, 512, 256)),
-            # the flat 1M training step's own call: unpadded, L < n / 2
-            (None, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629 flat 1M step", 28, ())):
+            # the flat 1M and the 450k training steps' own calls: unpadded, L < n / 2
+            (None, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629 flat 1M step", 28, ()),
+            (None, 1, 450048, "bfloat16", "pallas_fftconv_n3.py:629 450k step", 29, ())):
         rows.append(check_conv_bwd(FB, entry or FB.fftconv_bwd_retransform, B, L, dtype,
                                    route, seed, plan))
     # the routes no default path takes: the narrow plan at fft 2^19 (B 1,
@@ -1395,7 +1407,8 @@ def main() -> int:
          **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {}),
          **({"routes": dict(route_row(r) for r in rows if r["name"] == name)}
             if name in routed else {}),
-         **({"ptxas": ptxas.get(name, {})} if name in ("mlp_fused", "mlp_fused_bwd") else {})}
+         **({"ptxas": ptxas.get(name, {})}
+            if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd") else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -3,12 +3,14 @@
 Each kernel is one `csrc/<name>.cu` file with a plain C interface. At first
 use it is compiled by `nvcc` for Hopper (`sm_90a`) into a shared library
 under `hyena_dna_tpu_torch/_build/` (listed in `.gitignore`; the file name
-carries a hash of the source and the shared `csrc/*.cuh` headers, so an
-edited source is rebuilt) and loaded
+carries a hash of the source, the shared `csrc/*.cuh` headers and the nvcc
+flags, so an edited source or a changed flag is rebuilt) and loaded
 with `ctypes`. Every C entry point returns the `cudaError_t` of its
 launches; `Kernel.launch` raises on a non-zero code and counts the launch.
 Each build's compiler output, ptxas's register, stack and spill readings
-among it (`-Xptxas -v`), is kept on the kernel (`build_log`).
+among it (`-Xptxas -v`), is written beside the library (`<library>.log`)
+and kept on the kernel (`build_log`), read back from that file when the
+library was built before.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a host with no `nvcc` and no card.
@@ -54,7 +56,7 @@ class Kernel:
         self.source = CSRC / f"{name}.cu"
         self.functions = dict(functions)
         self.launches = 0
-        self.build_log = None  # nvcc's output when this process built the library
+        self.build_log = None  # nvcc's output for the library (build_all fills it)
         self._lib = None
 
     @property
@@ -62,7 +64,13 @@ class Kernel:
         h = hashlib.sha256(self.source.read_bytes())
         for header in sorted(CSRC.glob("*.cuh")):  # shared pieces a source may include
             h.update(header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}_{h.hexdigest()[:16]}.so"
+
+    @property
+    def log_path(self) -> Path:
+        """nvcc's output for the library, beside it."""
+        return self.library_path.with_suffix(".log")
 
     def build_command(self) -> list:
         """The nvcc command line, writing to a temporary name first."""
@@ -95,9 +103,14 @@ class Kernel:
 
 def build_all(kernels: Sequence[Kernel]) -> None:
     """Compile every kernel whose library is missing, one nvcc each, all
-    started together; raise with the compiler's output if any fails."""
+    started together; raise with the compiler's output if any fails. Each
+    kernel's `build_log` is its compiler output, read back from the log
+    beside a library built before (None if there is none)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [k for k in kernels if not k.library_path.exists()]
+    for k in kernels:
+        if k not in todo:
+            k.build_log = k.log_path.read_text() if k.log_path.exists() else None
     procs = [(k, subprocess.Popen(k.build_command(), stdout=subprocess.PIPE,
                                   stderr=subprocess.STDOUT, text=True))
              for k in todo]
@@ -108,6 +121,7 @@ def build_all(kernels: Sequence[Kernel]) -> None:
         if proc.returncode != 0:
             failed.append(f"{k.source.name}:\n{out}")
         else:
+            k.log_path.write_text(out)
             k._finish_build()
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

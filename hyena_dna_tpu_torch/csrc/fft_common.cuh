@@ -9,15 +9,16 @@
 // frequency f = f1 + N1 * f2. A channel pair (c, c+1) shares one complex
 // transform of z = x_c + i x_{c+1}; the two real spectra are split again
 // with the Hermitian mirror Z[-f] wherever a product needs them.
-//   pass 1  column FFTs of size N1 (blocks of TC = 16 adjacent columns)
+//   pass 1  column FFTs of size N1 (blocks of TC <= 16 adjacent columns)
 //           times the twiddle W_n^(t2 f1) -> A[f1][t2] in a complex scratch
 //           of n per (batch, pair); what the pass reads is a "source" (the
 //           signal, or the gated kernels' products of two signals);
 //   pass 2  row FFTs of size N2 along t2 -> the spectrum at f1 + N1 f2, in
 //           natural f2 order: rows_fwd_kernel (the filter), rows_conv_kernel
-//           (the conv's transform, product with K and inverse),
-//           rows_bwd_kernel (the backward's du rows and dk's batch sum);
-//           a block owns a few rows f1 and their Hermitian mirrors N1 - f1;
+//           (the conv's transform, product with K and inverse), and the
+//           backward kernels' own row passes (fftconv_bwd.cu,
+//           fftconv_gated_bwd.cu); a block owns a few rows f1 and their
+//           Hermitian mirrors N1 - f1;
 //   pass 3  conjugate twiddle, inverse column FFTs, scale 1/n, the first
 //           `len` outputs handed to a "sink" (the D skip term, or the gated
 //           kernels' epilogues).
@@ -67,7 +68,6 @@
 namespace FFT_NS {
 
 constexpr int kMaxLogN = 21;
-constexpr int kMaxLogN1 = 9;
 constexpr int kMaxLogTC = 4;
 // A thread holds kElems complex values in registers through a pass; a block
 // transforms about kBlockElems values (TC columns of N1, or rows of N2), so
@@ -357,11 +357,21 @@ struct Plan {
   int rpb;         // rows a rows_fwd_kernel block owns
 };
 
+// log2 N1 at n = 2^log_n (ops/fused_fftconv.py::_four_step reads this
+// table, and tests/test_torch_port_plan.py holds it to the rule). The rule:
+// the most balanced split N1 <= 512, N2 <= 4096 whose two sizes both
+// fall in the radix-16 or radix-8 class (log2 a multiple of 4 or of 3, see
+// radix_class), the smaller N1 on a tie; where none exists (2^4, 2^5,
+// 2^19), N1 = 2^min(log_n / 2, 9) and the any-size class takes the rest.
+// The saved-spectrum sizes 2^16-2^18 split 256 x 256, 256 x 512, 512 x 512.
+constexpr int kPlanLogN1[kMaxLogN + 1] = {0, 0, 0, 0, 2, 2, 3, 3, 4, 3, 4,
+                                          3, 6, 4, 6, 6, 8, 8, 9, 9, 8, 9};
+
 inline Plan make_plan(int n) {
   Plan p;
   p.n = n;
   p.log_n = 31 - __builtin_clz(static_cast<unsigned>(n));
-  p.log_n1 = p.log_n / 2 < kMaxLogN1 ? p.log_n / 2 : kMaxLogN1;
+  p.log_n1 = kPlanLogN1[p.log_n];
   p.log_n2 = p.log_n - p.log_n1;
   p.n1 = 1 << p.log_n1;
   p.n2 = 1 << p.log_n2;
@@ -423,9 +433,6 @@ inline size_t cols_smem_bytes(const Plan& p) { return sizeof(float2) * p.n1 * p.
 inline size_t rows_smem_bytes(const Plan& p) {
   return sizeof(float2) * 2 * p.g * padded(p.n2);
 }
-// rows_bwd_kernel: three such buffers (dy, u, dk's sum), 104 KB (204 KB at
-// N2 = 4096)
-inline size_t rows_bwd_smem_bytes(const Plan& p) { return 3 * rows_smem_bytes(p); }
 
 // frequency f = r0 + N1 * i sits in row r0 at index i; -f sits in row
 // mirror_row(r0) at mirror_index(r0, i)
@@ -772,80 +779,6 @@ __global__ void __launch_bounds__(kMaxThreads) rows_conv_kernel(
   __syncthreads();
   fft<true, kRadix>(buf, RowsIO<PairRows>{dst + off, rows, p.log_n2}, RowMap{}, buf, p.log_n2,
                    rows.nrows);
-}
-
-// Pass 2 of the backward conv. gdy: dy's column pass in, du's inverse row
-// pass out, (B, pairs, n). gu: u's column pass (u_is_spectrum == 0) or u's
-// pair spectrum in the layout rows_conv_kernel saves, (B, pairs, n). gdk:
-// dk's inverse row pass out, (pairs, n). One block per (g row pairs,
-// channel pair) loops over the batch and owns dk's accumulator in shared
-// memory, so the batch sum needs no atomics and is in a fixed order. With
-// kspec null (the dk-spectrum mode) there is no du: the block stops after
-// the batch sum and stores sum_b DY conj(U) as a pair spectrum, row f1 in
-// natural f2 order, with no inverse.
-template <int kRadix>
-__global__ void __launch_bounds__(kMaxThreads) rows_bwd_kernel(
-    float2* __restrict__ gdy, const float2* __restrict__ gu, const float2* __restrict__ kspec,
-    float2* __restrict__ gdk, int B, int u_is_spectrum, Plan p) {
-  extern __shared__ float2 smem[];
-  const PairRows rows(p, blockIdx.x);
-  const int pair = blockIdx.y;
-  const int pairs = gridDim.y;
-  const bool with_du = kspec != nullptr;
-  const float2* ks = with_du ? kspec + static_cast<int64_t>(pair) * p.n : nullptr;
-  const RowLayout lay{padded(p.n2)};
-  const int part = 2 * p.g * lay.stride;
-  float2* bdy = smem;
-  float2* bu = bdy + part;
-  float2* acc = bu + part;
-  const SharedIO<RowLayout> sdy{bdy, lay}, su{bu, lay}, sacc{acc, lay};
-  for (int e = threadIdx.x; e < part; e += blockDim.x) acc[e] = make_float2(0.f, 0.f);
-  for (int b = 0; b < B; ++b) {
-    const int64_t off = (static_cast<int64_t>(b) * pairs + pair) * p.n;
-    const RowsIO<PairRows> dyb{gdy + off, rows, p.log_n2};
-    fft<false, kRadix>(dyb, sdy, RowMap{}, sdy, p.log_n2, rows.nrows);
-    if (u_is_spectrum) {
-      rows_to_shared(bu, lay, gu + off, rows, rows.nrows, p.log_n2);
-    } else {
-      fft<false, kRadix>(RowsIO<PairRows>{const_cast<float2*>(gu) + off, rows, p.log_n2}, su,
-                         RowMap{}, su, p.log_n2, rows.nrows);
-    }
-    for_each_pair(rows, p, [&](int s0, int i, int s1, int m, int r0, int r1) {
-      float2& ya = bdy[lay(s0, i)];
-      float2& yb = bdy[lay(s1, m)];
-      float2 dy0, dy1, u0, u1;
-      split_pair(ya, yb, dy0, dy1);
-      split_pair(bu[lay(s0, i)], bu[lay(s1, m)], u0, u1);
-      if (with_du) {
-        float2 k0, k1;
-        split_pair(ks[(static_cast<int64_t>(r0) << p.log_n2) + i],
-                   ks[(static_cast<int64_t>(r1) << p.log_n2) + m], k0, k1);
-        const float2 p0 = cmulc(dy0, k0);
-        const float2 p1 = cmulc(dy1, k1);
-        ya = join_pair(p0, p1);
-        yb = join_pair_mirror(p0, p1);
-      }
-      const float2 q0 = cmulc(dy0, u0);
-      const float2 q1 = cmulc(dy1, u1);
-      const float2 w = join_pair(q0, q1);
-      float2& aa = acc[lay(s0, i)];
-      aa = make_float2(aa.x + w.x, aa.y + w.y);
-      if (s0 != s1 || m != i) {  // f == -f (one bin) is accumulated once
-        const float2 wm = join_pair_mirror(q0, q1);
-        float2& ab = acc[lay(s1, m)];
-        ab = make_float2(ab.x + wm.x, ab.y + wm.y);
-      }
-    });
-    __syncthreads();
-    if (with_du) fft<true, kRadix>(sdy, dyb, RowMap{}, sdy, p.log_n2, rows.nrows);
-    __syncthreads();  // the next b overwrites bdy and bu
-  }
-  const RowsIO<PairRows> dk{gdk + static_cast<int64_t>(pair) * p.n, rows, p.log_n2};
-  if (with_du) {
-    fft<true, kRadix>(sacc, dk, RowMap{}, sacc, p.log_n2, rows.nrows);
-  } else {
-    shared_to_rows(dk.a, rows, acc, lay, rows.nrows, p.log_n2);
-  }
 }
 
 }  // namespace FFT_NS

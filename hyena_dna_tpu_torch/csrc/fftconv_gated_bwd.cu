@@ -44,26 +44,104 @@
 //          the dk sum) times kspec, inverse row FFT; then an inverse column
 //          pass whose epilogue writes dx0 = dy v (+ u D on the retransform
 //          route, whose kspec is plain K). Running it as its own pass keeps
-//          rows_bwd_kernel's shared memory as kernel C has it (three
-//          buffers of 2 g padded rows, 204 KB at N2 = 4096): a fourth would
-//          need 272 KB, over the 227 KB a block may use.
+//          rows_bwd_kernel's shared memory at three buffers of 2 g padded
+//          rows (204 KB at N2 = 4096): a fourth would need 272 KB, over the
+//          227 KB a block may use.
 //   dv     pass 1 whose source reads dy and x0 and transforms dv = dy x0 in
 //          float32 (the TPU kernels round dv to their store type first);
 //          on the specv route the same pass writes dx0 = dy v from the
 //          saved v.
-//   du, dk kernel C's rows_bwd_kernel on U's spectrum (dk's batch sum in a
+//   du, dk rows_bwd_kernel (below) on U's spectrum (dk's batch sum in a
 //          fixed order per block: no atomics, the same bits every run),
 //          then inverse column passes: du's epilogue adds dv D (dv
 //          recomputed from dy and x0) unless kspec already holds K + D;
 //          dk's reads dD off lag 0.
-// v's pass runs first and borrows dv's scratch, so the scratch is kernel
-// C's: dv's, u's (retransform only), kspec and dk's.
+// v's pass runs first and borrows dv's scratch, so the scratch is dv's,
+// u's (retransform only), kspec and dk's.
 #define FFT_NS conv_gbwd
 #include "fft_common.cuh"
 
 namespace FFT_NS {
 
 enum Route { kSpecV = 0, kSpec = 1, kRetransform = 2 };
+
+// The row pass of du and dk. gdy: dy's column pass in, du's inverse row
+// pass out, (B, pairs, n). gu: u's column pass (u_is_spectrum == 0) or u's
+// pair spectrum in the layout rows_conv_kernel saves, (B, pairs, n). gdk:
+// dk's inverse row pass out, (pairs, n). One block per (g row pairs,
+// channel pair) loops over the batch and owns dk's accumulator in shared
+// memory, so the batch sum needs no atomics and is in a fixed order. With
+// kspec null (the dk-spectrum mode) there is no du: the block stops after
+// the batch sum and stores sum_b DY conj(U) as a pair spectrum, row f1 in
+// natural f2 order, with no inverse.
+template <int kRadix>
+__global__ void __launch_bounds__(kMaxThreads) rows_bwd_kernel(
+    float2* __restrict__ gdy, const float2* __restrict__ gu, const float2* __restrict__ kspec,
+    float2* __restrict__ gdk, int B, int u_is_spectrum, Plan p) {
+  extern __shared__ float2 smem[];
+  const PairRows rows(p, blockIdx.x);
+  const int pair = blockIdx.y;
+  const int pairs = gridDim.y;
+  const bool with_du = kspec != nullptr;
+  const float2* ks = with_du ? kspec + static_cast<int64_t>(pair) * p.n : nullptr;
+  const RowLayout lay{padded(p.n2)};
+  const int part = 2 * p.g * lay.stride;
+  float2* bdy = smem;
+  float2* bu = bdy + part;
+  float2* acc = bu + part;
+  const SharedIO<RowLayout> sdy{bdy, lay}, su{bu, lay}, sacc{acc, lay};
+  for (int e = threadIdx.x; e < part; e += blockDim.x) acc[e] = make_float2(0.f, 0.f);
+  for (int b = 0; b < B; ++b) {
+    const int64_t off = (static_cast<int64_t>(b) * pairs + pair) * p.n;
+    const RowsIO<PairRows> dyb{gdy + off, rows, p.log_n2};
+    fft<false, kRadix>(dyb, sdy, RowMap{}, sdy, p.log_n2, rows.nrows);
+    if (u_is_spectrum) {
+      rows_to_shared(bu, lay, gu + off, rows, rows.nrows, p.log_n2);
+    } else {
+      fft<false, kRadix>(RowsIO<PairRows>{const_cast<float2*>(gu) + off, rows, p.log_n2}, su,
+                         RowMap{}, su, p.log_n2, rows.nrows);
+    }
+    for_each_pair(rows, p, [&](int s0, int i, int s1, int m, int r0, int r1) {
+      float2& ya = bdy[lay(s0, i)];
+      float2& yb = bdy[lay(s1, m)];
+      float2 dy0, dy1, u0, u1;
+      split_pair(ya, yb, dy0, dy1);
+      split_pair(bu[lay(s0, i)], bu[lay(s1, m)], u0, u1);
+      if (with_du) {
+        float2 k0, k1;
+        split_pair(ks[(static_cast<int64_t>(r0) << p.log_n2) + i],
+                   ks[(static_cast<int64_t>(r1) << p.log_n2) + m], k0, k1);
+        const float2 p0 = cmulc(dy0, k0);
+        const float2 p1 = cmulc(dy1, k1);
+        ya = join_pair(p0, p1);
+        yb = join_pair_mirror(p0, p1);
+      }
+      const float2 q0 = cmulc(dy0, u0);
+      const float2 q1 = cmulc(dy1, u1);
+      const float2 w = join_pair(q0, q1);
+      float2& aa = acc[lay(s0, i)];
+      aa = make_float2(aa.x + w.x, aa.y + w.y);
+      if (s0 != s1 || m != i) {  // f == -f (one bin) is accumulated once
+        const float2 wm = join_pair_mirror(q0, q1);
+        float2& ab = acc[lay(s1, m)];
+        ab = make_float2(ab.x + wm.x, ab.y + wm.y);
+      }
+    });
+    __syncthreads();
+    if (with_du) fft<true, kRadix>(sdy, dyb, RowMap{}, sdy, p.log_n2, rows.nrows);
+    __syncthreads();  // the next b overwrites bdy and bu
+  }
+  const RowsIO<PairRows> dk{gdk + static_cast<int64_t>(pair) * p.n, rows, p.log_n2};
+  if (with_du) {
+    fft<true, kRadix>(sacc, dk, RowMap{}, sacc, p.log_n2, rows.nrows);
+  } else {
+    shared_to_rows(dk.a, rows, acc, lay, rows.nrows, p.log_n2);
+  }
+}
+
+// rows_bwd_kernel's shared memory: three buffers of 2 g padded rows (dy, u,
+// dk's sum), 104 KB (204 KB at N2 = 4096)
+inline size_t rows_bwd_smem_bytes(const Plan& p) { return 3 * rows_smem_bytes(p); }
 
 // Pass 1 source for the filter with the skip term folded in: k + D delta.
 template <typename T>

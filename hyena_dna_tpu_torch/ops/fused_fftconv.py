@@ -62,7 +62,9 @@ tensor it runs its plain version on `torch.fft`.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import re
 
 import torch
 
@@ -87,8 +89,8 @@ KERNEL = _cuda.Kernel("fftconv", {
                          + [ctypes.c_void_p],
 })
 KERNEL_BWD = _cuda.Kernel("fftconv_bwd", {
-    "hyena_fftconv_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 7
-                         + [ctypes.c_void_p],
+    "hyena_fftconv_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    "hyena_fftconv_bwd_ws_slabs": [ctypes.c_int] * 4,
 })
 
 
@@ -100,9 +102,18 @@ def saves_spectrum(batch: int, channels: int, length: int) -> bool:
     return batch * ((channels + 1) // 2) * n * 8 <= SAVE_SPECTRUM_MAX_BYTES
 
 
+@functools.cache
+def _plan_log_n1() -> tuple[int, ...]:
+    """log2 N1 at each n = 2^log_n, read from the kernels' own table
+    (`kPlanLogN1` in csrc/fft_common.cuh, where the plan rule is stated)."""
+    text = (_cuda.CSRC / "fft_common.cuh").read_text()
+    body = re.search(r"kPlanLogN1\[kMaxLogN \+ 1\] = \{([^}]*)\}", text).group(1)
+    return tuple(int(v) for v in body.split(","))
+
+
 def _four_step(n: int):
-    """(N1, N2) of the kernels' four-step split (`make_plan` in fft_common.cuh)."""
-    log_n1 = min((n.bit_length() - 1) // 2, 9)
+    """(N1, N2) of the kernels' four-step split n = N1 N2."""
+    log_n1 = _plan_log_n1()[n.bit_length() - 1]
     return 1 << log_n1, n >> log_n1
 
 
@@ -210,22 +221,27 @@ def fftconv_fused(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor,
     return (y, spec) if save_spectrum else y
 
 
+def _bwd_workspace(b: int, c: int, n: int, retransform: bool, with_k: bool, device):
+    """(kernel C's complex64 workspace as (slabs, n, 2) float32, slabs), its
+    size from the library's `hyena_fftconv_bwd_ws_slabs`."""
+    slabs = KERNEL_BWD.lib().hyena_fftconv_bwd_ws_slabs(b, c, int(retransform), int(with_k))
+    if slabs < 1:
+        raise ValueError(f"kernel C takes no workspace for B={b}, C={c}")
+    return torch.empty((slabs, n, 2), device=device, dtype=torch.float32), slabs
+
+
 def _bwd_kernel(u, spec, dy, k, D, dk_dtype=None):
     check_args("kernels B and C", [("u", u), ("dy", dy)], k, D, spec)
     b, c, length = dy.shape
     n = next_fast_fft_size(2 * length)
-    pairs = (c + 1) // 2
     f32 = dict(device=dy.device, dtype=torch.float32)
     dk_f32 = dk_dtype == torch.float32
     dk = torch.empty(k.shape, **f32) if dk_f32 else torch.empty_like(k)
     du, dD = torch.empty_like(dy), torch.empty(c, **f32)
-    sdy = torch.empty((b, pairs, n, 2), **f32)
-    su = torch.empty_like(sdy) if spec is None else None
-    kspec, sdk = torch.empty((pairs, n, 2), **f32), torch.empty((pairs, n, 2), **f32)
+    ws, slabs = _bwd_workspace(b, c, n, spec is None, True, dy.device)
     KERNEL_BWD.launch("hyena_fftconv_bwd",
                       _cuda.ptr_or_null(u), _cuda.ptr_or_null(spec),
-                      *map(_cuda.ptr, (dy, k, D, du, dk, dD, sdy)), _cuda.ptr_or_null(su),
-                      *map(_cuda.ptr, (kspec, sdk)),
+                      *map(_cuda.ptr, (dy, k, D, du, dk, dD, ws)), slabs,
                       b, c, length, k.shape[1], n, int(dy.dtype == torch.bfloat16), int(dk_f32),
                       _cuda.stream_handle(dy))
     return du, dk, dD
@@ -516,13 +532,11 @@ def fftconv_fused_dk_spec(u, dy, r: int, m: int, cb: int):
                             f"got {u.dtype}, {dy.dtype}")
         if t.device != u.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {u.device}")
-    pairs = (c + 1) // 2
-    f32 = dict(device=u.device, dtype=torch.float32)
-    sdy, su = torch.empty((b, pairs, n, 2), **f32), torch.empty((b, pairs, n, 2), **f32)
-    sdk = torch.empty((pairs, n, 2), **f32)
+    sdk = torch.empty(((c + 1) // 2, n, 2), device=u.device, dtype=torch.float32)
+    ws, slabs = _bwd_workspace(b, c, n, True, False, u.device)
     null = _cuda.ptr_or_null(None)
     KERNEL_BWD.launch("hyena_fftconv_bwd", _cuda.ptr(u), null, _cuda.ptr(dy), null, null, null,
-                      null, null, _cuda.ptr(sdy), _cuda.ptr(su), null, _cuda.ptr(sdk),
+                      _cuda.ptr(sdk), null, _cuda.ptr(ws), slabs,
                       b, c, length, length, n, int(u.dtype == torch.bfloat16), 0,
                       _cuda.stream_handle(u))
     spec = _split_pairs(sdk[None], c, n)[0]

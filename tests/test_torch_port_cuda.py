@@ -113,6 +113,12 @@ def test_fused_front_bwd_matches_plain(card, B, L, d):
     (1, 1, 8, 8, "float32"), (2, 3, 100, 60, "float32"), (3, 5, 5000, 5000, "bfloat16"),
     (2, 6, 40000, 30000, "float32"), (1, 4, 1 << 17, 1 << 17, "bfloat16"),
     (2, 3, 70000, 65000, "float32"),
+    # N2 = 4096 rows at fft 2^20 and 2^21, B = 1 (dk formed in u's buffer)
+    # and B = 3 (the batch sum in shared memory); fft 2^11 and 2^14 (8 x 256 and
+    # 64 x 256 splits)
+    (1, 3, 300000, 200000, "bfloat16"), (3, 3, 300000, 300000, "float32"),
+    (1, 5, 600000, 600000, "bfloat16"), (3, 3, 600000, 450000, "float32"),
+    (2, 5, 1000, 700, "float32"), (2, 3, 8192, 8192, "bfloat16"),
 ])
 @pytest.mark.parametrize("route", ["retransform", "spectrum"])
 def test_fftconv_bwd_matches_plain(card, B, C, L, Lk, dtype, route):
@@ -139,6 +145,60 @@ def test_fftconv_bwd_matches_plain(card, B, C, L, Lk, dtype, route):
             _close(got, want, 1e-4, 1e-4)
         else:
             _close(got, want, 2e-3, 2 ** -7)
+
+
+@pytest.mark.parametrize("B,L", [(1, 300000), (3, 600000)])
+def test_fftconv_bwd_same_bits_twice(card, B, L):
+    """Kernel C at N2 = 4096 (fft 2^20, B = 1; fft 2^21, the batch sum):
+    fixed-order sums, so a second run gives the same bits."""
+    g = torch.Generator().manual_seed(L)
+    u, dy = (torch.randn(B, 3, L, generator=g).to(BF16).to(card) for _ in range(2))
+    k = (torch.randn(3, L, generator=g) * 0.05).to(BF16).to(card)
+    D = torch.randn(3, generator=g).to(card)
+    first = FB.fftconv_bwd_retransform(u, dy, k, D)
+    for a, b in zip(first, FB.fftconv_bwd_retransform(u, dy, k, D)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("route", ["retransform", "spectrum", "dk_spec"])
+def test_fftconv_bwd_scratch_sizes_from_c(card, route, monkeypatch):
+    """Kernel C's workspace comes from its library's C helper: the wrapper
+    allocates what `hyena_fftconv_bwd_ws_slabs` says, and the kernel refuses
+    any other size, before any launch."""
+    lib = FB.KERNEL_BWD.lib()
+    assert lib.hyena_fftconv_bwd_ws_slabs(0, 4, 1, 1) == -1
+    assert lib.hyena_fftconv_bwd_ws_slabs(3, 5, 1, 1) > lib.hyena_fftconv_bwd_ws_slabs(3, 5, 0, 1)
+    B, C, L = 2, 5, 4096  # L = n / 2: the padded operands of the dk-spectrum entry
+    g = torch.Generator().manual_seed(7)
+    u, dy = (torch.randn(B, C, L, generator=g).to(card) for _ in range(2))
+    k, D = torch.randn(C, L, generator=g).to(card), torch.randn(C, generator=g).to(card)
+    n = next_fast_fft_size(2 * L)
+    spec = FB.fftconv_fused(u, k, D, save_spectrum=True)[1]
+    run = {"retransform": lambda: FB.fftconv_bwd_retransform(u, dy, k, D),
+           "spectrum": lambda: FB.fftconv_bwd_spectrum(spec, dy, k, D),
+           "dk_spec": lambda: FB.fftconv_fused_dk_spec(u, dy, 2, n // 2, 1)}[route]
+    real = FB._bwd_workspace
+    sizes = []
+
+    def recorded(*args):
+        ws, slabs = real(*args)
+        sizes.append(slabs)
+        return ws, slabs
+
+    monkeypatch.setattr(FB, "_bwd_workspace", recorded)
+    run()
+    retransform, with_k = route != "spectrum", route != "dk_spec"
+    assert sizes == [lib.hyena_fftconv_bwd_ws_slabs(B, C, int(retransform), int(with_k))]
+
+    def one_slab_fewer(*args):
+        ws, slabs = real(*args)
+        return ws[1:], slabs - 1
+
+    monkeypatch.setattr(FB, "_bwd_workspace", one_slab_fewer)
+    before = FB.KERNEL_BWD.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        run()
+    assert FB.KERNEL_BWD.launches == before
 
 
 def test_model_grads_on_card_match_cpu(card):
