@@ -9,7 +9,8 @@ line:
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
             nvcc per source, twelve sources, started together; ptxas's
             register, stack and spill readings of the bf16 front-end
-            kernels, of F and F' and of C's passes are kept for their rows,
+            kernels, of F and F' and of the passes of C, E and E' are kept
+            for their rows,
             read from the log beside a library built before): kernels A and
             A' (the front end forward and backward), A4 and A4' (the same on
             the 4-D conv layout), B and C (the FFT conv forward and
@@ -31,7 +32,10 @@ line:
             default path takes: the narrow plan at fft 2^19, the 3-factor
             plans at fft 2^19-2^21, kernel C's dk-spectrum
             mode at 4 x 32768; E and E' on each route at 4 x 32768 and 2 x
-            65536; A4 and A4' at 1 x 1,000,448 and 1 x 131072; F and F' at
+            65536, and E' through its generic wrappers on the specv and
+            spec routes at B = 1 (1 x 32768) and at fft 2^20 (1 x 450,048,
+            its row pass over a 2-CTA cluster); A4 and A4' at 1 x 1,000,448
+            and 1 x 131072; F and F' at
             the MLP width (256 -> 1024 -> 256) on 4 x 32768 bf16 rows and
             1 x 32768 float32 rows, and at 512 -> 2048 -> 512 on 4 x 32768
             bf16 rows; the 4-D conv entries bit-equal to the flat
@@ -85,8 +89,9 @@ float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
 row of B, C, E, E', A4, A4', F and F' under "routes"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
-readings, C with its passes' readings), and last {"ok": true, "device": {...}}. Times come from CUDA
-events around repeated launches after a warm-up. `bound_ms` is the larger of the bytes the function
+readings, C, E and E' with their passes' readings), and last
+{"ok": true, "device": {...}}. Times come from CUDA events around repeated
+launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
 operations at 67 TFLOP/s for float32 inputs or at the bf16 tensor cores'
 989 TFLOP/s for bf16 inputs and for the bf16 products of F and F' (H100
@@ -222,7 +227,8 @@ def check_wgmma(probe, b_cols: int, phase: str, seed: int):
 # the kernels whose ptxas readings the run prints: the tensor-core kernels
 # behind each bf16 front-end entry (csrc/fused_front_tc.cuh) and behind
 # kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels, and
-# kernel C's passes (csrc/fftconv_bwd.cu)
+# the passes of kernels C, E and E' (csrc/fftconv_bwd.cu,
+# csrc/fftconv_gated{,_bwd}.cu)
 PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "fused_front4": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "fused_front_bwd": ("split_w_kernel", "front_bwd_du_kernel", "front_bwd_dw_kernel",
@@ -233,7 +239,13 @@ PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "mlp_fused_bwd": ("mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel",
                                    "sum_splits_kernel", "round_bf16_kernel"),
                  "fftconv_bwd": ("cols_in_kernel", "rows_fwd_kernel", "rows_grad_kernel",
-                                 "rows_grad_cluster_kernel", "cols_inv_kernel")}
+                                 "rows_grad_cluster_kernel", "cols_inv_kernel"),
+                 "fftconv_gated": ("cols_in_delta_kernel", "cols_in_kernel", "rows_fwd_kernel",
+                                   "rows_conv_kernel", "cols_inv_gate_kernel"),
+                 "fftconv_gated_bwd": ("cols_in_delta_kernel", "cols_in_kernel",
+                                       "cols_in_dv_kernel", "rows_fwd_kernel", "rows_conv_kernel",
+                                       "cols_inv_dx0_kernel", "rows_grad_kernel",
+                                       "rows_grad_cluster_kernel", "cols_inv_kernel")}
 
 
 def ptxas_readings(build_log, function: str) -> dict:
@@ -736,9 +748,10 @@ def check_gated(GE, B, L, dtype, variant, seed):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_gated_bwd(GE, route, B, L, dtype, seed):
+def check_gated_bwd(GE, route, B, L, dtype, seed, generic=False):
     """Kernel E' on one route, through the torch entry point of that route's
-    TPU kernel, against the route's plain version (du, dx0, dk in the I/O
+    TPU kernel (or, `generic`, the route's own wrapper, which takes any
+    shape), against the route's plain version (du, dx0, dk in the I/O
     dtype, dD float32). The saved spectrum and v come from kernel E."""
     import torch
 
@@ -748,9 +761,10 @@ def check_gated_bwd(GE, route, B, L, dtype, seed):
     C, n = D_MODEL, next_fast_fft_size(2 * L)
     _, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
     saved = {"specv": (spec, v), "spec": (spec,), "retransform": (u,)}[route]
-    entry = {"specv": GE.fftconv_fused_bwd_specv_packed_gated,
-             "spec": GE.fftconv_fused_bwd_spec_packed_gated,
-             "retransform": GE.fftconv_fused_bwd_packed_gated}[route]
+    entry = getattr(GE, f"fftconv_gated_bwd_{route}") if generic else {
+        "specv": GE.fftconv_fused_bwd_specv_packed_gated,
+        "spec": GE.fftconv_fused_bwd_spec_packed_gated,
+        "retransform": GE.fftconv_fused_bwd_packed_gated}[route]
     plain = getattr(GE, f"fftconv_gated_bwd_{route}_ref")
     args = saved + (dy, x0, k, D)
     out = entry(*args)
@@ -1256,6 +1270,11 @@ def main() -> int:
     rows += [check_gated_bwd(GE, route, 4, 32768, "bfloat16", 44 + i)
              for i, route in enumerate(("specv", "spec", "retransform"))]
     rows.append(check_gated_bwd(GE, "specv", 2, 65536, "bfloat16", 47))
+    # E' through its generic wrappers at B = 1 (K's rows on chip in the row
+    # pass) and at fft 2^20 (1 x 450,048: the row pair over a 2-CTA cluster)
+    rows += [check_gated_bwd(GE, route, 1, L, "bfloat16", 92 + i, generic=True)
+             for i, (route, L) in enumerate((("specv", 32768), ("spec", 32768),
+                                             ("specv", 450048), ("spec", 450048)))]
     # kernels A4 and A4' at the 1M step's plan and at fft 2^18 (odd B)
     for i, (L, plan) in enumerate(((1000448, (16, 512, 256)), (131072, (16, 128, 128)))):
         for j, dtype in enumerate(("float32", "bfloat16")):
@@ -1408,7 +1427,8 @@ def main() -> int:
          **({"routes": dict(route_row(r) for r in rows if r["name"] == name)}
             if name in routed else {}),
          **({"ptxas": ptxas.get(name, {})}
-            if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd") else {})}
+            if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd", "fftconv_gated",
+                        "fftconv_gated_bwd") else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -16,9 +16,9 @@
 //   pass 2  row FFTs of size N2 along t2 -> the spectrum at f1 + N1 f2, in
 //           natural f2 order: rows_fwd_kernel (the filter), rows_conv_kernel
 //           (the conv's transform, product with K and inverse), and the
-//           backward kernels' own row passes (fftconv_bwd.cu,
-//           fftconv_gated_bwd.cu); a block owns a few rows f1 and their
-//           Hermitian mirrors N1 - f1;
+//           backward kernels' gradient row pass (fft_grad_common.cuh, which
+//           C and E' share); a block owns a few rows f1 and their Hermitian
+//           mirrors N1 - f1;
 //   pass 3  conjugate twiddle, inverse column FFTs, scale 1/n, the first
 //           `len` outputs handed to a "sink" (the D skip term, or the gated
 //           kernels' epilogues).
@@ -584,8 +584,10 @@ struct ColSinkOut {  // pass 3: the outputs at t < len, times 1/n, to the sink
 };
 
 // Pass 1: z from `src` (zero past `len` and past channel C-1), column FFTs
-// over t1, twiddle, store A[f1][t2] for blocks of TC columns.
-template <int kRadix, typename Src>
+// over t1, twiddle, store A[f1][t2] for blocks of TC columns. `In` is the
+// transform's input end around `src` (ColSourceIn, or the gated kernels'
+// BatchedSourceIn, fft_grad_common.cuh).
+template <int kRadix, template <class> class In = ColSourceIn, typename Src>
 __device__ __forceinline__ void cols_fwd_body(Src src, int C, int len, const Plan& p,
                                               float2* __restrict__ out) {
   extern __shared__ float2 smem[];
@@ -595,7 +597,7 @@ __device__ __forceinline__ void cols_fwd_body(Src src, int C, int len, const Pla
   const int c = 2 * pair;
   src.begin(b, c, C, len, c + 1 < C);
   float2* o = out + (static_cast<int64_t>(b) * gridDim.y + pair) * p.n;
-  fft<false, kRadix>(ColSourceIn<Src>{src, p.log_n2, col0, len},
+  fft<false, kRadix>(In<Src>{src, p.log_n2, col0, len},
                     ColTwiddleOut{o, p.log_n2, col0, p.n}, ColMap{p.log_tc},
                     SharedIO<ColLayout>{smem, ColLayout{p.log_tc}}, p.log_n1, p.tc);
 }
@@ -607,8 +609,9 @@ __global__ void __launch_bounds__(kMaxThreads) cols_fwd_kernel(
 }
 
 // Pass 3: conjugate twiddle, inverse column FFTs, 1/n, the first `len`
-// outputs handed to `sink`.
-template <int kRadix, typename Sink>
+// outputs handed to `sink` through the output end `Out` (ColSinkOut, or
+// BatchedSinkOut).
+template <int kRadix, template <class> class Out = ColSinkOut, typename Sink>
 __device__ __forceinline__ void cols_inv_body(const float2* __restrict__ a, Sink sink, int C,
                                               int len, const Plan& p) {
   extern __shared__ float2 smem[];
@@ -619,7 +622,7 @@ __device__ __forceinline__ void cols_inv_body(const float2* __restrict__ a, Sink
   sink.begin(b, c, C, len, c + 1 < C);
   const float2* src = a + (static_cast<int64_t>(b) * gridDim.y + pair) * p.n;
   fft<true, kRadix>(ColTwiddleIn{src, p.log_n2, col0, p.n},
-                   ColSinkOut<Sink>{sink, p.log_n2, col0, len, 1.0f / static_cast<float>(p.n)},
+                   Out<Sink>{sink, p.log_n2, col0, len, 1.0f / static_cast<float>(p.n)},
                    ColMap{p.log_tc}, SharedIO<ColLayout>{smem, ColLayout{p.log_tc}}, p.log_n1,
                    p.tc);
 }

@@ -20,63 +20,69 @@
 // What bounds it on the H100: as kernel B, the float32 FFT arithmetic on
 // the CUDA cores (three transforms per real row pair) and the complex
 // scratch between passes (a 2^16 row is 512 KB of complex64, so it goes
-// through device memory). The gate adds one read of x0 (and one write of v)
-// per element: a few percent of kernel B's traffic.
+// through device memory); no pass reaches the memory rate
+// (utils/profile_passes.py splits a call by launch). The gate adds one read
+// of x0 (and one write of v) per element.
 //
-// Design: kernel B's three passes (fft_common.cuh) with the gate in pass 3:
-//   pass 1  k: column and row transforms into kspec (per call);
-//           u: column transforms into the scratch;
-//   pass 2  rows_conv_kernel: u's row transform, product with K, inverse
-//           row transform, fused in shared memory (and u's pair spectrum
-//           stored on the way, with save_spectrum);
-//   pass 3  inverse column transforms whose epilogue forms v = conv + u * D
-//           in float32, writes y = v * x0 and, with save_v, v.
+// Design: kernel B's three passes (fft_common.cuh) with the skip term in the
+// filter and the gate in pass 3:
+//   pass 1  k + D delta: column (cols_in_delta_kernel, fft_grad_common.cuh)
+//           and row transforms into kspec, which then holds K + D (the TPU
+//           kernels' ks trick, pallas_fftconv.py:1430-1443); u: column
+//           transforms into the scratch (cols_in_kernel: three blocks an SM,
+//           as kernel C's);
+//   pass 2  rows_conv_kernel: u's row transform, product with K + D,
+//           inverse row transform, fused in shared memory (and u's pair
+//           spectrum stored on the way, before the product, with
+//           save_spectrum);
+//   pass 3  inverse column transforms whose epilogue takes the whole v
+//           (conv + u D, formed in the spectrum), writes y = v * x0 rounded
+//           once from float32 and, with save_v, v; it reads no u, and its
+//           reads of x0 are batched ahead of its stores (BatchedSinkOut,
+//           fft_grad_common.cuh).
 // The post-gate therefore costs no pass of its own: the composite route
 // (kernel B, then y = v * x0 as elementwise work) writes v and reads it
 // back.
 #define FFT_NS conv_gfwd
-#include "fft_common.cuh"
+#include "fft_grad_common.cuh"
 
 namespace FFT_NS {
 
-// Pass 3 sink: v = value + u * D in float32, y = v * x0 rounded once,
-// v stored too when `v` is not null.
+// Pass 3 sink (batched, fft_grad_common.cuh): v = value (float32), y = v * x0
+// rounded once, v stored too when `v` is not null.
 template <typename T>
 struct GateSink {
-  const T* u;
+  using In = float2;  // x0 of the pair's two channels
   const T* x0;
-  const float* D;
   T* y;
   T* v;
   int64_t row0, len;
   bool has2;
-  float d0, d1;
   __device__ __forceinline__ void begin(int b, int c, int C, int len_, bool has2_) {
     row0 = (static_cast<int64_t>(b) * C + c) * len_;
     len = len_;
     has2 = has2_;
-    d0 = D[c];
-    d1 = has2 ? D[c + 1] : 0.f;
   }
-  __device__ __forceinline__ void operator()(int t, float c0, float c1) const {
+  __device__ __forceinline__ In load(int t) const {
+    const int64_t i = row0 + t;
+    return make_float2(to_f32(x0[i]), has2 ? to_f32(x0[i + len]) : 0.f);
+  }
+  __device__ __forceinline__ void store(int t, In g, float v0, float v1) const {
     const int64_t i0 = row0 + t;
-    const float v0 = c0 + to_f32(u[i0]) * d0;
-    store(y + i0, v0 * to_f32(x0[i0]));
-    if (v != nullptr) store(v + i0, v0);
-    if (has2) {
-      const int64_t i1 = i0 + len;
-      const float v1 = c1 + to_f32(u[i1]) * d1;
-      store(y + i1, v1 * to_f32(x0[i1]));
-      if (v != nullptr) store(v + i1, v1);
-    }
+    store_one(i0, g.x, v0);
+    if (has2) store_one(i0 + len, g.y, v1);
+  }
+  __device__ __forceinline__ void store_one(int64_t i, float g, float vv) const {
+    FFT_NS::store(y + i, vv * g);
+    if (v != nullptr) FFT_NS::store(v + i, vv);
   }
 };
 
 template <typename T, int kRadix>
 __global__ void __launch_bounds__(kMaxThreads) cols_inv_gate_kernel(
-    const float2* __restrict__ a, const T* __restrict__ u, const T* __restrict__ x0,
-    const float* __restrict__ D, T* __restrict__ y, T* __restrict__ v, int C, int len, Plan p) {
-  cols_inv_body<kRadix>(a, GateSink<T>{u, x0, D, y, v}, C, len, p);
+    const float2* __restrict__ a, const T* __restrict__ x0, T* __restrict__ y, T* __restrict__ v,
+    int C, int len, Plan p) {
+  cols_inv_body<kRadix, BatchedSinkOut>(a, GateSink<T>{x0, y, v}, C, len, p);
 }
 
 template <typename T>
@@ -88,16 +94,17 @@ int launch_all(const T* u, const T* x0, const T* k, const float* D, T* y, T* v, 
   const dim3 cols_k = cols_grid(p, pairs, 1), cols_u = cols_grid(p, pairs, B);
   const int tc = cols_threads(p);
   const size_t sc = cols_smem_bytes(p), sr = rows_smem_bytes(p);
-  auto cols_fwd = [](auto w) { return cols_fwd_kernel<T, decltype(w)::value>; };
-  launch(cols_fwd, wc, cols_k, tc, sc, stream, k, C, Lk, p, kspec);
+  launch([](auto w) { return cols_in_delta_kernel<T, decltype(w)::value>; }, wc, cols_k, tc, sc,
+         stream, k, D, C, Lk, p, kspec);
   launch([](auto w) { return rows_fwd_kernel<decltype(w)::value>; }, wr, rows_grid(p, pairs),
          rows_threads(p), sr, stream, kspec, p);
-  launch(cols_fwd, wc, cols_u, tc, sc, stream, u, C, L, p, scratch);
+  launch([](auto w) { return cols_in_kernel<T, decltype(w)::value>; }, wc, cols_u, tc, sc, stream,
+         u, C, L, p, scratch);
   launch([](auto w) { return rows_conv_kernel<decltype(w)::value>; }, wr,
          pair_rows_grid(p, pairs, B), pair_threads(p), sr, stream, scratch, 0, kspec, uspec,
          scratch, p);
   launch([](auto w) { return cols_inv_gate_kernel<T, decltype(w)::value>; }, wc, cols_u, tc, sc,
-         stream, scratch, u, x0, D, y, v, C, L, p);
+         stream, scratch, x0, y, v, C, L, p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,13 +17,17 @@ and, for the cotangent dy, with dv = dy * x0 in float32:
 Kernel E (`csrc/fftconv_gated.cu`) is the forward, writing y rounded once
 from the float32 v and, on request, the ungated v and u's pair spectrum
 (kernel B's layout, `fused_fftconv.pair_spectrum_ref`). Kernel E'
-(`csrc/fftconv_gated_bwd.cu`) is the backward, with the three routes of the
-JAX modes:
+(`csrc/fftconv_gated_bwd.cu`, on kernel C's row pass) is the backward,
+with the three routes of the JAX modes:
 
   specv        from u's saved spectrum and the saved v; dx0 = dy * v;
-  spec         from u's saved spectrum; v = inv(U * (K + D)) recomputed,
-               and du = inv(DV * conj(K + D)) (the TPU kernel's ks trick);
-  retransform  from u; U and v = inv(U * K) + u * D recomputed.
+  spec         from u's saved spectrum; v = inv(U * (K + D)) recomputed;
+  retransform  from u; U and v = inv(U * (K + D)) recomputed.
+
+Both kernels carry the skip term in the spectrum, as the TPU kernels' ks
+trick does: K + D, so that inv(U * (K + D)) is the whole v and
+inv(DV * conj(K + D)) the whole du. The plain versions keep each JAX
+route's own form (the skip term in time but on the spec route).
 
 u, x0, k, y, v, dy, du, dx0 and dk share one dtype (float32, or bfloat16 at
 the lengths where the model keeps its conv I/O in bf16); D and dD are
@@ -54,8 +58,9 @@ KERNEL = _cuda.Kernel("fftconv_gated", {
                                + [ctypes.c_void_p],
 })
 KERNEL_BWD = _cuda.Kernel("fftconv_gated_bwd", {
-    "hyena_fftconv_gated_bwd": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
+    "hyena_fftconv_gated_bwd": [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
                                + [ctypes.c_void_p],
+    "hyena_fftconv_gated_bwd_ws_slabs": [ctypes.c_int] * 3,
 })
 
 
@@ -152,21 +157,26 @@ def fftconv_gated_fused(u: torch.Tensor, x0: torch.Tensor, k: torch.Tensor, D: t
     return out[0] if len(out) == 1 else tuple(out)
 
 
+def _bwd_workspace(b: int, c: int, n: int, route: str, device):
+    """(kernel E''s complex64 workspace as (slabs, n, 2) float32, slabs), its
+    size from the library's `hyena_fftconv_gated_bwd_ws_slabs`: dv's
+    scratch, u's on the retransform route, and k's slab."""
+    slabs = KERNEL_BWD.lib().hyena_fftconv_gated_bwd_ws_slabs(b, c, ROUTES.index(route))
+    if slabs < 1:
+        raise ValueError(f"kernel E' takes no workspace for B={b}, C={c}, route {route}")
+    return torch.empty((slabs, n, 2), device=device, dtype=torch.float32), slabs
+
+
 def _bwd_kernel(route, u, spec, v, dy, x0, k, D):
     check_args("kernels E and E'", [("dy", dy), ("x0", x0), ("u", u), ("v", v)], k, D, spec)
     b, c, length = dy.shape
     n = next_fast_fft_size(2 * length)
-    pairs = (c + 1) // 2
-    f32 = dict(device=dy.device, dtype=torch.float32)
     du, dx0 = torch.empty_like(dy), torch.empty_like(dy)
-    dk, dD = torch.empty_like(k), torch.empty(c, **f32)
-    sdy = torch.empty((b, pairs, n, 2), **f32)
-    su = torch.empty_like(sdy) if route == "retransform" else None
-    kspec, sdk = torch.empty((pairs, n, 2), **f32), torch.empty((pairs, n, 2), **f32)
+    dk, dD = torch.empty_like(k), torch.empty(c, device=dy.device, dtype=torch.float32)
+    ws, slabs = _bwd_workspace(b, c, n, route, dy.device)
     KERNEL_BWD.launch("hyena_fftconv_gated_bwd",
                       *map(_cuda.ptr_or_null, (u, spec, v)),
-                      *map(_cuda.ptr, (dy, x0, k, D, du, dx0, dk, dD, sdy)),
-                      _cuda.ptr_or_null(su), _cuda.ptr(kspec), _cuda.ptr(sdk),
+                      *map(_cuda.ptr, (dy, x0, k, D, du, dx0, dk, dD, ws)), slabs,
                       ROUTES.index(route), b, c, length, k.shape[1], n,
                       int(dy.dtype == torch.bfloat16), _cuda.stream_handle(dy))
     return du, dx0, dk, dD

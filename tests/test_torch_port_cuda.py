@@ -356,14 +356,29 @@ def _gated_inputs(B, C, L, Lk, dtype, card, seed):
     return u, x0, dy, k.to(card), torch.randn(C, generator=g).to(card)
 
 
+ROUTES = ("specv", "spec", "retransform")
+
+
+def _bwd_args(route, u, v, spec, dy, x0, k, D):
+    """Kernel E''s arguments on `route`: what the route saved, then dy, x0, k, D."""
+    return {"specv": (spec, v), "spec": (spec,), "retransform": (u,)}[route] + (dy, x0, k, D)
+
+
 def _io_tol(dtype):
     return (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
 
 
-@pytest.mark.parametrize("B,C,L,Lk,dtype", [
+# B = 1 (E''s row pass keeps K's rows on chip), odd C, B = 3 (dk's batch
+# sum), and fft 2^20 (N2 = 4096: E''s row pass over a 2-CTA cluster)
+GATED_SHAPES = [
     (1, 1, 8, 8, "float32"), (2, 3, 100, 60, "float32"), (3, 5, 5000, 5000, "bfloat16"),
     (2, 8, 32768, 30000, "bfloat16"), (2, 6, 65536, 65536, "float32"),
-])
+    (1, 5, 40000, 40000, "bfloat16"), (3, 7, 30000, 20000, "float32"),
+    (1, 4, 450048, 450048, "bfloat16"), (3, 3, 300000, 250000, "float32"),
+]
+
+
+@pytest.mark.parametrize("B,C,L,Lk,dtype", GATED_SHAPES)
 def test_fftconv_gated_matches_plain(card, B, C, L, Lk, dtype):
     """Kernel E with and without v and the spectrum: y and v within the I/O
     tolerance, the spectrum as kernel B saves it."""
@@ -387,10 +402,7 @@ def test_fftconv_gated_matches_plain(card, B, C, L, Lk, dtype):
     print(f"kernel E B={B} C={C} L={L} {dtype}: {1e3 * (time.perf_counter() - t0):.3f} ms")
 
 
-@pytest.mark.parametrize("B,C,L,Lk,dtype", [
-    (1, 1, 8, 8, "float32"), (2, 3, 100, 60, "float32"), (3, 5, 5000, 5000, "bfloat16"),
-    (2, 8, 32768, 30000, "bfloat16"), (2, 6, 65536, 65536, "float32"),
-])
+@pytest.mark.parametrize("B,C,L,Lk,dtype", GATED_SHAPES)
 @pytest.mark.parametrize("route", ["specv", "spec", "retransform"])
 def test_fftconv_gated_bwd_matches_plain(card, B, C, L, Lk, dtype, route):
     """Kernel E' on each route against its plain version (du, dx0, dk in the
@@ -401,7 +413,7 @@ def test_fftconv_gated_bwd_matches_plain(card, B, C, L, Lk, dtype, route):
 
     u, x0, dy, k, D = _gated_inputs(B, C, L, Lk, dtype, card, B + C + L + 1)
     _, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
-    args = {"specv": (spec, v), "spec": (spec,), "retransform": (u,)}[route] + (dy, x0, k, D)
+    args = _bwd_args(route, u, v, spec, dy, x0, k, D)
     fn = getattr(GE, f"fftconv_gated_bwd_{route}")
     ref_fn = getattr(GE, f"fftconv_gated_bwd_{route}_ref")
     before = GE.KERNEL_BWD.launches
@@ -417,6 +429,87 @@ def test_fftconv_gated_bwd_matches_plain(card, B, C, L, Lk, dtype, route):
     torch.cuda.synchronize()
     print(f"kernel E' {route} B={B} C={C} L={L} {dtype}: "
           f"{1e3 * (time.perf_counter() - t0):.3f} ms")
+
+
+@pytest.mark.parametrize("route", ["specv", "spec", "retransform"])
+def test_fftconv_gated_bwd_adds_d_once(card, route):
+    """A large D against a tiny k, so that du is nearly dv * D: E' adds D
+    to K once (k's slab holds K + D, and the row pass adds none), against
+    the route's plain version and against dv * D itself."""
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    u, x0, dy, k, _ = _gated_inputs(2, 6, 4096, 4096, "float32", card, 5)
+    k, D = k * 1e-4, torch.linspace(50.0, 100.0, 6, device=card)
+    _, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+    args = _bwd_args(route, u, v, spec, dy, x0, k, D)
+    du = getattr(GE, f"fftconv_gated_bwd_{route}")(*args)[0]
+    _close(du, getattr(GE, f"fftconv_gated_bwd_{route}_ref")(*args)[0], 1e-4, 1e-4)
+    _close(du, dy * x0 * D[:, None], 1e-2, 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("log_n", range(4, 22))
+def test_fftconv_gated_every_fft_size(card, log_n, dtype):
+    """Kernels E and E' at every power-of-two FFT size from 16 to 2^21 (B = 1
+    from 2^18, odd C at odd log_n), every route of E' against its plain
+    version, a second run the same bits."""
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    n = 1 << log_n
+    B, C = (2 if log_n < 18 else 1), (3 if log_n % 2 else 4)
+    u, x0, dy, k, D = _gated_inputs(B, C, n // 2, n // 2, dtype, card, log_n)
+    y, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+    for got, want in zip((y, v), GE.fftconv_gated_ref(u, x0, k, D, True)):
+        _close(got, want, *_io_tol(dtype))
+    for route in ROUTES:
+        args = _bwd_args(route, u, v, spec, dy, x0, k, D)
+        fn = getattr(GE, f"fftconv_gated_bwd_{route}")
+        out = fn(*args)
+        for got, want, name in zip(out, getattr(GE, f"fftconv_gated_bwd_{route}_ref")(*args),
+                                   ("du", "dx0", "dk", "dD")):
+            _close(got, want, *((1e-4, 1e-4) if name == "dD" else _io_tol(dtype)))
+        assert all(torch.equal(a, b) for a, b in zip(out, fn(*args))), route
+
+
+@pytest.mark.parametrize("route", ["specv", "spec", "retransform"])
+def test_fftconv_gated_bwd_workspace_from_c(card, route, monkeypatch):
+    """Kernel E''s workspace comes from its library's C helper (dv's
+    scratch, u's on the retransform route, k's slab: no slab of its own for
+    dk), and the kernel refuses any other size before any launch."""
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+
+    lib = GE.KERNEL_BWD.lib()
+    B, C, L = 3, 5, 1000
+    pairs = (C + 1) // 2
+    assert lib.hyena_fftconv_gated_bwd_ws_slabs(0, C, 0) == -1
+    assert lib.hyena_fftconv_gated_bwd_ws_slabs(B, C, 3) == -1
+    want = (B * (2 if route == "retransform" else 1) + 1) * pairs
+    assert lib.hyena_fftconv_gated_bwd_ws_slabs(B, C, ROUTES.index(route)) == want
+    u, x0, dy, k, D = _gated_inputs(B, C, L, L, "float32", card, 9)
+    _, v, spec = GE.fftconv_gated_fused(u, x0, k, D, save_v=True, save_spectrum=True)
+    args = _bwd_args(route, u, v, spec, dy, x0, k, D)
+    fn = getattr(GE, f"fftconv_gated_bwd_{route}")
+    real = GE._bwd_workspace
+    sizes = []
+
+    def recorded(*a):
+        ws, slabs = real(*a)
+        sizes.append(slabs)
+        return ws, slabs
+
+    monkeypatch.setattr(GE, "_bwd_workspace", recorded)
+    fn(*args)
+    assert sizes == [want]
+
+    def one_slab_fewer(*a):
+        ws, slabs = real(*a)
+        return ws[1:], slabs - 1
+
+    monkeypatch.setattr(GE, "_bwd_workspace", one_slab_fewer)
+    before = GE.KERNEL_BWD.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fn(*args)
+    assert GE.KERNEL_BWD.launches == before
 
 
 def test_gated_wrappers_reject_what_kernels_do_not_take(card):
