@@ -79,15 +79,39 @@ line:
             g 1, g 2 on the 4-D route), and 1 x 450,048 with block cells.
             F and F' never run in a training step (`Block` does not set
             `use_fused`, as in the JAX package).
+6. trainer  the port's trainer (`python -m hyena_dna_tpu_torch.train`,
+            `train/__main__.py`) at the full width of hyenadna-tiny-1k
+            (d_model 128, 2 layers, batch 32, bf16 with a float32
+            residual) on synthetic data written by
+            `scripts/make_synthetic_genome.py` (4M bases, 1024-base
+            windows) and `scripts/make_synthetic_gb.py` (its default
+            8000 / 2000 sequences): `experiment=hg38/hg38_hyena` for 48
+            steps, writing checkpoints/last, then
+            `experiment=hg38/genomic_benchmark` from that checkpoint for
+            one epoch. Every train step must launch kernels A, A', B and C
+            twice each (one per layer) and nothing else; both losses must
+            fall (the mean of the last 8 logged below the first 8) and the
+            fine-tune's test accuracy exceed 0.5. Each run prints its
+            median step time (a per-step time, not the trainer's
+            throughput), the trainer's logged `train/tokens_per_sec` (LM
+            runs only) and the loop's tokens over its wall time from the
+            first step's start to the last's end. Then the fine-tune's
+            first 3 steps with dropout off, on the card and on the CPU
+            (plain versions), each loss within 5e-3 relative (PERF.md
+            section 2, the bf16 model). Phase 2 checks A and A' in bf16 at
+            the trainer's 32 x 1024 x 128 (two 64-column `wgmma` panels)
+            and B and C at its 32 x 128 x 1024, fft 2^11, float32 conv I/O.
 Launch counts are zeroed just before this slice's path in phase 2 and
-before each request of phases 4 and 5, and read just after it.
+before each request of phases 4 and 5 and each run of phase 6, and read
+just after it.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
 times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
 float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
-row of B, C, E, E', A4, A4', F and F' under "routes"; the bf16 rows of A,
+row of B, C, E, E', A4, A4', F and F' under "routes"; A, A', B and C
+at the trainer's shapes under "trainer"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
 readings, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
@@ -189,12 +213,11 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def front_inputs(B, L, dtype, seed):
+def front_inputs(B, L, dtype, seed, d=D_MODEL):
     """u in `dtype`, float32 parameters at the model's init scales."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    d = D_MODEL
     u = torch.randn(B, L, d, device="cuda", generator=g).to(getattr(torch, dtype))
     w = torch.randn(d, 3 * d, device="cuda", generator=g) * 0.02
     bp = torch.randn(3 * d, device="cuda", generator=g) * 0.02
@@ -291,14 +314,13 @@ def kernel_ptxas(kernels) -> dict:
     return out
 
 
-def check_front(FF, B, L, seed, dtype="float32"):
+def check_front(FF, B, L, seed, dtype="float32", d=D_MODEL):
     """Kernel A against `reference_fwd` (float32 arithmetic on u's values;
     bf16 u: vx and x0 rounded once, see ops/fused_front.py)."""
     import torch
     import torch.nn.functional as F
 
-    d = D_MODEL
-    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed)
+    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d)
     vx, x0 = FF.fused_proj_conv_gate(u, w, bp, wc, bc)
     torch.cuda.synchronize()
     vx_ref, x0_ref = FF.reference_fwd(u, w, bp, wc, bc)
@@ -322,7 +344,7 @@ def check_front(FF, B, L, seed, dtype="float32"):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=()):
+def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=(), C=D_MODEL):
     """Kernel B through `entry` (a named TPU-row entry with its plan, on
     operands padded to L; by default the generic `fftconv_fused`) against
     `fftconv_ref`."""
@@ -331,7 +353,7 @@ def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=()):
     from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    C, dt = D_MODEL, getattr(torch, dtype)
+    dt = getattr(torch, dtype)
     n = next_fast_fft_size(2 * L)
     u = torch.randn(B, C, L, device="cuda", generator=g).to(dt)
     decay = torch.exp(-torch.arange(L, device="cuda") / (L / 8))
@@ -359,14 +381,13 @@ def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=()):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_front_bwd(FF, B, L, seed, dtype="float32"):
+def check_front_bwd(FF, B, L, seed, dtype="float32", d=D_MODEL):
     """Kernel A' against `reference_bwd` (du in u's dtype, the parameter
     gradients float32)."""
     import torch
     import torch.nn.functional as F
 
-    d = D_MODEL
-    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed)
+    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d)
     dvx = torch.randn(B, d, L, device="cuda", generator=g).to(u.dtype)
     dx0 = torch.randn(B, d, L, device="cuda", generator=g).to(u.dtype)
     args = (u, w, bp, wc, bc, dvx, dx0)
@@ -644,7 +665,7 @@ def check_add_ln(AL, B, L, seed):
          "library_ms": time_ms(library_bwd), "bound_ms": bb_, "bound_by": bby}]
 
 
-def check_conv_bwd(FB, entry, B, L, dtype, route, seed, plan=()):
+def check_conv_bwd(FB, entry, B, L, dtype, route, seed, plan=(), C=D_MODEL):
     """Kernel C through one TPU row's entry point, with its plan on operands
     padded to L, against `fftconv_bwd_ref` (du in the I/O dtype, dk in it
     or float32 as the entry returns it, dD float32). A spectrum-route entry
@@ -654,7 +675,7 @@ def check_conv_bwd(FB, entry, B, L, dtype, route, seed, plan=()):
     from hyena_dna_tpu_torch.ops.fftconv import next_fast_fft_size
 
     g = torch.Generator(device="cuda").manual_seed(seed)
-    C, dt = D_MODEL, getattr(torch, dtype)
+    dt = getattr(torch, dtype)
     n = next_fast_fft_size(2 * L)
     u = torch.randn(B, C, L, device="cuda", generator=g).to(dt)
     dy = torch.randn(B, C, L, device="cuda", generator=g).to(dt)
@@ -1176,6 +1197,146 @@ def serve(cli, kernels, tmp: Path, fasta: Path, max_length: int, batch_size: int
     return launches
 
 
+# Phase 6, the port's trainer at the full width of hyenadna-tiny-1k
+# (configs/experiment/hg38/hg38_hyena.yaml, genomic_benchmark.yaml: d_model
+# 128, 2 layers, batch 32, L 1023 / 1024, bf16 with a float32 residual).
+TRAINER_D = 128
+PRETRAIN_STEPS = 48  # a few dozen steps of the pretraining epoch
+PARITY_STEPS = 3  # the fine-tune's first steps, card against the CPU
+TRAINER_LAUNCHES = {"fused_front": 2, "fused_front_bwd": 2, "fftconv": 2, "fftconv_bwd": 2}
+# card vs CPU train loss of the same steps (PERF.md section 2, the bf16 model)
+TRAINER_LOSS_RTOL = 5e-3
+
+
+def run_trainer(cli, kernels, argv, device=None):
+    """What `python -m hyena_dna_tpu_torch.train <argv>` runs
+    (`train/__main__.py::main`: build_config, Trainer, fit, close), with
+    the train step wrapped to read each step's launches and its start and
+    end on the host clock (synchronised before and after). Launch counts are
+    zeroed just before and read just after the run. Returns (final metrics,
+    the run's metrics.jsonl records, per-step launches, per-step (start, end)
+    seconds, launches of the whole run, peak GiB)."""
+    import torch
+
+    cuda = device is None
+    trainer = cli.Trainer(cli.build_config(argv), device=device)
+    per_step, spans, step = [], [], trainer.train_step
+
+    def counted(state, batch, generator=None):
+        before = {k.name: k.launches for k in kernels}
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(state, batch, generator)
+        if cuda:
+            torch.cuda.synchronize()
+        spans.append((t0, time.perf_counter()))
+        per_step.append({k.name: k.launches - before[k.name] for k in kernels})
+        return out
+
+    trainer.train_step = counted
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    try:
+        final = trainer.fit()
+    finally:
+        trainer.close()
+    launches = {k.name: k.launches for k in kernels}
+    records = [json.loads(line) for line in open(Path(trainer.run_dir) / "metrics.jsonl")]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
+    return final, records, per_step, spans, launches, peak
+
+
+def train_losses(records):
+    return [r["train/loss"] for r in records if "train/loss" in r]
+
+
+def trainer_phase(kernels, tmp: Path, seed: int) -> dict:
+    """Pretrain (`experiment=hg38/hg38_hyena`, PRETRAIN_STEPS steps, writing
+    checkpoints/last) and fine-tune from that checkpoint
+    (`experiment=hg38/genomic_benchmark`, one epoch) on synthetic data from
+    the repository's scripts; then the fine-tune's first PARITY_STEPS steps
+    with dropout off on the card and on the CPU (plain kernel versions).
+    Returns the launches of the three card runs."""
+    import statistics
+
+    from hyena_dna_tpu_torch.train import __main__ as cli
+
+    genome, gb = tmp / "genome", tmp / "gb"
+    for script, args in (("make_synthetic_genome.py", [genome, "--bases", "4000000",
+                                                       "--chroms", "2"]),
+                         ("make_synthetic_gb.py", [gb])):
+        subprocess.run([sys.executable, str(ROOT / "scripts" / script), *map(str, args),
+                        "--seed", str(seed)], check=True, timeout=600, capture_output=True)
+    ckpt = tmp / "pretrain" / "checkpoints" / "last"
+    runs = {
+        "pretrain": ["experiment=hg38/hg38_hyena",
+                     f"dataset.bed_file={genome / 'synthetic_hg38.bed'}",
+                     f"dataset.fasta_file={genome / 'synthetic_hg38.fa'}",
+                     f"train.run_dir={tmp / 'pretrain'}",
+                     f"trainer.limit_train_batches={PRETRAIN_STEPS}", "trainer.max_epochs=1",
+                     "trainer.log_every_n_steps=1"],
+        "finetune": ["experiment=hg38/genomic_benchmark", f"dataset.dest_path={gb}",
+                     "dataset.dataset_name=synthetic_promoters",
+                     f"train.run_dir={tmp / 'finetune'}",
+                     f"train.pretrained_model_path={ckpt}", "trainer.max_epochs=1",
+                     "trainer.log_every_n_steps=1"]}
+    total = {k.name: 0 for k in kernels}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        final, records, per_step, spans, launches, peak = run_trainer(cli, kernels, argv)
+        losses = train_losses(records)
+        tokens = 32 * (1023 if name == "pretrain" else 1024)
+        seconds = [end - start for start, end in spans]
+        step_s = statistics.median(seconds[2:])
+        # the trainer's own throughput: LM tokens over the epoch's wall time
+        # (the classification task logs none, as in the JAX trainer)
+        logged = [r["train/tokens_per_sec"] for r in records if "train/tokens_per_sec" in r]
+        expect = {k.name: TRAINER_LAUNCHES.get(k.name, 0) for k in kernels}
+        k8 = min(8, len(losses) // 2)
+        falls = sum(losses[-k8:]) / k8 < sum(losses[:k8]) / k8
+        ok = (all(math.isfinite(v) for v in losses) and falls
+              and all(s == expect for s in per_step)
+              and all(launches[n] > 0 for n in TRAINER_LAUNCHES)
+              and (name == "pretrain" or final["test/accuracy"] > 0.5))
+        log({"phase": "trainer", "run": name, "argv": argv[0], "steps": len(per_step),
+             "step_ms": step_s * 1e3, "step_ms_first": seconds[0] * 1e3,
+             "train_tokens_per_sec_logged": logged[-1] if logged else None,
+             "loop_tokens_per_s": tokens * len(spans) / (spans[-1][1] - spans[0][0]),
+             "loss_first": losses[0], "loss_last": losses[-1],
+             "loss_mean_first8": sum(losses[:k8]) / k8, "loss_mean_last8": sum(losses[-k8:]) / k8,
+             "launches_per_step": per_step[-1], "expected_per_step": expect,
+             "launches": launches, "peak_mem_gib": peak,
+             "final": {k: v for k, v in final.items() if not k.endswith("confusion_matrix")},
+             "seconds": time.perf_counter() - t0, "ok": ok})
+        if not ok:
+            raise AssertionError(f"the trainer's {name} run failed its checks")
+        for n, c in launches.items():
+            total[n] += c
+    parity = []
+    for device in (None, "cpu"):
+        argv = runs["finetune"][:3] + [
+            f"train.run_dir={tmp / ('parity_' + (device or 'cuda'))}",
+            f"train.pretrained_model_path={ckpt}", f"trainer.limit_train_batches={PARITY_STEPS}",
+            "trainer.max_epochs=1", "trainer.log_every_n_steps=1", "trainer.limit_val_batches=1",
+            "model.embed_dropout=0.0"]
+        _, records, _, _, launches, _ = run_trainer(cli, kernels, argv, device)
+        parity.append(train_losses(records))
+        if device is None:
+            for n, c in launches.items():
+                total[n] += c
+    card, cpu = parity
+    errs = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
+    ok = len(card) == len(cpu) == PARITY_STEPS and max(errs) <= TRAINER_LOSS_RTOL
+    log({"phase": "trainer_parity", "run": "finetune, dropout off", "losses_card": card,
+         "losses_cpu": cpu, "rel_err": errs, "tol": TRAINER_LOSS_RTOL, "ok": ok})
+    if not ok:
+        raise AssertionError("the card's fine-tune losses disagree with the CPU's")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1280,6 +1441,15 @@ def main() -> int:
         for j, dtype in enumerate(("float32", "bfloat16")):
             rows.append(check_front4(FF, 1, L, plan, dtype, 50 + 4 * i + 2 * j))
             rows.append(check_front4_bwd(FF, 1, L, plan, dtype, 51 + 4 * i + 2 * j))
+    # the trainer's shapes (phase 6): A, A' in bf16 at d = 128 (two 64-column
+    # panels), B and C at fft 2^11 with float32 conv I/O (L < 2^15)
+    trainer_rows = [
+        check_front(FF, 32, 1024, 100, "bfloat16", d=TRAINER_D),
+        check_front_bwd(FF, 32, 1024, 101, "bfloat16", d=TRAINER_D),
+        check_conv(FB, 32, 1024, "float32", "XLA FFT on the TPU (trainer)", 102, C=TRAINER_D),
+        check_conv_bwd(FB, FB.fftconv_bwd_retransform, 32, 1024, "float32",
+                       "XLA FFT on the TPU (trainer)", 103, C=TRAINER_D)]
+    rows += trainer_rows
     for row in rows + bf16_rows:
         log({"phase": "kernel", **row})
     log(check_outer4(FB, 1, 1000448, (16, 512, 256), "bfloat16", 60))
@@ -1351,6 +1521,10 @@ def main() -> int:
          "front4_vs_flat_1m": long_ms["1000448 residual g2 front4"]
          / long_ms["1000448 residual g2"]})
 
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in trainer_phase(kernels, Path(tmp), seed=18).items():
+            total[name] += n
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()
@@ -1416,6 +1590,9 @@ def main() -> int:
                  if r["name"] in front4 and r["shape"].endswith("bfloat16") else {})
         return (f"{r['route']} {r['shape']}",
                 {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}, **extra})
+    # the rows at the trainer's shapes (phase 6), with their own numbers
+    trainer = {r["name"]: {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
+                           **{k: r[k] for k in timing}} for r in trainer_rows}
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -1428,7 +1605,8 @@ def main() -> int:
             if name in routed else {}),
          **({"ptxas": ptxas.get(name, {})}
             if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd", "fftconv_gated",
-                        "fftconv_gated_bwd") else {})}
+                        "fftconv_gated_bwd") else {}),
+         **({"trainer": trainer[name]} if name in trainer else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

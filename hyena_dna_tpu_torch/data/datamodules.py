@@ -1,0 +1,330 @@
+"""Datamodules (mirrors `hyena_dna_tpu/data/datamodules.py`): named dataset
+bundles with `setup()`, loaders and the attributes the trainer wires into
+the task and the model (`vocab_size`, `d_output`, `l_output`,
+`max_length`).
+
+Registration is by `_name_` through `__init_subclass__`. The loaders are
+`data/loader.py::DataLoader`, deterministic and resumable, so the
+reference's `fault_tolerant` and `ddp` flags are accepted and change
+nothing. Ported: `hg38`, `hg38_fixed`, `genomic_benchmark` and
+`nucleotide_transformer`. The chromatin-profile, species, ICL and ETT
+datamodules wait for their datasets: their registry entries raise and cite
+ROADMAP.md Queue 1 item 9. The BPE tokenizer of `tokenizer_name: bpe`
+needs `transformers`, which the port does not use: it raises.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+from hyena_dna_tpu_torch.data.classification import (GenomicBenchmarkDataset,
+                                                     NucleotideTransformerDataset)
+from hyena_dna_tpu_torch.data.hg38 import HG38Dataset, HG38FixedDataset
+from hyena_dna_tpu_torch.data.loader import DataLoader
+from hyena_dna_tpu_torch.data.tokenizer import CharacterTokenizer
+from hyena_dna_tpu_torch.utils.registry import unported
+
+DATASET_REGISTRY: Dict[str, type] = {}
+
+default_data_path = Path(__file__).resolve().parents[2] / "data"
+
+
+class SequenceDataModule:
+    _name_: Optional[str] = None
+    l_output: Optional[int] = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        if cls._name_:
+            DATASET_REGISTRY[cls._name_] = cls
+
+    # common loader knobs
+    batch_size: int = 32
+    batch_size_eval: Optional[int] = None
+    shuffle: bool = True
+    num_workers: int = 0  # a config key; the loader builds batches on one thread
+    seed: int = 0
+
+    def setup(self):
+        raise NotImplementedError
+
+    def _loader(self, dataset, batch_size, shuffle, drop_last=True):
+        if dataset is None:
+            return None
+        return DataLoader(
+            dataset,
+            batch_size=batch_size,
+            shuffle=shuffle,
+            seed=self.seed,
+            drop_last=drop_last,
+        )
+
+    def train_dataloader(self):
+        return self._loader(self.dataset_train, self.batch_size, self.shuffle)
+
+    def val_dataloader(self):
+        bs = self.batch_size_eval or self.batch_size
+        return self._loader(self.dataset_val, bs, False, drop_last=False)
+
+    def test_dataloader(self):
+        bs = self.batch_size_eval or self.batch_size
+        return self._loader(self.dataset_test, bs, False, drop_last=False)
+
+
+class HG38DataModule(SequenceDataModule):
+    """hg38 pretraining (`genomics.py:29-215`): bed intervals + fasta, char
+    tokenizer, next-token pairs, optional fixed-length validation."""
+
+    _name_ = "hg38"
+
+    def __init__(
+        self,
+        bed_file: Optional[str] = None,
+        fasta_file: Optional[str] = None,
+        tokenizer_name: str = "char",
+        max_length: int = 1024,
+        max_length_val: Optional[int] = None,
+        max_length_test: Optional[int] = None,
+        d_output: int = 2,
+        rc_aug: bool = False,
+        add_eos: bool = True,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = True,
+        use_fixed_len_val: bool = False,
+        replace_N_token: bool = False,
+        pad_interval: bool = False,
+        bpe_tokenizer_path: Optional[str] = None,
+        seed: int = 0,
+        fault_tolerant: bool = False,  # vacuous: loaders always resumable
+        ddp: bool = False,
+        pin_memory: bool = False,
+        drop_last: bool = False,
+        **kwargs: Any,
+    ):
+        self.bed_file = bed_file or str(default_data_path / "hg38" / "human-sequences.bed")
+        self.fasta_file = fasta_file or str(default_data_path / "hg38" / "hg38.ml.fa")
+        self.tokenizer_name = tokenizer_name
+        self.max_length = max_length
+        self.max_length_val = max_length_val or max_length
+        self.max_length_test = max_length_test or max_length
+        self.d_output = d_output
+        self.rc_aug = rc_aug
+        self.add_eos = add_eos
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.use_fixed_len_val = use_fixed_len_val
+        self.replace_N_token = replace_N_token
+        self.pad_interval = pad_interval
+        self.bpe_tokenizer_path = bpe_tokenizer_path
+        self.seed = seed
+
+    def setup(self):
+        if self.tokenizer_name != "char":
+            raise NotImplementedError(
+                f"tokenizer {self.tokenizer_name!r} is not ported (it needs transformers)")
+        self.tokenizer = CharacterTokenizer(model_max_length=self.max_length + 2)
+        self.vocab_size = self.tokenizer.vocab_size
+        self.init_datasets()
+
+    def init_datasets(self):
+        """(Re)build datasets — re-entrant for the seqlen-warmup curriculum
+        (`genomics.py:113-164`: closes fasta handles before rebuild)."""
+        for attr in ("dataset_train", "dataset_val", "dataset_test"):
+            ds = getattr(self, attr, None)
+            if ds is not None and hasattr(ds, "close"):
+                ds.close()
+
+        def make(split, max_len):
+            return HG38Dataset(
+                split=split,
+                bed_file=self.bed_file,
+                fasta_file=self.fasta_file,
+                max_length=max_len,
+                tokenizer=self.tokenizer,
+                tokenizer_name=self.tokenizer_name,
+                add_eos=self.add_eos,
+                rc_aug=self.rc_aug if split == "train" else False,
+                replace_N_token=self.replace_N_token,
+                pad_interval=self.pad_interval,
+            )
+
+        self.dataset_train = make("train", self.max_length)
+        if self.use_fixed_len_val:
+            # chr14 + chrX fixed windows (`genomics.py:144-162`)
+            self.dataset_val = HG38FixedDataset(
+                fasta_file=self.fasta_file,
+                chr_ranges={
+                    "chr14": (19726402, 106677047),
+                    "chrX": (2825622, 144342320),
+                },
+                max_length=self.max_length_val,
+                tokenizer=self.tokenizer,
+                add_eos=self.add_eos,
+            )
+        else:
+            self.dataset_val = make("valid", self.max_length_val)
+        self.dataset_test = make("test", self.max_length_test)
+
+
+class HG38FixedDataModule(SequenceDataModule):
+    """Fixed-length NON-overlapping hg38 windows for a stable test
+    perplexity (`genomics.py:660-700`, registered `hg38_fixed`). Test-only:
+    pair with `train.test: true` (reference
+    `configs/experiment/hg38/hg38_fixed_test.yaml`). Default chr_ranges are
+    the Enformer chr14/chrX spans the reference hardcodes."""
+
+    _name_ = "hg38_fixed"
+
+    def __init__(
+        self,
+        fasta_file: Optional[str] = None,
+        chr_ranges: Optional[Dict[str, Any]] = None,
+        max_length: int = 1024,
+        pad_max_length: Optional[int] = None,
+        add_eos: bool = True,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = False,
+        seed: int = 0,
+        **kwargs: Any,
+    ):
+        self.fasta_file = fasta_file or str(default_data_path / "hg38" / "hg38.ml.fa")
+        self.chr_ranges = chr_ranges or {
+            "chr14": (19726402, 106677047),
+            "chrX": (2825622, 144342320),
+        }
+        self.max_length = max_length
+        self.pad_max_length = pad_max_length
+        self.add_eos = add_eos
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def setup(self):
+        self.tokenizer = CharacterTokenizer(model_max_length=self.max_length + 2)
+        self.vocab_size = self.tokenizer.vocab_size
+        ds = HG38FixedDataset(
+            fasta_file=self.fasta_file,
+            chr_ranges={k: tuple(v) for k, v in self.chr_ranges.items()},
+            max_length=self.max_length,
+            pad_max_length=self.pad_max_length,
+            tokenizer=self.tokenizer,
+            add_eos=self.add_eos,
+        )
+        self.dataset_train = None
+        self.dataset_val = ds
+        self.dataset_test = ds
+
+
+class GenomicBenchmarkDataModule(SequenceDataModule):
+    """GenomicBenchmarks fine-tuning (`genomics.py:218-298`); val == test."""
+
+    _name_ = "genomic_benchmark"
+    l_output = 0  # sequence-level classification => squeeze length
+
+    def __init__(
+        self,
+        dataset_name: str = "human_nontata_promoters",
+        dest_path: Optional[str] = None,
+        tokenizer_name: str = "char",
+        d_output: int = 2,
+        max_length: int = 1024,
+        max_length_val: Optional[int] = None,
+        use_padding: bool = True,
+        padding_side: str = "left",
+        add_eos: bool = False,
+        rc_aug: bool = False,
+        return_mask: bool = False,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+        **kwargs: Any,
+    ):
+        self.dataset_name = dataset_name
+        self.dest_path = dest_path or str(default_data_path / self._name_)
+        self.tokenizer_name = tokenizer_name
+        self.d_output = d_output
+        self.max_length = max_length
+        self.max_length_val = max_length_val or max_length
+        self.use_padding = use_padding
+        self.padding_side = padding_side
+        self.add_eos = add_eos
+        self.rc_aug = rc_aug
+        self.return_mask = return_mask
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def setup(self):
+        self.tokenizer = CharacterTokenizer(
+            model_max_length=self.max_length + 2, padding_side=self.padding_side
+        )
+        self.vocab_size = self.tokenizer.vocab_size
+
+        def make(split, max_len, rc):
+            return GenomicBenchmarkDataset(
+                split=split,
+                max_length=max_len,
+                dataset_name=self.dataset_name,
+                d_output=self.d_output,
+                dest_path=self.dest_path,
+                tokenizer=self.tokenizer,
+                tokenizer_name=self.tokenizer_name,
+                use_padding=self.use_padding,
+                add_eos=self.add_eos,
+                rc_aug=rc,
+                return_mask=self.return_mask,
+            )
+
+        self.dataset_train = make("train", self.max_length, self.rc_aug)
+        self.dataset_val = make("val", self.max_length_val, False)
+        self.dataset_test = self.dataset_val  # benchmark has no val split
+
+
+class NucleotideTransformerDataModule(GenomicBenchmarkDataModule):
+    """Nucleotide Transformer 17-task suite (`genomics.py:301-387`)."""
+
+    _name_ = "nucleotide_transformer"
+
+    def setup(self):
+        self.tokenizer = CharacterTokenizer(
+            model_max_length=self.max_length + 2, padding_side=self.padding_side
+        )
+        self.vocab_size = self.tokenizer.vocab_size
+
+        def make(split, max_len, rc):
+            return NucleotideTransformerDataset(
+                split=split,
+                max_length=max_len,
+                dataset_name=self.dataset_name,
+                d_output=self.d_output,
+                dest_path=self.dest_path,
+                tokenizer=self.tokenizer,
+                tokenizer_name=self.tokenizer_name,
+                use_padding=self.use_padding,
+                add_eos=self.add_eos,
+                rc_aug=rc,
+                return_mask=self.return_mask,
+            )
+
+        self.dataset_train = make("train", self.max_length, self.rc_aug)
+        self.dataset_val = make("val", self.max_length_val, False)
+        self.dataset_test = self.dataset_val
+
+
+DATASET_REGISTRY.update({
+    name: unported(f"datamodule {name!r}", f"item 9 (data/{module}.py)")
+    for name, module in (("chromatin_profile", "chromatin_profile"), ("species", "species"),
+                         ("icl_genomics", "icl"), ("ett", "timeseries"))})

@@ -1,5 +1,5 @@
-"""Model stack of the port (forward pass)."""
+"""Model stack of the port."""
 
-from hyena_dna_tpu_torch.models.lm import ConvLMHeadModel, LMBackbone
+from hyena_dna_tpu_torch.models.lm import ConvLMHeadModel, DNAEmbeddingModel, LMBackbone
 
-__all__ = ["ConvLMHeadModel", "LMBackbone"]
+__all__ = ["ConvLMHeadModel", "DNAEmbeddingModel", "LMBackbone"]

@@ -19,6 +19,13 @@ XLA; `Mlp(use_fused=True)` takes the fused kernels F and F'
 (`ops/mlp_fused.py`) under the JAX rule, and `Block` does not set it, as
 the JAX `Block` does not.
 
+The residual stream's dtype: `residual_dtype` when given (a torch dtype
+or its name, e.g. "float16"; it overrides `residual_in_fp32`, as in the JAX
+`Block`), else float32 under `residual_in_fp32`, else the hidden states'.
+With `identity_mlp` the block has no norm2 and no MLP: it returns the
+mixer's output and the residual after the first add (JAX
+`Block(identity_mlp=True)`), and it cannot be cut by `pre` / `post`.
+
 `pre` and `post` cut the block at its post-mixer residual, as the JAX
 `Block.pre` / `Block.post` do for the LM's residual-only checkpoint cells:
 `pre` runs from the block boundary to that residual (dropout, add + norm1,
@@ -51,12 +58,10 @@ _FILTER_KEYS = {"emb_dim": "emb_dim", "w": "w", "num_inner_mlps": "num_inner_mlp
                 "modulate": "modulate", "shift": "modulation_shift",
                 "fast_decay_pct": "fast_decay_pct", "slow_decay_pct": "slow_decay_pct",
                 "target": "modulation_target"}
-# (key, value the ported path takes, ROADMAP.md item that ports the rest)
-_UNPORTED = (("num_heads", 1, "Queue 1 item 4"), ("num_blocks", 1, "Queue 1 item 4"),
-             ("inner_factor", 1, "Queue 1 item 4"), ("outer_mixing", False, "Queue 1 item 4"),
-             ("post_order_ffn", False, "Queue 1 item 4"), ("bias", True, "Queue 1 item 4"),
-             ("normalized", False, "Queue 1 item 4"), ("linear_mixer", False, "Queue 1 item 4"),
-             ("bidirectional", False, "Queue 1 item 4"))
+# (key, value the ported path takes): the general Hyena path, ROADMAP.md Queue 1 item 12
+_UNPORTED = (("num_heads", 1), ("num_blocks", 1), ("inner_factor", 1), ("outer_mixing", False),
+             ("post_order_ffn", False), ("bias", True), ("normalized", False),
+             ("linear_mixer", False), ("bidirectional", False))
 
 
 def make_mixer(d_model: int, layer_cfg: dict | None,
@@ -69,10 +74,10 @@ def make_mixer(d_model: int, layer_cfg: dict | None,
             f"mixer {name!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
     for key in _TRAINING_ONLY_KEYS:
         cfg.pop(key, None)
-    for key, value, item in _UNPORTED:
+    for key, value in _UNPORTED:
         if key in cfg and cfg.pop(key) != value:
             raise NotImplementedError(
-                f"Hyena {key}={layer_cfg[key]!r} is not ported yet (ROADMAP.md {item})")
+                f"Hyena {key}={layer_cfg[key]!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
     filter_cfg = {_FILTER_KEYS[k]: cfg.pop(k) for k in list(cfg) if k in _FILTER_KEYS}
     return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, dtype=dtype, **cfg)
 
@@ -107,20 +112,34 @@ class Mlp(nn.Module):
         return linear(x, self.fc2, self.dtype)
 
 
+def torch_dtype(value) -> torch.dtype | None:
+    """A torch dtype from a dtype, its name ("bfloat16", "float16", ...) or None."""
+    if value is None or isinstance(value, torch.dtype):
+        return value
+    dt = getattr(torch, str(value), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"not a torch dtype: {value!r}")
+    return dt
+
+
 class Block(nn.Module):
     def __init__(self, d_model: int, d_inner: int, layer_cfg: dict | None,
                  residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
                  resid_dropout1: float = 0.0, resid_dropout2: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, identity_mlp: bool = False,
+                 residual_dtype=None):
         super().__init__()
         self.dtype = dtype
+        self.identity_mlp = identity_mlp
         self.resid_dropout1 = resid_dropout1
         self.resid_dropout2 = resid_dropout2
-        self.resid_dtype = torch.float32 if residual_in_fp32 else None
+        self.resid_dtype = (torch_dtype(residual_dtype) if residual_dtype is not None
+                            else torch.float32 if residual_in_fp32 else None)
         self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
         self.mixer = make_mixer(d_model, layer_cfg, dtype)
-        self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
-        self.mlp = Mlp(d_model, d_inner, dtype)
+        if not identity_mlp:
+            self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
+            self.mlp = Mlp(d_model, d_inner, dtype)
 
     def _add_norm(self, norm: LayerNormF32, hidden: torch.Tensor, residual):
         if residual is None:
@@ -135,6 +154,8 @@ class Block(nn.Module):
         dropped = dropout(hidden, self.resid_dropout1, self.training, generator)
         hidden, residual = self._add_norm(self.norm1, dropped, residual)
         hidden = self.mixer(hidden, generator)
+        if self.identity_mlp:
+            return hidden, residual
         dropped = dropout(hidden, self.resid_dropout2, self.training, generator)
         hidden, residual = self._add_norm(self.norm2, dropped, residual)
         return self.mlp(hidden), residual

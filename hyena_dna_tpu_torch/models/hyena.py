@@ -43,6 +43,12 @@ the padded tensors, and the result is flattened, cut to L and transposed.
 Backward: kernel A4', kernel C. Elsewhere the flat route runs. The math is
 the flat route's; the conv transforms and writes lp >= L times.
 
+`inner_remat` (the JAX option that checkpoints the unfused front end,
+in_proj and the short conv, on its own) is accepted and changes nothing:
+the port has no unfused front end, and kernel A' already recomputes the
+projection and the short conv from u instead of saving them, so outputs and
+gradients are the same bits with and without it.
+
 For activation checkpointing (`ops/remat.py`) the conv output is tagged
 (the ungated one of the composite route, and v4), and so is the filter
 bank (the (d, L) bank, and k4 on the 4-D route), as the JAX package tags
@@ -83,8 +89,10 @@ class HyenaOperator(nn.Module):
                  filter_order: int = 64, short_filter_order: int = 3,
                  activation: str = "id", filter_cfg: dict | None = None,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
-                 gated_conv: str | None = None, front4: bool = False):
+                 gated_conv: str | None = None, front4: bool = False,
+                 inner_remat: bool = False):
         super().__init__()
+        self.inner_remat = inner_remat  # accepted; kernel A' recomputes the front end anyway
         self.dtype = dtype
         self.front4 = front4
         if gated_conv not in (None,) + GATED_MODES:
@@ -92,7 +100,7 @@ class HyenaOperator(nn.Module):
         self.gated_conv = gated_conv
         if order != 2:
             raise NotImplementedError(
-                "only order-2 Hyena is ported (ROADMAP.md Queue 1 item 4)")
+                "only order-2 Hyena is ported (ROADMAP.md Queue 1 item 12)")
         if short_filter_order != 3:
             raise NotImplementedError("kernel A fuses a k=3 short conv only")
         self.d_model = d_model

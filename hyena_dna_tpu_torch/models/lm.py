@@ -1,4 +1,5 @@
-"""LMBackbone and ConvLMHeadModel (mirrors `hyena_dna_tpu/models/lm.py`).
+"""LMBackbone, ConvLMHeadModel and DNAEmbeddingModel (mirrors
+`hyena_dna_tpu/models/lm.py`).
 
 GPT2Embeddings -> n_layer x Block -> final dropout + add + LN -> tied LM
 head, with the vocabulary padded up to `pad_vocab_size_multiple`.
@@ -16,8 +17,20 @@ Module names are the reference torch names (`backbone.embeddings...`,
 `backbone.layers.{i}...`, `backbone.ln_f`), so a reference state dict loads
 with `load_state_dict` and no key surgery.
 
+`DNAEmbeddingModel` is the same backbone without the head: it returns the
+final hidden states (B, L, d_model) in `dtype` for a downstream decoder
+(`models/heads.py`), so its `d_output` is d_model. Both models take
+`inputs_embeds` (B, L, d_model) in place of `input_ids`, which skips the
+embedding lookup (the soft-prompting evals splice trainable vectors in this
+way). `identity_mlp` and `residual_dtype` pass to every `Block`; with
+`identity_mlp` the residual cells of checkpointing fall back to block cells
+(a block without an MLP cannot be cut at its post-mixer residual), as in
+the JAX `LMBackbone`.
+
 Weights start from the GPT-2 init, drawn from an explicit `torch.Generator`:
-Linear and Embedding weights N(0, 0.02) with zero biases, `out_proj` and
+Linear weights N(0, 0.02) and Embedding weights N(0, `init_std`) with zero
+biases (the JAX `LMBackbone` passes `init_std` to its embeddings only; every
+other module keeps 0.02), `out_proj` and
 `fc2` scaled by 1/sqrt(2 n_layer); the depthwise short conv U(-1/sqrt(3),
 1/sqrt(3)) as torch's Conv1d default; the filter's skip bias N(0, 1). The
 positional features, Sin frequency and modulation rates are fixed at
@@ -82,10 +95,11 @@ class LMBackbone(nn.Module):
                  embed_dropout: float = 0.1, dtype: torch.dtype = torch.float32,
                  checkpoint_mixer: bool = False, checkpoint_mlp: bool = False,
                  remat_residual_only: bool = False, remat_group_size: int = 1,
-                 remat_save_conv: bool = True, remat_save_filter: bool = False):
+                 remat_save_conv: bool = True, remat_save_filter: bool = False,
+                 identity_mlp: bool = False, residual_dtype=None):
         super().__init__()
         self.remat = checkpoint_mixer or checkpoint_mlp
-        self.residual_cells = self.remat and remat_residual_only
+        self.residual_cells = self.remat and remat_residual_only and not identity_mlp
         self.remat_group_size = max(1, remat_group_size)
         self.remat_names = ((remat.CONV_OUT_TAG,) * remat_save_conv
                             + (remat.FILTER_K_TAG,) * remat_save_filter)
@@ -93,7 +107,8 @@ class LMBackbone(nn.Module):
         self.layers = nn.ModuleList(
             Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon,
                   resid_dropout1=embed_dropout if i == 0 else resid_dropout,
-                  resid_dropout2=resid_dropout, dtype=dtype)
+                  resid_dropout2=resid_dropout, dtype=dtype, identity_mlp=identity_mlp,
+                  residual_dtype=residual_dtype)
             for i in range(n_layer))
         self.resid_dropout = resid_dropout
         self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
@@ -116,9 +131,10 @@ class LMBackbone(nn.Module):
     def _final_post(self, residual, generator=None):
         return self.layers[-1].post(residual)
 
-    def forward(self, input_ids: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        hidden = self.embeddings(input_ids)
+    def forward(self, input_ids: torch.Tensor | None,
+                generator: torch.Generator | None = None,
+                inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        hidden = self.embeddings(input_ids) if inputs_embeds is None else inputs_embeds
         n, g = len(self.layers), self.remat_group_size
         if self.residual_cells:
             residual = hidden
@@ -143,8 +159,8 @@ class LMBackbone(nn.Module):
         return self.ln_f(dropped, residual)[0]
 
 
-class ConvLMHeadModel(nn.Module):
-    """Causal LM: forward(input_ids (B, L)) -> logits (B, L, V_padded) in `dtype`."""
+class _LMBase(nn.Module):
+    """The backbone and the GPT-2 init shared by both models."""
 
     def __init__(self, d_model: int, n_layer: int, d_inner: int, vocab_size: int,
                  layer: dict | None = None, pad_vocab_size_multiple: int = 1,
@@ -155,7 +171,8 @@ class ConvLMHeadModel(nn.Module):
                  dtype: torch.dtype = torch.float32, checkpoint_mixer: bool = False,
                  checkpoint_mlp: bool = False, remat_residual_only: bool = False,
                  remat_group_size: int = 1, remat_save_conv: bool = True,
-                 remat_save_filter: bool = False):
+                 remat_save_filter: bool = False, identity_mlp: bool = False,
+                 residual_dtype=None, init_std: float = 0.02):
         super().__init__()
         if attn_layer_idx:
             raise NotImplementedError(
@@ -164,12 +181,15 @@ class ConvLMHeadModel(nn.Module):
             raise NotImplementedError(
                 "learned position embeddings are not ported yet (ROADMAP.md Queue 1 item 12)")
         self.n_layer = n_layer
+        self.d_model = d_model
+        self.init_std = init_std
         self.backbone = LMBackbone(d_model, n_layer, d_inner,
                                    _pad_vocab(vocab_size, pad_vocab_size_multiple),
                                    layer, residual_in_fp32, layer_norm_epsilon,
                                    resid_dropout, embed_dropout, dtype,
                                    checkpoint_mixer, checkpoint_mlp, remat_residual_only,
-                                   remat_group_size, remat_save_conv, remat_save_filter)
+                                   remat_group_size, remat_save_conv, remat_save_filter,
+                                   identity_mlp, residual_dtype)
         self.init_weights(generator)
 
     @torch.no_grad()
@@ -185,14 +205,37 @@ class ConvLMHeadModel(nn.Module):
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
-                mod.weight.normal_(0.0, std, generator=generator)
+                mod.weight.normal_(0.0, self.init_std, generator=generator)
             elif isinstance(mod, nn.Conv1d):
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 mod.bias.uniform_(-bound, bound, generator=generator)
             elif name.endswith("filter_fn"):
                 mod.bias.normal_(0.0, 1.0, generator=generator)
 
-    def forward(self, input_ids: torch.Tensor,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        hidden = self.backbone(input_ids, generator)
+
+class ConvLMHeadModel(_LMBase):
+    """Causal LM: forward(input_ids (B, L)) -> logits (B, L, V_padded) in `dtype`."""
+
+    @property
+    def d_output(self) -> int:
+        return self.backbone.embeddings.word_embeddings.num_embeddings
+
+    def forward(self, input_ids: torch.Tensor | None,
+                generator: torch.Generator | None = None,
+                inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        hidden = self.backbone(input_ids, generator, inputs_embeds)
         return self.backbone.embeddings.attend(hidden.float())
+
+
+class DNAEmbeddingModel(_LMBase):
+    """The backbone for downstream heads: forward(input_ids (B, L)) -> final
+    hidden states (B, L, d_model) in `dtype` (registered `dna_embedding`)."""
+
+    @property
+    def d_output(self) -> int:
+        return self.d_model
+
+    def forward(self, input_ids: torch.Tensor | None,
+                generator: torch.Generator | None = None,
+                inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        return self.backbone(input_ids, generator, inputs_embeds)

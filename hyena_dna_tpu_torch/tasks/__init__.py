@@ -1,5 +1,6 @@
 """Tasks, losses and metrics of the port."""
 
-from hyena_dna_tpu_torch.tasks.tasks import HG38Task, LMTask
+from hyena_dna_tpu_torch.tasks.tasks import (TASK_REGISTRY, BaseTask, HG38Task, LMTask,
+                                             MulticlassTask)
 
-__all__ = ["LMTask", "HG38Task"]
+__all__ = ["BaseTask", "LMTask", "HG38Task", "MulticlassTask", "TASK_REGISTRY"]

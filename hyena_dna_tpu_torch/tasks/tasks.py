@@ -1,55 +1,126 @@
-"""Task layer of the LM path (mirrors `hyena_dna_tpu/tasks/tasks.py`).
+"""Task layer (mirrors `hyena_dna_tpu/tasks/tasks.py`).
 
-A task bundles the loss and the perplexity statistics that the train and
-eval steps (`train/step.py`) call: `LMTask` flattens (B, L, V) logits and
-(B, L) targets for the vocabulary cross-entropy, `HG38Task` is the same for
-hg38 pretraining. Other losses, device metrics (`last_k_ppl`,
-`per_token_ppl`) and the rest of the JAX `TASK_REGISTRY` come with the
-trainer (ROADMAP.md Queue 1 item 8).
+A task bundles the loss, the device metrics and the host metric names that
+the train and eval steps (`train/step.py`) and the trainer's evaluation call:
+
+  * `BaseTask`: the loss and metrics by name from `tasks/metrics.py`
+    (a name or {"_name_": ..., **kwargs}); host metric names from
+    `host_metrics` or from `metrics` entries the streaming evaluator knows;
+  * `LMTask`: flattens (B, L, V) logits and (B, L) targets for the
+    vocabulary cross-entropy and gives the perplexity statistics;
+  * `HG38Task`: `LMTask` with the `last_k_ppl` and `per_token_ppl`
+    diagnostics at the dataset's sequence length;
+  * `MulticlassTask`: sequence classification, targets (B,) or (B, 1)
+    against logits (B, C).
+
+`ICLTask` and `AdaptiveLMTask` wait for their datasets and models: their
+registry entries raise and cite ROADMAP.md Queue 1 (items 9 and 12).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from functools import partial
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
 from hyena_dna_tpu_torch.tasks import metrics as M
+from hyena_dna_tpu_torch.utils.registry import unported
 
 
-class LMTask:
+def _get_metric(name_or_cfg) -> tuple:
+    """(name, function) of a metric name or {"_name_": ..., **kwargs}."""
+    if isinstance(name_or_cfg, str):
+        name, kwargs = name_or_cfg, {}
+    else:
+        kwargs = dict(name_or_cfg)
+        name = kwargs.pop("_name_")
+    if name not in M.METRIC_FNS:
+        raise KeyError(f"unknown device metric {name!r}")
+    fn = M.METRIC_FNS[name]
+    return name, (partial(fn, **kwargs) if kwargs else fn)
+
+
+class BaseTask:
+    def __init__(self, dataset=None, model=None, loss="cross_entropy", loss_val=None,
+                 metrics: Optional[Sequence] = None,
+                 host_metrics: Optional[Sequence[str]] = None, torchmetrics=None):
+        _, self.loss = _get_metric(loss)
+        self.loss_name = loss if isinstance(loss, str) else loss.get("_name_")
+        self.loss_val = _get_metric(loss_val)[1] if loss_val is not None else None
+        self.metric_names = []
+        self.metric_fns: Dict[str, Callable] = {}
+        self.host_metric_names = list(host_metrics or [])
+        for m in metrics or []:
+            name = m if isinstance(m, str) else m.get("_name_")
+            if name in M.STREAMING_HOST_METRICS:
+                self.host_metric_names.append(name)
+                continue
+            if name in M.LOSS_METRIC_FNS:
+                self.metric_fns[name] = partial(M.LOSS_METRIC_FNS[name], loss_fn=self.loss)
+                self.metric_names.append(name)
+                continue
+            name, fn = _get_metric(m)
+            self.metric_fns[name] = fn
+            self.metric_names.append(name)
+
+    def prepare(self, logits: torch.Tensor, y: torch.Tensor):
+        """Reshape the model output and targets before the loss (identity here)."""
+        return logits, y
+
+    def compute_loss(self, logits: torch.Tensor, y: torch.Tensor, train: bool = True,
+                     **kw) -> torch.Tensor:
+        logits, y = self.prepare(logits, y)
+        fn = self.loss if (train or self.loss_val is None) else self.loss_val
+        return fn(logits, y, **kw)
+
+    def compute_metrics(self, logits: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
+        logits, y = self.prepare(logits, y)
+        return {name: fn(logits, y) for name, fn in self.metric_fns.items()}
+
+    def loss_stats(self, logits: torch.Tensor, y: torch.Tensor):
+        """(sum of NLL, count) for an exact epoch perplexity; None for non-LM tasks."""
+        return None
+
+
+class LMTask(BaseTask):
     """Next-token LM: cross-entropy over (B·L, V), ignore_index -100."""
-
-    def __init__(self, loss: str = "cross_entropy", metrics=None, **_):
-        if loss != "cross_entropy":
-            raise NotImplementedError(
-                f"loss {loss!r} is not ported yet (ROADMAP.md Queue 1 item 8)")
-        if metrics:
-            raise NotImplementedError(
-                f"device metrics {list(metrics)} are not ported yet (ROADMAP.md Queue 1 item 8)")
 
     def prepare(self, logits: torch.Tensor, y: torch.Tensor):
         return logits.reshape(-1, logits.shape[-1]), y.reshape(-1)
 
-    def compute_loss(self, logits: torch.Tensor, y: torch.Tensor,
-                     train: bool = True) -> torch.Tensor:
-        return M.cross_entropy(*self.prepare(logits, y))
-
-    def compute_metrics(self, logits: torch.Tensor, y: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {}
-
     def loss_stats(self, logits: torch.Tensor, y: torch.Tensor):
-        """(sum of NLL, token count) for exact perplexity."""
         return M.cross_entropy_stats(*self.prepare(logits, y))
 
 
 class HG38Task(LMTask):
-    """LMTask for hg38 pretraining. Its perplexity diagnostics are not
-    ported yet, so asking for them raises."""
+    """LMTask with the genomics perplexity diagnostics at `seq_len`."""
 
     def __init__(self, *args, last_k_ppl: Optional[int] = None, per_token_ppl=None,
                  seq_len: int = 1024, **kwargs):
-        if last_k_ppl is not None or per_token_ppl is not None:
-            raise NotImplementedError(
-                "last_k_ppl / per_token_ppl are not ported yet (ROADMAP.md Queue 1 item 8)")
         super().__init__(*args, **kwargs)
+        if last_k_ppl is not None:
+            self.metric_fns["last_k_ppl"] = partial(M.last_k_ppl, seq_len=seq_len, k=last_k_ppl)
+            self.metric_names.append("last_k_ppl")
+        if per_token_ppl is not None:
+            self.metric_fns["per_token_ppl"] = partial(M.per_token_ppl, seq_len=seq_len,
+                                                       ks=list(per_token_ppl))
+            self.metric_names.append("per_token_ppl")
+
+
+class MulticlassTask(BaseTask):
+    """Sequence-level classification: targets (B,) or (B, 1), logits (B, C)."""
+
+    def prepare(self, logits: torch.Tensor, y: torch.Tensor):
+        return logits, y.reshape(-1)
+
+
+TASK_REGISTRY: Dict[str, Callable] = {
+    "base": BaseTask,
+    "lm": LMTask,
+    "hg38": HG38Task,
+    "multiclass": MulticlassTask,
+    "masked_multiclass": MulticlassTask,
+    "icl": unported("task 'icl'", "item 9, with the ICL dataset"),
+    "adaptive_lm": unported("task 'adaptive_lm'", "item 12, with models/adaptive_softmax.py"),
+}

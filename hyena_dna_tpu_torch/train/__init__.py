@@ -1,4 +1,6 @@
-"""Training: optimizer, state and the train/eval steps."""
+"""Training: optimizer, state, the train/eval steps, checkpoints, callbacks
+and the config-driven trainer (`train/trainer.py`, entry `python -m
+hyena_dna_tpu_torch.train`)."""
 
 from hyena_dna_tpu_torch.train.optim import build_optimizer, label_params
 from hyena_dna_tpu_torch.train.state import TrainState, create_train_state

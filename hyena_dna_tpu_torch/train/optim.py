@@ -1,5 +1,5 @@
-"""Optimizer: AdamW over per-parameter groups, global-norm clip, step-wise
-schedules (mirrors `hyena_dna_tpu/train/optim.py`).
+"""Optimizer: AdamW, Adam or LAMB over per-parameter groups, global-norm
+clip, step-wise schedules (mirrors `hyena_dna_tpu/train/optim.py`).
 
 Parameters are labelled by name with the rules of the JAX
 `_label_for_path`, applied to the reference torch names the port carries:
@@ -14,10 +14,17 @@ Parameters are labelled by name with the rules of the JAX
     embeddings -> "no_decay";
   * everything else -> "main".
 
-Each label is one AdamW group (`torch.optim.AdamW`, the update of
-`optax.adamw`). A group whose lr is 0 is frozen, as optax's
-`set_to_zero`: no update and no weight decay, yet its gradients still count
-in the clip norm, because optax chains the clip before `multi_transform`.
+Each label is one group of the chosen optimizer: `adamw` is
+`torch.optim.AdamW` (the update of `optax.adamw`); `adam` is
+`torch.optim.Adam`, whose weight decay is coupled L2 (wd * p added to the
+gradient before the moments), as the JAX package chains
+`add_decayed_weights` before `optax.adam`; `lamb` is `Lamb` below, the
+reference JITLamb the JAX `lamb` transform reproduces. A group whose lr is 0
+is frozen, as optax's `set_to_zero`: no update and no weight decay, yet its
+gradients still count in the clip norm, because optax chains the clip
+before `multi_transform`. `frozen` ({name: "frozen" | None}, from the
+`load_backbone` hook's `freeze_backbone`) relabels parameters "frozen",
+which is such a group.
 The clip is written out: every gradient is scaled by c / ||g|| when the
 global norm ||g|| over all parameters exceeds c (`clip_grad_norm_` adds
 1e-6 to the norm, which optax does not). Each group's lr is its schedule
@@ -123,17 +130,59 @@ def label_params(model: nn.Module) -> Dict[str, str]:
     return {name: label_for_name(name) for name, _ in model.named_parameters()}
 
 
+class Lamb(torch.optim.Optimizer):
+    """LAMB with the reference JITLamb's semantics (the JAX `optim.lamb`): no
+    bias correction, the weight decay added to the normalised Adam step
+    before the trust ratio, the weight norm clamped to [0, 10], the trust
+    ratio 1 where either norm is 0. Per parameter tensor:
+
+      m = b1 m + (1 - b1) g,  v = b2 v + (1 - b2) g^2
+      a = m / (sqrt(v) + eps) + wd p
+      p -= lr * (min(|p|, 10) / (|a| + eps)) * a
+    """
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-6,
+                 weight_decay: float = 0.0):
+        super().__init__(params, {"lr": lr, "betas": tuple(betas), "eps": eps,
+                                  "weight_decay": weight_decay})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            eps, wd, lr = group["eps"], group["weight_decay"], group["lr"]
+            for p in group["params"]:
+                state = self.state[p]
+                if not state:
+                    state["exp_avg"] = torch.zeros_like(p)
+                    state["exp_avg_sq"] = torch.zeros_like(p)
+                m, v = state["exp_avg"], state["exp_avg_sq"]
+                m.mul_(b1).add_(p.grad, alpha=1.0 - b1)
+                v.mul_(b2).add_(p.grad * p.grad, alpha=1.0 - b2)
+                a = m.float() / (v.float().sqrt() + eps) + wd * p.float()
+                wn = p.float().norm().clamp(0.0, 10.0)
+                an = a.norm()
+                trust = torch.where((wn == 0) | (an == 0), torch.ones_like(wn), wn / (an + eps))
+                p.add_((-lr * trust * a).to(p.dtype))
+
+
+OPTIMIZERS = {"adamw": torch.optim.AdamW, "adam": torch.optim.Adam, "lamb": Lamb}
+
+
 class Optimizer:
-    """Clip, then one AdamW step per label group under its schedule.
+    """Clip, then one step of the chosen optimizer per label group under its
+    schedule.
 
     `step()` reads the gradients in `p.grad` (a missing one counts as
     zero, as a JAX gradient would be), returns the global gradient norm
-    before the clip, and advances the step count.
+    before the clip, and advances the step count. `state_dict` /
+    `load_state_dict` carry the step count and the moments.
     """
 
     def __init__(self, model: nn.Module, labels: Dict[str, str],
                  hparams: Dict[str, tuple], schedules: Dict[str, Callable],
-                 betas, eps: float, gradient_clip_val: Optional[float]):
+                 betas, eps: float, gradient_clip_val: Optional[float],
+                 optimizer_name: str = "adamw"):
         self.params = [p for _, p in model.named_parameters()]
         self.gradient_clip_val = gradient_clip_val
         self.schedules = schedules
@@ -143,7 +192,14 @@ class Optimizer:
             ps = [p for name, p in model.named_parameters() if labels[name] == label]
             if ps and lr != 0.0:  # lr 0: frozen, no update at all
                 groups.append({"params": ps, "lr": lr, "weight_decay": wd, "label": label})
-        self.adamw = torch.optim.AdamW(groups, betas=tuple(betas), eps=eps)
+        self.inner = OPTIMIZERS[optimizer_name](groups, betas=tuple(betas), eps=eps)
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "inner": self.inner.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.inner.load_state_dict(state["inner"])
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -157,9 +213,9 @@ class Optimizer:
             factor = torch.where(norm > c, c / norm, torch.ones_like(norm))
             for g in grads:
                 g.mul_(factor.to(g.dtype))
-        for group in self.adamw.param_groups:
+        for group in self.inner.param_groups:
             group["lr"] = self.schedules[group["label"]](self.count)
-        self.adamw.step()
+        self.inner.step()
         self.count += 1
         return norm
 
@@ -170,16 +226,17 @@ def build_optimizer(model: nn.Module, lr: float = 6e-4, weight_decay: float = 0.
                     lr_pos_emb: float = 1e-5, modulation_lr: float = 0.0,
                     scheduler: Optional[dict] = None,
                     gradient_clip_val: Optional[float] = 1.0,
+                    frozen: Optional[Dict[str, Optional[str]]] = None,
                     optimizer_name: str = "adamw"):
     """(Optimizer, labels) with the JAX `build_optimizer` defaults.
 
     `scheduler` is e.g. {"_name_": "cosine_warmup_timm", "t_initial": ...};
     each group's schedule has that shape anchored at the group's own lr.
+    `frozen`: {parameter name: "frozen" | None} overrides; "frozen"
+    parameters get no update.
     """
-    if optimizer_name != "adamw":
-        raise NotImplementedError(
-            f"optimizer {optimizer_name!r} is not ported yet; adam and lamb wait "
-            "(ROADMAP.md Queue 1 item 5)")
+    if optimizer_name not in OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {optimizer_name!r}")
     sched_cfg = dict(scheduler or {"_name_": "constant"})
     sched_fn = SCHEDULE_REGISTRY[sched_cfg.pop("_name_", "constant")]
     hparams = {
@@ -188,7 +245,12 @@ def build_optimizer(model: nn.Module, lr: float = 6e-4, weight_decay: float = 0.
         "filter": (lr if filter_lr is None else filter_lr, filter_wd),
         "pos_emb": (lr_pos_emb, 0.0),
         "modulation": (modulation_lr, 0.0),
+        "frozen": (0.0, 0.0),
     }
     schedules = {label: sched_fn(base, **sched_cfg) for label, (base, _) in hparams.items()}
     labels = label_params(model)
-    return Optimizer(model, labels, hparams, schedules, betas, eps, gradient_clip_val), labels
+    for name, label in (frozen or {}).items():
+        if label == "frozen" and name in labels:
+            labels[name] = "frozen"
+    return (Optimizer(model, labels, hparams, schedules, betas, eps, gradient_clip_val,
+                      optimizer_name), labels)

@@ -2,14 +2,22 @@
 `hyena_dna_tpu/train/step.py`).
 
 `make_train_step(task, accumulate_grad_batches)` returns
-`train_step(state, batch, generator=None) -> metrics`: the batch (x, y) of
-leading size accum * micro is cut into `accum` microbatches; each runs
+`train_step(state, batch, generator=None) -> metrics`: the batch (x, y) or
+(x, y, extra) of leading size accum * micro is cut into `accum`
+microbatches (`extra`, a dict of per-row tensors such as a classification
+`mask`, is cut the same way and passed to the model as keywords); each runs
 forward and backward in training mode, gradients are summed over them and
-divided by `accum`, and the state applies them (clip + AdamW). Metrics, as
-tensors on the batch's device (no host sync): `loss` (the mean of the
-microbatch losses), `grad_norm` (the global norm before the clip),
-`nll_sum` and `token_count` (exact perplexity statistics). Dropout masks
-come from `generator`, so one seed gives one loss.
+divided by `accum`, and the state applies them (clip + the optimizer).
+Metrics, as tensors on the batch's device (no host sync): `loss` (the mean
+of the microbatch losses), `grad_norm` (the global norm before the clip),
+and for an LM task `nll_sum` and `token_count` (exact perplexity
+statistics). Dropout masks come from `generator`, so one seed gives one
+loss.
+
+`make_eval_step(task, return_logits)` returns `eval_step(state, batch)`:
+the loss, the task's device metrics and the perplexity statistics in eval
+mode, and with `return_logits` also the logits, which the trainer gathers
+for the host metrics (mcc, f1, ROC-AUC).
 """
 
 from __future__ import annotations
@@ -21,12 +29,17 @@ import torch
 from hyena_dna_tpu_torch.train.state import TrainState
 
 
+def _model_out(model, x, extra, **kw):
+    return model(x, **kw, **extra)
+
+
 def make_train_step(task, accumulate_grad_batches: int = 1) -> Callable:
     accum = accumulate_grad_batches
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None
                    ) -> Dict[str, torch.Tensor]:
         x, y = batch[0], batch[1]
+        extra = batch[2] if len(batch) > 2 else {}
         if x.shape[0] % accum:
             raise ValueError(f"batch {x.shape[0]} does not split into {accum} microbatches")
         model = state.model
@@ -34,37 +47,45 @@ def make_train_step(task, accumulate_grad_batches: int = 1) -> Callable:
         for p in model.parameters():
             p.grad = None
         micro = x.shape[0] // accum
-        loss_sum = nll_sum = count = 0.0
+        loss_sum, stats = 0.0, None
         for i in range(accum):
-            xm, ym = x[i * micro:(i + 1) * micro], y[i * micro:(i + 1) * micro]
-            logits = model(xm, generator=generator)
-            loss = task.compute_loss(logits, ym, train=True)
+            rows = slice(i * micro, (i + 1) * micro)
+            logits = _model_out(model, x[rows], {k: v[rows] for k, v in extra.items()},
+                                generator=generator)
+            loss = task.compute_loss(logits, y[rows], train=True)
             loss.backward()
-            nll, cnt = task.loss_stats(logits.detach(), ym)
-            loss_sum, nll_sum, count = loss_sum + loss.detach(), nll_sum + nll, count + cnt
+            loss_sum = loss_sum + loss.detach()
+            s = task.loss_stats(logits.detach(), y[rows])
+            if s is not None:
+                stats = s if stats is None else (stats[0] + s[0], stats[1] + s[1])
         if accum > 1:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
-        grad_norm = state.apply_gradients()
-        return {"loss": loss_sum / accum, "grad_norm": grad_norm,
-                "nll_sum": nll_sum, "token_count": count}
+        metrics = {"loss": loss_sum / accum, "grad_norm": state.apply_gradients()}
+        if stats is not None:
+            metrics["nll_sum"], metrics["token_count"] = stats
+        return metrics
 
     return train_step
 
 
-def make_eval_step(task) -> Callable:
-    """(state, batch) -> {"loss", "nll_sum", "token_count"} in eval mode."""
+def make_eval_step(task, return_logits: bool = False) -> Callable:
+    """(state, batch) -> metrics {"loss", device metrics, "nll_sum",
+    "token_count"} in eval mode, or (metrics, logits) with `return_logits`."""
 
     @torch.no_grad()
-    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+    def eval_step(state: TrainState, batch):
         x, y = batch[0], batch[1]
+        extra = batch[2] if len(batch) > 2 else {}
         state.model.eval()
-        logits = state.model(x)
+        logits = _model_out(state.model, x, extra)
         metrics = {"loss": task.compute_loss(logits, y, train=False)}
         metrics.update(task.compute_metrics(logits, y))
-        metrics["nll_sum"], metrics["token_count"] = task.loss_stats(logits, y)
-        return metrics
+        stats = task.loss_stats(logits, y)
+        if stats is not None:
+            metrics["nll_sum"], metrics["token_count"] = stats
+        return (metrics, logits) if return_logits else metrics
 
     return eval_step
 

@@ -13,6 +13,11 @@ reference torch names the port's modules carry:
     `implicit_filter.{2j+2}`, `mlp_out` to the last index;
   * `pos_emb.t`, which flax does not store, is derived from `pos_emb.z`.
 
+Decoder heads (`models/heads.py`) map by the generic rule: their Dense
+`kernel` becomes a Linear `weight` under the same path, so a JAX fine-tune
+tree ({"backbone": {"backbone": ...}, "decoder": {"output_transform": ...}})
+lands on the port's `BackboneWithDecoder` names.
+
 The mapping holds for any pytree shaped like the parameters, not only the
 weights: with `buffers=False` it maps gradients or updated parameters the
 same way, without the derived buffer, so a test can hold the JAX step's

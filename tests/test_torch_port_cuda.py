@@ -859,3 +859,20 @@ def test_fftconv_every_fft_size(card, log_n, dtype):
     for got, want, name in zip(out, FB.fftconv_bwd_ref(u, dy, k, D), ("du", "dk", "dD")):
         assert got.dtype == want.dtype and got.shape == want.shape, name
         _close(got, want, *((1e-4, 1e-4) if name == "dD" else tol))
+
+
+@pytest.mark.parametrize("mode", ["pool", "sum"])
+def test_sequence_decoder_bf16_matches_cpu(card, mode):
+    """The decoder's running sums over a 1024-long bf16 window: card and CPU
+    within one bf16 step of the float64 sums (both accumulate in float32)."""
+    from hyena_dna_tpu_torch.models.heads import SequenceDecoder
+
+    x = (torch.randn(32, 1024, 128, generator=torch.Generator().manual_seed(0)) + 0.5).to(BF16)
+    dec = SequenceDecoder(128, None, l_output=0, mode=mode)
+    ref = torch.cumsum(x.double(), dim=-2)[:, -1]
+    if mode == "pool":
+        ref = ref / 1024
+    for out in (dec(x.to(card)).cpu(), dec(x)):
+        assert out.dtype == BF16
+        _close(out, ref, 0.0, 2 ** -7)
+
