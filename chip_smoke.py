@@ -101,9 +101,42 @@ line:
             section 2, the bf16 model). Phase 2 checks A and A' in bf16 at
             the trainer's 32 x 1024 x 128 (two 64-column `wgmma` panels)
             and B and C at its 32 x 128 x 1024, fft 2^11, float32 conv I/O.
+7. generation  serving and generation at the full width of the hg38 LM
+            (d_model 256, 8 layers, d_inner 1024). (a) `hg38_inference
+            --preset hyena_dna_512ksl` on a LongSafari-layout directory
+            (config.json + reference-named weights.ckpt) written from a
+            seeded preset model, 2 batches of 2 x 32768 of phase 4's FASTA:
+            the loss finite, kernel A n_layer times a batch, B at least as
+            often; then `from_pretrained` of that directory, one 1 x 32768
+            forward on the card. (b) `generate_cli` at temperature 0 on a
+            seeded hg38 LM (l_max 2048): a 4096-base prompt and 32 new
+            tokens, kernels A and B n_layer times per token and nothing
+            else; the first 4 tokens against the CPU's plain run, each equal
+            or, where they differ, a near tie (the CPU's top-2 margin within
+            phase 3's float32 logits tolerance). (c) `recurrent.distill` of
+            that model (64 modes, the fit over its whole 2048-long filter, on
+            the host: its seconds and `fit_rel_err`); `prefill_parallel` at 2
+            x 16384 on the card (kernel B n_layer times, nothing else)
+            against the CPU (last logits and every state within 1e-4 of
+            their max); at 1 x 2048 against the model's own forward and at
+            1 x 131072 (fft 2^18) against the model's forward with the
+            distilled filter in place of the implicit one, each within 5e-2
+            of max|logit| (the error against the model's own forward at 1 x
+            131072, where the model cuts its filter at l_max and the
+            recurrence does not, is printed beside it); then 256 greedy
+            steps. (d) `tests/golden/recurrent_drift.npz` (a trained d 128 x
+            2 checkpoint) through `utils/convert.py`: the held-out
+            perplexity of the parallel model and of the distilled recurrence
+            on the card within 1e-3 relative. (e) `icl_cli --mode
+            soft_prompting` from that checkpoint, 32 steps on a synthetic
+            k-shot set: every step launches A, B, A' and C once per layer,
+            the evaluation A and B, and the loss falls (the mean of the
+            last 8 below the first 8). It prints both decoders' tokens per
+            second, the prefill and distill seconds and every part's
+            launches.
 Launch counts are zeroed just before this slice's path in phase 2 and
-before each request of phases 4 and 5 and each run of phase 6, and read
-just after it.
+before each request of phases 4 and 5, each run of phase 6 and each part
+of phase 7, and read just after it.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
@@ -1337,6 +1370,378 @@ def trainer_phase(kernels, tmp: Path, seed: int) -> dict:
     return total
 
 
+# Phase 7, serving and generation at the full width of the hg38 LM (d_model
+# 256, 8 layers, d_inner 1024). The generation model's l_max is 2048 and the
+# modal fit covers that whole filter (distill's default fit length is 8192;
+# the fit is numpy on the host, one Hankel SVD and one least-squares solve
+# per channel, 2048 channels, which `distill` splits over the host's cores).
+GEN_MAX_LENGTH = 2046  # build_model's l_max = max_length + 2
+FIT_LEN = 2048
+N_MODES = 64
+PROMPT_BASES, NEW_TOKENS, CPU_TOKENS = 4096, 32, 4
+DECODE_TOKENS = 256
+PREFILL_TOL = 1e-4  # card vs CPU prefill: last logits and each state, of its max
+REC_RTOL = 5e-2  # recurrent vs parallel logits, of max|logit| (tests/test_recurrent.py:65)
+DRIFT_RTOL = 1e-3  # trained-checkpoint perplexity drift (tests/test_recurrent_drift.py:73)
+ICL_STEPS, ICL_BATCH, ICL_LR = 32, 16, 1e-2
+GOLDEN = ROOT / "tests" / "golden" / "recurrent_drift.npz"
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_counts(kernels) -> dict:
+    return {k.name: k.launches for k in kernels}
+
+
+def serve_preset(cli, kernels, tmp: Path, fasta: Path, seed: int) -> dict:
+    """7a: `hg38_inference --preset hyena_dna_512ksl` on a LongSafari-layout
+    directory written from a seeded preset model, 2 batches of 2 x 32768;
+    then `from_pretrained` of that directory on the card, one 1 x 32768
+    forward."""
+    import torch
+
+    from hyena_dna_tpu_torch.evals.presets import build_model_from_preset, load_eval_preset
+    from hyena_dna_tpu_torch.pretrained import from_pretrained
+
+    preset = ROOT / "configs" / "evals" / "hyena_dna_512ksl.yaml"
+    cfg = load_eval_preset(str(preset))["model"]
+    ckpt = tmp / "hyenadna-512ksl"
+    ckpt.mkdir()
+    (ckpt / "config.json").write_text(json.dumps({k: v for k, v in cfg.items() if k != "_name_"}))
+    model = build_model_from_preset(cfg, generator=torch.Generator().manual_seed(seed))
+    torch.save({"state_dict": {"model." + k: v for k, v in model.state_dict().items()}},
+               ckpt / "weights.ckpt")
+    del model
+    L, B, nb = 32768, 2, 2
+    argv = ["--preset", str(preset), "--ckpt", str(ckpt), "--fasta", str(fasta),
+            "--max_length", str(L), "--batch_size", str(B), "--limit_batches", str(nb),
+            "--chr_ranges", f"chrS:0-{B * nb * L}", "--device", "cuda"]
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    result = cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    ok = (math.isfinite(result["loss"]) and result["tokens"] == B * nb * L
+          and launches["fused_front"] == N_LAYER * nb and launches["fftconv"] >= N_LAYER * nb)
+    log({"phase": "generation", "part": "7a preset serving", "preset": preset.name,
+         "batch": B, "L": L, "batches": nb, "loss": result["loss"], "tokens": result["tokens"],
+         "tokens_per_s_eval": result["tokens"] / result["eval_seconds"],
+         "request_seconds": wall, "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("serving from the 512ksl preset failed its checks")
+    total = dict(launches)
+    model, _ = from_pretrained(ckpt)
+    ids = torch.from_numpy(np.random.default_rng(seed).integers(7, 11, size=(1, L))).cuda()
+    zero_counts(kernels)
+    with torch.inference_mode():
+        hidden = model(ids)
+    launches = read_counts(kernels)
+    ok = (hidden.shape == (1, L, cfg["d_model"]) and bool(torch.isfinite(hidden).all())
+          and launches["fused_front"] == N_LAYER and launches["fftconv"] >= N_LAYER)
+    log({"phase": "generation", "part": "7a from_pretrained", "shape": list(hidden.shape),
+         "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("from_pretrained on the card failed its checks")
+    for name, n in launches.items():
+        total[name] += n
+    return total
+
+
+def full_forward_generation(kernels, tmp: Path, seed: int):
+    """7b: `generate_cli` at temperature 0, a 4096-base prompt and 32 new
+    tokens on the card (kernels A and B once per layer per token); the first
+    4 tokens against the CPU's plain run. Returns (launches, the CPU model,
+    the card's tokens per second)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from hyena_dna_tpu_torch.data.tokenizer import CharacterTokenizer
+    from hyena_dna_tpu_torch.evals import generate_cli
+    from hyena_dna_tpu_torch.evals import hg38_inference as cli
+    from hyena_dna_tpu_torch.generation import generate
+
+    model = cli.build_model(D_MODEL, N_LAYER, GEN_MAX_LENGTH,
+                            generator=torch.Generator().manual_seed(seed)).eval()
+    pt = tmp / "generation.pt"
+    torch.save(model.state_dict(), pt)
+    prompt = "".join(np.random.default_rng(seed).choice(list("ACGT"), size=PROMPT_BASES))
+    argv = ["--ckpt", str(pt), "--prompt", prompt, "--max_new_tokens", str(NEW_TOKENS),
+            "--temperature", "0", "--d_model", str(D_MODEL), "--n_layer", str(N_LAYER),
+            "--max_length", str(GEN_MAX_LENGTH), "--device", "cuda"]
+    zero_counts(kernels)
+    with contextlib.redirect_stdout(io.StringIO()) as text:  # the 4128-base sequence
+        result = generate_cli.main(argv)
+    launches = read_counts(kernels)
+    expect = {k.name: N_LAYER * NEW_TOKENS if k.name in ("fused_front", "fftconv") else 0
+              for k in kernels}
+    card_new = result["ids"][PROMPT_BASES:]
+    ids = torch.as_tensor(CharacterTokenizer().encode(prompt), dtype=torch.long)[None]
+    with torch.inference_mode():
+        cpu_out = generate(model, ids, CPU_TOKENS, temperature=0.0)
+        logits = model(cpu_out)[0, PROMPT_BASES - 1:PROMPT_BASES - 1 + CPU_TOKENS]
+    cpu_new = cpu_out[0, PROMPT_BASES:].tolist()
+    tol = LOGIT_TOL["float32"] * max(1.0, logits.abs().max().item())
+    compared = []
+    for j in range(CPU_TOKENS):
+        top2 = logits[j].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        compared.append({"card": card_new[j], "cpu": cpu_new[j], "cpu_margin": margin})
+        if card_new[j] != cpu_new[j]:  # a near tie; the two runs go on from other prefixes
+            compared[-1]["near_tie"] = margin <= tol
+            break
+    ok = (launches == expect and len(result["ids"]) == PROMPT_BASES + NEW_TOKENS
+          and all(c.get("near_tie", True) for c in compared)
+          and text.getvalue().strip() == result["text"])
+    tokens_per_s = NEW_TOKENS / result["seconds"]
+    log({"phase": "generation", "part": "7b full forward", "prompt": PROMPT_BASES,
+         "new_tokens": NEW_TOKENS, "l_max": GEN_MAX_LENGTH + 2, "seconds": result["seconds"],
+         "tokens_per_s": tokens_per_s, "first_tokens": compared, "tol": tol,
+         "launches": launches, "expected": expect, "ok": ok})
+    if not ok:
+        raise AssertionError("full-forward generation failed its checks")
+    return launches, model, tokens_per_s
+
+
+def distilled_forward(model, rec, tokens):
+    """The model's own forward (kernels A and B) with each layer's implicit
+    filter replaced by the modal filter the recurrence realises, over the
+    whole prompt: the parallel model that `prefill_parallel` computes."""
+    import torch
+
+    from hyena_dna_tpu_torch.recurrent import _modal_kernel
+
+    T = tokens.shape[1]
+    mixers = [layer.mixer for layer in model.backbone.layers]
+    saved = [m.l_max for m in mixers]
+    for m, lam, c in zip(mixers, rec.lam, rec.c):
+        k = _modal_kernel(lam[0], c[0], T).t()[None]  # (1, T, d), order 2
+        m.l_max = T
+        m.filter_fn.filter = lambda length, out_dtype=torch.float32, k=k: k[:, :length].to(
+            out_dtype)
+    try:
+        with torch.inference_mode():
+            return model(tokens)
+    finally:
+        for m, l_max in zip(mixers, saved):
+            m.l_max = l_max
+            del m.filter_fn.filter
+
+
+def rel_err(out, ref) -> float:
+    out, ref = out.float().cpu(), ref.float().cpu()
+    return ((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+
+
+def recurrent_generation(kernels, cpu_model, seed: int):
+    """7c: distil the 7b model (64 modes, the fit on the host); the parallel
+    prefill at 2 x 16384 on the card (kernel B once per layer) against the
+    CPU; at 1 x 2048 (within the filter) against the model's own forward;
+    at 1 x 131072 (fft 2^18) on the card alone, against the model's forward
+    with the distilled filter; then 256 greedy steps."""
+    import torch
+
+    from hyena_dna_tpu_torch.recurrent import RecurrentLM, distill
+
+    model = copy.deepcopy(cpu_model).cuda().eval()
+    t0 = time.perf_counter()
+    rec = distill(model, n_modes=N_MODES, fit_len=FIT_LEN)
+    distill_s = time.perf_counter() - t0
+    cpu_rec = RecurrentLM(cpu_model, [x.cpu().numpy() for x in rec.lam],
+                          [x.cpu().numpy() for x in rec.c])
+    rng = np.random.default_rng(seed)
+    tokens = torch.from_numpy(rng.integers(7, 11, size=(2, 16384)))
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, lg = rec.prefill_parallel(rec.init_state(2), tokens.cuda())
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    st_cpu, lg_cpu = cpu_rec.prefill_parallel(cpu_rec.init_state(2), tokens)
+    errs = {"logits": rel_err(lg, lg_cpu)}
+    for i, (a, b) in enumerate(zip(st["layers"], st_cpu["layers"])):
+        for key in ("sc", "s"):
+            errs[f"{key}{i}"] = rel_err(a[key], b[key])
+    expect = {k.name: N_LAYER if k.name == "fftconv" else 0 for k in kernels}
+    ok = launches == expect and max(errs.values()) <= PREFILL_TOL
+    log({"phase": "generation", "part": "7c prefill 2x16384", "distill_seconds": distill_s,
+         "fit_len": FIT_LEN, "n_modes": N_MODES, "fit_rel_err": rec.fit_rel_err,
+         "prefill_seconds": prefill_s, "card_vs_cpu": errs, "tol": PREFILL_TOL,
+         "launches": launches, "expected": expect, "ok": ok})
+    if not ok:
+        raise AssertionError("the card's parallel prefill disagrees with the CPU's")
+    total = dict(launches)
+
+    short = torch.from_numpy(rng.integers(7, 11, size=(1, GEN_MAX_LENGTH + 2))).cuda()
+    _, lg_short = rec.prefill_parallel(rec.init_state(1), short)
+    with torch.inference_mode():
+        err_short = rel_err(lg_short, model(short)[:, -1])
+    long = torch.from_numpy(rng.integers(7, 11, size=(1, 131072))).cuda()
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, logits = rec.prefill_parallel(rec.init_state(1), long)
+    torch.cuda.synchronize()
+    long_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    err_long = rel_err(logits, distilled_forward(model, rec, long)[:, -1])
+    with torch.inference_mode():
+        err_long_model = rel_err(logits, model(long)[:, -1])  # the filter's tail past l_max
+    t0 = time.perf_counter()
+    for _ in range(DECODE_TOKENS):
+        state, logits = rec.step(state, logits.argmax(-1))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    ok = (err_short <= REC_RTOL and err_long <= REC_RTOL and launches == expect
+          and bool(torch.isfinite(logits).all()))
+    log({"phase": "generation", "part": "7c prefill 1x131072 and decode",
+         "rel_err_1x2048_vs_model": err_short, "rel_err_1x131072_vs_distilled_forward": err_long,
+         "rel_err_1x131072_vs_model": err_long_model, "tol": REC_RTOL,
+         "prefill_seconds_1x131072": long_s, "decode_tokens": DECODE_TOKENS,
+         "decode_seconds": decode_s, "decode_tokens_per_s": DECODE_TOKENS / decode_s,
+         "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("the recurrence disagrees with the parallel model")
+    for name, n in launches.items():
+        total[name] += n
+    return total, DECODE_TOKENS / decode_s
+
+
+def golden_model():
+    """tests/golden/recurrent_drift.npz (a synthetic-hg38 pretrain, d 128 x
+    2, L 1024) as a port model, through `utils/convert.py`; and its tokens."""
+    from hyena_dna_tpu_torch.evals.hg38_inference import build_model
+    from hyena_dna_tpu_torch.utils.convert import flax_to_torch_state_dict
+
+    z = np.load(GOLDEN)
+    tree = {}
+    for key in z.files:
+        if key.startswith("p::"):
+            node = tree
+            *parents, leaf = key[3:].split("/")
+            for name in parents:
+                node = node.setdefault(name, {})
+            node[leaf] = z[key]
+    model = build_model(TRAINER_D, 2, 1024)  # l_max 1026, the checkpoint's
+    model.load_state_dict(flax_to_torch_state_dict(tree))
+    return model.eval(), z["tokens"].astype(np.int64)
+
+
+def perplexity(logits, targets) -> float:
+    import torch
+
+    nll = torch.nn.functional.cross_entropy(logits.double().flatten(0, 1), targets.flatten())
+    return math.exp(nll.item())
+
+
+def drift_phase(kernels, model, tokens) -> dict:
+    """7d: the trained checkpoint on the card, the parallel model's held-out
+    perplexity (kernels A and B once per layer) against the distilled
+    recurrence's (every position stepped)."""
+    import torch
+
+    from hyena_dna_tpu_torch.recurrent import distill
+
+    x, y = torch.from_numpy(tokens[:, :-1]).cuda(), torch.from_numpy(tokens[:, 1:]).cuda()
+    zero_counts(kernels)
+    with torch.inference_mode():
+        ppl_par = perplexity(model(x), y)
+    launches = read_counts(kernels)
+    expect = {k.name: 2 if k.name in ("fused_front", "fftconv") else 0 for k in kernels}
+    t0 = time.perf_counter()
+    rec = distill(model, n_modes=N_MODES)
+    distill_s = time.perf_counter() - t0
+    state, steps = rec.init_state(x.shape[0]), []
+    for j in range(x.shape[1]):
+        state, lg = rec.step(state, x[:, j])
+        steps.append(lg)
+    ppl_rec = perplexity(torch.stack(steps, 1), y)
+    drift = abs(ppl_rec - ppl_par) / ppl_par
+    ok = 2.0 < ppl_par < 4.2 and drift < DRIFT_RTOL and launches == expect
+    log({"phase": "generation", "part": "7d trained checkpoint", "ppl_parallel": ppl_par,
+         "ppl_recurrent": ppl_rec, "rel_drift": drift, "tol": DRIFT_RTOL,
+         "fit_rel_err": rec.fit_rel_err, "distill_seconds": distill_s,
+         "launches": launches, "ok": ok})
+    if not ok:
+        raise AssertionError("the distilled recurrence drifts from the trained model")
+    return launches
+
+
+def write_icl_set(root: Path, seed: int) -> None:
+    """tests/test_generation_evals.py:72-89's k-shot set (the class is the
+    motif of the first 4 characters), with a test split."""
+    rng = np.random.default_rng(seed)
+    for split in ("train", "test"):
+        for label, motif in (("neg", "TTTT"), ("pos", "AAAA")):
+            d = root / "toy" / split / label
+            d.mkdir(parents=True)
+            for i in range(24):
+                (d / f"{i}.txt").write_text(motif + "".join(rng.choice(list("ACGT"), size=12)))
+
+
+def icl_phase(kernels, model, tmp: Path, seed: int) -> dict:
+    """7e: `icl_cli --mode soft_prompting` from the trained checkpoint at the
+    tiny-1k width (d 128 x 2; 1 shot of 256 bases: the model's l_max 1026),
+    ICL_STEPS steps: each launches A, B, A', C once per layer, and the
+    evaluation A and B; the loss must fall."""
+    import torch
+
+    from hyena_dna_tpu_torch.evals import icl_cli
+
+    pt = tmp / "golden.pt"
+    torch.save(model.state_dict(), pt)
+    write_icl_set(tmp / "icl", seed)
+    argv = ["--mode", "soft_prompting", "--ckpt", str(pt), "--dest_path", str(tmp / "icl"),
+            "--dataset_name", "toy", "--shots", "1", "--max_length", "256",
+            "--d_model", str(TRAINER_D), "--n_layer", "2", "--steps", str(ICL_STEPS),
+            "--batch_size", str(ICL_BATCH), "--lr", str(ICL_LR), "--device", "cuda"]
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    result = icl_cli.main(argv)
+    wall = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    evals = math.ceil(48 / ICL_BATCH)  # the test split's batches
+    expect = {k.name: 0 for k in kernels}
+    expect.update(fused_front=2 * (ICL_STEPS + evals), fftconv=2 * (ICL_STEPS + evals),
+                  fused_front_bwd=2 * ICL_STEPS, fftconv_bwd=2 * ICL_STEPS)
+    losses = result["losses"]
+    falls = sum(losses[-8:]) / 8 < sum(losses[:8]) / 8
+    ok = launches == expect and falls and all(math.isfinite(v) for v in losses)
+    log({"phase": "generation", "part": "7e soft prompting", "steps": ICL_STEPS,
+         "loss_mean_first8": sum(losses[:8]) / 8, "loss_mean_last8": sum(losses[-8:]) / 8,
+         "loss_first": losses[0], "loss_last": losses[-1], "accuracy": result["accuracy"],
+         "seconds": wall, "launches": launches, "expected": expect, "ok": ok})
+    if not ok:
+        raise AssertionError("soft prompting failed its checks")
+    return launches
+
+
+def generation_phase(cli, kernels, tmp: Path, seed: int) -> dict:
+    """Phase 7, parts a-e; returns the launches of every part."""
+    fasta = tmp / "synthetic.fa"
+    write_fasta(fasta, 1_100_000, seed=13)  # phase 4's FASTA
+    t0 = time.perf_counter()
+    total = serve_preset(cli, kernels, tmp, fasta, seed)
+    launches, cpu_model, ff_tps = full_forward_generation(kernels, tmp, seed + 1)
+    rec_launches, rec_tps = recurrent_generation(kernels, cpu_model, seed + 2)
+    golden, tokens = golden_model()
+    golden = golden.cuda()
+    drift = drift_phase(kernels, golden, tokens)
+    icl = icl_phase(kernels, golden, tmp, seed + 3)
+    for part in (launches, rec_launches, drift, icl):
+        for name, n in part.items():
+            total[name] += n
+    log({"phase": "generation", "part": "summary", "full_forward_tokens_per_s": ff_tps,
+         "recurrent_decode_tokens_per_s": rec_tps, "seconds": time.perf_counter() - t0,
+         "launches": total})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1523,6 +1928,9 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         for name, n in trainer_phase(kernels, Path(tmp), seed=18).items():
+            total[name] += n
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, n in generation_phase(cli, kernels, Path(tmp), seed=19).items():
             total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

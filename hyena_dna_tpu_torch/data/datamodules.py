@@ -6,11 +6,12 @@ the task and the model (`vocab_size`, `d_output`, `l_output`,
 Registration is by `_name_` through `__init_subclass__`. The loaders are
 `data/loader.py::DataLoader`, deterministic and resumable, so the
 reference's `fault_tolerant` and `ddp` flags are accepted and change
-nothing. Ported: `hg38`, `hg38_fixed`, `genomic_benchmark` and
-`nucleotide_transformer`. The chromatin-profile, species, ICL and ETT
-datamodules wait for their datasets: their registry entries raise and cite
-ROADMAP.md Queue 1 item 9. The BPE tokenizer of `tokenizer_name: bpe`
-needs `transformers`, which the port does not use: it raises.
+nothing. Ported: `hg38`, `hg38_fixed`, `genomic_benchmark`,
+`nucleotide_transformer` and `icl_genomics` (k-shot prompts, `data/icl.py`).
+The chromatin-profile, species and ETT datamodules wait for their datasets:
+their registry entries raise and cite ROADMAP.md Queue 1 item 9. The BPE
+tokenizer of `tokenizer_name: bpe` needs `transformers`, which the port
+does not use: it raises.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Dict, Optional
 from hyena_dna_tpu_torch.data.classification import (GenomicBenchmarkDataset,
                                                      NucleotideTransformerDataset)
 from hyena_dna_tpu_torch.data.hg38 import HG38Dataset, HG38FixedDataset
+from hyena_dna_tpu_torch.data.icl import ICLGenomicsDataset
 from hyena_dna_tpu_torch.data.loader import DataLoader
 from hyena_dna_tpu_torch.data.tokenizer import CharacterTokenizer
 from hyena_dna_tpu_torch.utils.registry import unported
@@ -324,7 +326,74 @@ class NucleotideTransformerDataModule(GenomicBenchmarkDataModule):
         self.dataset_test = self.dataset_val
 
 
+class ICLGenomicsDataModule(SequenceDataModule):
+    """k-shot in-context-learning prompts (`genomics.py:572-657`); the val
+    and test sets are the benchmark's test split."""
+
+    _name_ = "icl_genomics"
+    l_output = 0
+
+    def __init__(
+        self,
+        dataset_name: str = "human_nontata_promoters",
+        dest_path: Optional[str] = None,
+        shots: int = 0,
+        max_length: int = 1024,
+        d_output: int = 2,
+        use_padding: bool = True,
+        add_eos: bool = True,
+        eos_token: Optional[str] = None,
+        label_to_token: Optional[dict] = None,
+        rc_aug: bool = False,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+        **kwargs: Any,
+    ):
+        self.dataset_name = dataset_name
+        self.dest_path = dest_path or str(default_data_path / "genomic_benchmark")
+        self.shots = shots
+        self.max_length = max_length
+        self.d_output = d_output
+        self.use_padding = use_padding
+        self.add_eos = add_eos
+        self.eos_token = eos_token
+        self.label_to_token = label_to_token
+        self.rc_aug = rc_aug
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def setup(self):
+        self.tokenizer = CharacterTokenizer(model_max_length=self.max_length)
+        self.vocab_size = self.tokenizer.vocab_size
+
+        def make(split, rc):
+            return ICLGenomicsDataset(
+                split=split,
+                shots=self.shots,
+                max_length=self.max_length,
+                dataset_name=self.dataset_name,
+                d_output=self.d_output,
+                dest_path=self.dest_path,
+                tokenizer=self.tokenizer,
+                use_padding=self.use_padding,
+                add_eos=self.add_eos,
+                eos_token=self.eos_token,
+                label_to_token=self.label_to_token,
+                rc_aug=rc,
+            )
+
+        self.dataset_train = make("train", self.rc_aug)
+        self.dataset_val = make("val", False)
+        self.dataset_test = self.dataset_val
+
+
 DATASET_REGISTRY.update({
     name: unported(f"datamodule {name!r}", f"item 9 (data/{module}.py)")
     for name, module in (("chromatin_profile", "chromatin_profile"), ("species", "species"),
-                         ("icl_genomics", "icl"), ("ett", "timeseries"))})
+                         ("ett", "timeseries"))})

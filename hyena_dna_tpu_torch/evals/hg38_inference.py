@@ -13,8 +13,12 @@ Usage:
       --chr_ranges chr14:19726402-106677047
 
 `--ckpt` takes a `.pt`/`.ckpt` state dict under the reference torch names
-(`utils/convert.py::load_reference_state_dict`). Orbax checkpoints and
-`--preset` wait for ROADMAP.md Queue 1 items 8 and 11.
+(`utils/convert.py::load_reference_state_dict`), a LongSafari-layout
+directory (its `weights.ckpt`) or a checkpoint directory of the port's
+trainer (`train/checkpoint.py::load_pretrained`); an Orbax directory of the
+JAX package raises. `--preset` (a `configs/evals` file or its name, e.g.
+`hyena_dna_512ksl`) builds the model from the preset's `model:` block
+(`evals/presets.py`) in place of `--d_model` / `--n_layer`.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import torch
 from hyena_dna_tpu_torch.data.hg38 import HG38FixedDataset
 from hyena_dna_tpu_torch.models.lm import ConvLMHeadModel
 from hyena_dna_tpu_torch.tasks import metrics as M
-from hyena_dna_tpu_torch.utils.convert import load_reference_state_dict
+from hyena_dna_tpu_torch.train.checkpoint import load_pretrained
 from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
 
@@ -61,12 +65,9 @@ def build_model(d_model, n_layer, max_length, vocab_size=12,
 
 
 def load_params(ckpt: str, model: ConvLMHeadModel) -> ConvLMHeadModel:
-    """Load a reference-named `.pt`/`.ckpt` state dict into `model`."""
-    if not ckpt.endswith((".ckpt", ".pt")):
-        raise NotImplementedError(
-            "only .pt/.ckpt state dicts load on the port yet; Orbax and "
-            "LongSafari checkpoints wait for ROADMAP.md Queue 1 items 8 and 11")
-    model.load_state_dict(load_reference_state_dict(ckpt))
+    """Load a reference-named `.pt`/`.ckpt` file, a LongSafari directory or
+    a checkpoint directory of the port's trainer into `model`."""
+    model.load_state_dict(load_pretrained(ckpt))
     return model
 
 
@@ -99,7 +100,9 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", required=True)
     ap.add_argument("--fasta", required=True)
-    ap.add_argument("--preset", default=None, help="not ported yet")
+    ap.add_argument("--preset", default=None,
+                    help="configs/evals yaml with a model: block (e.g. hyena_dna_512ksl); "
+                         "builds the model from it")
     ap.add_argument("--max_length", type=int, default=1024)
     ap.add_argument("--d_model", type=int, default=128)
     ap.add_argument("--n_layer", type=int, default=2)
@@ -110,8 +113,6 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     args = ap.parse_args(argv)
-    if args.preset:
-        raise NotImplementedError("--preset waits for ROADMAP.md Queue 1 item 11")
     device = resolve_device(args.device)
     set_card_numerics()
 
@@ -122,7 +123,12 @@ def main(argv=None):
         chr_ranges[name] = (int(start), int(end))
     ds = HG38FixedDataset(fasta_file=args.fasta, chr_ranges=chr_ranges,
                           max_length=args.max_length, add_eos=True)
-    model = build_model(args.d_model, args.n_layer, args.max_length)
+    if args.preset:
+        from hyena_dna_tpu_torch.evals.presets import build_model_from_preset, load_eval_preset
+
+        model = build_model_from_preset(load_eval_preset(args.preset)["model"])
+    else:
+        model = build_model(args.d_model, args.n_layer, args.max_length)
     load_params(args.ckpt, model)
     model.to(device).eval()
 

@@ -10,11 +10,14 @@ the train and eval steps (`train/step.py`) and the trainer's evaluation call:
     vocabulary cross-entropy and gives the perplexity statistics;
   * `HG38Task`: `LMTask` with the `last_k_ppl` and `per_token_ppl`
     diagnostics at the dataset's sequence length;
+  * `ICLTask`: k-shot in-context learning, the LM's last-position logits
+    (B, V) against the 1-token label target (B, 1) that `data/icl.py`
+    emits;
   * `MulticlassTask`: sequence classification, targets (B,) or (B, 1)
     against logits (B, C).
 
-`ICLTask` and `AdaptiveLMTask` wait for their datasets and models: their
-registry entries raise and cite ROADMAP.md Queue 1 (items 9 and 12).
+`AdaptiveLMTask` waits for its model: its registry entry raises and cites
+ROADMAP.md Queue 1 item 12.
 """
 
 from __future__ import annotations
@@ -108,6 +111,15 @@ class HG38Task(LMTask):
             self.metric_names.append("per_token_ppl")
 
 
+class ICLTask(LMTask):
+    """k-shot ICL over label tokens: the LM's last-position logits against
+    the label token (the JAX `ICLTask`, the trainable completion of the
+    reference's `hg38_hyena_icl` experiment)."""
+
+    def prepare(self, logits: torch.Tensor, y: torch.Tensor):
+        return logits[:, -1, :], y.reshape(-1)
+
+
 class MulticlassTask(BaseTask):
     """Sequence-level classification: targets (B,) or (B, 1), logits (B, C)."""
 
@@ -121,6 +133,6 @@ TASK_REGISTRY: Dict[str, Callable] = {
     "hg38": HG38Task,
     "multiclass": MulticlassTask,
     "masked_multiclass": MulticlassTask,
-    "icl": unported("task 'icl'", "item 9, with the ICL dataset"),
+    "icl": ICLTask,
     "adaptive_lm": unported("task 'adaptive_lm'", "item 12, with models/adaptive_softmax.py"),
 }

@@ -26,7 +26,9 @@ grads and new params against the port's by name.
 `load_reference_state_dict` reads a `.pt`/`.ckpt` file the way the JAX
 package's importer does: a plain state dict or `{"state_dict": ...}`, with
 Lightning's `model.` prefix, metric buffers, remat infixes and the tied
-`lm_head.weight` removed.
+`lm_head.weight` removed, and a missing `pos_emb.t` (the filter's fixed
+time grid, which a file converted from flax may lack) derived from
+`pos_emb.z` as above.
 """
 
 from __future__ import annotations
@@ -119,4 +121,8 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
         key = _normalize_key(key)
         if key is not None and isinstance(val, torch.Tensor):
             out[key] = val
+    for key, z in list(out.items()):
+        t_key = key[:-len("z")] + "t"
+        if key.endswith("pos_emb.z") and t_key not in out:
+            out[t_key] = torch.linspace(0.0, 1.0, z.shape[1])[None, :, None]
     return out

@@ -876,3 +876,37 @@ def test_sequence_decoder_bf16_matches_cpu(card, mode):
         assert out.dtype == BF16
         _close(out, ref, 0.0, 2 ** -7)
 
+
+
+def test_recurrent_prefill_parallel_on_card_matches_cpu(card):
+    """The closed-form prefill (its conv on kernel B, once per layer) on the
+    card against the CPU: last logits within 1e-4 of max|logit|, every
+    state within 1e-4 of its max|s|."""
+    from hyena_dna_tpu_torch.recurrent import RecurrentLM, distill
+
+    model = build_model(64, 2, 4096, generator=torch.Generator().manual_seed(3)).eval()
+    rec_cpu = distill(model, n_modes=32, fit_len=1024)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(7, 12, size=(2, 3000)))
+    st_cpu, lg_cpu = rec_cpu.prefill_parallel(rec_cpu.init_state(2), tokens)
+    rec = RecurrentLM(model.to(card), [x.numpy() for x in rec_cpu.lam],
+                      [x.numpy() for x in rec_cpu.c])
+    before = FB.KERNEL.launches
+    st, lg = rec.prefill_parallel(rec.init_state(2), tokens.to(card))
+    assert FB.KERNEL.launches == before + 2
+    _close(lg, lg_cpu, 1e-4, 0.0)
+    for ours, ref in zip(st["layers"], st_cpu["layers"]):
+        for key in ("sc", "s"):
+            _close(ours[key], ref[key], 1e-4, 0.0)
+
+
+def test_generation_step_launches_a_and_b_per_layer(card):
+    """Each generated token is one full forward: kernels A and B once per
+    layer, and no backward kernel."""
+    from hyena_dna_tpu_torch.generation import generate
+
+    model = build_model(64, 3, 512, generator=torch.Generator().manual_seed(4)).to(card).eval()
+    kernels = (FF.KERNEL, FB.KERNEL, FF.KERNEL_BWD, FB.KERNEL_BWD)
+    before = [k.launches for k in kernels]
+    out = generate(model, torch.full((2, 100), 7, dtype=torch.long), 5, temperature=0.0)
+    assert out.shape == (2, 105) and out.device.type == "cuda"
+    assert [k.launches - b for k, b in zip(kernels, before)] == [15, 15, 0, 0]

@@ -312,7 +312,7 @@ def test_datamodule_matches_jax(genome, benchmark, name, kw):
                 assert_same(x, y)
 
 
-@pytest.mark.parametrize("name", ["chromatin_profile", "species", "icl_genomics", "ett"])
+@pytest.mark.parametrize("name", ["chromatin_profile", "species", "ett"])
 def test_unported_datamodules_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         DM.DATASET_REGISTRY[name]()

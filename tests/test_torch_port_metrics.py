@@ -147,7 +147,8 @@ def test_roc_auc_needs_both_classes():
     ("hg38", {"last_k_ppl": 3, "per_token_ppl": [1, 8], "seq_len": SEQ}, LABELS),
     ("lm", {"metrics": ["accuracy", "ppl", "bpb", "loss"]}, LABELS_IGN),
     ("multiclass", {"metrics": ["accuracy", "accuracy@3"], "host_metrics": ["mcc"]},
-     LABELS[:, :1])])
+     LABELS[:, :1]),
+    ("icl", {"metrics": ["accuracy", "ppl"]}, LABELS[:, :1])])
 def test_task_matches_jax(task, kw, y):
     logits = LOGITS[:, 0] if task == "multiclass" else LOGITS
     jt, pt = JT.TASK_REGISTRY[task](**kw), T.TASK_REGISTRY[task](**kw)
@@ -168,7 +169,7 @@ def test_task_matches_jax(task, kw, y):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["icl", "adaptive_lm"])
+@pytest.mark.parametrize("name", ["adaptive_lm"])
 def test_unported_tasks_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         T.TASK_REGISTRY[name]()
