@@ -100,7 +100,10 @@ line:
             (plain versions), each loss within 5e-3 relative (PERF.md
             section 2, the bf16 model). Phase 2 checks A and A' in bf16 at
             the trainer's 32 x 1024 x 128 (two 64-column `wgmma` panels)
-            and B and C at its 32 x 128 x 1024, fft 2^11, float32 conv I/O.
+            and B and C at its 32 x 128 x 1024, fft 2^11, float32 conv I/O,
+            and all four at phase 8's 4 x 32768 x 128 (bf16, fft 2^16, C
+            retransforming). The pretraining's dataset takes the fused C++
+            fetch.
 7. generation  serving and generation at the full width of the hg38 LM
             (d_model 256, 8 layers, d_inner 1024). (a) `hg38_inference
             --preset hyena_dna_512ksl` on a LongSafari-layout directory
@@ -134,9 +137,32 @@ line:
             last 8 below the first 8). It prints both decoders' tokens per
             second, the prefill and distill seconds and every part's
             launches.
+8. downstream  the data layer's downstream paths at the shipped configs'
+            width (d_model 128, 2 layers, d_inner 512, bf16 with a float32
+            residual), on phase 6's genome and checkpoint and data made from
+            a seed. (a) `HG38Dataset` on the valid split at 1024 and 32768
+            with shift and rc augmentation: the fused C++ fetch
+            (`data/native.py`) taken, its ids equal to the Python path's for
+            every window, each path's windows/s (phase 6's pretraining must
+            take the native path too). (b) `experiment=hg38/chromatin_profile`
+            as shipped (919 labels, batch 64, 1000-base windows) from phase
+            6's checkpoint, on hg19 coordinate CSVs (label 0 GC content above
+            0.5, the rest sparse noise) lifted through a synthetic chain
+            (a gap, a '-' strand chain, unmapped stretches): the kept rows
+            and the saved hg38 CSVs equal the plain lookup's, the val and
+            test `auroc_macro` / `auroc_median` in [0, 1], the loss falls,
+            A, A', B and C twice a step, the first 3 losses card against CPU
+            within 5e-3. (c) `experiment=hg38/species_seqlen_warmup_reload`
+            on five synthetic species (one gzipped chromosome set): its six
+            stages 128 x 1024 ... 4 x 32768 one epoch each, each stage's
+            batch shape and step count, the last at fft 2^16, the launches
+            per step of the checkpointed cells (A 4, A' 2, B 2, C 2), median
+            step ms and peak GiB a stage. (d) `experiment=hg38/
+            species_classification` from scratch, 64 steps of 32 x 1024,
+            with (b)'s checks but the liftover and AUROC ones.
 Launch counts are zeroed just before this slice's path in phase 2 and
-before each request of phases 4 and 5, each run of phase 6 and each part
-of phase 7, and read just after it.
+before each request of phases 4 and 5, each run of phases 6 and 8 and each
+part of phase 7, and read just after it.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
@@ -144,7 +170,8 @@ times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
 float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
 row of B, C, E, E', A4, A4', F and F' under "routes"; A, A', B and C
-at the trainer's shapes under "trainer"; the bf16 rows of A,
+at the trainer's shapes under "trainer" and at the species curriculum's
+last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
 readings, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
@@ -157,7 +184,9 @@ SXM data sheet), the least time the card could take.
 
 from __future__ import annotations
 
+import contextlib
 import copy
+import gzip
 import json
 import math
 import re
@@ -165,6 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1016,12 +1046,11 @@ def model_kwargs(precision: str) -> dict:
     return {}
 
 
-def front_runs(remat: str, group: int) -> int:
-    """Forward runs of each layer's front end in one train step (models/lm.py):
-    n without checkpointing, 2n with block cells or residual cells of one,
-    2n + sum_j (g_j - 1) with residual groups (an outer recompute runs the
-    first g_j - 1 cells of its group again)."""
-    n = N_LAYER
+def front_runs(remat: str, group: int, n: int = N_LAYER) -> int:
+    """Forward runs of each layer's front end in one train step of an n-layer
+    model (models/lm.py): n without checkpointing, 2n with block cells or
+    residual cells of one, 2n + sum_j (g_j - 1) with residual groups (an
+    outer recompute runs the first g_j - 1 cells of its group again)."""
     if remat == "off":
         return n
     if remat == "block" or group == 1:
@@ -1031,7 +1060,7 @@ def front_runs(remat: str, group: int) -> int:
 
 def expected_launches(precision: str, per_pass: int, gated: str | None = None,
                       remat: str = "off", group: int = 1, front4: bool = False,
-                      residual: str | None = None) -> dict:
+                      residual: str | None = None, n: int = N_LAYER) -> dict:
     """Launches of each kernel in `per_pass` forward+backward passes: A (A4
     on the 4-D route) `front_runs` times, A' (A4') once per layer; B, C once
     per layer (the conv output is saved across checkpointed cells), or with
@@ -1039,8 +1068,7 @@ def expected_launches(precision: str, per_pass: int, gated: str | None = None,
     residual D, D' 2 n_layer times (2 n_layer - 1 block units plus ln_f),
     and with block cells D 2 n_layer - 1 times more for the recomputed
     units; never with a float32 residual (`residual` defaults to the
-    precision)."""
-    n = N_LAYER
+    precision); `n` layers."""
     if (residual or precision) == "bf16":
         if remat not in ("off", "block"):
             raise ValueError("no launch count for residual cells with a bf16 residual")
@@ -1048,7 +1076,7 @@ def expected_launches(precision: str, per_pass: int, gated: str | None = None,
     else:
         d_fwd = d_bwd = 0
     conv, gconv = (0, n * per_pass) if gated else (n * per_pass, 0)
-    fronts, backs = front_runs(remat, group) * per_pass, n * per_pass
+    fronts, backs = front_runs(remat, group, n) * per_pass, n * per_pass
     a, a4 = ((0, 0), (fronts, backs)) if front4 else ((fronts, backs), (0, 0))
     return {"fused_front": a[0], "fused_front_bwd": a[1],
             "fused_front4": a4[0], "fused_front4_bwd": a4[1],
@@ -1241,30 +1269,71 @@ TRAINER_LAUNCHES = {"fused_front": 2, "fused_front_bwd": 2, "fftconv": 2, "fftco
 TRAINER_LOSS_RTOL = 5e-3
 
 
-def run_trainer(cli, kernels, argv, device=None):
+# (entry, fft size) of each kernel B and C call while `record_fft` is on
+FFT_CALLS: list = []
+
+
+@contextlib.contextmanager
+def record_fft(FB):
+    """Record the FFT size of every conv forward (kernel B) and backward
+    (kernel C) entry the model calls, into FFT_CALLS."""
+    from hyena_dna_tpu_torch.ops.fftconv import next_fast_fft_size
+
+    names = ("fftconv_fused", "fftconv_bwd_retransform", "fftconv_bwd_spectrum")
+    saved = {name: getattr(FB, name) for name in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            signal = args[0] if name == "fftconv_fused" else args[1]  # u, or dy
+            FFT_CALLS.append((name, next_fast_fft_size(2 * signal.shape[-1])))
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(FB, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(FB, name, fn)
+
+
+def run_trainer(cli, kernels, argv, device=None, step_peaks=False):
     """What `python -m hyena_dna_tpu_torch.train <argv>` runs
     (`train/__main__.py::main`: build_config, Trainer, fit, close), with
-    the train step wrapped to read each step's launches and its start and
+    the train step wrapped to read each step's launches, its input shape,
+    the FFT sizes it ran (FFT_CALLS, under `record_fft`) and its start and
     end on the host clock (synchronised before and after). Launch counts are
-    zeroed just before and read just after the run. Returns (final metrics,
-    the run's metrics.jsonl records, per-step launches, per-step (start, end)
-    seconds, launches of the whole run, peak GiB)."""
+    zeroed just before and read just after the run. Returns a namespace:
+    final metrics, the run's metrics.jsonl records, per-step launches, (start,
+    end) seconds, shapes and FFT sizes, launches of the whole run, the peak
+    GiB of the run (with `step_peaks`, of each step alone in `step_peak`),
+    and the trainer."""
     import torch
 
     cuda = device is None
     trainer = cli.Trainer(cli.build_config(argv), device=device)
-    per_step, spans, step = [], [], trainer.train_step
+    run = types.SimpleNamespace(per_step=[], spans=[], shapes=[], ffts=[], step_peak=[],
+                                trainer=trainer)
+    step = trainer.train_step
 
     def counted(state, batch, generator=None):
         before = {k.name: k.launches for k in kernels}
+        fft0 = len(FFT_CALLS)
         if cuda:
             torch.cuda.synchronize()
+            if step_peaks:
+                torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = step(state, batch, generator)
         if cuda:
             torch.cuda.synchronize()
-        spans.append((t0, time.perf_counter()))
-        per_step.append({k.name: k.launches - before[k.name] for k in kernels})
+        run.spans.append((t0, time.perf_counter()))
+        run.per_step.append({k.name: k.launches - before[k.name] for k in kernels})
+        run.shapes.append(tuple(batch[0].shape))
+        run.ffts.append([n for _, n in FFT_CALLS[fft0:]])
+        if cuda and step_peaks:
+            run.step_peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
         return out
 
     trainer.train_step = counted
@@ -1273,13 +1342,14 @@ def run_trainer(cli, kernels, argv, device=None):
     for k in kernels:
         k.launches = 0
     try:
-        final = trainer.fit()
+        run.final = trainer.fit()
     finally:
         trainer.close()
-    launches = {k.name: k.launches for k in kernels}
-    records = [json.loads(line) for line in open(Path(trainer.run_dir) / "metrics.jsonl")]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else None
-    return final, records, per_step, spans, launches, peak
+    run.launches = {k.name: k.launches for k in kernels}
+    run.records = [json.loads(line) for line in open(Path(trainer.run_dir) / "metrics.jsonl")]
+    run.peak = (max(run.step_peak) if step_peaks else
+                torch.cuda.max_memory_allocated() / 2 ** 30) if cuda else None
+    return run
 
 
 def train_losses(records):
@@ -1292,9 +1362,8 @@ def trainer_phase(kernels, tmp: Path, seed: int) -> dict:
     (`experiment=hg38/genomic_benchmark`, one epoch) on synthetic data from
     the repository's scripts; then the fine-tune's first PARITY_STEPS steps
     with dropout off on the card and on the CPU (plain kernel versions).
-    Returns the launches of the three card runs."""
-    import statistics
-
+    The pretraining's hg38 dataset must take the fused C++ fetch. Returns
+    the launches of the three card runs."""
     from hyena_dna_tpu_torch.train import __main__ as cli
 
     genome, gb = tmp / "genome", tmp / "gb"
@@ -1319,55 +1388,78 @@ def trainer_phase(kernels, tmp: Path, seed: int) -> dict:
     total = {k.name: 0 for k in kernels}
     for name, argv in runs.items():
         t0 = time.perf_counter()
-        final, records, per_step, spans, launches, peak = run_trainer(cli, kernels, argv)
-        losses = train_losses(records)
+        run = run_trainer(cli, kernels, argv)
         tokens = 32 * (1023 if name == "pretrain" else 1024)
-        seconds = [end - start for start, end in spans]
-        step_s = statistics.median(seconds[2:])
         # the trainer's own throughput: LM tokens over the epoch's wall time
         # (the classification task logs none, as in the JAX trainer)
-        logged = [r["train/tokens_per_sec"] for r in records if "train/tokens_per_sec" in r]
-        expect = {k.name: TRAINER_LAUNCHES.get(k.name, 0) for k in kernels}
-        k8 = min(8, len(losses) // 2)
-        falls = sum(losses[-k8:]) / k8 < sum(losses[:k8]) / k8
-        ok = (all(math.isfinite(v) for v in losses) and falls
-              and all(s == expect for s in per_step)
-              and all(launches[n] > 0 for n in TRAINER_LAUNCHES)
-              and (name == "pretrain" or final["test/accuracy"] > 0.5))
-        log({"phase": "trainer", "run": name, "argv": argv[0], "steps": len(per_step),
-             "step_ms": step_s * 1e3, "step_ms_first": seconds[0] * 1e3,
-             "train_tokens_per_sec_logged": logged[-1] if logged else None,
-             "loop_tokens_per_s": tokens * len(spans) / (spans[-1][1] - spans[0][0]),
-             "loss_first": losses[0], "loss_last": losses[-1],
-             "loss_mean_first8": sum(losses[:k8]) / k8, "loss_mean_last8": sum(losses[-k8:]) / k8,
-             "launches_per_step": per_step[-1], "expected_per_step": expect,
-             "launches": launches, "peak_mem_gib": peak,
-             "final": {k: v for k, v in final.items() if not k.endswith("confusion_matrix")},
-             "seconds": time.perf_counter() - t0, "ok": ok})
-        if not ok:
-            raise AssertionError(f"the trainer's {name} run failed its checks")
-        for n, c in launches.items():
+        logged = [r["train/tokens_per_sec"] for r in run.records if "train/tokens_per_sec" in r]
+        extra = {"loop_tokens_per_s": tokens * len(run.spans)
+                 / (run.spans[-1][1] - run.spans[0][0]),
+                 "train_tokens_per_sec_logged": logged[-1] if logged else None}
+        checks = {}
+        if name == "pretrain":  # the hg38 datasets take the fused C++ fetch
+            checks["native_fetch"] = run.trainer.datamodule.dataset_train.native is not None
+        else:
+            checks["test_accuracy_above_half"] = run.final["test/accuracy"] > 0.5
+        check_trainer_run(run, f"{name} {argv[0]}", TRAINER_LAUNCHES, checks, extra, t0)
+        for n, c in run.launches.items():
             total[n] += c
+    for n, c in loss_parity(cli, kernels, runs["finetune"][:3] + [
+            f"train.pretrained_model_path={ckpt}"], tmp, "finetune").items():
+        total[n] += c
+    return total
+
+
+def check_trainer_run(run, label: str, per_step_launches: dict, checks: dict, extra: dict,
+                      t0: float, phase: str = "trainer") -> None:
+    """Log a trainer run and raise unless its losses are finite and fall
+    (the mean of the last 8 below the first 8), every step launched exactly
+    `per_step_launches` (nothing else) and every entry of `checks` holds."""
+    import statistics
+
+    losses = train_losses(run.records)
+    seconds = [end - start for start, end in run.spans]
+    expect = {name: per_step_launches.get(name, 0) for name in run.launches}
+    k8 = min(8, len(losses) // 2)
+    checks = {"losses_finite": all(math.isfinite(v) for v in losses),
+              "loss_falls": sum(losses[-k8:]) / k8 < sum(losses[:k8]) / k8,
+              "launches_per_step": all(step == expect for step in run.per_step),
+              **checks}
+    ok = all(checks.values())
+    log({"phase": phase, "run": label, "steps": len(run.per_step),
+         "step_ms": statistics.median(seconds[2:]) * 1e3, "step_ms_first": seconds[0] * 1e3,
+         **extra, "loss_first": losses[0], "loss_last": losses[-1],
+         "loss_mean_first8": sum(losses[:k8]) / k8, "loss_mean_last8": sum(losses[-k8:]) / k8,
+         "launches_per_step": run.per_step[-1], "expected_per_step": expect,
+         "launches": run.launches, "peak_mem_gib": run.peak,
+         "final": {k: v for k, v in run.final.items() if not k.endswith("confusion_matrix")},
+         "checks": checks, "seconds": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the trainer's {label} run failed its checks: {checks}")
+
+
+def loss_parity(cli, kernels, argv, tmp: Path, name: str) -> dict:
+    """The run's first PARITY_STEPS steps with dropout off on the card and on
+    the CPU (plain kernel versions), each loss within TRAINER_LOSS_RTOL;
+    returns the card run's launches."""
     parity = []
     for device in (None, "cpu"):
-        argv = runs["finetune"][:3] + [
-            f"train.run_dir={tmp / ('parity_' + (device or 'cuda'))}",
-            f"train.pretrained_model_path={ckpt}", f"trainer.limit_train_batches={PARITY_STEPS}",
-            "trainer.max_epochs=1", "trainer.log_every_n_steps=1", "trainer.limit_val_batches=1",
-            "model.embed_dropout=0.0"]
-        _, records, _, _, launches, _ = run_trainer(cli, kernels, argv, device)
-        parity.append(train_losses(records))
+        run = run_trainer(cli, kernels, argv + [
+            f"train.run_dir={tmp / (f'parity_{name}_' + (device or 'cuda'))}",
+            f"trainer.limit_train_batches={PARITY_STEPS}", "trainer.max_epochs=1",
+            "trainer.log_every_n_steps=1", "trainer.limit_val_batches=1",
+            "model.embed_dropout=0.0"], device)
+        parity.append(train_losses(run.records))
         if device is None:
-            for n, c in launches.items():
-                total[n] += c
+            launches = run.launches
     card, cpu = parity
     errs = [abs(a - b) / abs(b) for a, b in zip(card, cpu)]
     ok = len(card) == len(cpu) == PARITY_STEPS and max(errs) <= TRAINER_LOSS_RTOL
-    log({"phase": "trainer_parity", "run": "finetune, dropout off", "losses_card": card,
+    log({"phase": "trainer_parity", "run": f"{name}, dropout off", "losses_card": card,
          "losses_cpu": cpu, "rel_err": errs, "tol": TRAINER_LOSS_RTOL, "ok": ok})
     if not ok:
-        raise AssertionError("the card's fine-tune losses disagree with the CPU's")
-    return total
+        raise AssertionError(f"the card's {name} losses disagree with the CPU's")
+    return launches
 
 
 # Phase 7, serving and generation at the full width of the hg38 LM (d_model
@@ -1742,6 +1834,312 @@ def generation_phase(cli, kernels, tmp: Path, seed: int) -> dict:
     return total
 
 
+# Phase 8, the downstream data layer at the shipped configs' width
+# (configs/experiment/hg38/{chromatin_profile,species_*}.yaml: d_model 128,
+# 2 layers, d_inner 512, order-2 Hyena, bf16 with a float32 residual), on
+# data made from a seed: phase 6's genome, a synthetic chain file and
+# coordinate CSVs, five synthetic species.
+NATIVE_LENGTHS = (1024, 32768)
+NATIVE_SHIFT = (-64, 64)
+CHROMATIN_LABELS = 919
+# rows written per split: about 72% survive the liftover (36 train steps of
+# 64, a few hundred val and test windows)
+CHROMATIN_ROWS = {"train": 3200, "val": 400, "test": 400}
+CHROMATIN_NOISE_P = 0.05  # labels 1-918: sparse noise, as DeepSEA's positives are sparse
+# per-species GC content, so the species can be told apart
+SPECIES_GC = {"human": 0.35, "mouse": 0.60, "lemur": 0.45, "pig": 0.52, "hippo": 0.40}
+SPECIES_CHROM_BASES = 40_000  # a 32768-base window with room to sample
+SPECIES_TOTAL, SPECIES_STEPS = 512, 8  # dataset.total_size, trainer.limit_train_batches
+SPECIES_CLS_STEPS = 64  # 8d: steps at batch 32 x 1024 (the warm-up is 60)
+SPECIES_LAST_FFT = 1 << 16  # kernels B and C at the last stage's 32768
+SPECIES_LAUNCHES = expected_launches("bf16", 1, remat="block", residual="fp32", n=2)
+
+
+def native_phase(genome: Path) -> None:
+    """8a: the hg38 dataset on phase 6's genome at each NATIVE_LENGTHS with
+    shift and rc augmentation: the native path taken, its ids equal to the
+    Python path's for every window of the valid split, each path's
+    windows/s on the host."""
+    from hyena_dna_tpu_torch.data import native
+    from hyena_dna_tpu_torch.data.hg38 import HG38Dataset
+
+    rates, windows = {}, 0
+    for length in NATIVE_LENGTHS:
+        kw = dict(split="valid", bed_file=str(genome / "synthetic_hg38.bed"),
+                  fasta_file=str(genome / "synthetic_hg38.fa"), max_length=length,
+                  add_eos=True, shift_augs=NATIVE_SHIFT, rc_aug=True)
+        fused, python = HG38Dataset(**kw), HG38Dataset(**kw)
+        if fused.native is None:
+            raise AssertionError(f"the native fetch was not taken: {native.build_error}")
+        python.native = None
+        items = {}
+        for name, ds in (("native", fused), ("python", python)):
+            t0 = time.perf_counter()
+            items[name] = [ds.__getitem__(i, rng=np.random.default_rng((1, i)))
+                           for i in range(len(ds))]
+            rates[f"{name} {length}"] = len(ds) / (time.perf_counter() - t0)
+            ds.close()
+        same = all(np.array_equal(a, b) for x, y in zip(items["native"], items["python"])
+                   for a, b in zip(x, y))
+        windows = len(items["native"])
+        if not same:
+            raise AssertionError(f"native ids differ from the Python path's at L={length}")
+    log({"phase": "downstream", "part": "8a native fetch", "split": "valid",
+         "windows": windows, "lengths": list(NATIVE_LENGTHS), "shift_augs": list(NATIVE_SHIFT),
+         "windows_per_s": rates, "library": native.library_path(native.compiler()).name,
+         "ids_equal": True, "ok": True})
+
+
+# The synthetic hg19 -> hg38 chains on phase 6's two 2M-base chromosomes:
+# chr1 in two blocks with a gap (500 target, 300 query bases), chr2 on the
+# '-' strand for its first 600,000 bases and on '+' from 700,000 (the
+# 100,000 between unmapped); both unmapped past 1.8M. (t_name, t_start,
+# [(size, dt, dq), ...], q_strand, q_start) per chain.
+CHAINS = [("chr1", 0, [(900_000, 500, 300), (899_500, 0, 0)], "+", 1000),
+          ("chr2", 0, [(600_000, 0, 0)], "-", 100_000),
+          ("chr2", 700_000, [(1_100_000, 0, 0)], "+", 650_000)]
+
+
+def write_chain(path: Path, chrom_len: int) -> list:
+    """Write CHAINS as a chain file; return its blocks as (t_name, t0, t1,
+    q0, strand, q_size) for the plain lookup `lift`."""
+    lines, blocks = [], []
+    for i, (name, t0, parts, strand, q0) in enumerate(CHAINS):
+        t_end = t0 + sum(size + dt for size, dt, _ in parts)
+        q_end = q0 + sum(size + dq for size, _, dq in parts)
+        lines.append(f"chain 1000 {name} {chrom_len} + {t0} {t_end} {name} {chrom_len} "
+                     f"{strand} {q0} {q_end} {i + 1}")
+        t, q = t0, q0
+        for j, (size, dt, dq) in enumerate(parts):
+            lines.append(f"{size} {dt} {dq}" if j + 1 < len(parts) else f"{size}")
+            blocks.append((name, t, t + size, q, strand, chrom_len))
+            t, q = t + size + dt, q + size + dq
+        lines.append("")
+    path.write_text("\n".join(lines) + "\n")
+    return blocks
+
+
+def lift(blocks, chrom: str, pos: int):
+    """A position through the chain, by a scan of its blocks; None where
+    unmapped."""
+    for name, t0, t1, q0, strand, q_size in blocks:
+        if name == chrom and t0 <= pos < t1:
+            sp = q0 + pos - t0
+            return q_size - 1 - sp if strand == "-" else sp
+    return None
+
+
+def write_chromatin(data: Path, fasta: Path, seed: int):
+    """The hg19 coordinate CSVs and the chain; returns (chain path, the
+    expected lifted (coords, targets) of each split: the rows whose start
+    and end both map and stay 1000 bases apart). Label 0 is GC content above
+    0.5 of the hg38 window, the rest sparse noise."""
+    from hyena_dna_tpu_torch.data.fasta import FastaFile
+
+    rng = np.random.default_rng(seed)
+    genome = FastaFile(fasta)
+    chrom_len = genome.length("chr1")
+    chain = data / "hg19ToHg38.over.chain"
+    blocks = write_chain(chain, chrom_len)
+    expected = {}
+    header = "Chr_No,Start,End," + ",".join(f"y_{j}" for j in range(CHROMATIN_LABELS))
+    for split, rows in CHROMATIN_ROWS.items():
+        chr_no = rng.integers(0, 2, rows)
+        start = rng.integers(20_000, chrom_len - 21_000, rows)
+        labels = (rng.random((rows, CHROMATIN_LABELS)) < CHROMATIN_NOISE_P).astype(np.int32)
+        kept, lines = [], [header]
+        for i in range(rows):
+            chrom = f"chr{chr_no[i] + 1}"
+            s, e = lift(blocks, chrom, int(start[i])), lift(blocks, chrom, int(start[i]) + 1000)
+            keep = s is not None and e is not None and e - s == 1000
+            at = s if keep else int(start[i])
+            seq = genome.fetch(chrom, at, at + 1000).upper()
+            labels[i, 0] = int((seq.count("G") + seq.count("C")) / 1000 > 0.5)
+            if keep:
+                kept.append((i, chr_no[i], s, e))
+            lines.append(f"{chr_no[i]},{start[i]},{start[i] + 1000},"
+                         + ",".join(map(str, labels[i])))
+        (data / f"{split}_hg19_coords_targets.csv").write_text("\n".join(lines) + "\n")
+        rows_kept = [r[0] for r in kept]
+        expected[split] = (np.asarray([r[1:] for r in kept], np.int64), labels[rows_kept])
+    genome.close()
+    return chain, expected
+
+
+def chromatin_phase(cli, kernels, tmp: Path, seed: int) -> dict:
+    """8b: `experiment=hg38/chromatin_profile` from phase 6's checkpoint on
+    hg19 CSVs lifted through a synthetic chain; returns the card runs'
+    launches."""
+    from hyena_dna_tpu_torch.data.chromatin_profile import ChromatinProfileDataset
+
+    t0 = time.perf_counter()
+    fasta = tmp / "genome" / "synthetic_hg38.fa"
+    data = tmp / "chromatin"
+    data.mkdir()
+    chain, expected = write_chromatin(data, fasta, seed)
+    t1 = time.perf_counter()
+    lifted = ChromatinProfileDataset(max_length=1000, ref_genome_path=str(fasta),
+                                     coords_target_path=str(data / "train_hg19_coords_targets.csv"),
+                                     liftover_chain_path=str(chain), save_liftover=False)
+    with_liftover_s = time.perf_counter() - t1
+    checks = {"liftover_rows": np.array_equal(lifted.coords, expected["train"][0])
+              and np.array_equal(lifted.targets, expected["train"][1])}
+    lifted.close()
+    argv = ["experiment=hg38/chromatin_profile", f"dataset.ref_genome_path={fasta}",
+            f"dataset.data_path={data}", f"dataset.liftover_chain_path={chain}",
+            f"train.pretrained_model_path={tmp / 'pretrain' / 'checkpoints' / 'last'}"]
+    run = run_trainer(cli, kernels, argv + [f"train.run_dir={tmp / 'chromatin_run'}",
+                                            "trainer.max_epochs=1", "trainer.log_every_n_steps=1"])
+    # the run lifted every split and wrote its hg38 CSV: read them back
+    read_s = {}
+    for split in CHROMATIN_ROWS:
+        t1 = time.perf_counter()
+        saved = ChromatinProfileDataset(
+            max_length=1000, ref_genome_path=str(fasta),
+            coords_target_path=str(data / f"{split}_hg38_coords_targets.csv"))
+        read_s[split] = time.perf_counter() - t1
+        checks[f"saved_{split}"] = (np.array_equal(saved.coords, expected[split][0])
+                                    and np.array_equal(saved.targets, expected[split][1]))
+        saved.close()
+    aurocs = {k: v for r in run.records for k, v in r.items() if "auroc" in k}
+    aurocs.update({k: v for k, v in run.final.items() if "auroc" in k})
+    checks["aurocs"] = (all(f"{s}/auroc_{m}" in aurocs for s in ("val", "test")
+                            for m in ("macro", "median"))
+                        and all(0.0 <= v <= 1.0 for v in aurocs.values()))
+    extra = {"rows": {s: [n, len(expected[s][0])] for s, n in CHROMATIN_ROWS.items()},
+             "labels": CHROMATIN_LABELS, "dataset_with_liftover_s": with_liftover_s,
+             "dataset_without_liftover_s": read_s["train"], "aurocs": aurocs}
+    check_trainer_run(run, "8b chromatin_profile", TRAINER_LAUNCHES, checks, extra, t0,
+                      phase="downstream")
+    total = dict(run.launches)
+    for n, c in loss_parity(cli, kernels, argv, tmp, "chromatin").items():
+        total[n] += c
+    return total
+
+
+def write_species(root: Path, seed: int) -> list:
+    """Five species directories, every chromosome of their
+    SPECIES_CHROMOSOME_SPLITS entry as `chr{n}.fa`, human's valid ones as
+    `chr{n}.fna.gz`; each species at its SPECIES_GC. Returns the paths the
+    datasets must decompress the gzipped ones to."""
+    from hyena_dna_tpu_torch.data.species import SPECIES_CHROMOSOME_SPLITS
+
+    rng = np.random.default_rng(seed)
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    unpacked = []
+    for spec, gc in SPECIES_GC.items():
+        d = root / spec
+        d.mkdir(parents=True)
+        splits = SPECIES_CHROMOSOME_SPLITS[spec]
+        p = [(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2]
+        for split in ("train", "valid", "test"):
+            for c in splits[split]:
+                seq = bases[rng.choice(4, SPECIES_CHROM_BASES, p=p)].tobytes()
+                text = (f">chr{c}\n".encode()
+                        + b"".join(seq[i:i + 80] + b"\n" for i in range(0, len(seq), 80)))
+                if spec == "human" and split == "valid":
+                    with gzip.open(d / f"chr{c}.fna.gz", "wb") as f:
+                        f.write(text)
+                    unpacked.append(d / f"chr{c}.fna")
+                else:
+                    (d / f"chr{c}.fa").write_bytes(text)
+    return unpacked
+
+
+def species_phase(cli, FB, kernels, tmp: Path, seed: int) -> dict:
+    """8c: `experiment=hg38/species_seqlen_warmup_reload` through its six
+    stages, one epoch each; 8d: `experiment=hg38/species_classification`
+    from scratch. Returns the card runs' launches."""
+    import statistics
+
+    t0 = time.perf_counter()
+    root = tmp / "species"
+    unpacked = write_species(root, seed)
+    shipped = cli.build_config(["experiment=hg38/species_seqlen_warmup_reload"])
+    stages = [(int(p["batch_size"]), int(p["seq_len"]))
+              for p in shipped["callbacks"]["seqlen_warmup_reload"]["stage_params"]]
+    params = [{"seq_len": L, "epochs": 1, "batch_size": b} for b, L in stages]
+    argv = ["experiment=hg38/species_seqlen_warmup_reload", f"dataset.species_dir={root}",
+            f"dataset.total_size={SPECIES_TOTAL}", f"trainer.limit_train_batches={SPECIES_STEPS}",
+            f"trainer.max_epochs={len(stages)}", "trainer.log_every_n_steps=1",
+            "callbacks.seqlen_warmup_reload.stage_params=" + json.dumps(params),
+            f"train.run_dir={tmp / 'species_warmup'}"]
+    with record_fft(FB):
+        run = run_trainer(cli, kernels, argv, step_peaks=True)
+    # the stages in the order run: (batch, L) and the steps of each
+    runs = []
+    for i, shape in enumerate(run.shapes):
+        if not runs or runs[-1]["shape"] != shape:
+            runs.append({"shape": shape, "steps": []})
+        runs[-1]["steps"].append(i)
+    per_stage = []
+    for (b, L), r in zip(stages, runs):
+        idx = r["steps"]
+        ms = [(run.spans[i][1] - run.spans[i][0]) * 1e3 for i in idx]
+        per_stage.append({"batch": b, "L": L, "steps": len(idx),
+                          "step_ms_median": statistics.median(ms), "step_ms_first": ms[0],
+                          "tokens_per_step": b * L,
+                          "peak_gib": max(run.step_peak[i] for i in idx) if run.step_peak
+                          else None,
+                          "fft_sizes": sorted({n for i in idx for n in run.ffts[i]})})
+    last = runs[-1]["steps"] if runs else []
+    val_acc = [r["val/accuracy"] for r in run.records if "val/accuracy" in r]
+    checks = {
+        "stages": [r["shape"] for r in runs] == stages,
+        "steps_per_stage": [len(r["steps"]) for r in runs]
+        == [min(SPECIES_STEPS, SPECIES_TOTAL // b) for b, _ in stages],
+        "last_stage_fft": bool(last) and all(
+            run.ffts[i] and set(run.ffts[i]) == {SPECIES_LAST_FFT} for i in last),
+        "val_accuracy": len(val_acc) == len(stages) and all(0 <= v <= 1 for v in val_acc),
+        "test_accuracy": 0 <= run.final["test/accuracy"] <= 1,
+        "gz_decompressed": all(p.exists() for p in unpacked)}
+    losses = train_losses(run.records)
+    checks["losses_finite"] = all(math.isfinite(v) for v in losses)
+    checks["launches_per_step"] = all(
+        step == {k: SPECIES_LAUNCHES.get(k, 0) for k in step} for step in run.per_step)
+    ok = all(checks.values())
+    log({"phase": "downstream", "part": "8c species seqlen warmup", "stages": per_stage,
+         "launches_per_step": run.per_step[-1], "expected_per_step": SPECIES_LAUNCHES,
+         "launches": run.launches, "val_accuracy": val_acc,
+         "test_accuracy": run.final["test/accuracy"], "loss_first": losses[0],
+         "loss_last": losses[-1], "checks": checks,
+         "seconds": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the species curriculum failed its checks: {checks}")
+    total = dict(run.launches)
+
+    t0 = time.perf_counter()
+    argv = ["experiment=hg38/species_classification", f"dataset.species_dir={root}",
+            f"dataset.total_size={32 * SPECIES_CLS_STEPS}"]
+    run = run_trainer(cli, kernels, argv + [f"train.run_dir={tmp / 'species_cls'}",
+                                            "trainer.max_epochs=1", "trainer.log_every_n_steps=1"])
+    val_acc = [r["val/accuracy"] for r in run.records if "val/accuracy" in r]
+    checks = {"shape": set(run.shapes) == {(32, 1024)},
+              "accuracy": bool(val_acc) and all(0 <= v <= 1 for v in val_acc)
+              and 0 <= run.final["test/accuracy"] <= 1}
+    check_trainer_run(run, "8d species_classification", TRAINER_LAUNCHES, checks,
+                      {"val_accuracy": val_acc}, t0, phase="downstream")
+    for n, c in run.launches.items():
+        total[n] += c
+    for n, c in loss_parity(cli, kernels, argv, tmp, "species_classification").items():
+        total[n] += c
+    return total
+
+
+def downstream_phase(FB, kernels, tmp: Path, seed: int) -> dict:
+    """Phase 8 in phase 6's directory (its genome and checkpoint); returns
+    the launches of its card runs."""
+    from hyena_dna_tpu_torch.train import __main__ as cli
+
+    t0 = time.perf_counter()
+    native_phase(tmp / "genome")
+    total = chromatin_phase(cli, kernels, tmp, seed)
+    for n, c in species_phase(cli, FB, kernels, tmp, seed + 1).items():
+        total[n] += c
+    log({"phase": "downstream", "part": "summary", "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1855,6 +2253,17 @@ def main() -> int:
         check_conv_bwd(FB, FB.fftconv_bwd_retransform, 32, 1024, "float32",
                        "XLA FFT on the TPU (trainer)", 103, C=TRAINER_D)]
     rows += trainer_rows
+    # the species curriculum's last stage (phase 8c): A, A' in bf16 at d = 128,
+    # B and C at fft 2^16 with bf16 conv I/O, C on the retransform route the
+    # checkpointed cells take
+    species_rows = [
+        check_front(FF, 4, 32768, 104, "bfloat16", d=TRAINER_D),
+        check_front_bwd(FF, 4, 32768, 105, "bfloat16", d=TRAINER_D),
+        check_conv(FB, 4, 32768, "bfloat16", "pallas_fftconv.py:1119 (species stage 6)", 106,
+                   C=TRAINER_D),
+        check_conv_bwd(FB, FB.fftconv_bwd_retransform, 4, 32768, "bfloat16",
+                       "pallas_fftconv.py:1222 (species stage 6)", 107, C=TRAINER_D)]
+    rows += species_rows
     for row in rows + bf16_rows:
         log({"phase": "kernel", **row})
     log(check_outer4(FB, 1, 1000448, (16, 512, 256), "bfloat16", 60))
@@ -1926,11 +2335,14 @@ def main() -> int:
          "front4_vs_flat_1m": long_ms["1000448 residual g2 front4"]
          / long_ms["1000448 residual g2"]})
 
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, n in trainer_phase(kernels, Path(tmp), seed=18).items():
+    with tempfile.TemporaryDirectory() as trainer_tmp:
+        for name, n in trainer_phase(kernels, Path(trainer_tmp), seed=18).items():
             total[name] += n
-    with tempfile.TemporaryDirectory() as tmp:
-        for name, n in generation_phase(cli, kernels, Path(tmp), seed=19).items():
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, n in generation_phase(cli, kernels, Path(tmp), seed=19).items():
+                total[name] += n
+        # phase 8 on phase 6's genome and checkpoint
+        for name, n in downstream_phase(FB, kernels, Path(trainer_tmp), seed=20).items():
             total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2001,6 +2413,8 @@ def main() -> int:
     # the rows at the trainer's shapes (phase 6), with their own numbers
     trainer = {r["name"]: {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
                            **{k: r[k] for k in timing}} for r in trainer_rows}
+    species = {r["name"]: {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
+                           **{k: r[k] for k in timing}} for r in species_rows}
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -2014,7 +2428,8 @@ def main() -> int:
          **({"ptxas": ptxas.get(name, {})}
             if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd", "fftconv_gated",
                         "fftconv_gated_bwd") else {}),
-         **({"trainer": trainer[name]} if name in trainer else {})}
+         **({"trainer": trainer[name]} if name in trainer else {}),
+         **({"species": species[name]} if name in species else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -6,26 +6,34 @@ the task and the model (`vocab_size`, `d_output`, `l_output`,
 Registration is by `_name_` through `__init_subclass__`. The loaders are
 `data/loader.py::DataLoader`, deterministic and resumable, so the
 reference's `fault_tolerant` and `ddp` flags are accepted and change
-nothing. Ported: `hg38`, `hg38_fixed`, `genomic_benchmark`,
-`nucleotide_transformer` and `icl_genomics` (k-shot prompts, `data/icl.py`).
-The chromatin-profile, species and ETT datamodules wait for their datasets:
-their registry entries raise and cite ROADMAP.md Queue 1 item 9. The BPE
-tokenizer of `tokenizer_name: bpe` needs `transformers`, which the port
-does not use: it raises.
+nothing. Every datamodule of the JAX package is here: `hg38`, `hg38_fixed`,
+`genomic_benchmark`, `nucleotide_transformer`, `chromatin_profile` (with
+the hg19 -> hg38 liftover, `data/chromatin_profile.py`), `species` (both
+tasks, `data/species.py`), `icl_genomics` (k-shot prompts, `data/icl.py`)
+and `ett` (`data/timeseries.py`). `hg38` and `species` rebuild their
+datasets in `init_datasets`, which the seqlen curriculum
+(`train/callbacks.py::SeqlenWarmupReload`) calls at each stage; the JAX
+`SpeciesDataModule` has no `init_datasets`, so there the curriculum changes
+the batch size and not the length. The BPE tokenizer of `tokenizer_name:
+bpe` needs `transformers`, which the port does not use: it raises.
 """
 
 from __future__ import annotations
 
+import os
 from pathlib import Path
 from typing import Any, Dict, Optional
 
+from hyena_dna_tpu_torch.data.chromatin_profile import ChromatinProfileDataset
 from hyena_dna_tpu_torch.data.classification import (GenomicBenchmarkDataset,
                                                      NucleotideTransformerDataset)
 from hyena_dna_tpu_torch.data.hg38 import HG38Dataset, HG38FixedDataset
 from hyena_dna_tpu_torch.data.icl import ICLGenomicsDataset
 from hyena_dna_tpu_torch.data.loader import DataLoader
+from hyena_dna_tpu_torch.data.species import SpeciesDataset
+from hyena_dna_tpu_torch.data.timeseries import (ETTHourDataset, ETTMinuteDataset,
+                                                 InformerDataset)
 from hyena_dna_tpu_torch.data.tokenizer import CharacterTokenizer
-from hyena_dna_tpu_torch.utils.registry import unported
 
 DATASET_REGISTRY: Dict[str, type] = {}
 
@@ -326,6 +334,165 @@ class NucleotideTransformerDataModule(GenomicBenchmarkDataModule):
         self.dataset_test = self.dataset_val
 
 
+class ChromatinProfileDataModule(SequenceDataModule):
+    """DeepSEA's 919-way multilabel task (`genomics.py:390-461`)."""
+
+    _name_ = "chromatin_profile"
+    l_output = 0
+
+    def __init__(
+        self,
+        ref_genome_path: Optional[str] = None,
+        ref_genome_version: str = "hg38",
+        data_path: Optional[str] = None,
+        liftover_chain_path: Optional[str] = None,
+        save_liftover: bool = True,
+        d_output: int = 919,
+        max_length: int = 1000,
+        use_padding: bool = True,
+        add_eos: bool = False,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+        **kwargs: Any,
+    ):
+        self.ref_genome_path = ref_genome_path
+        self.ref_genome_version = ref_genome_version
+        self.data_path = data_path or str(default_data_path / self._name_)
+        self.liftover_chain_path = liftover_chain_path
+        self.save_liftover = save_liftover
+        self.d_output = d_output
+        self.max_length = max_length
+        self.use_padding = use_padding
+        self.add_eos = add_eos
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def setup(self):
+        self.tokenizer = CharacterTokenizer(model_max_length=self.max_length + 2)
+        self.vocab_size = self.tokenizer.vocab_size
+
+        def make(split):
+            return ChromatinProfileDataset(
+                max_length=self.max_length,
+                ref_genome_path=self.ref_genome_path,
+                ref_genome_version=self.ref_genome_version,
+                coords_target_path=self._coords_csv(split),
+                tokenizer=self.tokenizer,
+                use_padding=self.use_padding,
+                add_eos=self.add_eos,
+                liftover_chain_path=self.liftover_chain_path,
+                save_liftover=self.save_liftover,
+            )
+
+        self.dataset_train = make("train")
+        self.dataset_val = make("val")
+        self.dataset_test = make("test")
+
+    def _coords_csv(self, split: str) -> str:
+        """The CSV of the genome's version when it exists (a saved liftover
+        writes it), else the hg19 original (lifted in memory through
+        `liftover_chain_path`)."""
+        want = f"{self.data_path}/{split}_{self.ref_genome_version}_coords_targets.csv"
+        if os.path.exists(want):
+            return want
+        alt = f"{self.data_path}/{split}_hg19_coords_targets.csv"
+        return alt if os.path.exists(alt) else want
+
+
+class SpeciesDataModule(SequenceDataModule):
+    """Species classification and multi-genome pretraining
+    (`genomics.py:464-569`)."""
+
+    _name_ = "species"
+    l_output = 0
+
+    def __init__(
+        self,
+        species: list = None,
+        species_dir: str = None,
+        max_length: int = 1024,
+        total_size: int = 10000,
+        pad_max_length: Optional[int] = None,
+        add_eos: bool = False,
+        rc_aug: bool = False,
+        chromosome_weights: str = "uniform",
+        species_weights: str = "uniform",
+        task: str = "species_classification",
+        remove_tail_ends: bool = False,
+        cutoff_train: float = 0.1,
+        cutoff_test: float = 0.2,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+        total_size_val: Optional[int] = None,
+        **kwargs: Any,
+    ):
+        self.species = species or []
+        self.species_dir = species_dir or str(default_data_path / self._name_)
+        self.max_length = max_length
+        self.total_size = total_size
+        self.total_size_val = total_size_val or max(1, total_size // 10)
+        self.pad_max_length = pad_max_length
+        self.add_eos = add_eos
+        self.rc_aug = rc_aug
+        self.chromosome_weights = chromosome_weights
+        self.species_weights = species_weights
+        self.task = task
+        self.remove_tail_ends = remove_tail_ends
+        self.cutoff_train = cutoff_train
+        self.cutoff_test = cutoff_test
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.seed = seed
+        self.d_output = len(self.species)
+
+    def setup(self):
+        self.tokenizer = CharacterTokenizer(model_max_length=self.max_length + 2)
+        self.vocab_size = self.tokenizer.vocab_size
+        self.init_datasets()
+
+    def init_datasets(self):
+        """(Re)build the datasets at `max_length`, closing the old ones'
+        FASTA handles: the seqlen curriculum calls it at each stage."""
+        for attr in ("dataset_train", "dataset_val", "dataset_test"):
+            ds = getattr(self, attr, None)
+            if ds is not None:
+                ds.close()
+
+        def make(split, n):
+            return SpeciesDataset(
+                species=self.species,
+                species_dir=self.species_dir,
+                split=split,
+                max_length=self.max_length,
+                total_size=n,
+                pad_max_length=self.pad_max_length,
+                tokenizer=self.tokenizer,
+                add_eos=self.add_eos,
+                rc_aug=self.rc_aug if split == "train" else False,
+                chromosome_weights=self.chromosome_weights,
+                species_weights=self.species_weights,
+                task=self.task,
+                remove_tail_ends=self.remove_tail_ends,
+                cutoff_train=self.cutoff_train,
+                cutoff_test=self.cutoff_test,
+            )
+
+        self.dataset_train = make("train", self.total_size)
+        self.dataset_val = make("valid", self.total_size_val)
+        self.dataset_test = make("test", self.total_size_val)
+
+
 class ICLGenomicsDataModule(SequenceDataModule):
     """k-shot in-context-learning prompts (`genomics.py:572-657`); the val
     and test sets are the benchmark's test split."""
@@ -393,7 +560,56 @@ class ICLGenomicsDataModule(SequenceDataModule):
         self.dataset_test = self.dataset_val
 
 
-DATASET_REGISTRY.update({
-    name: unported(f"datamodule {name!r}", f"item 9 (data/{module}.py)")
-    for name, module in (("chromatin_profile", "chromatin_profile"), ("species", "species"),
-                         ("ett", "timeseries"))})
+class ETTDataModule(SequenceDataModule):
+    """Informer ETT time series (`et.py:468-626`): `variant` hour, minute
+    or generic borders; `d_input`, `d_output` and `l_output` (the
+    forecast horizon) come from the train split."""
+
+    _name_ = "ett"
+
+    def __init__(
+        self,
+        data_path: str = None,
+        variant: str = "hour",
+        size=None,
+        features: str = "S",
+        target: str = "OT",
+        scale: bool = True,
+        eval_stamp: bool = False,
+        eval_mask: bool = False,
+        batch_size: int = 32,
+        batch_size_eval: Optional[int] = None,
+        num_workers: int = 1,
+        shuffle: bool = True,
+        seed: int = 0,
+        **kwargs: Any,
+    ):
+        self.data_path = data_path
+        self.variant = variant
+        self.size = tuple(size) if size else None
+        self.features = features
+        self.target = target
+        self.scale = scale
+        self.eval_stamp = eval_stamp
+        self.eval_mask = eval_mask
+        self.batch_size = batch_size
+        self.batch_size_eval = batch_size_eval
+        self.num_workers = num_workers
+        self.shuffle = shuffle
+        self.seed = seed
+
+    def setup(self):
+        cls = {"hour": ETTHourDataset, "minute": ETTMinuteDataset,
+               "generic": InformerDataset}[self.variant]
+
+        def make(flag):
+            return cls(self.data_path, flag=flag, size=self.size, features=self.features,
+                       target=self.target, scale=self.scale, eval_stamp=self.eval_stamp,
+                       eval_mask=self.eval_mask)
+
+        self.dataset_train = make("train")
+        self.dataset_val = make("val")
+        self.dataset_test = make("test")
+        self.d_input = self.dataset_train.d_input
+        self.d_output = self.dataset_train.d_output
+        self.l_output = self.dataset_train.pred_len

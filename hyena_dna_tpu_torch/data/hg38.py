@@ -11,9 +11,12 @@
 Every item is the next-token pair (ids[:-1], ids[1:]) as int32 numpy.
 Augmentation draws from the `np.random.Generator` the loader passes, so a
 sample is a function of (seed, epoch, index) and a resumed run sees the same
-data. The JAX package's fused C++ fetch (`data/native.py`) is not ported
-(ROADMAP.md Queue 1 item 9): this module runs the Python path, which gives
-the same ids.
+data. `HG38Dataset` takes the fused C++ fetch (`data/native.py`) under the
+JAX package's rule: the char tokenizer, left padding, the default
+characters and no '.'-padding of the interval. `dataset.native` is its
+handle, None on the Python path, which gives the same ids and which the
+dataset also takes when the library cannot be built or loaded
+(`native.load_library` warns once with the compiler's output).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from hyena_dna_tpu_torch.data.fasta import FastaInterval
+from hyena_dna_tpu_torch.data.native import NativeFasta, load_library
 from hyena_dna_tpu_torch.data.tokenizer import CharacterTokenizer
 
 
@@ -61,19 +65,59 @@ class HG38Dataset:
         self.intervals = read_bed(bed_file, split)
         self.fasta = FastaInterval(fasta_file=fasta_file, shift_augs=shift_augs,
                                    rc_aug=rc_aug, pad_interval=pad_interval)
+        self.native = None
+        if (not pad_interval and tokenizer_name == "char"
+                and self.tokenizer.padding_side == "left"
+                and tuple(self.tokenizer.characters) == ("A", "C", "G", "T", "N")
+                and load_library() is not None):
+            self.native = NativeFasta(fasta_file)
 
     def close(self) -> None:
+        """Release the FASTA handles (the seqlen curriculum rebuilds the
+        datasets at each stage)."""
         self.fasta.close()
+        if self.native is not None:
+            self.native.close()
+            self.native = None
 
     def __len__(self) -> int:
         return len(self.intervals)
 
-    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
+    def _native_item(self, idx: int, rng: Optional[np.random.Generator]) -> np.ndarray:
+        """The fused fetch with `FastaInterval`'s interval arithmetic: the
+        shift, the symmetric extension, the truncation and the coin flip,
+        drawn from `rng` in the same order."""
         chr_name, start, end = self.intervals[idx]
-        seq = self.fasta(chr_name, start, end, max_length=self.max_length, rng=rng)
-        out = self.tokenizer(seq, add_special_tokens=self.add_eos, padding="max_length",
-                             max_length=self.max_length, truncation=True)
-        ids = np.asarray(out["input_ids"])
+        chromosome_length = self.fasta.chr_lens[chr_name]
+        interval_length = end - start
+        if self.shift_augs is not None:
+            min_shift, max_shift = self.shift_augs
+            max_shift += 1
+            min_shift = max(start + min_shift, 0) - start
+            max_shift = min(end + max_shift, chromosome_length) - end
+            shift = int((rng or np.random.default_rng()).integers(min_shift, max_shift))
+            start += shift
+            end += shift
+        if interval_length < self.max_length:
+            extra = self.max_length - interval_length
+            start -= extra // 2
+            end += extra - extra // 2
+        if interval_length > self.max_length:
+            end = start + self.max_length
+        rc = self.rc_aug and (rng or np.random.default_rng()).random() > 0.5
+        return self.native.fetch_tokens(chr_name, start, end, self.max_length,
+                                        add_eos=self.add_eos, rc=rc, pad_left=True,
+                                        uppercase=False)
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None):
+        if self.native is not None:
+            ids = self._native_item(idx, rng)
+        else:
+            chr_name, start, end = self.intervals[idx]
+            seq = self.fasta(chr_name, start, end, max_length=self.max_length, rng=rng)
+            ids = np.asarray(self.tokenizer(seq, add_special_tokens=self.add_eos,
+                                            padding="max_length", max_length=self.max_length,
+                                            truncation=True)["input_ids"])
         if self.replace_N_token:
             n_id = self.tokenizer.get_vocab()["N"]
             ids = np.where(ids == n_id, self.tokenizer.pad_token_id, ids)

@@ -16,8 +16,9 @@ the train and eval steps (`train/step.py`) and the trainer's evaluation call:
   * `MulticlassTask`: sequence classification, targets (B,) or (B, 1)
     against logits (B, C).
 
-`AdaptiveLMTask` waits for its model: its registry entry raises and cites
-ROADMAP.md Queue 1 item 12.
+The input encoders are in `tasks/encoders.py`. Only `AdaptiveLMTask`
+waits, for its model: its registry entry raises and cites ROADMAP.md
+Queue 1 item 12 (`models/adaptive_softmax.py`).
 """
 
 from __future__ import annotations

@@ -23,6 +23,12 @@ weights: with `buffers=False` it maps gradients or updated parameters the
 same way, without the derived buffer, so a test can hold the JAX step's
 grads and new params against the port's by name.
 
+`flax_encoder_to_torch_state_dict` carries the parameters of an encoder of
+the JAX `tasks/encoders.py` onto the port's `tasks/encoders.py`: the rules
+above, plus a norm's `scale` as `weight`, a 2-D conv kernel (HWIO) as a
+Conv2d weight (OIHW) and a 1-D one (K, in, out) as a Conv1d weight (out,
+in, K); the 'layer' encoder's Hyena operator maps as in the backbone.
+
 `load_reference_state_dict` reads a `.pt`/`.ckpt` file the way the JAX
 package's importer does: a plain state dict or `{"state_dict": ...}`, with
 Lightning's `model.` prefix, metric buffers, remat infixes and the tied
@@ -101,6 +107,24 @@ def flax_to_torch_state_dict(params, buffers: bool = True) -> Dict[str, torch.Te
         else:
             sd[_torch_key(path)] = val
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def flax_encoder_to_torch_state_dict(params) -> Dict[str, torch.Tensor]:
+    """An encoder's flax parameter tree -> the port encoder's state dict."""
+    tree, extra = {}, {}
+    for path, val in _flatten(params):
+        if path[-1] == "kernel" and val.ndim == 4:
+            extra[_torch_key(path[:-1] + ("weight",))] = val.transpose(3, 2, 0, 1)
+        elif path[-1] == "scale":
+            extra[_torch_key(path[:-1] + ("weight",))] = val
+        else:
+            node = tree
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = val
+    sd = flax_to_torch_state_dict(tree) if tree else {}
+    sd.update({k: torch.from_numpy(np.array(v)) for k, v in extra.items()})
+    return sd
 
 
 def _normalize_key(key: str):

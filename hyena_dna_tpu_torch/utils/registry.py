@@ -2,9 +2,12 @@
 and the entry that stands for a module not ported yet.
 
 Entries resolve lazily, so importing this module imports no model.
-Datamodules register themselves in `data/datamodules.py`, tasks in
-`tasks/tasks.py`, decoders in `train/trainer.py`, callbacks in
-`train/callbacks.py`; the Hyena mixer is built by `models/blocks.py`.
+Datamodules register themselves in `data/datamodules.py` (every one of the
+JAX package's), tasks in `tasks/tasks.py`, encoders in
+`tasks/encoders.py`, decoders in `train/trainer.py`, callbacks in
+`train/callbacks.py`; the Hyena mixer is built by `models/blocks.py`. The
+two models still missing, `model` (`SequenceModel`) and `adaptive_lm`,
+raise and cite ROADMAP.md Queue 1 item 12.
 """
 
 from __future__ import annotations

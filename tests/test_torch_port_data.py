@@ -2,9 +2,10 @@
 seeds: the tokenizer, FASTA access and interval sampling, the hg38,
 fixed-window, LM-chunk and classification datasets (item by item, with
 augmentation), the resumable loader (order, resume, host split, errors) and
-the datamodules (every batch of every split equal). The JAX hg38 dataset
-takes its native C++ fetch where the library is built; the port runs the
-Python path, which must give the same ids.
+the datamodules (every batch of every split equal), the downstream ones
+(chromatin profile, species in both tasks, ETT hour and minute) included.
+Both hg38 datasets take their native C++ fetch where their library builds
+(tests/test_torch_port_native.py holds it to the Python path).
 """
 
 import numpy as np
@@ -284,6 +285,45 @@ def _all_batches(dm):
     return out
 
 
+@pytest.fixture(scope="module")
+def downstream(tmp_path_factory):
+    """Files of the downstream datamodules: a genome with hg38 coordinate
+    CSVs (5 labels), two species directories, and ETT CSVs long enough for
+    the fixed hour and minute borders."""
+    root = tmp_path_factory.mktemp("downstream")
+    rng = np.random.default_rng(5)
+    genome = {f"chr{i + 1}": "".join(rng.choice(list("ACGTacgt"), size=2500)) for i in range(2)}
+    fa = root / "genome.fa"
+    with open(fa, "w") as f:
+        for name, seq in genome.items():
+            f.write(f">{name}\n" + "".join(seq[i:i + 60] + "\n" for i in range(0, len(seq), 60)))
+    for split, n in (("train", 10), ("val", 5), ("test", 3)):
+        with open(root / f"{split}_hg38_coords_targets.csv", "w") as f:
+            f.write("Chr_No,Start,End," + ",".join(f"y_{j}" for j in range(5)) + "\n")
+            for i in range(n):
+                start = int(rng.integers(0, 2000))
+                labels = ",".join(str(int(v)) for v in rng.integers(0, 2, size=5))
+                f.write(f"{i % 2},{start},{start + 1000},{labels}\n")
+    for spec in ("human", "mouse"):
+        d = root / "species" / spec
+        d.mkdir(parents=True)
+        for c in ("1", "3", "12", "13", "2", "4", "5", "7", "9", "10", "11", "6", "8", "14",
+                  "15", "16", "17", "18", "19", "20", "21", "22", "X", "Y"):
+            seq = "".join(rng.choice(list("ACGT"), size=300))
+            (d / f"chr{c}.fa").write_text(f">chr{c}\n{seq}\n")
+    for variant, per_hour in (("hour", 1), ("minute", 4)):
+        n = 20 * 30 * 24 * per_hour
+        vals = rng.standard_normal((n, 2))
+        lines = ["date,HUFL,OT"]
+        for i in range(n):
+            m = i // per_hour
+            lines.append(f"2016-{1 + (m // 720) % 12:02d}-{1 + (m // 24) % 28:02d} "
+                         f"{m % 24:02d}:{15 * (i % per_hour):02d}:00,{vals[i, 0]:.4f},"
+                         f"{vals[i, 1]:.4f}")
+        (root / f"ett_{variant}.csv").write_text("\n".join(lines) + "\n")
+    return root
+
+
 @pytest.mark.parametrize("name,kw", [
     ("hg38", {"max_length": 128, "batch_size": 4, "rc_aug": True}),
     ("hg38", {"max_length": 96, "batch_size": 3, "add_eos": False, "batch_size_eval": 2}),
@@ -292,17 +332,28 @@ def _all_batches(dm):
                            "rc_aug": True}),
     ("genomic_benchmark", {"dataset_name": "toy", "max_length": 32, "batch_size": 4,
                            "return_mask": True, "padding_side": "right"}),
-    ("nucleotide_transformer", {"dataset_name": "nt_toy", "max_length": 32, "batch_size": 3})])
-def test_datamodule_matches_jax(genome, benchmark, name, kw):
+    ("nucleotide_transformer", {"dataset_name": "nt_toy", "max_length": 32, "batch_size": 3}),
+    ("chromatin_profile", {"d_output": 5, "max_length": 1200, "batch_size": 4}),
+    ("species", {"species": ["human", "mouse"], "max_length": 64, "total_size": 20,
+                 "batch_size": 4, "rc_aug": True}),
+    ("species", {"species": ["human", "mouse"], "max_length": 48, "total_size": 12,
+                 "batch_size": 3, "task": "next_token_pred", "total_size_val": 5}),
+    ("ett", {"variant": "hour", "size": [96, 48, 24], "batch_size": 64}),
+    ("ett", {"variant": "minute", "size": [96, 48, 24], "features": "M", "batch_size": 512})])
+def test_datamodule_matches_jax(genome, benchmark, downstream, name, kw):
     fa, bed, _ = genome
     files = ({"bed_file": str(bed), "fasta_file": str(fa)} if name == "hg38"
              else {"fasta_file": str(fa)} if name == "hg38_fixed"
+             else {"ref_genome_path": str(downstream / "genome.fa"),
+                   "data_path": str(downstream)} if name == "chromatin_profile"
+             else {"species_dir": str(downstream / "species")} if name == "species"
+             else {"data_path": str(downstream / f"ett_{kw['variant']}.csv")} if name == "ett"
              else {"dest_path": str(benchmark)})
     ours = DM.DATASET_REGISTRY[name](seed=11, **files, **kw)
     ref = JDM.DATASET_REGISTRY[name](seed=11, **files, **kw)
     ours.setup()
     ref.setup()
-    for attr in ("vocab_size", "d_output", "l_output", "max_length", "batch_size"):
+    for attr in ("vocab_size", "d_output", "l_output", "max_length", "batch_size", "d_input"):
         assert getattr(ours, attr, None) == getattr(ref, attr, None), attr
     for a, b in zip(_all_batches(ours), _all_batches(ref)):
         assert (a is None) == (b is None)
@@ -310,12 +361,6 @@ def test_datamodule_matches_jax(genome, benchmark, name, kw):
             assert len(a) == len(b)
             for x, y in zip(a, b):
                 assert_same(x, y)
-
-
-@pytest.mark.parametrize("name", ["chromatin_profile", "species", "ett"])
-def test_unported_datamodules_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        DM.DATASET_REGISTRY[name]()
 
 
 def test_bpe_tokenizer_is_refused(genome):
