@@ -160,9 +160,34 @@ line:
             step ms and peak GiB a stage. (d) `experiment=hg38/
             species_classification` from scratch, 64 steps of 32 x 1024,
             with (b)'s checks but the liftover and AUROC ones.
+9. models    the model layer at the shipped configs' width (bf16 with a float32
+            residual), on phase 6's genome and GenomicBenchmarks data. (a)
+            `experiment=hg38/hg38_attention` as shipped (d_model 128, 2
+            layers of 8-head MHA, 1024 learned positions, batch 256 x 1023),
+            48 steps (4 epochs of 12: the synthetic train split holds 13
+            batches): no kernel launched, the loss falls; the median step
+            ms, peak GiB, and one more step under `torch.profiler` with
+            SDPA's share of its device time; then the first 3 losses with
+            dropout off at batch 32, card against CPU within 5e-3. (b)
+            `experiment=hg38/genomic_benchmark_attention` as shipped, one
+            epoch: test accuracy above 0.5. (c) `experiment=hg38/hg38_hyena`
+            with MHA at layer 1 (8 heads, 1024 positions), 16 steps: A, A',
+            B and C once a step, the loss falls, the first 3 losses card vs
+            CPU. (d) `HyenaOperator(order=3)` at d_model 256, 4 x 32768
+            bf16 (fft 2^16), one head (`_tail_3d`) then two
+            (`_tail_generic`): forward and backward, B and C twice each, A
+            and A' never, output, input gradient and the filter bank's
+            parameter gradients against the same operator with plain convs
+            on the card (1e-2 / 2e-2 / 1e-3 of max);
+            then `num_blocks=2` (`fftconv_aliased`, no launch) in float32 at
+            4 x 8192 against the CPU (1e-4). (e) `SequenceModel` (long-conv,
+            ff, mha) as an LM and `AdaptiveLMModel` with `AdaptiveLMTask`,
+            16 AdamW steps each at d_model 128 on 16 x 1024 windows, float32:
+            the loss falls, no launch, the first loss card vs CPU within
+            1e-4 relative.
 Launch counts are zeroed just before this slice's path in phase 2 and
-before each request of phases 4 and 5, each run of phases 6 and 8 and each
-part of phase 7, and read just after it.
+before each request of phases 4 and 5, each run of phases 6, 8 and 9 and
+each part of phases 7 and 9, and read just after it.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
@@ -171,7 +196,9 @@ float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
 row of B, C, E, E', A4, A4', F and F' under "routes"; A, A', B and C
 at the trainer's shapes under "trainer" and at the species curriculum's
-last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; the bf16 rows of A,
+last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; phase 9's
+launches (9c's mixed stack and 9d's general Hyena path) under
+"models_launches"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
 readings, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
@@ -2140,6 +2167,310 @@ def downstream_phase(FB, kernels, tmp: Path, seed: int) -> dict:
     return total
 
 
+# Phase 9, the model layer: the attention experiments as shipped, a mixed
+# Hyena + MHA stack, the general Hyena path at the hg38 LM width, and the
+# generic backbone and adaptive LM at small widths, on phase 6's genome and
+# GenomicBenchmarks data.
+# phase 6's genome holds 13 batches of 256 x 1023 in its train split: 9a runs
+# ATTN_EPOCHS epochs of ATTN_STEPS / ATTN_EPOCHS steps
+ATTN_STEPS, ATTN_EPOCHS, MIXED_STEPS, SEQ_STEPS = 48, 4, 16, 16
+# the mixed stack's one Hyena layer: A, A', B and C once a step each
+MIXED_LAUNCHES = {"fused_front": 1, "fused_front_bwd": 1, "fftconv": 1, "fftconv_bwd": 1}
+MIXED_OVERRIDES = ["model.attn_layer_idx=[1]", "model.attn_cfg.num_heads=8",
+                   "model.max_position_embeddings=1024"]
+# the general operator in bf16, kernels B and C against their plain versions
+# on the card: both run the convs in float32 and round the same products and
+# gates to bf16, so an element may land a bf16 step (2^-8) apart, of max|.|;
+# dfilter is the largest over the filter bank's parameters (its MLP, trained
+# through kernel C's float32 dk, and the skip bias) of each one's error: a
+# float32 sum over every position, so far tighter (5e-5 on the H100)
+GENERAL_TOL = {"y": 1e-2, "du": 2e-2, "dfilter": 1e-3}
+GENERAL_SHAPE = (4, 32768)  # fft 2^16 at the hg38 LM width d_model 256
+BLOCKS_SHAPE = (4, 8192)
+BLOCKS_TOL = 1e-4  # float32 num_blocks = 2 (no kernel), card against CPU, of max|.|
+SEQ_LOSS_RTOL = 1e-4  # float32 first loss, card against CPU
+
+
+def attention_share(trainer) -> dict:
+    """One more train step of `trainer` under torch.profiler
+    (`utils/profile_forward.py::profile_device`): SDPA's share of the step's
+    device time, the step's idle share and the device ms by group."""
+    from hyena_dna_tpu_torch.train.trainer import _to_device
+    from hyena_dna_tpu_torch.utils.profile_forward import profile_device
+
+    batch = _to_device(next(iter(trainer.datamodule.train_dataloader())), trainer.device)
+    wall, groups, kernels = profile_device(
+        lambda: trainer.train_step(trainer.state, batch, trainer.generator))
+    busy = sum(groups.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"profiled_step_ms": wall, "device_busy_ms": busy,
+            "sdpa_share_of_busy": groups.get("attention", 0.0) / busy if busy else None,
+            "device_idle_share": 1.0 - busy / wall if wall else None,
+            "device_ms_by_group": groups, "top_kernels_ms": [[n[:60], ms] for n, ms in top]}
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Every kernel wrapper takes its plain version, CUDA tensors included."""
+    from hyena_dna_tpu_torch import _cuda
+
+    saved = _cuda.on_card
+    _cuda.on_card = lambda tensor: False
+    try:
+        yield
+    finally:
+        _cuda.on_card = saved
+
+
+def general_hyena(kernels, seed: int) -> dict:
+    """9d: `HyenaOperator(order=3)` at the hg38 LM width in bf16 at 4 x 32768
+    (fft 2^16), one head (`_tail_3d`) then two (`_tail_generic`): forward and
+    backward through kernels B and C (order - 1 launches each, A and A'
+    none), output, input gradient and the filter bank's parameter gradients
+    against the same operator with plain convs on the card; then
+    `num_blocks=2` (`fftconv_aliased`, no launch) in float32 at 4 x 8192
+    against the CPU. Returns the launches of the kernel runs."""
+    import torch
+    from hyena_dna_tpu_torch.models.hyena import HyenaOperator
+
+    total = {k.name: 0 for k in kernels}
+    filt = dict(emb_dim=5, w=10)
+
+    def fwd_bwd(op, u, dy):
+        def run():
+            x = u.detach().clone().requires_grad_(True)
+            for p in op.parameters():
+                p.grad = None
+            y = op(x)
+            y.backward(dy)
+            return y.detach(), x.grad
+        return run
+
+    def filter_grads(op):
+        """The filter bank's parameter gradients (kernel C's dk through the
+        filter MLP, and dD), by name."""
+        return {n: p.grad.detach().clone() for n, p in op.filter_fn.named_parameters()
+                if p.grad is not None}
+
+    for heads in (1, 2):
+        b, length = GENERAL_SHAPE
+        op = HyenaOperator(D_MODEL, l_max=length, order=3, num_heads=heads, filter_order=64,
+                           filter_cfg=filt, dtype=torch.bfloat16)
+        op.init_weights(torch.Generator().manual_seed(seed + heads))
+        op = op.cuda().train()
+        gen = torch.Generator().manual_seed(seed)
+        u = torch.randn(b, length, D_MODEL, generator=gen).to("cuda", torch.bfloat16)
+        dy = torch.randn(b, length, D_MODEL, generator=gen).to("cuda", torch.bfloat16)
+        run = fwd_bwd(op, u, dy)
+        zero_counts(kernels)
+        y, du = run()
+        torch.cuda.synchronize()
+        launches = read_counts(kernels)
+        dfilter = filter_grads(op)
+        ms = time_ms(run)
+        with plain_on_card():
+            y_ref, du_ref = run()
+            dfilter_ref = filter_grads(op)
+            plain_ms = time_ms(run)
+        err = {"y": rel_err(y, y_ref), "du": rel_err(du, du_ref),
+               "dfilter": max(rel_err(dfilter[n], dfilter_ref[n]) for n in dfilter_ref)}
+        expect = {k.name: {"fftconv": 2, "fftconv_bwd": 2}.get(k.name, 0) for k in kernels}
+        checks = {"launches": launches == expect, "finite": bool(torch.isfinite(y).all()),
+                  "same_filter_grads": sorted(dfilter) == sorted(dfilter_ref),
+                  **{f"{k}_within_tol": err[k] <= GENERAL_TOL[k] for k in err}}
+        ok = all(checks.values())
+        log({"phase": "models", "part": f"9d general Hyena order 3, heads {heads}",
+             "route": "_tail_3d" if heads == 1 else "_tail_generic", "B": b, "L": length,
+             "d": D_MODEL, "precision": "bf16", "fwd_bwd_ms": ms, "plain_fwd_bwd_ms": plain_ms,
+             "rel_err": err, "tol": GENERAL_TOL, "launches": launches, "checks": checks,
+             "ok": ok})
+        if not ok:
+            raise AssertionError(f"the general Hyena path (heads {heads}) failed: {checks}")
+        for n, c in launches.items():
+            total[n] += c
+
+    b, length = BLOCKS_SHAPE
+    cpu_op = HyenaOperator(D_MODEL, l_max=length, order=2, num_blocks=2, filter_order=64,
+                           filter_cfg=filt)
+    cpu_op.init_weights(torch.Generator().manual_seed(seed + 3))
+    card_op = copy.deepcopy(cpu_op).cuda()
+    gen = torch.Generator().manual_seed(seed + 4)
+    u, dy = (torch.randn(b, length, D_MODEL, generator=gen) for _ in range(2))
+    zero_counts(kernels)
+    y, du = fwd_bwd(card_op, u.cuda(), dy.cuda())()
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    y_ref, du_ref = fwd_bwd(cpu_op, u, dy)()
+    err = {"y": rel_err(y.cpu(), y_ref), "du": rel_err(du.cpu(), du_ref)}
+    checks = {"no_launch": not any(launches.values()),
+              **{f"{k}_within_tol": v <= BLOCKS_TOL for k, v in err.items()}}
+    ok = all(checks.values())
+    log({"phase": "models", "part": "9d num_blocks 2 (fftconv_aliased), card vs CPU", "B": b,
+         "L": length, "d": D_MODEL, "precision": "fp32", "rel_err": err, "tol": BLOCKS_TOL,
+         "launches": launches, "checks": checks, "ok": ok})
+    if not ok:
+        raise AssertionError(f"the multi-block Hyena path failed: {checks}")
+    return total
+
+
+def sequence_models(kernels, tmp: Path, seed: int) -> None:
+    """9e: `SequenceModel` with long-conv, ff and mha layers (between a token
+    embedding and a Linear head, `LMTask`) and an `AdaptiveLMModel` with
+    `AdaptiveLMTask`, each SEQ_STEPS AdamW steps in float32 on 16 x 1024
+    windows of phase 6's genome: the loss falls, no kernel launches, and the
+    first loss matches the same model's on the CPU."""
+    import statistics
+
+    import torch
+    from torch import nn
+    from hyena_dna_tpu_torch.data.datamodules import DATASET_REGISTRY
+    from hyena_dna_tpu_torch.models.adaptive_softmax import AdaptiveLMModel
+    from hyena_dna_tpu_torch.models.sequence_model import SequenceModel
+    from hyena_dna_tpu_torch.tasks.encoders import EmbeddingEncoder
+    from hyena_dna_tpu_torch.tasks.tasks import AdaptiveLMTask, LMTask
+    from hyena_dna_tpu_torch.train import build_optimizer, create_train_state, make_train_step
+    from hyena_dna_tpu_torch.train.trainer import _to_device
+
+    genome = tmp / "genome"
+    dm = DATASET_REGISTRY["hg38"](bed_file=str(genome / "synthetic_hg38.bed"),
+                                  fasta_file=str(genome / "synthetic_hg38.fa"), max_length=1024,
+                                  batch_size=16, add_eos=True, seed=seed)
+    dm.setup()
+    batches = []
+    for batch in dm.train_dataloader():
+        batches.append(batch)
+        if len(batches) == SEQ_STEPS:
+            break
+    vocab = dm.vocab_size
+    d = 128
+
+    class SequenceLM(nn.Module):
+        def __init__(self, generator):
+            super().__init__()
+            self.encoder = EmbeddingEncoder(vocab, d, generator=generator)
+            self.backbone = SequenceModel(
+                d, n_layers=1, residual="R", norm="layer", generator=generator,
+                layer=[{"_name_": "long-conv", "l_max": 1024}, {"_name_": "ff", "expand": 4},
+                       {"_name_": "mha", "num_heads": 8}])
+            self.decoder = nn.Linear(d, vocab)
+
+        def forward(self, x, generator=None):
+            return self.decoder(self.backbone(self.encoder(x), generator=generator)[0])
+
+    builds = {
+        "SequenceModel (long-conv, ff, mha)": (SequenceLM, LMTask),
+        "AdaptiveLMModel": (lambda g: AdaptiveLMModel(
+            vocab, d, cutoffs=[4, 8], div_val=2, generator=g,
+            backbone=dict(n_layers=2, layer=[{"_name_": "mha", "num_heads": 8},
+                                             {"_name_": "ff"}], residual="R", norm="layer")),
+            AdaptiveLMTask)}
+    for label, (build, task_cls) in builds.items():
+        cpu_model = build(torch.Generator().manual_seed(seed))
+        task = task_cls()
+        x0, y0 = (torch.from_numpy(a).long() for a in batches[0][:2])
+        with torch.no_grad():
+            out = cpu_model.train()(x0)
+            cpu_loss = float(task.compute_loss(out[0] if isinstance(out, tuple) else out, y0))
+        model = copy.deepcopy(cpu_model).cuda()
+        state = create_train_state(model, build_optimizer(model, lr=1e-3, weight_decay=0.1)[0])
+        step = make_train_step(task)
+        generator = torch.Generator(device="cuda").manual_seed(seed)
+        zero_counts(kernels)
+        losses, seconds = [], []
+        for batch in batches:
+            batch = _to_device(batch, torch.device("cuda"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(step(state, batch, generator)["loss"]))
+            seconds.append(time.perf_counter() - t0)
+        launches = read_counts(kernels)
+        k8 = len(losses) // 2
+        checks = {"losses_finite": all(math.isfinite(v) for v in losses),
+                  "loss_falls": sum(losses[-k8:]) < sum(losses[:k8]),
+                  "first_loss_vs_cpu": abs(losses[0] - cpu_loss) <= SEQ_LOSS_RTOL * abs(cpu_loss),
+                  "no_launch": not any(launches.values())}
+        ok = all(checks.values())
+        log({"phase": "models", "part": f"9e {label}", "steps": len(losses), "B": 16, "L": 1024,
+             "d": d, "precision": "fp32", "step_ms": statistics.median(seconds[2:]) * 1e3,
+             "loss_first": losses[0], "loss_first_cpu": cpu_loss, "loss_last": losses[-1],
+             "loss_mean_first_half": sum(losses[:k8]) / k8,
+             "loss_mean_last_half": sum(losses[-k8:]) / k8, "launches": launches,
+             "checks": checks, "ok": ok})
+        if not ok:
+            raise AssertionError(f"9e {label} failed its checks: {checks}")
+
+
+def models_phase(kernels, tmp: Path, seed: int) -> dict:
+    """Phase 9 in phase 6's directory (its genome and GenomicBenchmarks
+    data); returns the launches of its card runs."""
+    import torch
+    from hyena_dna_tpu_torch.train import __main__ as cli
+
+    t_phase = time.perf_counter()
+    genome, gb = tmp / "genome", tmp / "gb"
+    data = [f"dataset.bed_file={genome / 'synthetic_hg38.bed'}",
+            f"dataset.fasta_file={genome / 'synthetic_hg38.fa'}"]
+    total = {k.name: 0 for k in kernels}
+
+    def add(launches):
+        for n, c in launches.items():
+            total[n] += c
+
+    def mixers(trainer):
+        return [type(m.mixer).__name__ for m in trainer.model.modules() if hasattr(m, "mixer")]
+
+    # 9a: the pure-attention LM as shipped, then its first losses card vs CPU
+    t0 = time.perf_counter()
+    argv = ["experiment=hg38/hg38_attention", *data, f"train.run_dir={tmp / 'attention'}",
+            f"trainer.limit_train_batches={ATTN_STEPS // ATTN_EPOCHS}",
+            f"trainer.max_epochs={ATTN_EPOCHS}", "trainer.log_every_n_steps=1"]
+    run = run_trainer(cli, kernels, argv)
+    shape = run.shapes[0]
+    check_trainer_run(run, f"9a {argv[0]}", {},
+                      {"every_layer_attention": mixers(run.trainer) == ["MHA", "MHA"],
+                       "batch_256": shape[0] == 256, "steps": len(run.per_step) == ATTN_STEPS},
+                      {"batch_shape": list(shape)}, t0,
+                      phase="models")
+    add(run.launches)
+    log({"phase": "models", "part": "9a profiled step", **attention_share(run.trainer)})
+    add(loss_parity(cli, kernels, argv[:3] + ["model.attn_cfg.dropout=0.0",
+                                              "dataset.batch_size=32"], tmp, "hg38_attention"))
+    del run
+    torch.cuda.empty_cache()
+
+    # 9b: GenomicBenchmarks with the attention backbone as shipped, one epoch
+    t0 = time.perf_counter()
+    run = run_trainer(cli, kernels, [
+        "experiment=hg38/genomic_benchmark_attention", f"dataset.dest_path={gb}",
+        "dataset.dataset_name=synthetic_promoters", f"train.run_dir={tmp / 'gb_attention'}",
+        "trainer.max_epochs=1", "trainer.log_every_n_steps=1"])
+    check_trainer_run(run, "9b experiment=hg38/genomic_benchmark_attention", {},
+                      {"test_accuracy_above_half": run.final["test/accuracy"] > 0.5,
+                       "every_layer_attention": mixers(run.trainer) == ["MHA", "MHA"]},
+                      {}, t0, phase="models")
+    add(run.launches)
+    del run
+
+    # 9c: a mixed stack, Hyena at layer 0 and 8-head MHA at layer 1
+    t0 = time.perf_counter()
+    argv = ["experiment=hg38/hg38_hyena", *data, *MIXED_OVERRIDES,
+            f"train.run_dir={tmp / 'mixed'}", f"trainer.limit_train_batches={MIXED_STEPS}",
+            "trainer.max_epochs=1", "trainer.log_every_n_steps=1"]
+    run = run_trainer(cli, kernels, argv)
+    check_trainer_run(run, "9c experiment=hg38/hg38_hyena + attn_layer_idx [1]",
+                      MIXED_LAUNCHES, {"mixers": mixers(run.trainer) == ["HyenaOperator", "MHA"]},
+                      {}, t0, phase="models")
+    add(run.launches)
+    add(loss_parity(cli, kernels, argv[:6], tmp, "mixed"))
+    del run
+
+    add(general_hyena(kernels, seed + 1))
+    sequence_models(kernels, tmp, seed + 2)
+    log({"phase": "models", "part": "summary", "seconds": time.perf_counter() - t_phase,
+         "launches": total})
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2344,6 +2675,10 @@ def main() -> int:
         # phase 8 on phase 6's genome and checkpoint
         for name, n in downstream_phase(FB, kernels, Path(trainer_tmp), seed=20).items():
             total[name] += n
+        # phase 9 on phase 6's genome and GenomicBenchmarks data
+        models_launches = models_phase(kernels, Path(trainer_tmp), seed=21)
+        for name, n in models_launches.items():
+            total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2429,6 +2764,7 @@ def main() -> int:
             if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd", "fftconv_gated",
                         "fftconv_gated_bwd") else {}),
          **({"trainer": trainer[name]} if name in trainer else {}),
+         **({"models_launches": models_launches[name]} if models_launches.get(name) else {}),
          **({"species": species[name]} if name in species else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

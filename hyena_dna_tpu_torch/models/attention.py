@@ -1,0 +1,107 @@
+"""Multi-head causal attention mixer (mirrors `hyena_dna_tpu/models/attention.py`).
+
+A packed `Wqkv` (d -> 3d) and `out_proj` (d -> d), each with a bias unless
+`use_bias` is off, the reference torch names (flash-attn's `MHA`), so a
+reference state dict loads as it is. Init: N(0, `init_std`) for `Wqkv` and
+N(0, `init_std` / sqrt(2 n_layer)) for `out_proj`, zero biases.
+
+  qkv (B, L, 3, H, hd) -> [rotary on q, k] -> SDPA on (B, H, L, hd), causal,
+  scale `softmax_scale` or 1/sqrt(hd) -> (B, L, H, hd) -> dropout -> out_proj
+
+The JAX module calls `jax.nn.dot_product_attention` (XLA's fused
+attention, not a Pallas kernel); the port calls
+`F.scaled_dot_product_attention`, which takes its flash backend on the card
+in bf16. Its `dropout_p` would drop attention probabilities; the JAX module
+drops the attention output instead, after the product and before the
+reshape, so SDPA runs with `dropout_p=0` and `models/nn.py::dropout` acts on
+its output with the generator handed to `forward`.
+
+The products run in `dtype` (flax `Dense(dtype)`); the rotary embedding
+(GPT-NeoX, non-interleaved, over the first `rotary_emb_dim` features of
+each head) is computed in float32 and cast back to the input dtype, as
+JAX's promotion does.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from hyena_dna_tpu_torch.models.nn import dropout, linear
+
+
+def apply_rotary(q: torch.Tensor, k: torch.Tensor, rotary_dim: int):
+    """Rotary embeddings on q, k (B, L, H, hd) over their first `rotary_dim`
+    features: halves x1, x2 -> (x1 cos - x2 sin, x1 sin + x2 cos) with the
+    frequencies 10000^(-2i / rotary_dim) at positions 0..L-1."""
+    length = q.shape[1]
+    inv_freq = 1.0 / (10000 ** (torch.arange(0, rotary_dim, 2, device=q.device,
+                                             dtype=torch.float32) / rotary_dim))
+    freqs = torch.outer(torch.arange(length, device=q.device, dtype=torch.float32), inv_freq)
+    cos, sin = freqs.cos()[None, :, None], freqs.sin()[None, :, None]
+
+    def rot(x):
+        x_rot, x_pass = x[..., :rotary_dim].float(), x[..., rotary_dim:]
+        x1, x2 = x_rot.chunk(2, dim=-1)
+        out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+        return torch.cat([out.to(x.dtype), x_pass], dim=-1)
+
+    return rot(q), rot(k)
+
+
+class MHA(nn.Module):
+    def __init__(self, d_model: int, num_heads: int = 1, causal: bool = True,
+                 dropout: float = 0.0, use_bias: bool = True, rotary_emb_dim: int = 0,
+                 softmax_scale: Optional[float] = None, n_layer: int = 1,
+                 init_std: float = 0.02, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model={d_model} is not a multiple of num_heads={num_heads}")
+        self.d_model = d_model
+        self.num_heads = num_heads
+        self.causal = causal
+        self.dropout = dropout
+        self.rotary_emb_dim = rotary_emb_dim
+        self.softmax_scale = softmax_scale
+        self.n_layer = n_layer
+        self.init_std = init_std
+        self.dtype = dtype
+        self.Wqkv = nn.Linear(d_model, 3 * d_model, bias=use_bias)
+        self.out_proj = nn.Linear(d_model, d_model, bias=use_bias)
+        self.init_weights(generator)
+
+    @property
+    def d_output(self) -> int:
+        return self.d_model
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
+        """N(0, init_std) for Wqkv, N(0, init_std / sqrt(2 n_layer)) for
+        out_proj, zero biases."""
+        for layer, std in ((self.Wqkv, self.init_std),
+                           (self.out_proj, self.init_std / math.sqrt(2 * self.n_layer))):
+            layer.weight.normal_(0.0, std, generator=generator)
+            if layer.bias is not None:
+                layer.bias.zero_()
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, L, d) -> (B, L, d) in `dtype`."""
+        b, length, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        qkv = linear(x, self.Wqkv, self.dtype).reshape(b, length, 3, h, hd)
+        q, k, v = qkv.unbind(2)
+        if self.rotary_emb_dim > 0:
+            q, k = apply_rotary(q, k, self.rotary_emb_dim)
+        scale = self.softmax_scale or 1.0 / math.sqrt(hd)
+        out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                             v.transpose(1, 2), dropout_p=0.0,
+                                             is_causal=self.causal, scale=scale)
+        out = dropout(out.transpose(1, 2), self.dropout, self.training, generator)
+        return linear(out.reshape(b, length, d), self.out_proj, self.dtype)

@@ -43,6 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hyena_dna_tpu_torch.models.attention import MHA
 from hyena_dna_tpu_torch.models.hyena import HyenaOperator
 from hyena_dna_tpu_torch.models.nn import dropout, linear
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
@@ -51,34 +52,45 @@ from hyena_dna_tpu_torch.ops.mlp_fused import mlp_fused
 
 # Hyena config keys that do not change the computation: optimizer settings
 # (the optimizer labels parameters itself), the filter dropout (unimplemented
-# in the JAX package and the reference too) and reference CUDA switches.
+# in the JAX package and the reference too), reference CUDA switches and
+# the JAX module's init and routing switches.
 _TRAINING_ONLY_KEYS = ("lr", "lr_pos_emb", "wd", "filter_dropout",
-                       "fused_bias_fc", "fused_fft_conv", "jit_filter")
+                       "fused_bias_fc", "fused_fft_conv", "jit_filter", "filter_cls",
+                       # JAX module switches: init scales, Pallas routing, the mesh
+                       "n_layer", "init_std", "use_pallas_front", "pallas_interpret",
+                       "return_state", "mesh", "seq_axis")
+# layer-config key -> HyenaFilter argument (JAX `make_mixer`'s filter keys)
 _FILTER_KEYS = {"emb_dim": "emb_dim", "w": "w", "num_inner_mlps": "num_inner_mlps",
                 "modulate": "modulate", "shift": "modulation_shift",
                 "fast_decay_pct": "fast_decay_pct", "slow_decay_pct": "slow_decay_pct",
-                "target": "modulation_target"}
-# (key, value the ported path takes): the general Hyena path, ROADMAP.md Queue 1 item 12
-_UNPORTED = (("num_heads", 1), ("num_blocks", 1), ("inner_factor", 1), ("outer_mixing", False),
-             ("post_order_ffn", False), ("bias", True), ("normalized", False),
-             ("linear_mixer", False), ("bidirectional", False))
+                "target": "modulation_target", "bias": "use_bias", "normalized": "normalized",
+                "linear_mixer": "linear_mixer", "bidirectional": "bidirectional"}
+# attention-config keys of the reference's flash-attn switches
+_ATTN_DROPPED = ("use_flash_attn", "fused_bias_fc")
 
 
-def make_mixer(d_model: int, layer_cfg: dict | None,
-               dtype: torch.dtype = torch.float32) -> HyenaOperator:
-    """Hyena mixer from a reference-style layer config (`_name_: hyena`)."""
-    cfg = dict(layer_cfg or {})
-    name = cfg.pop("_name_", "hyena")
+def make_mixer(d_model: int, layer_cfg: dict | None, dtype: torch.dtype = torch.float32,
+               attn_cfg: dict | None = None, is_attn: bool = False,
+               n_layer: int = 1) -> nn.Module:
+    """The block's mixer (JAX `make_mixer`): `MHA` from `attn_cfg` where
+    `is_attn` (a layer index in `attn_layer_idx`), else the Hyena operator
+    from a reference-style layer config (`_name_: hyena`; `_name_: mha`
+    builds `MHA` from the layer config itself)."""
+    cfg = dict(attn_cfg or {}) if is_attn else dict(layer_cfg or {})
+    name = "mha" if is_attn else cfg.pop("_name_", "hyena")
+    if name == "mha":
+        for key in _ATTN_DROPPED:
+            cfg.pop(key, None)
+        return MHA(d_model=d_model, n_layer=n_layer, dtype=dtype, **cfg)
     if name != "hyena":
-        raise NotImplementedError(
-            f"mixer {name!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
+        raise ValueError(f"unknown mixer {name!r} (hyena or mha)")
     for key in _TRAINING_ONLY_KEYS:
         cfg.pop(key, None)
-    for key, value in _UNPORTED:
-        if key in cfg and cfg.pop(key) != value:
-            raise NotImplementedError(
-                f"Hyena {key}={layer_cfg[key]!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
-    filter_cfg = {_FILTER_KEYS[k]: cfg.pop(k) for k in list(cfg) if k in _FILTER_KEYS}
+    filter_cfg = dict(cfg.pop("filter_args", None) or {})
+    for key in ("seq_len", "order", "modulation_lr"):  # from l_max / filter_order; frozen
+        filter_cfg.pop(key, None)
+    filter_cfg.update({_FILTER_KEYS[k]: cfg.pop(k) for k in list(cfg) if k in _FILTER_KEYS})
+    filter_cfg.update(cfg.pop("filter_cfg", None) or {})
     return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, dtype=dtype, **cfg)
 
 
@@ -127,7 +139,8 @@ class Block(nn.Module):
                  residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
                  resid_dropout1: float = 0.0, resid_dropout2: float = 0.0,
                  dtype: torch.dtype = torch.float32, identity_mlp: bool = False,
-                 residual_dtype=None):
+                 residual_dtype=None, attn_cfg: dict | None = None, is_attn: bool = False,
+                 n_layer: int = 1):
         super().__init__()
         self.dtype = dtype
         self.identity_mlp = identity_mlp
@@ -136,7 +149,7 @@ class Block(nn.Module):
         self.resid_dtype = (torch_dtype(residual_dtype) if residual_dtype is not None
                             else torch.float32 if residual_in_fp32 else None)
         self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
-        self.mixer = make_mixer(d_model, layer_cfg, dtype)
+        self.mixer = make_mixer(d_model, layer_cfg, dtype, attn_cfg, is_attn, n_layer)
         if not identity_mlp:
             self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
             self.mlp = Mlp(d_model, d_inner, dtype)

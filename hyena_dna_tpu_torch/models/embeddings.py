@@ -1,7 +1,10 @@
 """GPT-2 style token embeddings (mirrors `hyena_dna_tpu/models/embeddings.py`).
 
 HyenaDNA uses no position table (`max_position_embeddings=0`); positions
-come from the causal convolutions. The LM head is tied to the table:
+come from the causal convolutions. The attention configs learn one:
+`position_embeddings` (max_position_embeddings, d), added after the token
+lookup at `position_ids`, by default 0..L-1 (then the table's first L
+rows, a slice, whose backward is a plain add). The LM head is tied to the table:
 `attend` is logits = hidden @ E^T, with no `lm_head.weight` of its own (the
 reference ties it, and its state dicts may omit it).
 
@@ -28,18 +31,29 @@ ONE_HOT_MAX_VOCAB = 64  # JAX `GPT2Embeddings`: vocab_size <= 64 looks up by one
 
 
 class GPT2Embeddings(nn.Module):
-    def __init__(self, embed_dim: int, vocab_size: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, embed_dim: int, vocab_size: int, dtype: torch.dtype = torch.float32,
+                 max_position_embeddings: int = 0):
         super().__init__()
         self.dtype = dtype
         self.word_embeddings = nn.Embedding(vocab_size, embed_dim)
+        self.position_embeddings = (nn.Embedding(max_position_embeddings, embed_dim)
+                                    if max_position_embeddings > 0 else None)
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: torch.Tensor | None = None) -> torch.Tensor:
         table = self.word_embeddings.weight
         if table.shape[0] > ONE_HOT_MAX_VOCAB:
-            return self.word_embeddings(input_ids).to(self.dtype)
-        vocab = torch.arange(table.shape[0], device=input_ids.device)
-        one_hot = (input_ids[..., None] == vocab).to(self.dtype)
-        return one_hot @ table.to(self.dtype)
+            emb = self.word_embeddings(input_ids).to(self.dtype)
+        else:
+            vocab = torch.arange(table.shape[0], device=input_ids.device)
+            one_hot = (input_ids[..., None] == vocab).to(self.dtype)
+            emb = one_hot @ table.to(self.dtype)
+        if self.position_embeddings is None:
+            return emb
+        positions = self.position_embeddings.weight.to(self.dtype)
+        if position_ids is None:
+            return emb + positions[:input_ids.shape[1]]
+        return emb + positions[position_ids]
 
     def attend(self, hidden: torch.Tensor) -> torch.Tensor:
         return F.linear(hidden.to(self.dtype), self.word_embeddings.weight.to(self.dtype))

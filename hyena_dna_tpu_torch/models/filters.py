@@ -1,7 +1,21 @@
 """Implicit Hyena filter (mirrors `hyena_dna_tpu/models/filters.py`).
 
 positional embedding z -> Sin MLP (one `freq` shared by every Sin) -> bank
-h (1, L, d) -> cast to `out_dtype` -> exponential modulation window.
+h (1, L, d) -> cast to `out_dtype` -> exponential modulation window
+[-> L1 normalisation over the channels, in float32, with `normalized`].
+With `linear_mixer` the MLP is one bias-free Linear (emb_dim -> d) and
+there is no Sin.
+
+`forward(x, L, k, bias)` is the long conv of the JAX `HyenaFilter.__call__`
+on the general Hyena path: x (N, C, L) or the 5-D (B, H, C, Z, L) layout
+(flattened to (B*H*Z, C, L)) against the (C, L) bank `k` (by default this
+filter's) plus the skip term x * bias (zeros without `use_bias`). The conv
+runs in float32 on the I/O (the bank is float32, as JAX's default
+`out_dtype`) through `ops/fftconv.py::fftconv_chunked`, kernels B and C on
+the card, and is cast back to x's dtype; a bank longer than the signal
+(`num_blocks > 1`) takes `fftconv_aliased`, the reference's circular conv
+at exactly 2L, in plain `torch.fft`, as the JAX package computes it.
+`bidirectional` is accepted and, as in the JAX module, changes nothing.
 
 Parameters carry the reference torch names, so a reference state dict loads
 with `load_state_dict` as it is: `bias`, `pos_emb.z` (and the buffer
@@ -16,6 +30,8 @@ import math
 
 import torch
 from torch import nn
+
+from hyena_dna_tpu_torch.ops.fftconv import fftconv_aliased, fftconv_tagged
 
 
 def positional_embedding_init(emb_dim: int, seq_len: int) -> torch.Tensor:
@@ -71,17 +87,25 @@ class HyenaFilter(nn.Module):
                  seq_len: int = 1024, w: float = 1.0, num_inner_mlps: int = 2,
                  modulate: bool = True, modulation_shift: float = 0.0,
                  fast_decay_pct: float = 0.3, slow_decay_pct: float = 1.5,
-                 modulation_target: float = 1e-2):
+                 modulation_target: float = 1e-2, use_bias: bool = True,
+                 linear_mixer: bool = False, normalized: bool = False,
+                 bidirectional: bool = False):
         super().__init__()
         self.d_model = d_model
         self.seq_len = seq_len
+        self.use_bias = use_bias
+        self.normalized = normalized
+        self.bidirectional = bidirectional  # accepted; no effect, as in the JAX module
         self.bias = nn.Parameter(torch.zeros(d_model))
         self.pos_emb = PositionalEmbedding(emb_dim, seq_len)
-        sin = Sin(order, w)  # one instance at every odd index, as in the reference
-        layers = [nn.Linear(emb_dim, order), sin]
-        for _ in range(num_inner_mlps):
-            layers += [nn.Linear(order, order), sin]
-        layers.append(nn.Linear(order, d_model, bias=False))
+        if linear_mixer:
+            layers = [nn.Linear(emb_dim, d_model, bias=False)]
+        else:
+            sin = Sin(order, w)  # one instance at every odd index, as in the reference
+            layers = [nn.Linear(emb_dim, order), sin]
+            for _ in range(num_inner_mlps):
+                layers += [nn.Linear(order, order), sin]
+            layers.append(nn.Linear(order, d_model, bias=False))
         self.implicit_filter = nn.Sequential(*layers)
         self.modulation = (ExponentialModulation(d_model, fast_decay_pct, slow_decay_pct,
                                                  modulation_target, modulation_shift)
@@ -97,4 +121,34 @@ class HyenaFilter(nn.Module):
             t = self.pos_emb.t[:, :length]
             decay = torch.exp(-t * self.modulation.deltas.abs())
             h = h * (decay + self.modulation.shift).to(out_dtype)
+        if self.normalized:
+            h = h / torch.linalg.vector_norm(h.float(), ord=1, dim=-1, keepdim=True).to(out_dtype)
         return h
+
+    def forward(self, x: torch.Tensor, length: int, k: torch.Tensor | None = None,
+                bias: torch.Tensor | None = None) -> torch.Tensor:
+        """The long conv x * k + x * bias over the last axis of x, (N, C, L)
+        or (B, H, C, Z, L), with k (C, Lk) and bias (C,) (by default this
+        filter's bank at `length` and `bias`); x's shape and dtype."""
+        if k is None:
+            k = self.filter(length)[0].t()
+        if bias is None:
+            bias = self.bias
+        c = k.shape[0]
+        bias = (bias if self.use_bias else torch.zeros_like(bias)).float().reshape(c)
+        if x.dim() == 3 and x.shape[1] == c:
+            return self._conv(x, k, bias)
+        if x.dim() == 5 and x.shape[2] == c:
+            b, ho, _, z, l_blk = x.shape
+            xt = x.transpose(2, 3).reshape(b * ho * z, c, l_blk)
+            y = self._conv(xt, k, bias)
+            return y.reshape(b, ho, z, c, l_blk).transpose(2, 3)
+        raise ValueError(f"the filter conv takes (N, {c}, L) or (B, H, {c}, Z, L), "
+                         f"got {tuple(x.shape)}")
+
+    @staticmethod
+    def _conv(x: torch.Tensor, k: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+        if k.shape[-1] > x.shape[-1]:
+            return fftconv_aliased(x, k, bias)
+        return fftconv_tagged(x.float().contiguous(), k.float().contiguous(),
+                              bias.contiguous()).to(x.dtype)

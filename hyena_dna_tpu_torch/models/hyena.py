@@ -1,6 +1,7 @@
-"""HyenaOperator, order 2 (mirrors `hyena_dna_tpu/models/hyena.py`).
+"""HyenaOperator (mirrors `hyena_dna_tpu/models/hyena.py`).
 
-The path is the JAX package's fused-front route (`_try_pallas_front`):
+Order 2 with one head and one block (every shipped config) takes the JAX
+package's fused-front route (`_try_pallas_front`):
 
   u (B, L, d) --kernel A: in_proj + causal k=3 conv + first gate-->
   vx = v * x1, x0 (B, d, L) --dropout on vx--> --filter bank k (d, L)-->
@@ -44,33 +45,65 @@ Backward: kernel A4', kernel C. Elsewhere the flat route runs. The math is
 the flat route's; the conv transforms and writes lp >= L times.
 
 `inner_remat` (the JAX option that checkpoints the unfused front end,
-in_proj and the short conv, on its own) is accepted and changes nothing:
-the port has no unfused front end, and kernel A' already recomputes the
-projection and the short conv from u instead of saving them, so outputs and
-gradients are the same bits with and without it.
+in_proj and the short conv, on its own) checkpoints the general path's
+front end; on the fused route it changes nothing, since kernel A' already
+recomputes the projection and the short conv from u instead of saving
+them, so outputs and gradients are the same bits with and without it.
 
 For activation checkpointing (`ops/remat.py`) the conv output is tagged
 (the ungated one of the composite route, and v4), and so is the filter
 bank (the (d, L) bank, and k4 on the 4-D route), as the JAX package tags
 them.
 
+The general path (the JAX unfused routes, which take no fused front end
+on any backend): `order > 2`, `num_heads`, `num_blocks`, `outer_mixing`,
+`post_order_ffn`, or a short filter other than k = 3. The front end is
+`in_proj` and `ops/short_conv.py` in `dtype` (checkpointed on its own under
+`inner_remat`, the JAX `_front_3d`), and the channel axis splits into
+order + 1 equal chunks x_0 .. x_{o-1}, v. Then
+  * one head and one block (`_tail_3d`): for each x_i from x_{o-1} down to
+    x_1, v = dropout(v * x_i), then v = conv(v, k_i) + v * D_i, the last
+    one gated by x_0 (`fftconv_gated`: the composite route, or kernels E
+    and E' with `gated_conv` where their plan covers the shape);
+  * otherwise (`_tail_generic`): the channels reshape to (heads, head_dim)
+    and the length to (num_blocks, L / num_blocks); each step multiplies by
+    x_i (with `outer_mixing`, the outer product summed over the x_i
+    channel axis), drops out and convolves through `HyenaFilter.forward`
+    on the flattened (B*H*Z, hd, l) layout; with `post_order_ffn` the
+    heads mix through `ord_proj_w[i]`, summed over its first head index;
+    y = v * x_0, back to (B, L, d).
+The filter bank (L, hd * (order - 1)) splits with the order index fastest,
+and so does its bias, as in the JAX module; the bank is float32 and every
+conv runs in float32 through `ops/fftconv.py::fftconv_chunked` (kernels B
+and C on the card), so a step of order o runs kernel B o - 1 times forward
+and kernel C as often backward. `inner_factor` other than 1 raises, as in
+the JAX package (the reference's in_proj and short filter disagree on the
+width). The skip term uses the filter's `bias` on the 3-D routes whatever
+`use_bias` says, as the JAX `_tail_3d` does; `HyenaFilter.forward` (the
+general route) honours it.
+
 Parameter names are the reference torch names: `in_proj`, `out_proj`,
-`short_filter` (a depthwise Conv1d weight (3d, 1, 3)) and `filter_fn`.
+`short_filter` (a depthwise Conv1d weight ((o+1)d, 1, k)), `filter_fn`,
+and `ord_proj_w` (order, heads, heads) with `post_order_ffn`.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
 from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, linear
 from hyena_dna_tpu_torch.ops import remat
 from hyena_dna_tpu_torch.ops.fftconv import (GATED_MODES, fftconv_gated, fftconv_outer_4d,
-                                             next_fast_fft_size)
+                                             fftconv_tagged, next_fast_fft_size)
 from hyena_dna_tpu_torch.ops.fused_fftconv import plan_outer
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate, fused_proj_conv_gate4
+from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
 
 CONV_IO_BF16_MIN_L = 1 << 15
 FRONT4_TILES = (512, 256, 128)  # the JAX route's length tiles, in order of preference
@@ -90,34 +123,76 @@ class HyenaOperator(nn.Module):
                  activation: str = "id", filter_cfg: dict | None = None,
                  dropout: float = 0.0, dtype: torch.dtype = torch.float32,
                  gated_conv: str | None = None, front4: bool = False,
-                 inner_remat: bool = False):
+                 inner_remat: bool = False, num_heads: int = 1, num_blocks: int = 1,
+                 inner_factor: int = 1, outer_mixing: bool = False,
+                 post_order_ffn: bool = False):
         super().__init__()
-        self.inner_remat = inner_remat  # accepted; kernel A' recomputes the front end anyway
+        if order < 2:
+            raise ValueError(f"order must be at least 2, got {order}")
+        if d_model % num_heads:
+            raise ValueError(f"d_model={d_model} is not a multiple of num_heads={num_heads}")
+        if l_max % num_blocks:
+            raise ValueError(f"l_max={l_max} is not a multiple of num_blocks={num_blocks}")
+        if inner_factor != 1:
+            raise NotImplementedError(
+                "inner_factor > 1 is inconsistent in the reference (in_proj/short_filter "
+                "width mismatch) and unsupported, as in the JAX package")
+        self.inner_remat = inner_remat
         self.dtype = dtype
         self.front4 = front4
         if gated_conv not in (None,) + GATED_MODES:
             raise ValueError(f"gated_conv={gated_conv!r} is not None or one of {GATED_MODES}")
         self.gated_conv = gated_conv
-        if order != 2:
-            raise NotImplementedError(
-                "only order-2 Hyena is ported (ROADMAP.md Queue 1 item 12)")
-        if short_filter_order != 3:
-            raise NotImplementedError("kernel A fuses a k=3 short conv only")
         self.d_model = d_model
         self.l_max = l_max
-        width = 3 * d_model
+        self.order = order
+        self.num_heads = num_heads
+        self.num_blocks = num_blocks
+        self.outer_mixing = outer_mixing
+        self.post_order_ffn = post_order_ffn
+        self.head_dim = d_model // num_heads
+        self.plain_3d = num_heads == 1 and num_blocks == 1 and not outer_mixing \
+            and not post_order_ffn
+        # the fused front (kernel A) fuses order 2 and a k = 3 short conv
+        self.fused = self.plain_3d and order == 2 and short_filter_order == 3
+        width = (order + 1) * d_model
         self.in_proj = nn.Linear(d_model, width)
         self.out_proj = nn.Linear(d_model, d_model)
-        self.short_filter = nn.Conv1d(width, width, 3, groups=width, padding=2)
-        self.filter_fn = HyenaFilter(d_model, order=filter_order, seq_len=l_max,
-                                     **(filter_cfg or {}))
+        self.short_filter = nn.Conv1d(width, width, short_filter_order, groups=width,
+                                      padding=short_filter_order - 1)
+        self.filter_fn = HyenaFilter(self.head_dim * (order - 1), order=filter_order,
+                                     seq_len=l_max, **(filter_cfg or {}))
+        if post_order_ffn:  # drawn by `init_weights`
+            self.ord_proj_w = nn.Parameter(torch.empty(order, num_heads, num_heads))
         self.act = activation_fn(activation)
         self.dropout = dropout
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator | None = None, n_layer: int = 1) -> None:
+        """The JAX module's init, the one place of this rule (the LM calls
+        it for each operator): `ord_proj_w` N(0, std 1/sqrt(head_dim)), then
+        in module order Linear weights N(0, 0.02) (out_proj
+        0.02 / sqrt(2 n_layer)) with zero biases, the short filter
+        U(-1/sqrt(k), 1/sqrt(k)), the filter's skip bias N(0, 1)."""
+        if self.post_order_ffn:
+            self.ord_proj_w.normal_(0.0, 1.0 / math.sqrt(self.head_dim), generator=generator)
+        for mod in self.modules():
+            if isinstance(mod, nn.Linear):
+                std = 0.02 / math.sqrt(2 * n_layer) if mod is self.out_proj else 0.02
+                mod.weight.normal_(0.0, std, generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Conv1d):
+                bound = 1.0 / math.sqrt(mod.kernel_size[0])
+                mod.weight.uniform_(-bound, bound, generator=generator)
+                mod.bias.uniform_(-bound, bound, generator=generator)
+            elif mod is self.filter_fn:
+                mod.bias.normal_(0.0, 1.0, generator=generator)
 
     def front4_plan(self, batch: int, length: int):
         """(n1, r, m, rows_pad, tile_l) where the 4-D route engages for a
         (batch, length) input (JAX `_try_front4`), else None."""
-        if not self.front4 or length > self.l_max:
+        if not self.front4 or not self.fused or length > self.l_max:
             return None
         spec = plan_outer(next_fast_fft_size(2 * length), self.d_model, length, batch)
         if spec is None:
@@ -149,6 +224,13 @@ class HyenaOperator(nn.Module):
         draws the dropout mask in training."""
         b, length = u.shape[:2]
         l_filter = min(length, self.l_max)
+        if not self.fused:
+            uc = self._front(u)
+            if self.plain_3d:
+                y = self._tail_3d(uc, l_filter, generator)
+            else:
+                y = self._tail_generic(uc, l_filter, generator)
+            return linear(self.act(y), self.out_proj, self.dtype)
         w = self.in_proj.weight.float().t().contiguous()          # (d, 3d)
         bp = self.in_proj.bias.float().contiguous()
         wc = self.short_filter.weight[:, 0, :].float().t().contiguous()  # (3, 3d)
@@ -173,3 +255,61 @@ class HyenaOperator(nn.Module):
         k = self._filter_bank(l_filter, conv_dt)
         y = fftconv_gated(vx.to(conv_dt), x0.to(conv_dt), k, D, self.gated_conv).to(u.dtype)
         return linear(self.act(y.transpose(1, 2)), self.out_proj, self.dtype)
+
+    def _front(self, u: torch.Tensor) -> torch.Tensor:
+        """in_proj -> (B, (o+1)d, L) -> causal depthwise short conv, in
+        `dtype` (JAX `_front_3d`); its own checkpoint under `inner_remat`."""
+        def front(u, w, bp, wc, bc):
+            proj = F.linear(u.to(self.dtype), w.to(self.dtype), bp.to(self.dtype))
+            return short_conv_1d(proj.transpose(1, 2), wc.to(self.dtype), bc.to(self.dtype))
+
+        args = (u, self.in_proj.weight, self.in_proj.bias, self.short_filter.weight[:, 0, :],
+                self.short_filter.bias)
+        if self.inner_remat and torch.is_grad_enabled():
+            return checkpoint(front, *args, use_reentrant=False)
+        return front(*args)
+
+    def _general_bank(self, l_filter: int, width: int):
+        """The float32 bank as (o-1, width, L) and the bias as (o-1, width):
+        the filter's channels split (width, o-1) with the order index
+        fastest (the reference's "c l (v o) -> c o v l")."""
+        o = self.order
+        k = self._filter_bank(l_filter, torch.float32)  # ((o-1) width, L)
+        k = k.reshape(width, o - 1, l_filter).transpose(0, 1)
+        bias = self.filter_fn.bias.reshape(width, o - 1).t()
+        return k, bias
+
+    def _tail_3d(self, uc: torch.Tensor, l_filter: int, generator) -> torch.Tensor:
+        """One head, one block (JAX `_tail_3d`): (B, (o+1)d, L) -> (B, L, d)."""
+        *x, v = uc.split(self.d_model, dim=1)
+        k, bias = self._general_bank(l_filter, self.d_model)
+        last = self.order - 2
+        for i, x_i in enumerate(reversed(x[1:])):
+            v = dropout(v * x_i, self.dropout, self.training, generator)
+            vf, k_i, d_i = v.float().contiguous(), k[i].contiguous(), bias[i].float().contiguous()
+            if i == last:
+                v = fftconv_gated(vf, x[0].float().contiguous(), k_i, d_i,
+                                  self.gated_conv).to(v.dtype)
+            else:
+                v = fftconv_tagged(vf, k_i, d_i).to(v.dtype)
+        return v.transpose(1, 2)
+
+    def _tail_generic(self, uc: torch.Tensor, l_filter: int, generator) -> torch.Tensor:
+        """Heads, blocks, outer mixing, post-order FFN (JAX `_tail_generic`):
+        (B, (o+1)d, L) -> (B, L, d)."""
+        b, _, l_seq = uc.shape
+        z, ho, hd, o = self.num_blocks, self.num_heads, self.head_dim, self.order
+        uc = uc.reshape(b, ho, hd * (o + 1), z, l_seq // z)
+        *x, v = uc.split(hd, dim=2)
+        k, bias = self._general_bank(l_filter, hd)
+        for i, x_i in enumerate(reversed(x[1:])):
+            if self.outer_mixing:
+                v = v[:, :, None] * x_i[:, :, :, None]
+                v = dropout(v, self.dropout, self.training, generator).sum(2)
+            else:
+                v = dropout(v * x_i, self.dropout, self.training, generator)
+            v = self.filter_fn(v, l_seq // z, k=k[i], bias=bias[i])
+            if self.post_order_ffn:
+                v = torch.einsum("ji,bjvzl->bivzl", self.ord_proj_w[i].to(v.dtype), v)
+        y = v * x[0]
+        return y.permute(0, 3, 4, 1, 2).reshape(b, l_seq, ho * hd)

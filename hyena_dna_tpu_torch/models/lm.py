@@ -27,12 +27,20 @@ way). `identity_mlp` and `residual_dtype` pass to every `Block`; with
 (a block without an MLP cannot be cut at its post-mixer residual), as in
 the JAX `LMBackbone`.
 
+Attention: the blocks at the indices of `attn_layer_idx` take `MHA` built
+from `attn_cfg` (`models/attention.py`) as their mixer, the others the
+Hyena operator of `layer`; with `max_position_embeddings` > 0 the
+embeddings add a learned position table (`models/embeddings.py`). Remat
+cells, `residual_dtype` and `identity_mlp` take either mixer.
+
 Weights start from the GPT-2 init, drawn from an explicit `torch.Generator`:
 Linear weights N(0, 0.02) and Embedding weights N(0, `init_std`) with zero
 biases (the JAX `LMBackbone` passes `init_std` to its embeddings only; every
 other module keeps 0.02), `out_proj` and
 `fc2` scaled by 1/sqrt(2 n_layer); the depthwise short conv U(-1/sqrt(3),
-1/sqrt(3)) as torch's Conv1d default; the filter's skip bias N(0, 1). The
+1/sqrt(3)) as torch's Conv1d default (1/sqrt(k) for a k-tap filter); the
+filter's skip bias N(0, 1); `MHA` its own (N(0, its `init_std`),
+`out_proj` rescaled); a Hyena `ord_proj_w` N(0, std 1/sqrt(head_dim)). The
 positional features, Sin frequency and modulation rates are fixed at
 construction.
 
@@ -75,8 +83,10 @@ import math
 import torch
 from torch import nn
 
+from hyena_dna_tpu_torch.models.attention import MHA
 from hyena_dna_tpu_torch.models.blocks import Block
 from hyena_dna_tpu_torch.models.embeddings import GPT2Embeddings
+from hyena_dna_tpu_torch.models.hyena import HyenaOperator
 from hyena_dna_tpu_torch.models.nn import dropout
 from hyena_dna_tpu_torch.ops import remat
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
@@ -96,19 +106,22 @@ class LMBackbone(nn.Module):
                  checkpoint_mixer: bool = False, checkpoint_mlp: bool = False,
                  remat_residual_only: bool = False, remat_group_size: int = 1,
                  remat_save_conv: bool = True, remat_save_filter: bool = False,
-                 identity_mlp: bool = False, residual_dtype=None):
+                 identity_mlp: bool = False, residual_dtype=None, attn_layer_idx=None,
+                 attn_cfg: dict | None = None, max_position_embeddings: int = 0):
         super().__init__()
         self.remat = checkpoint_mixer or checkpoint_mlp
         self.residual_cells = self.remat and remat_residual_only and not identity_mlp
         self.remat_group_size = max(1, remat_group_size)
         self.remat_names = ((remat.CONV_OUT_TAG,) * remat_save_conv
                             + (remat.FILTER_K_TAG,) * remat_save_filter)
-        self.embeddings = GPT2Embeddings(d_model, vocab_size, dtype)
+        self.embeddings = GPT2Embeddings(d_model, vocab_size, dtype, max_position_embeddings)
+        attn_idx = set(attn_layer_idx or ())
         self.layers = nn.ModuleList(
             Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon,
                   resid_dropout1=embed_dropout if i == 0 else resid_dropout,
                   resid_dropout2=resid_dropout, dtype=dtype, identity_mlp=identity_mlp,
-                  residual_dtype=residual_dtype)
+                  residual_dtype=residual_dtype, attn_cfg=attn_cfg, is_attn=i in attn_idx,
+                  n_layer=n_layer)
             for i in range(n_layer))
         self.resid_dropout = resid_dropout
         self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
@@ -165,7 +178,8 @@ class _LMBase(nn.Module):
     def __init__(self, d_model: int, n_layer: int, d_inner: int, vocab_size: int,
                  layer: dict | None = None, pad_vocab_size_multiple: int = 1,
                  residual_in_fp32: bool = False, layer_norm_epsilon: float = 1e-5,
-                 attn_layer_idx=None, max_position_embeddings: int = 0,
+                 attn_layer_idx=None, attn_cfg: dict | None = None,
+                 max_position_embeddings: int = 0,
                  resid_dropout: float = 0.0, embed_dropout: float = 0.1,
                  generator: torch.Generator | None = None,
                  dtype: torch.dtype = torch.float32, checkpoint_mixer: bool = False,
@@ -174,12 +188,6 @@ class _LMBase(nn.Module):
                  remat_save_filter: bool = False, identity_mlp: bool = False,
                  residual_dtype=None, init_std: float = 0.02):
         super().__init__()
-        if attn_layer_idx:
-            raise NotImplementedError(
-                "attention layers are not ported yet (ROADMAP.md Queue 1 item 12)")
-        if max_position_embeddings:
-            raise NotImplementedError(
-                "learned position embeddings are not ported yet (ROADMAP.md Queue 1 item 12)")
         self.n_layer = n_layer
         self.d_model = d_model
         self.init_std = init_std
@@ -189,28 +197,32 @@ class _LMBase(nn.Module):
                                    resid_dropout, embed_dropout, dtype,
                                    checkpoint_mixer, checkpoint_mlp, remat_residual_only,
                                    remat_group_size, remat_save_conv, remat_save_filter,
-                                   identity_mlp, residual_dtype)
+                                   identity_mlp, residual_dtype, attn_layer_idx, attn_cfg,
+                                   max_position_embeddings)
         self.init_weights(generator)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator | None = None) -> None:
-        """GPT-2 init from `generator` (see the module docstring)."""
-        std = 0.02
-        resid_std = std / math.sqrt(2 * self.n_layer)
-        bound = 1.0 / math.sqrt(3)
+        """GPT-2 init from `generator` (see the module docstring), in module
+        order; each mixer draws its own (`HyenaOperator.init_weights`,
+        `MHA.init_weights`)."""
+        resid_std = 0.02 / math.sqrt(2 * self.n_layer)
+        mixers = [m for m in self.modules() if isinstance(m, (HyenaOperator, MHA))]
+        inside = {id(sub) for m in mixers for sub in m.modules()}
         for name, mod in self.named_modules():
-            if isinstance(mod, nn.Linear):
-                out = name.endswith(("mixer.out_proj", "mlp.fc2"))
-                mod.weight.normal_(0.0, resid_std if out else std, generator=generator)
+            if isinstance(mod, HyenaOperator):
+                mod.init_weights(generator, self.n_layer)
+            elif isinstance(mod, MHA):
+                mod.init_weights(generator)
+            elif id(mod) in inside:
+                continue
+            elif isinstance(mod, nn.Linear):
+                std = resid_std if name.endswith("mlp.fc2") else 0.02
+                mod.weight.normal_(0.0, std, generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.Embedding):
                 mod.weight.normal_(0.0, self.init_std, generator=generator)
-            elif isinstance(mod, nn.Conv1d):
-                mod.weight.uniform_(-bound, bound, generator=generator)
-                mod.bias.uniform_(-bound, bound, generator=generator)
-            elif name.endswith("filter_fn"):
-                mod.bias.normal_(0.0, 1.0, generator=generator)
 
 
 class ConvLMHeadModel(_LMBase):

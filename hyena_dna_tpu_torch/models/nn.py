@@ -1,13 +1,17 @@
-"""Activation registry (mirrors `hyena_dna_tpu/models/nn.py::activation_fn`),
-the dropout every module of the port uses, and `linear`, a Linear layer run
-in the block dtype as flax's `Dense(dtype=...)` runs it.
+"""Small building blocks (mirrors `hyena_dna_tpu/models/nn.py`): the
+activation registry, the `Normalization` picker, row-mode
+`stochastic_depth` and `Gate`; plus the dropout every module of the port
+uses, and `linear`, a Linear layer run in the block dtype as flax's
+`Dense(dtype=...)` runs it.
 
-Only the identity, the Hyena operator's activation on the ported path, is
-here; the rest of the JAX registry comes with ROADMAP.md Queue 1 item 12.
+Randomness comes from an explicit `torch.Generator` (dropout masks, the
+stochastic-depth rows, `Gate`'s initial "UR" offsets), so one seed gives
+one draw.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -15,11 +19,124 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def _laplace(x: torch.Tensor) -> torch.Tensor:
+    mu, sigma = math.sqrt(0.5), math.sqrt(0.25)
+    return 0.5 * (1.0 + torch.erf((x - mu) / (sigma * math.sqrt(2.0))))
+
+
+_ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "relu": F.relu,
+    "gelu": F.gelu,
+    "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+    "swish": F.silu,
+    "silu": F.silu,
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "sqrelu": lambda x: F.relu(x).square(),
+    "laplace": _laplace,
+    "sin": torch.sin,
+    "glu": lambda x: F.glu(x, dim=-1),
+}
+
+
 def activation_fn(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The activation of the JAX registry named `name` (None and "id" are
+    the identity; "gelu" is the exact GeLU, "gelu_tanh" the tanh one)."""
     if name in (None, "id", "identity", "linear", "none"):
         return lambda x: x
-    raise NotImplementedError(
-        f"activation {name!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
+    if name not in _ACTIVATIONS:
+        raise NotImplementedError(f"activation {name!r} not implemented")
+    return _ACTIVATIONS[name]
+
+
+class Normalization(nn.Module):
+    """Norm picker on (..., d): layer, rms, group (min(d, 32) groups, each
+    over its channels and the length, as flax's `GroupNorm` on (B, L, d))
+    or none. The parameters are `norm.weight` (flax `scale`) and
+    `norm.bias`."""
+
+    def __init__(self, d: int, norm_type: Optional[str] = "layer", eps: float = 1e-5):
+        super().__init__()
+        self.norm_type = norm_type
+        if norm_type in ("layer", "layernorm"):
+            self.norm = nn.LayerNorm(d, eps=eps)
+        elif norm_type in ("rms", "rmsnorm"):
+            self.norm = nn.RMSNorm(d, eps=eps)
+        elif norm_type == "group":
+            self.norm = nn.GroupNorm(min(d, 32), d, eps=eps)
+        elif norm_type in ("none", "id", None):
+            self.norm = None
+        else:
+            raise NotImplementedError(f"norm {norm_type!r} not implemented")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.norm is None:
+            return x
+        if self.norm_type == "group":
+            return self.norm(x.transpose(1, -1)).transpose(1, -1)
+        return self.norm(x)
+
+
+def stochastic_depth(x: torch.Tensor, p: float, mode: str = "row", training: bool = True,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth: drop whole rows (mode "row", one draw per batch
+    element) or the whole tensor (any other mode) with probability p,
+    scaling survivors by 1/(1-p); the identity outside training."""
+    if not training or p == 0.0:
+        return x
+    survival = 1.0 - p
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1) if mode == "row" else (1,) * x.dim()
+    keep = torch.empty(shape, device=x.device).bernoulli_(survival, generator=generator)
+    return torch.where(keep.bool(), x / survival, torch.zeros_like(x))
+
+
+class Gate(nn.Module):
+    """The gate mechanisms of the JAX `Gate`: N (ones), G/FS (sigmoid), BE
+    (exp), BR (relu), TE, TR, TS, and UR/R (refine) of a Linear
+    preactivation `W_g` (and `W_r` for the refine gates)."""
+
+    MECHANISMS = ("N", "G", "FS", "BE", "BR", "TE", "TR", "TS", "UR", "R")
+
+    def __init__(self, d_input: int, size: int, mechanism: str = "N",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if mechanism not in self.MECHANISMS:
+            raise NotImplementedError(f"gate mechanism {mechanism!r}")
+        self.size = size
+        self.mechanism = mechanism
+        if mechanism == "N":
+            return
+        self.W_g = nn.Linear(d_input, size)
+        if mechanism in ("UR", "R"):
+            self.W_r = nn.Linear(d_input, size)
+        if mechanism == "UR":
+            u = torch.rand(2, size, generator=generator)
+            self.uniform_b = nn.Parameter(torch.log(u[0].clamp_min(1e-6)
+                                                    / (1 - u[1]).clamp_min(1e-6)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        m = self.mechanism
+        if m == "N":
+            return torch.ones(*x.shape[:-1], self.size, dtype=x.dtype, device=x.device)
+        g_pre = self.W_g(x)
+        if m in ("G", "FS"):
+            return torch.sigmoid(g_pre)
+        if m == "BE":
+            return torch.exp(g_pre)
+        if m == "BR":
+            return F.relu(g_pre)
+        if m == "TE":
+            e = torch.exp(g_pre)
+            return e / (1.0 + e / 2.0)
+        if m == "TR":
+            r = F.relu(g_pre)
+            return r / (1.0 + r / 2.0)
+        if m == "TS":
+            return 2.0 * torch.sigmoid(g_pre)
+        g = torch.sigmoid(g_pre + self.uniform_b if m == "UR" else g_pre)
+        r = torch.sigmoid(self.W_r(x))
+        return (1 - 2 * r) * g ** 2 + 2 * r * g
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,

@@ -1,8 +1,11 @@
 """Long FFT convolution: dispatch layer (mirrors `hyena_dna_tpu/ops/fftconv.py`).
 
-Causal only: y = irfft(rfft(u, n) * rfft(k, n), n)[..., :L] + u * D with the
+y = irfft(rfft(u, n) * rfft(k, n), n)[..., :L] + u * D with the
 power-of-two size n = next_fast_fft_size(2L). FFTs run in float32 whatever
-the input dtype; the result is cast back to u's dtype.
+the input dtype; the result is cast back to u's dtype. `fftconv_aliased`
+is the JAX package's conv for a filter longer than the signal
+(`num_blocks > 1`): circular at exactly 2L, so taps in [L, 2L) alias, in
+plain `torch.fft` as the JAX package computes it with plain autodiff.
 
 `fftconv` is the `torch.autograd.Function` `FFTConv`, with the
 frequency-domain backward of the JAX `_fftconv_bwd`: du in dy's dtype, dk
@@ -52,6 +55,18 @@ def fftconv_ref(u: torch.Tensor, k: torch.Tensor,
     if D is not None:
         y = y + u.float() * D.float()[..., None]
     return y.to(u.dtype)
+
+
+def fftconv_aliased(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """The conv of a (C, Lk) filter that may be longer than the (..., C, L)
+    signal, circular at exactly n = 2L (JAX `fftconv_aliased`): the filter
+    is cut to 2L, its taps in [L, 2L) alias into the output. Plain
+    `torch.fft`, differentiated by autograd; u's dtype."""
+    seqlen = u.shape[-1]
+    n = 2 * seqlen
+    k_f = torch.fft.rfft(k.float()[..., :n], n=n)
+    y = torch.fft.irfft(torch.fft.rfft(u.float(), n=n) * k_f, n=n)[..., :seqlen]
+    return (y + u.float() * D.float()[..., None]).to(u.dtype)
 
 
 def fftconv_bwd_ref(u: torch.Tensor, dy: torch.Tensor, k: torch.Tensor,
@@ -133,6 +148,14 @@ def fftconv_chunked(u: torch.Tensor, k: torch.Tensor,
     return fftconv(u, k, D)
 
 
+def fftconv_tagged(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+    """`fftconv_chunked(u, k, D)` tagged `CONV_OUT_TAG` for activation
+    checkpointing (`ops/remat.py`): a cell that saves the tag replays it,
+    with kernel C's retransform route as its backward."""
+    return remat.tagged(remat.CONV_OUT_TAG, lambda: fftconv_chunked(u, k, D),
+                        lambda y: remat.replay(y, _retransform_bwd, u, k, D))
+
+
 # The gate-fused route (kernels E and E', `ops/gated_fftconv.py`), off unless
 # a mode is asked for, as in the JAX package (`HYENA_GATED_CONV`). It covers
 # the shapes of the JAX `_gated_plan`: these FFT sizes (the packed kernels'
@@ -212,9 +235,7 @@ def fftconv_gated(u: torch.Tensor, x0: torch.Tensor, k: torch.Tensor,
     if mode is not None and mode not in GATED_MODES:
         raise ValueError(f"gated conv mode {mode!r} is not one of {GATED_MODES}")
     if mode is None or not gated_plan(u, k):
-        v = remat.tagged(remat.CONV_OUT_TAG, lambda: fftconv_chunked(u, k, D),
-                         lambda y: remat.replay(y, _retransform_bwd, u, k, D))
-        return (v * x0).to(u.dtype)
+        return (fftconv_tagged(u, k, D) * x0).to(u.dtype)
     training = torch.is_grad_enabled() and any(t.requires_grad for t in (u, x0, k, D))
     return GatedFFTConv.apply(u, x0, k, D, gated_mode(mode, u) if training else None)
 

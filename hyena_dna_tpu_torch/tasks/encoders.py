@@ -9,7 +9,7 @@ dataset (`DATASET_ATTRS`, e.g. `n_tokens`) and from the model
 
 No config of the repository uses an encoder: the LM and `dna_embedding`
 pipelines embed inside the backbone. These serve the generic
-`SequenceModel` pipelines (ROADMAP.md Queue 1 item 12). Layouts follow the
+`SequenceModel` pipelines (`models/sequence_model.py`). Layouts follow the
 JAX modules: sequences are (B, L, d) and images NHWC. Parameters are
 float32 and drawn at construction from `generator` with the flax
 initialisers' scales (Dense and Conv: normal of std 1/sqrt(fan_in), zero
@@ -28,8 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hyena_dna_tpu_torch.models.blocks import make_mixer
-from hyena_dna_tpu_torch.models.nn import dropout, linear
+from hyena_dna_tpu_torch.models.nn import Normalization, dropout, linear
+from hyena_dna_tpu_torch.models.sequence_model import make_layer
 
 
 def _normal_(t: torch.Tensor, std: float, generator: Optional[torch.Generator]) -> None:
@@ -168,59 +168,17 @@ class Conv1DEncoder(nn.Module):
         return self.conv(u).transpose(1, 2)
 
 
-class Normalization(nn.Module):
-    """The JAX `models/nn.py::Normalization` picker on (..., d): layer, rms,
-    group (min(d, 32) groups over channels and length) or none."""
-
-    def __init__(self, d: int, norm_type: Optional[str] = "layer", eps: float = 1e-5):
-        super().__init__()
-        self.norm_type = norm_type
-        if norm_type in ("layer", "layernorm"):
-            self.norm = nn.LayerNorm(d, eps=eps)
-        elif norm_type in ("rms", "rmsnorm"):
-            self.norm = nn.RMSNorm(d, eps=eps)
-        elif norm_type == "group":
-            self.norm = nn.GroupNorm(min(d, 32), d, eps=eps)
-        elif norm_type in ("none", "id", None):
-            self.norm = None
-        else:
-            raise NotImplementedError(f"norm {norm_type!r} not implemented")
-
-    def forward(self, x):
-        if self.norm is None:
-            return x
-        if self.norm_type == "group":
-            return self.norm(x.transpose(1, -1)).transpose(1, -1)
-        return self.norm(x)
-
-
 def _make_layer(d_model: int, layer_cfg: Optional[dict], generator) -> Optional[nn.Module]:
-    """The block's inner layer: None for 'id', else the port's
-    `HyenaOperator` (with its `filter_cfg` keys read as filter keys); the
-    other layers of the JAX registry wait for ROADMAP.md Queue 1 item 12."""
+    """The block's inner layer: None for 'id', else the layer of
+    `utils/registry.py::LAYER_REGISTRY` built and initialised by
+    `models/sequence_model.py::make_layer` ('hyena' is the port's
+    `HyenaOperator` with its own init; a name no registry has raises
+    KeyError, as in the JAX package)."""
     cfg = dict(layer_cfg or {"_name_": "id"})
-    name = cfg.get("_name_", "id")
-    if name == "id":
+    if cfg.get("_name_", "id") == "id":
         return None
-    if name != "hyena":
-        raise NotImplementedError(
-            f"encoder layer {name!r} is not ported yet (ROADMAP.md Queue 1 item 12)")
-    cfg.pop("transposed", None)
     cfg.pop("dropout", None)
-    cfg.update(cfg.pop("filter_cfg", None) or {})
-    op = make_mixer(d_model, cfg)
-    for lin in (op.in_proj, op.out_proj):
-        _normal_(lin.weight, 1.0 / math.sqrt(lin.in_features), generator)
-        nn.init.zeros_(lin.bias)
-    _normal_(op.short_filter.weight, 1.0 / math.sqrt(3), generator)
-    _normal_(op.short_filter.bias, 1.0 / math.sqrt(3), generator)
-    for mod in op.filter_fn.modules():
-        if isinstance(mod, nn.Linear):
-            _normal_(mod.weight, 1.0 / math.sqrt(mod.in_features), generator)
-            if mod.bias is not None:
-                nn.init.zeros_(mod.bias)
-    _normal_(op.filter_fn.bias, 1.0, generator)
-    return op
+    return make_layer(d_model, cfg, generator=generator)
 
 
 class ResidualBlock(nn.Module):
@@ -241,6 +199,7 @@ class ResidualBlock(nn.Module):
             y = self.norm(y)
         if self.layer is not None:
             y = self.layer(y)
+            y = y[0] if isinstance(y, tuple) else y
         y = x + y
         if self.norm is not None and not self.prenorm:
             y = self.norm(y)

@@ -16,9 +16,13 @@ the train and eval steps (`train/step.py`) and the trainer's evaluation call:
   * `MulticlassTask`: sequence classification, targets (B,) or (B, 1)
     against logits (B, C).
 
-The input encoders are in `tasks/encoders.py`. Only `AdaptiveLMTask`
-waits, for its model: its registry entry raises and cites ROADMAP.md
-Queue 1 item 12 (`models/adaptive_softmax.py`).
+  * `AdaptiveLMTask`: `LMTask` over `adaptive_lm` models
+    (`models/adaptive_softmax.py::AdaptiveLMModel`), which emit normalised
+    log-probabilities, so the plain cross-entropy on them is the adaptive
+    loss; the reference task's encoder and loss arguments are accepted and
+    ignored (the model's config carries them).
+
+The input encoders are in `tasks/encoders.py`.
 """
 
 from __future__ import annotations
@@ -29,7 +33,6 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from hyena_dna_tpu_torch.tasks import metrics as M
-from hyena_dna_tpu_torch.utils.registry import unported
 
 
 def _get_metric(name_or_cfg) -> tuple:
@@ -128,6 +131,16 @@ class MulticlassTask(BaseTask):
         return logits, y.reshape(-1)
 
 
+class AdaptiveLMTask(LMTask):
+    """`LMTask` under its own name for `adaptive_lm` models (the JAX
+    `AdaptiveLMTask`); the reference task's encoder and loss arguments are
+    accepted and ignored."""
+
+    def __init__(self, *args, div_val=None, cutoffs=None, tie_weights=None, tie_projs=None,
+                 init_scale=None, bias_scale=None, dropemb=None, dropsoft=None, **kwargs):
+        super().__init__(*args, **kwargs)
+
+
 TASK_REGISTRY: Dict[str, Callable] = {
     "base": BaseTask,
     "lm": LMTask,
@@ -135,5 +148,5 @@ TASK_REGISTRY: Dict[str, Callable] = {
     "multiclass": MulticlassTask,
     "masked_multiclass": MulticlassTask,
     "icl": ICLTask,
-    "adaptive_lm": unported("task 'adaptive_lm'", "item 12, with models/adaptive_softmax.py"),
+    "adaptive_lm": AdaptiveLMTask,
 }

@@ -30,7 +30,9 @@ from hyena_dna_tpu_torch.train.state import TrainState
 
 
 def _model_out(model, x, extra, **kw):
-    return model(x, **kw, **extra)
+    """The model's output; a sequence model's (y, state) gives y."""
+    out = model(x, **kw, **extra)
+    return out[0] if isinstance(out, tuple) else out
 
 
 def make_train_step(task, accumulate_grad_batches: int = 1) -> Callable:

@@ -7,11 +7,19 @@ reference torch names the port's modules carry:
 
   * Dense kernels (in, out) are transposed to Linear weights (out, in);
   * `short_filter_weight` (C, K) becomes `short_filter.weight` (C, 1, K);
-  * LayerNorm `scale` becomes `weight`;
+  * a norm's `scale` becomes `weight`;
   * the shared Sin `freq` is repeated at `implicit_filter.1/.3/.5/...`;
   * `mlp_in` maps to `implicit_filter.0`, `mlp_inner_j` to
-    `implicit_filter.{2j+2}`, `mlp_out` to the last index;
+    `implicit_filter.{2j+2}`, `mlp_out` to the last index (index 0 in a
+    `linear_mixer` filter, which has no other);
   * `pos_emb.t`, which flax does not store, is derived from `pos_emb.z`.
+
+The attention mixer (`Wqkv`, `out_proj`), the learned position table
+(`position_embeddings`), `SequenceModel` and its layers, residuals and
+pools, `LongConv` (its `kernel.kernel` tensor kept as it is, not
+transposed), `BlockFFT`'s matrices and the adaptive LM's tables, `ord_proj_w`
+and the norms map by the same rules, since the port's modules carry the
+flax names where the reference has none.
 
 Decoder heads (`models/heads.py`) map by the generic rule: their Dense
 `kernel` becomes a Linear `weight` under the same path, so a JAX fine-tune
@@ -63,11 +71,13 @@ def flax_to_torch_state_dict(params, buffers: bool = True) -> Dict[str, torch.Te
     reference-named torch state dict, with the derived `pos_emb.t` buffer
     unless `buffers` is False."""
     flat = dict(_flatten(params))
-    n_inner = {}
+    n_inner, has_in = {}, set()
     for path in flat:
-        m = re.match(r"mlp_inner_(\d+)$", path[-2]) if len(path) > 1 else None
+        m = re.match(r"mlp_inner_(\d+)$", path[-2]) if len(path) > 2 else None
         if m and path[-3] == "filter_fn":
             n_inner[path[:-2]] = max(n_inner.get(path[:-2], 0), int(m.group(1)) + 1)
+        if len(path) > 2 and path[-2] == "mlp_in" and path[-3] == "filter_fn":
+            has_in.add(path[:-2])
     sd = {}
     for path, val in flat.items():
         *base, leaf = path
@@ -75,8 +85,8 @@ def flax_to_torch_state_dict(params, buffers: bool = True) -> Dict[str, torch.Te
         parent = base[-1] if base else ""
         if leaf == "embedding":
             sd[_torch_key(base + ("weight",))] = val
-        elif parent in ("norm1", "norm2", "ln_f"):
-            sd[_torch_key(base + ({"scale": "weight"}.get(leaf, leaf),))] = val
+        elif leaf == "scale":
+            sd[_torch_key(base + ("weight",))] = val
         elif leaf == "short_filter_weight":
             sd[_torch_key(base + ("short_filter", "weight"))] = val[:, None, :]
         elif leaf == "short_filter_bias":
@@ -95,13 +105,15 @@ def flax_to_torch_state_dict(params, buffers: bool = True) -> Dict[str, torch.Te
             fbase = base[:-1]
             if parent == "mlp_in":
                 idx = 0
-            elif parent == "mlp_out":
-                idx = 2 * (n_inner.get(fbase, 0) + 1)
+            elif parent == "mlp_out":  # index 0 of a linear-mixer filter
+                idx = 2 * (n_inner.get(fbase, 0) + 1) if fbase in has_in else 0
             else:
                 idx = 2 * int(parent[len("mlp_inner_"):]) + 2
             name = "weight" if leaf == "kernel" else leaf
             sd[_torch_key(fbase + ("implicit_filter", str(idx), name))] = (
                 val.T if leaf == "kernel" else val)
+        elif leaf == "kernel" and parent == "kernel":  # LongConvKernel's own tensor
+            sd[_torch_key(path)] = val
         elif leaf == "kernel":
             sd[_torch_key(base + ("weight",))] = val.T
         else:

@@ -27,7 +27,10 @@ them), warms up, then:
   (`conv_fwd::*`, its four passes), C (`conv_bwd::*`),
   D (`add_ln_fwd_kernel`), D' (`add_ln_bwd_kernel`, `add_ln_sum_kernel`),
   E (`conv_gfwd::*`), E' (`conv_gbwd::*`),
-  matrix products (cuBLAS, `nvjet` for bf16 on Hopper), and the rest
+  SDPA's attention kernels (`flash*`, `fmha*`: the attention configs,
+  which this tool does not build; `chip_smoke.py` phase 9 profiles their
+  step with `profile_device`), matrix products (cuBLAS, `nvjet` for bf16
+  on Hopper), and the rest
   (elementwise, float32 LN, embedding, filter MLP, optimizer);
   `device_idle_share` is 1 - busy / wall over the profiled forward or step.
 
@@ -58,6 +61,8 @@ GROUPS = (("kernel_d_bwd", ("add_ln_bwd_kernel", "add_ln_sum_kernel")),
           ("kernel_c", ("conv_bwd::",)),
           ("kernel_e", ("conv_gfwd::",)),
           ("kernel_e_bwd", ("conv_gbwd::",)),
+          # SDPA's kernels (flash, memory-efficient) on the attention configs
+          ("attention", ("flash", "fmha", "attention")),
           ("matmul", ("gemm", "sm90_", "cutlass", "ampere_", "cublas", "nvjet")))
 
 
@@ -66,6 +71,31 @@ def _group(name: str) -> str:
         if any(k in name for k in keys):
             return group
     return "other"
+
+
+def profile_device(run):
+    """Run `run()` once under `torch.profiler`: (its wall ms on CUDA events,
+    device ms by group of `GROUPS`, device ms by kernel name)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        run()
+        end.record()
+        torch.cuda.synchronize()
+    device_ms = defaultdict(float)
+    kernels = defaultdict(float)
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        # a record_function range (the optimizer's) also shows on the device as
+        # a user annotation spanning its kernels: not device time of its own
+        if (t and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            device_ms[_group(evt.key)] += t / 1e3
+            kernels[evt.key] += t / 1e3
+    return start.elapsed_time(end), dict(device_ms), dict(kernels)
 
 
 def _forward_runner(model, args):
@@ -165,27 +195,7 @@ def main(argv=None):
     if args.train:
         phase_ms = phases()
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    start, end = events[:2]
-    with torch.profiler.profile(activities=acts) as prof:
-        start.record()
-        run()
-        end.record()
-        torch.cuda.synchronize()
-    profiled_ms = start.elapsed_time(end)
-
-    device_ms = defaultdict(float)
-    kernels = defaultdict(float)
-    for evt in prof.key_averages():
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = getattr(evt, "self_cuda_time_total", 0.0)
-        # a record_function range (the optimizer's) also shows on the device as
-        # a user annotation spanning its kernels: not device time of its own
-        if (t and evt.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(evt, "is_user_annotation", False)):
-            device_ms[_group(evt.key)] += t / 1e3
-            kernels[evt.key] += t / 1e3
+    profiled_ms, device_ms, kernels = profile_device(run)
     busy = sum(device_ms.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -119,8 +119,12 @@ def test_layer_encoder_matches_jax(prenorm, norm, layer):
 
 
 def test_layer_encoder_refuses_unported_layers():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        E.LayerEncoder(D, layer={"_name_": "mha"})
+    """Every layer of the registry builds now (mha, ff, long-conv: see
+    tests/test_torch_port_sequence_model.py); a name no registry has
+    raises, as in the JAX package."""
+    E.LayerEncoder(D, layer={"_name_": "mha", "num_heads": 2})
+    with pytest.raises(KeyError, match="s4"):
+        E.LayerEncoder(D, layer={"_name_": "s4"})
 
 
 @pytest.mark.parametrize("timeenc", [0, 1])

@@ -171,8 +171,11 @@ def test_task_matches_jax(task, kw, y):
 
 @pytest.mark.parametrize("name", ["adaptive_lm"])
 def test_unported_tasks_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        T.TASK_REGISTRY[name]()
+    """No task of the JAX registry is left unported: the name that raised
+    builds now (tests/test_torch_port_adaptive.py holds it to JAX), and the
+    two registries hold the same names."""
+    assert isinstance(T.TASK_REGISTRY[name](), T.LMTask)
+    assert set(T.TASK_REGISTRY) == set(JT.TASK_REGISTRY)
 
 
 def test_port_imports_no_sklearn_jax_or_reference():

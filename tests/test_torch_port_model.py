@@ -132,12 +132,18 @@ def test_positional_embedding_matches_jax():
                                np.asarray(jax_pos_emb(5, 257)), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("key,value", [("num_heads", 2), ("outer_mixing", True),
-                                       ("order", 3), ("_name_", "mha")])
+@pytest.mark.parametrize("key,value", [("inner_factor", 2), ("order", 1),
+                                       ("num_heads", 3), ("_name_", "s4")])
 def test_unported_configs_raise(key, value):
+    """The general Hyena path and attention are ported (heads, outer mixing,
+    order 3 and `_name_: mha` build; tests/test_torch_port_hyena_general.py
+    holds them to JAX): what still raises is what the JAX package refuses
+    too (inner_factor > 1, order < 2, heads that do not divide d_model) and
+    a mixer name no registry has."""
     layer = _layer(66)
     layer[key] = value
-    with pytest.raises(NotImplementedError, match="not ported|order-2"):
+    with pytest.raises((NotImplementedError, ValueError),
+                       match="inner_factor|order must|multiple of num_heads|unknown mixer"):
         ConvLMHeadModel(d_model=16, n_layer=1, d_inner=64, vocab_size=12, layer=layer)
 
 
