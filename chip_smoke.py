@@ -185,9 +185,42 @@ line:
             16 AdamW steps each at d_model 128 on 16 x 1024 windows, float32:
             the loss falls, no launch, the first loss card vs CPU within
             1e-4 relative.
+10. parallel data and sequence parallelism (`hyena_dna_tpu_torch/parallel/`,
+            `ops/distributed.py`) on the one card: 4 ranks spawned after the
+            build (one card, so the backend rule gives gloo; its rank 0
+            prints the backend and the rank-to-device map), with no
+            collective staged through host memory (gloo takes the card's
+            tensors in every collective the port issues). (a) `seq_fftconv`
+            and `seq_short_conv` on each rank's columns of a seeded 1 x 256 x
+            450,000 bf16 operand (fft 2^20, channel pencils 1 x 64 x 450,000)
+            against kernels B and C on the whole tensor in one process: y, du,
+            and dk, dD on the rank's channel rows (zero elsewhere), each
+            bit-equal or within the bf16 kernel tolerance (which one is
+            printed); the halo conv on 1 x 768 x 450,000 bit-equal to
+            `short_conv_1d`; B and C once and four all-to-alls a rank; each
+            all-to-all's ms and bytes. (b) `experiment=hg38/hg38_medium_450k`
+            as shipped on its seq 4 mesh (d 256 x 8, batch 1, L 450,000, bf16,
+            float32 residual, mixer and MLP checkpoint cells), phase 6's
+            genome, 3 steps, `accumulate_grad_batches` 2 (8 shipped), warmup
+            0: losses finite, equal on every rank, the last below the first;
+            B and C 8 times a micro-step on every rank and nothing else; the
+            step and micro-step ms, tokens/s, each rank's peak GiB; the
+            card is synchronised before each collective in (b) and (d), and
+            a step's host seconds inside the collectives and waiting for the
+            card before them are printed apart, each with its share of the
+            step. (c) the same
+            model with dropout off, one micro-step on a seeded 1 x 450,000
+            row: the 4 ranks' loss and every all-reduced gradient against one
+            process on the card (mesh 1, the fused route), loss 5e-3
+            relative, gradients 5e-2 of each max|g|. (d)
+            `experiment=hg38/hg38_large_1m` on a data 2 x seq 2 mesh (2 x 8
+            shipped), max_length 131,073, batch 2 (a row a data rank),
+            `accumulate_grad_batches` 1, the curriculum off, 3 steps: (b)'s
+            checks.
 Launch counts are zeroed just before this slice's path in phase 2 and
 before each request of phases 4 and 5, each run of phases 6, 8 and 9 and
-each part of phases 7 and 9, and read just after it.
+each part of phases 7 and 9, and read just after it; in phase 10 on each
+rank before each of its runs.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
@@ -198,7 +231,8 @@ row of B, C, E, E', A4, A4', F and F' under "routes"; A, A', B and C
 at the trainer's shapes under "trainer" and at the species curriculum's
 last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; phase 9's
 launches (9c's mixed stack and 9d's general Hyena path) under
-"models_launches"; the bf16 rows of A,
+"models_launches"; B and C at phase 10's channel pencils with the ranks'
+launches under "parallel"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
 readings, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
@@ -213,6 +247,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import gzip
 import json
 import math
@@ -2471,6 +2506,359 @@ def models_phase(kernels, tmp: Path, seed: int) -> dict:
     return total
 
 
+# Phase 10, data and sequence parallelism on the one card: PAR_WORLD ranks,
+# spawned processes that each take the card (NCCL does not support two ranks on one
+# device, so the backend rule of `parallel/launch.py` gives gloo), after the
+# parent built every kernel. One world runs 10a, 10b, 10c's ranks and 10d in
+# turn; each rank writes what it measured to a JSON file the parent reads.
+PAR_WORLD = 4
+PAR_L = 450_000  # hg38_medium_450k's L - 1: the 450k layer's conv operand
+PAR_STEPS = 3
+PAR_ACCUM = 2  # hg38_medium_450k ships 8: cut for the time limit
+PAR_1M_LENGTH = 131_073  # 10d: hg38_large_1m's 1,000,001 cut to fit four ranks' contexts
+A2A_REPS = 5
+PAR_LAUNCHES = {"fftconv": N_LAYER, "fftconv_bwd": N_LAYER}  # a micro-step of the seq route
+STAGED = []  # collectives the port stages through host memory under gloo: none (10a)
+
+
+def parallel_data(genome: Path, run_dir: Path) -> list:
+    return [f"dataset.bed_file={genome / 'synthetic_hg38.bed'}",
+            f"dataset.fasta_file={genome / 'synthetic_hg38.fa'}", f"train.run_dir={run_dir}",
+            f"trainer.limit_train_batches={PAR_STEPS}", "trainer.max_epochs=1",
+            "trainer.log_every_n_steps=1", "trainer.limit_val_batches=1",
+            # the shipped warmups (600, 1000 steps) hold the lr near 1e-6 for
+            # three steps; at the shipped peak lr from step 0 the loss falls
+            "scheduler.warmup_t=0"]
+
+
+def parallel_ops(kernels, mesh, seed: int) -> dict:
+    """10a on one rank: `seq_fftconv` forward and backward on the rank's
+    columns of a 1 x 256 x 450,000 bf16 operand against kernels B and C on
+    the whole tensor in this process (y, du; dk and dD on the rank's channel
+    rows, zero elsewhere), `seq_short_conv` on 1 x 768 x 450,000 bf16 against
+    `short_conv_1d`, then each all-to-all timed alone."""
+    import torch
+    import torch.distributed as dist
+
+    from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+    from hyena_dna_tpu_torch.ops.distributed import all_to_all, seq_fftconv, seq_short_conv
+    from hyena_dna_tpu_torch.parallel.launch import COLLECTIVES
+    from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    C, L = D_MODEL, PAR_L
+    u = torch.randn(1, C, L, device="cuda", generator=g).bfloat16()
+    dy = torch.randn(1, C, L, device="cuda", generator=g).bfloat16()
+    decay = torch.exp(-torch.arange(L, device="cuda") / (L / 8))
+    k = (torch.randn(C, L, device="cuda", generator=g) * 0.05 * decay).bfloat16()
+    D = torch.randn(C, device="cuda", generator=g)
+    cols = mesh.seq_columns(L)
+    rows = slice(mesh.seq_index * C // mesh.seq, (mesh.seq_index + 1) * C // mesh.seq)
+    y_ref = FB.fftconv_fused(u, k, D)
+    du_ref, dk_ref, dD_ref = FB.fftconv_bwd_retransform(u, dy, k, D)
+    zero_counts(kernels)
+    COLLECTIVES.reset()
+    ul = u[..., cols].contiguous().requires_grad_(True)
+    kk, DD = k.clone().requires_grad_(True), D.clone().requires_grad_(True)
+    y = seq_fftconv(ul, kk, DD, mesh)
+    y.backward(dy[..., cols].contiguous())
+    torch.cuda.synchronize()
+    launches, calls = read_counts(kernels), dict(COLLECTIVES.calls)
+    outside = torch.ones(C, dtype=torch.bool, device="cuda")
+    outside[rows] = False
+    pairs = {"y": (y, y_ref[..., cols]), "du": (ul.grad, du_ref[..., cols]),
+             "dk": (kk.grad[rows], dk_ref[rows]), "dD": (DD.grad[rows], dD_ref[rows])}
+    errs = {n: compare(a, b, "float32" if b.dtype == torch.float32 else "bfloat16")[0]
+            for n, (a, b) in pairs.items()}
+    bit_equal = {n: bool(torch.equal(a, b)) for n, (a, b) in pairs.items()}
+    zero_outside = bool((kk.grad[outside] == 0).all() and (DD.grad[outside] == 0).all())
+    x = torch.randn(1, 3 * C, L, device="cuda", generator=g).bfloat16()
+    w = ((torch.rand(3 * C, 3, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)).bfloat16()
+    b = ((torch.rand(3 * C, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)).bfloat16()
+    conv_equal = bool(torch.equal(seq_short_conv(x[..., cols].contiguous(), w, b, mesh),
+                                  short_conv_1d(x, w, b)[..., cols]))
+    del x
+    pencil = all_to_all(ul.detach(), mesh.seq_group, True)
+    a2a = {}
+    for label, t, to_pencil in (("columns_to_pencil", ul.detach(), True),
+                                ("pencil_to_columns", pencil, False)):
+        all_to_all(t, mesh.seq_group, to_pencil)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(A2A_REPS):
+            all_to_all(t, mesh.seq_group, to_pencil)
+        torch.cuda.synchronize()
+        a2a[label] = {"ms": (time.perf_counter() - t0) / A2A_REPS * 1e3,
+                      "shape": list(t.shape), "bytes_sent": t.numel() * t.element_size(),
+                      "bytes_leaving_rank": t.numel() * t.element_size()
+                      * (mesh.seq - 1) // mesh.seq}
+    return {"launches": launches, "collectives": calls, "max_abs_err": errs,
+            "bit_equal": bit_equal, "dk_dD_zero_outside_rows": zero_outside,
+            "short_conv_bit_equal": conv_equal, "all_to_all": a2a,
+            "pencil": [1, C // mesh.seq, L]}
+
+
+def parallel_trainer(kernels, cfg: dict) -> dict:
+    """A trainer run on one rank, its train step wrapped to read each
+    step's launches, collectives (calls, bytes, host seconds in each call
+    and, as `COLLECTIVES.synchronize` is set for the run, host seconds
+    waiting for the card's queued work before each), host time
+    (synchronised before and after), peak GiB and global loss."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel.launch import COLLECTIVES
+    from hyena_dna_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    step, steps = trainer.train_step, []
+
+    def counted(state, batch, generator=None):
+        before = read_counts(kernels)
+        COLLECTIVES.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = step(state, batch, generator)
+        loss = float(out["loss"])
+        torch.cuda.synchronize()
+        steps.append({"seconds": time.perf_counter() - t0, "loss": loss,
+                      "shape": list(batch[0].shape),
+                      "launches": {n: c - before[n] for n, c in read_counts(kernels).items()},
+                      "collectives": COLLECTIVES.summary(),
+                      "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+        return out
+
+    trainer.train_step = counted
+    zero_counts(kernels)
+    COLLECTIVES.synchronize = True
+    try:
+        final = trainer.fit()
+    finally:
+        COLLECTIVES.synchronize = False
+        trainer.close()
+    return {"steps": steps, "launches": read_counts(kernels), "mesh": trainer.mesh.shape,
+            "coords": [trainer.mesh.data_index, trainer.mesh.seq_index],
+            "final": {k: v for k, v in final.items() if isinstance(v, float)}}
+
+
+def parallel_grads(cfg: dict, seed: int):
+    """10c on one rank: one micro-step of the model with dropout off on the
+    rank's columns of a seeded 1 x 450,001 token row, its loss weighted by
+    the rank's share of the tokens, the gradients and loss all-reduced by
+    the train step's own reduction. Returns (loss, {name: gradient})."""
+    import torch
+
+    from hyena_dna_tpu_torch.train.step import _all_reduce_grads
+    from hyena_dna_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    x, y = parity_tokens(seed, trainer.device)
+    cols = trainer.mesh.seq_columns(x.shape[1])
+    model = trainer.model.train()
+    logits = model(x[:, cols].contiguous(), trainer.generator)
+    loss = trainer.task.compute_loss(logits, y[:, cols], train=True) / trainer.mesh.size
+    loss.backward()
+    (total,) = _all_reduce_grads(model, [loss.detach()], trainer.mesh.grad_group)
+    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    trainer.close()
+    return float(total), grads
+
+
+def parity_tokens(seed: int, device):
+    """A seeded 1 x 450,001 row of base tokens (ids 7-10) as (x, y)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    ids = torch.randint(7, 11, (1, PAR_L + 1), generator=g)
+    return ids[:, :-1].to(device), ids[:, 1:].to(device)
+
+
+def parallel_configs(tmp: Path) -> dict:
+    """10b, 10c and 10d's configs (`train/__main__.py::build_config`)."""
+    from hyena_dna_tpu_torch.train.__main__ import build_config
+
+    genome = tmp / "genome"
+    medium = ["experiment=hg38/hg38_medium_450k",
+              f"trainer.accumulate_grad_batches={PAR_ACCUM}"]
+    large = ["experiment=hg38/hg38_large_1m", "mesh.data=2", "mesh.seq=2",
+             f"dataset.max_length={PAR_1M_LENGTH}", "trainer.accumulate_grad_batches=1"]
+    parity = ["experiment=hg38/hg38_medium_450k", "model.embed_dropout=0.0"]
+    cfgs = {"10b": build_config(medium + parallel_data(genome, tmp / "par_450k")),
+            "10d": build_config(large + parallel_data(genome, tmp / "par_1m")),
+            "10c": build_config(parity + parallel_data(genome, tmp / "par_parity")),
+            "10c_single": build_config(parity + ["mesh.seq=1"] + parallel_data(
+                genome, tmp / "par_parity_single"))}
+    cfgs["10d"]["callbacks"].pop("seqlen_warmup_reload")  # the curriculum is cut
+    return cfgs
+
+
+def parallel_ranks(tmp: str, seed: int) -> None:
+    """Each rank of the phase 10 world: join through torchrun's variables
+    (`initialize_distributed`: the card, gloo), then 10a, 10b, 10c, 10d."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel import launch
+    from hyena_dna_tpu_torch.parallel.sharding import make_mesh
+    from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
+    kernels = port_kernels()
+    launch.initialize_distributed(torch.device("cuda"))
+    tmp = Path(tmp)
+    cfgs = parallel_configs(tmp)
+    res = {"backend": torch.distributed.get_backend(), "device": str(torch.cuda.current_device()),
+           "10a": parallel_ops(kernels, make_mesh(data=1, seq=PAR_WORLD), seed)}
+    torch.cuda.empty_cache()
+    res["10b"] = parallel_trainer(kernels, cfgs["10b"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss, grads = parallel_grads(cfgs["10c"], seed + 1)
+    res["10c"] = {"loss": loss}
+    if launch.is_main_process():
+        torch.save(grads, tmp / "par_grads.pt")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["10d"] = parallel_trainer(kernels, cfgs["10d"])
+    (tmp / f"par_rank{launch.rank()}.json").write_text(json.dumps(res))
+
+
+def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float) -> dict:
+    """Log a phase 10 trainer run from every rank's record and raise unless
+    its losses are finite and the last below the first, every rank saw the
+    same losses, and every step launched B and C PAR_LAUNCHES times a
+    micro-step and nothing else. Returns the launches summed over ranks."""
+    import statistics
+
+    runs = [r[part] for r in ranks]
+    losses = [s["loss"] for s in runs[0]["steps"]]
+    expect = {n: PAR_LAUNCHES.get(n, 0) * accum for n in runs[0]["launches"]}
+    step_s = [max(r["steps"][i]["seconds"] for r in runs) for i in range(len(losses))]
+    # a rank's mean host seconds a step: inside the collectives after the card
+    # was synchronised (the data's trip plus the wait for the slowest rank), and
+    # in those synchronisations (the card's work queued before each collective)
+    per_step = lambda key: [statistics.mean(
+        sum(c[key] for c in r["steps"][i]["collectives"].values()) for r in runs)
+        for i in range(len(losses))]
+    coll_s, wait_s = per_step("seconds"), per_step("wait_seconds")
+    tokens = runs[0]["steps"][0]["shape"][0] * runs[0]["steps"][0]["shape"][1] * len(runs)
+    # gloo returns when the data has moved; NCCL once enqueued, so its host seconds are no share
+    gloo = ranks[0]["backend"] == "gloo"
+    checks = {"steps": len(losses) == PAR_STEPS,
+              "losses_finite": all(math.isfinite(v) for v in losses),
+              "loss_falls": losses[-1] < losses[0],
+              "ranks_agree": all([s["loss"] for s in r["steps"]] == losses for r in runs),
+              "launches_per_step": all(s["launches"] == expect for r in runs
+                                       for s in r["steps"])}
+    ok = all(checks.values())
+    log({"phase": "parallel", "part": label, "mesh": runs[0]["mesh"],
+         "coords": [r["coords"] for r in runs], "backend": ranks[0]["backend"],
+         "staged_collectives": STAGED, "steps": len(losses),
+         "step_ms": [t * 1e3 for t in step_s], "step_ms_median": statistics.median(step_s) * 1e3,
+         "micro_step_ms": statistics.median(step_s) * 1e3 / accum,
+         "tokens_per_s": tokens / statistics.median(step_s),
+         "collective_s_per_step": coll_s,
+         "collective_share": (statistics.median(c / t for c, t in zip(coll_s, step_s))
+                              if gloo else None),
+         "card_wait_s_per_step": wait_s,
+         "card_wait_share": (statistics.median(w / t for w, t in zip(wait_s, step_s))
+                             if gloo else None),
+         "collectives_per_step": runs[0]["steps"][-1]["collectives"],
+         "peak_gib_per_rank": [max(s["peak_gib"] for s in r["steps"]) for r in runs],
+         "losses": losses, "launches_per_step_per_rank": runs[0]["steps"][-1]["launches"],
+         "expected_per_step": expect, "final": runs[0]["final"], "checks": checks,
+         "seconds": time.perf_counter() - t0, "ok": ok})
+    if not ok:
+        raise AssertionError(f"phase 10 {label} failed its checks: {checks}")
+    total = {}
+    for r in runs:
+        for n, c in r["launches"].items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
+def parallel_phase(FB, kernels, tmp: Path, seed: int) -> dict:
+    """Phase 10 in phase 6's directory (its genome): the world of ranks,
+    then 10c's single-process side, the checks and the lines; returns the
+    launches of 10b and 10d summed over the ranks."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    spawn(parallel_ranks, PAR_WORLD, args=(str(tmp), seed), timeout=900)
+    ranks = [json.loads((tmp / f"par_rank{r}.json").read_text()) for r in range(PAR_WORLD)]
+    ops = [r["10a"] for r in ranks]
+    checks = {"errors_within_tol": True,  # compare() raised on a rank otherwise
+              "dk_dD_zero_outside_rows": all(o["dk_dD_zero_outside_rows"] for o in ops),
+              "short_conv_bit_equal": all(o["short_conv_bit_equal"] for o in ops),
+              "launches": all(o["launches"]["fftconv"] == 1 and o["launches"]["fftconv_bwd"] == 1
+                              for o in ops),
+              "collectives": all(o["collectives"] == {"all_to_all_single": 4} for o in ops)}
+    log({"phase": "parallel", "part": "10a seq_fftconv and seq_short_conv, 4 ranks",
+         "backend": ranks[0]["backend"], "staged_collectives": STAGED,
+         "signal": [1, D_MODEL, PAR_L], "pencil": ops[0]["pencil"], "dtype": "bfloat16",
+         "bit_equal_per_rank": [o["bit_equal"] for o in ops],
+         "max_abs_err_per_rank": [o["max_abs_err"] for o in ops],
+         "tol": TOL["bfloat16"], "all_to_all_per_rank": [o["all_to_all"] for o in ops],
+         "launches_per_rank": [o["launches"] for o in ops], "checks": checks,
+         "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"phase 10a failed its checks: {checks}")
+    total = {}
+    for part, label, accum in (("10b", "10b experiment=hg38/hg38_medium_450k, seq 4", PAR_ACCUM),
+                               ("10d", "10d experiment=hg38/hg38_large_1m, data 2 x seq 2", 1)):
+        for n, c in check_parallel_run(ranks, part, label, accum, t_phase).items():
+            total[n] = total.get(n, 0) + c
+    # 10c: the same micro-step in this process on the card (mesh 1, the fused route)
+    from hyena_dna_tpu_torch.train.trainer import Trainer
+
+    cfgs = parallel_configs(tmp)
+    trainer = Trainer(cfgs["10c_single"])
+    x, y = parity_tokens(seed + 1, trainer.device)
+    model = trainer.model.train()
+    loss = trainer.task.compute_loss(model(x, trainer.generator), y, train=True)
+    loss.backward()
+    loss = loss.item()
+    ours = torch.load(tmp / "par_grads.pt", weights_only=True)
+    rank_loss = ranks[0]["10c"]["loss"]
+    loss_err = abs(rank_loss - loss) / abs(loss)
+    worst, worst_name = 0.0, None
+    for name, p in model.named_parameters():
+        ref = p.grad.detach().float().cpu()
+        err = (ours[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    trainer.close()
+    ok = loss_err <= MODEL_BF16["loss"] and worst <= MODEL_BF16["grads"] and all(
+        r["10c"]["loss"] == rank_loss for r in ranks)
+    log({"phase": "parallel", "part": "10c 4 ranks vs one process, 1 x 450,000 bf16, dropout off",
+         "loss_ranks": rank_loss, "loss_single": loss, "loss_rel_err": loss_err,
+         "worst_grad_err_of_max": worst, "worst_param": worst_name,
+         "tol": {"loss": MODEL_BF16["loss"], "grads": MODEL_BF16["grads"]}, "ok": ok})
+    if not ok:
+        raise AssertionError("phase 10c: the ranks' loss or gradients disagree with one process")
+    del trainer, model, loss
+    torch.cuda.empty_cache()
+    log({"phase": "parallel", "part": "summary", "seconds": time.perf_counter() - t_phase,
+         "launches": total})
+    return total
+
+
+def port_kernels() -> list:
+    """Every hand-written kernel of the port, in the build's order."""
+    from hyena_dna_tpu_torch.ops import add_ln as AL
+    from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+    from hyena_dna_tpu_torch.ops import fused_front as FF
+    from hyena_dna_tpu_torch.ops import gated_fftconv as GE
+    from hyena_dna_tpu_torch.ops import mlp_fused as MF
+
+    return [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD,
+            GE.KERNEL, GE.KERNEL_BWD, FF.KERNEL4, FF.KERNEL4_BWD, MF.KERNEL, MF.KERNEL_BWD]
+
+
 def main() -> int:
     import torch
 
@@ -2491,8 +2879,7 @@ def main() -> int:
     from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
     set_card_numerics()
-    kernels = [FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD, AL.KERNEL, AL.KERNEL_BWD,
-               GE.KERNEL, GE.KERNEL_BWD, FF.KERNEL4, FF.KERNEL4_BWD, MF.KERNEL, MF.KERNEL_BWD]
+    kernels = port_kernels()
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0)})
 
@@ -2595,6 +2982,16 @@ def main() -> int:
         check_conv_bwd(FB, FB.fftconv_bwd_retransform, 4, 32768, "bfloat16",
                        "pallas_fftconv.py:1222 (species stage 6)", 107, C=TRAINER_D)]
     rows += species_rows
+    # phase 10's channel pencils: 1 x 64 x 450,000 (10b, fft 2^20) and
+    # 1 x 128 x 131,072 (10d, fft 2^18), each rank's conv in the seq route
+    parallel_rows = []
+    for i, (C, L) in enumerate(((D_MODEL // PAR_WORLD, PAR_L), (D_MODEL // 2, 1 << 17))):
+        parallel_rows += [
+            check_conv(FB, 1, L, "bfloat16", "pallas_fftconv_n3.py:413 seq pencil", 110 + 2 * i,
+                       C=C),
+            check_conv_bwd(FB, FB.fftconv_bwd_retransform, 1, L, "bfloat16",
+                           "pallas_fftconv_n3.py:629 seq pencil", 111 + 2 * i, C=C)]
+    rows += parallel_rows
     for row in rows + bf16_rows:
         log({"phase": "kernel", **row})
     log(check_outer4(FB, 1, 1000448, (16, 512, 256), "bfloat16", 60))
@@ -2679,6 +3076,10 @@ def main() -> int:
         models_launches = models_phase(kernels, Path(trainer_tmp), seed=21)
         for name, n in models_launches.items():
             total[name] += n
+        # phase 10 on phase 6's genome, ranks spawned after every kernel was built
+        parallel_launches = parallel_phase(FB, kernels, Path(trainer_tmp), seed=22)
+        for name, n in parallel_launches.items():
+            total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2750,6 +3151,12 @@ def main() -> int:
                            **{k: r[k] for k in timing}} for r in trainer_rows}
     species = {r["name"]: {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
                            **{k: r[k] for k in timing}} for r in species_rows}
+    # the seq route's pencil rows (phase 10) with the ranks' launches
+    parallel = {name: {"launches": parallel_launches.get(name, 0),
+                       "pencils": {r["shape"]: {"max_abs_err": r["max_abs_err"],
+                                                **{k: r[k] for k in timing}}
+                                   for r in parallel_rows if r["name"] == name}}
+                for name in ("fftconv", "fftconv_bwd")}
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -2765,7 +3172,8 @@ def main() -> int:
                         "fftconv_gated_bwd") else {}),
          **({"trainer": trainer[name]} if name in trainer else {}),
          **({"models_launches": models_launches[name]} if models_launches.get(name) else {}),
-         **({"species": species[name]} if name in species else {})}
+         **({"species": species[name]} if name in species else {}),
+         **({"parallel": parallel[name]} if name in parallel else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -12,7 +12,10 @@ hg38 pretraining and GenomicBenchmarks fine-tuning with its data layer,
 heads, metrics, checkpoints and callbacks; and serving and generation:
 published checkpoints (`pretrained.py`, eval presets), full-forward
 (`generation.py`) and modal-recurrent (`recurrent.py`) generation and the
-in-context-learning evals (`evals/`). Hand-written CUDA
+in-context-learning evals (`evals/`); and data and sequence parallelism
+(`parallel/`, `ops/distributed.py`: one process per rank under torchrun,
+the channel-pencil conv and the halo short conv over `torch.distributed`).
+Hand-written CUDA
 kernels (`csrc/`) carry the path: the fused front end forward and backward
 (`ops/fused_front.py`: A, A', and A4, A4' on the 4-D layout), the FFT long
 conv (`ops/fused_fftconv.py`: B, C), the fused residual-add + LN

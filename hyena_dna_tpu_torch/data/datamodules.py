@@ -55,6 +55,9 @@ class SequenceDataModule:
     shuffle: bool = True
     num_workers: int = 0  # a config key; the loader builds batches on one thread
     seed: int = 0
+    # the rank's data-axis coordinate and size (the trainer sets them under a mesh)
+    process_index: int = 0
+    process_count: int = 1
 
     def setup(self):
         raise NotImplementedError
@@ -68,6 +71,8 @@ class SequenceDataModule:
             shuffle=shuffle,
             seed=self.seed,
             drop_last=drop_last,
+            process_index=self.process_index,
+            process_count=self.process_count,
         )
 
     def train_dataloader(self):

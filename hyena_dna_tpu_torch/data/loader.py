@@ -7,9 +7,16 @@ A resume therefore needs only {epoch, batches_served}: `load_state_dict`
 makes the next iteration skip the batches already served, in O(1).
 A background thread builds up to `PREFETCH` batches ahead while the caller
 computes. The batches are numpy (tuples or dicts stacked per field); the
-trainer moves them to its device. The loader serves one process: the split
-of the order across processes and `shard_batch` wait for the data axis,
-ROADMAP.md Queue 1 item 10.
+trainer moves them to its device.
+
+Several processes: with `process_count` > 1 each takes the strided share
+`order[process_index::process_count][:n // process_count]` of the epoch's
+order (the JAX loader's split, a DistributedSampler without padding: the
+ragged tail is dropped so every process serves as many batches). The
+trainer passes the rank's data-axis coordinate and size, so the seq ranks
+of one data group read the same rows, and batch i of the processes, each
+of `batch_size` rows, holds together the rows of batch i of one process
+serving `process_count * batch_size` rows, in another order.
 """
 
 from __future__ import annotations
@@ -44,7 +51,13 @@ class DataLoader:
         shuffle: bool = False,
         seed: int = 0,
         drop_last: bool = True,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} of {process_count}")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -68,11 +81,15 @@ class DataLoader:
     def _epoch_order(self) -> np.ndarray:
         n = len(self.dataset)
         if self.shuffle:
-            return np.random.default_rng((self.seed, self.epoch)).permutation(n)
-        return np.arange(n)
+            order = np.random.default_rng((self.seed, self.epoch)).permutation(n)
+        else:
+            order = np.arange(n)
+        if self.process_count > 1:
+            order = order[self.process_index::self.process_count][:n // self.process_count]
+        return order
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self.dataset) // self.process_count
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _make_batch(self, order: np.ndarray, batch_idx: int):

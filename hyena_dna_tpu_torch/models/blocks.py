@@ -56,9 +56,9 @@ from hyena_dna_tpu_torch.ops.mlp_fused import mlp_fused
 # the JAX module's init and routing switches.
 _TRAINING_ONLY_KEYS = ("lr", "lr_pos_emb", "wd", "filter_dropout",
                        "fused_bias_fc", "fused_fft_conv", "jit_filter", "filter_cls",
-                       # JAX module switches: init scales, Pallas routing, the mesh
+                       # JAX module switches: init scales, Pallas routing, the seq axis name
                        "n_layer", "init_std", "use_pallas_front", "pallas_interpret",
-                       "return_state", "mesh", "seq_axis")
+                       "return_state", "seq_axis")
 # layer-config key -> HyenaFilter argument (JAX `make_mixer`'s filter keys)
 _FILTER_KEYS = {"emb_dim": "emb_dim", "w": "w", "num_inner_mlps": "num_inner_mlps",
                 "modulate": "modulate", "shift": "modulation_shift",
@@ -71,13 +71,18 @@ _ATTN_DROPPED = ("use_flash_attn", "fused_bias_fc")
 
 def make_mixer(d_model: int, layer_cfg: dict | None, dtype: torch.dtype = torch.float32,
                attn_cfg: dict | None = None, is_attn: bool = False,
-               n_layer: int = 1) -> nn.Module:
+               n_layer: int = 1, mesh=None) -> nn.Module:
     """The block's mixer (JAX `make_mixer`): `MHA` from `attn_cfg` where
     `is_attn` (a layer index in `attn_layer_idx`), else the Hyena operator
     from a reference-style layer config (`_name_: hyena`; `_name_: mha`
-    builds `MHA` from the layer config itself)."""
+    builds `MHA` from the layer config itself). `mesh` goes to the Hyena
+    operator (its seq axis); attention under a seq axis above 1 raises."""
     cfg = dict(attn_cfg or {}) if is_attn else dict(layer_cfg or {})
     name = "mha" if is_attn else cfg.pop("_name_", "hyena")
+    cfg.pop("mesh", None)  # a layer config's own mesh key: the model's mesh is used
+    if name == "mha" and mesh is not None and mesh.seq > 1:
+        raise NotImplementedError("attention under a seq axis is not ported "
+                                  "(ROADMAP.md Queue 1 item 21)")
     if name == "mha":
         for key in _ATTN_DROPPED:
             cfg.pop(key, None)
@@ -91,7 +96,7 @@ def make_mixer(d_model: int, layer_cfg: dict | None, dtype: torch.dtype = torch.
         filter_cfg.pop(key, None)
     filter_cfg.update({_FILTER_KEYS[k]: cfg.pop(k) for k in list(cfg) if k in _FILTER_KEYS})
     filter_cfg.update(cfg.pop("filter_cfg", None) or {})
-    return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, dtype=dtype, **cfg)
+    return HyenaOperator(d_model=d_model, filter_cfg=filter_cfg, dtype=dtype, mesh=mesh, **cfg)
 
 
 class Mlp(nn.Module):
@@ -140,7 +145,7 @@ class Block(nn.Module):
                  resid_dropout1: float = 0.0, resid_dropout2: float = 0.0,
                  dtype: torch.dtype = torch.float32, identity_mlp: bool = False,
                  residual_dtype=None, attn_cfg: dict | None = None, is_attn: bool = False,
-                 n_layer: int = 1):
+                 n_layer: int = 1, mesh=None):
         super().__init__()
         self.dtype = dtype
         self.identity_mlp = identity_mlp
@@ -149,7 +154,7 @@ class Block(nn.Module):
         self.resid_dtype = (torch_dtype(residual_dtype) if residual_dtype is not None
                             else torch.float32 if residual_in_fp32 else None)
         self.norm1 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
-        self.mixer = make_mixer(d_model, layer_cfg, dtype, attn_cfg, is_attn, n_layer)
+        self.mixer = make_mixer(d_model, layer_cfg, dtype, attn_cfg, is_attn, n_layer, mesh)
         if not identity_mlp:
             self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
             self.mlp = Mlp(d_model, d_inner, dtype)

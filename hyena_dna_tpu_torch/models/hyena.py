@@ -82,6 +82,19 @@ width). The skip term uses the filter's `bias` on the 3-D routes whatever
 `use_bias` says, as the JAX `_tail_3d` does; `HyenaFilter.forward` (the
 general route) honours it.
 
+Sequence parallelism (`mesh`, a `parallel.sharding.Mesh` whose seq axis is
+above 1; JAX `hyena.py:157-191`): each rank holds its contiguous L / S
+columns of u, and the operator takes the JAX sequence-sharded route
+whatever its order: `in_proj` and the short conv in `dtype`, the short
+conv with the left neighbour's halo (`ops/distributed.py::seq_short_conv`),
+then `_tail_3d` with every conv through the channel-pencil conv
+(`seq_fftconv`: kernel B forward, kernel C backward on each rank's
+(B, d / S, L) pencil, in the conv I/O dtype of the global length), and the
+last gate as a multiply. No fused front end (kernel A) and no gate-fused
+conv, as in the JAX package; one head and one block only. The filter bank
+is built at the global length L = S * (local length), which is also what
+`l_max` is held against.
+
 Parameter names are the reference torch names: `in_proj`, `out_proj`,
 `short_filter` (a depthwise Conv1d weight ((o+1)d, 1, k)), `filter_fn`,
 and `ord_proj_w` (order, heads, heads) with `post_order_ffn`.
@@ -99,11 +112,11 @@ from torch.utils.checkpoint import checkpoint
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
 from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, linear
 from hyena_dna_tpu_torch.ops import remat
+from hyena_dna_tpu_torch.ops.distributed import seq_fftconv, seq_short_conv
 from hyena_dna_tpu_torch.ops.fftconv import (GATED_MODES, fftconv_gated, fftconv_outer_4d,
                                              fftconv_tagged, next_fast_fft_size)
 from hyena_dna_tpu_torch.ops.fused_fftconv import plan_outer
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate, fused_proj_conv_gate4
-from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
 
 CONV_IO_BF16_MIN_L = 1 << 15
 FRONT4_TILES = (512, 256, 128)  # the JAX route's length tiles, in order of preference
@@ -125,7 +138,7 @@ class HyenaOperator(nn.Module):
                  gated_conv: str | None = None, front4: bool = False,
                  inner_remat: bool = False, num_heads: int = 1, num_blocks: int = 1,
                  inner_factor: int = 1, outer_mixing: bool = False,
-                 post_order_ffn: bool = False):
+                 post_order_ffn: bool = False, mesh=None):
         super().__init__()
         if order < 2:
             raise ValueError(f"order must be at least 2, got {order}")
@@ -153,8 +166,13 @@ class HyenaOperator(nn.Module):
         self.head_dim = d_model // num_heads
         self.plain_3d = num_heads == 1 and num_blocks == 1 and not outer_mixing \
             and not post_order_ffn
+        self.mesh = mesh if mesh is not None and mesh.seq > 1 else None
+        if self.mesh is not None and not self.plain_3d:
+            raise NotImplementedError("sequence-parallel Hyena takes one head and one block "
+                                      "(the DNA configs), as in the JAX package")
         # the fused front (kernel A) fuses order 2 and a k = 3 short conv
-        self.fused = self.plain_3d and order == 2 and short_filter_order == 3
+        self.fused = (self.plain_3d and order == 2 and short_filter_order == 3
+                      and self.mesh is None)
         width = (order + 1) * d_model
         self.in_proj = nn.Linear(d_model, width)
         self.out_proj = nn.Linear(d_model, d_model)
@@ -223,6 +241,8 @@ class HyenaOperator(nn.Module):
         """u: (B, L, d) in `dtype` -> (B, L, d) in `dtype`; `generator`
         draws the dropout mask in training."""
         b, length = u.shape[:2]
+        if self.mesh is not None:  # this rank's columns of the global length
+            length *= self.mesh.seq
         l_filter = min(length, self.l_max)
         if not self.fused:
             uc = self._front(u)
@@ -258,10 +278,12 @@ class HyenaOperator(nn.Module):
 
     def _front(self, u: torch.Tensor) -> torch.Tensor:
         """in_proj -> (B, (o+1)d, L) -> causal depthwise short conv, in
-        `dtype` (JAX `_front_3d`); its own checkpoint under `inner_remat`."""
+        `dtype` (JAX `_front_3d`; under a seq axis with the halo); its own
+        checkpoint under `inner_remat`."""
         def front(u, w, bp, wc, bc):
             proj = F.linear(u.to(self.dtype), w.to(self.dtype), bp.to(self.dtype))
-            return short_conv_1d(proj.transpose(1, 2), wc.to(self.dtype), bc.to(self.dtype))
+            return seq_short_conv(proj.transpose(1, 2), wc.to(self.dtype), bc.to(self.dtype),
+                                  self.mesh)
 
         args = (u, self.in_proj.weight, self.in_proj.bias, self.short_filter.weight[:, 0, :],
                 self.short_filter.bias)
@@ -269,19 +291,29 @@ class HyenaOperator(nn.Module):
             return checkpoint(front, *args, use_reentrant=False)
         return front(*args)
 
-    def _general_bank(self, l_filter: int, width: int):
-        """The float32 bank as (o-1, width, L) and the bias as (o-1, width):
-        the filter's channels split (width, o-1) with the order index
-        fastest (the reference's "c l (v o) -> c o v l")."""
+    def _general_bank(self, l_filter: int, width: int, dtype: torch.dtype = torch.float32):
+        """The bank in `dtype` as (o-1, width, L) and the bias as (o-1,
+        width): the filter's channels split (width, o-1) with the order
+        index fastest (the reference's "c l (v o) -> c o v l")."""
         o = self.order
-        k = self._filter_bank(l_filter, torch.float32)  # ((o-1) width, L)
+        k = self._filter_bank(l_filter, dtype)  # ((o-1) width, L)
         k = k.reshape(width, o - 1, l_filter).transpose(0, 1)
         bias = self.filter_fn.bias.reshape(width, o - 1).t()
         return k, bias
 
     def _tail_3d(self, uc: torch.Tensor, l_filter: int, generator) -> torch.Tensor:
-        """One head, one block (JAX `_tail_3d`): (B, (o+1)d, L) -> (B, L, d)."""
+        """One head, one block (JAX `_tail_3d`): (B, (o+1)d, L) -> (B, L, d);
+        under a seq axis every conv is `seq_fftconv` on v in `dtype`, in the
+        conv I/O dtype of the global length, and the last gate a multiply
+        (JAX `distributed=True`)."""
         *x, v = uc.split(self.d_model, dim=1)
+        if self.mesh is not None:
+            conv_dt = torch.bfloat16 if l_filter >= CONV_IO_BF16_MIN_L else torch.float32
+            k, bias = self._general_bank(l_filter, self.d_model, conv_dt)
+            for i, x_i in enumerate(reversed(x[1:])):
+                v = dropout(v * x_i, self.dropout, self.training, generator)
+                v = seq_fftconv(v, k[i].contiguous(), bias[i].float().contiguous(), self.mesh)
+            return (v * x[0]).transpose(1, 2)
         k, bias = self._general_bank(l_filter, self.d_model)
         last = self.order - 2
         for i, x_i in enumerate(reversed(x[1:])):

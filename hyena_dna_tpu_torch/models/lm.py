@@ -33,6 +33,14 @@ Hyena operator of `layer`; with `max_position_embeddings` > 0 the
 embeddings add a learned position table (`models/embeddings.py`). Remat
 cells, `residual_dtype` and `identity_mlp` take either mixer.
 
+Sequence parallelism: with `mesh` (a `parallel.sharding.Mesh`) whose seq
+axis S is above 1, each rank runs the model on its contiguous L / S
+columns and every Hyena mixer takes the sequence-sharded route
+(`models/hyena.py`); the embeddings, norms, MLPs and head are per token
+and need no collective. Learned positions and attention layers under a
+seq axis raise (ROADMAP.md Queue 1 item 21). The data axis needs nothing
+of the model: each data rank runs it on its rows.
+
 Weights start from the GPT-2 init, drawn from an explicit `torch.Generator`:
 Linear weights N(0, 0.02) and Embedding weights N(0, `init_std`) with zero
 biases (the JAX `LMBackbone` passes `init_std` to its embeddings only; every
@@ -107,8 +115,11 @@ class LMBackbone(nn.Module):
                  remat_residual_only: bool = False, remat_group_size: int = 1,
                  remat_save_conv: bool = True, remat_save_filter: bool = False,
                  identity_mlp: bool = False, residual_dtype=None, attn_layer_idx=None,
-                 attn_cfg: dict | None = None, max_position_embeddings: int = 0):
+                 attn_cfg: dict | None = None, max_position_embeddings: int = 0, mesh=None):
         super().__init__()
+        if mesh is not None and mesh.seq > 1 and max_position_embeddings > 0:
+            raise NotImplementedError("learned positions under a seq axis are not ported "
+                                      "(ROADMAP.md Queue 1 item 21)")
         self.remat = checkpoint_mixer or checkpoint_mlp
         self.residual_cells = self.remat and remat_residual_only and not identity_mlp
         self.remat_group_size = max(1, remat_group_size)
@@ -121,7 +132,7 @@ class LMBackbone(nn.Module):
                   resid_dropout1=embed_dropout if i == 0 else resid_dropout,
                   resid_dropout2=resid_dropout, dtype=dtype, identity_mlp=identity_mlp,
                   residual_dtype=residual_dtype, attn_cfg=attn_cfg, is_attn=i in attn_idx,
-                  n_layer=n_layer)
+                  n_layer=n_layer, mesh=mesh)
             for i in range(n_layer))
         self.resid_dropout = resid_dropout
         self.ln_f = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
@@ -186,7 +197,7 @@ class _LMBase(nn.Module):
                  checkpoint_mlp: bool = False, remat_residual_only: bool = False,
                  remat_group_size: int = 1, remat_save_conv: bool = True,
                  remat_save_filter: bool = False, identity_mlp: bool = False,
-                 residual_dtype=None, init_std: float = 0.02):
+                 residual_dtype=None, init_std: float = 0.02, mesh=None):
         super().__init__()
         self.n_layer = n_layer
         self.d_model = d_model
@@ -198,7 +209,7 @@ class _LMBase(nn.Module):
                                    checkpoint_mixer, checkpoint_mlp, remat_residual_only,
                                    remat_group_size, remat_save_conv, remat_save_filter,
                                    identity_mlp, residual_dtype, attn_layer_idx, attn_cfg,
-                                   max_position_embeddings)
+                                   max_position_embeddings, mesh)
         self.init_weights(generator)
 
     @torch.no_grad()

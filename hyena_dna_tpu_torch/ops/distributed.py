@@ -1,0 +1,126 @@
+"""Sequence-sharded convolutions: the channel-pencil FFT conv and the halo
+short conv (mirrors `hyena_dna_tpu/ops/distributed.py`).
+
+Under a mesh with a seq axis of size S, each rank holds a (B, C, L / S)
+block of columns (`parallel/sharding.py`, its contiguous columns).
+
+  * `seq_fftconv`: a length-L FFT cannot run on L / S columns, but a
+    depthwise conv splits over channels. An all-to-all over the seq group
+    turns (B, C, L / S) into the rank's channel pencil (B, C / S, L); the
+    rank runs the port's conv on it (`ops/fftconv.py::fftconv_tagged`:
+    kernel B forward, kernel C backward on the card) with its filter rows
+    k[c0:c1] and D[c0:c1]; a second all-to-all brings (B, C, L / S) back.
+    Each pencil is the same single-device conv, so the result is the same
+    as one conv of the whole tensor. The backward of an all-to-all is the
+    reverse all-to-all; dk and dD come back full size and zero outside the
+    rank's rows, for the gradient all-reduce (`train/step.py`) to sum.
+    The all-to-alls move u in its own dtype (the model dtype, as the JAX
+    route does) and the pencil is cast to the filter's dtype for the
+    kernel (bfloat16 from L = 2^15, the single-device route's conv I/O).
+    Under a checkpoint cell that saves the conv output the recompute
+    replays the pencil conv but runs both all-to-alls again: every rank
+    issues them in one order, since every rank runs the same graph.
+  * `seq_short_conv`: the causal depthwise k-tap conv needs the k - 1
+    columns left of the rank's first: an all-gather of every rank's last
+    k - 1 columns, of which each rank keeps its left neighbour's (rank 0
+    takes zeros, the causal pad); the backward all-gathers the halo's
+    gradient and each rank keeps its right neighbour's. An all-gather and
+    not send / recv, which gloo takes only for CPU tensors.
+
+With a seq axis of 1 (or no mesh) both are the single-device ops, as in
+the JAX package.
+
+Each collective is counted in `parallel.launch.COLLECTIVES`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from hyena_dna_tpu_torch.ops.fftconv import fftconv_tagged
+from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d, short_conv_1d_with_halo
+from hyena_dna_tpu_torch.parallel.launch import timed
+
+
+def all_to_all(x: torch.Tensor, group, to_pencil: bool) -> torch.Tensor:
+    """(B, C, L / S) -> (B, C / S, L) with `to_pencil`, else the reverse,
+    over the S ranks of `group` (rank j of the group holds columns
+    j L / S .. (j + 1) L / S and channel block j)."""
+    s = dist.get_world_size(group)
+    b = x.shape[0]
+    if to_pencil:
+        c, ls = x.shape[1], x.shape[2]
+        send = x.reshape(b, s, c // s, ls).permute(1, 0, 2, 3).contiguous()
+    else:
+        cs, ls = x.shape[1], x.shape[2] // s
+        send = x.reshape(b, cs, s, ls).permute(2, 0, 1, 3).contiguous()
+    recv = torch.empty_like(send)
+    timed("all_to_all_single", send, lambda: dist.all_to_all_single(recv, send, group=group))
+    if to_pencil:  # recv[j]: rank j's columns of this rank's channels
+        return recv.permute(1, 2, 0, 3).reshape(b, send.shape[2], s * ls)
+    return recv.permute(1, 0, 2, 3).reshape(b, s * cs, ls)  # recv[j]: channel block j
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, to_pencil):
+        ctx.group, ctx.to_pencil = group, to_pencil
+        return all_to_all(x, group, to_pencil)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_to_all(grad.contiguous(), ctx.group, not ctx.to_pencil), None, None
+
+
+def _gather_neighbour(x: torch.Tensor, group, offset: int) -> torch.Tensor:
+    """The x of the group rank `offset` away from this one, zeros past the ends."""
+    s, i = dist.get_world_size(group), dist.get_rank(group)
+    parts = [torch.empty_like(x) for _ in range(s)]
+    x = x.contiguous()
+    timed("all_gather", x, lambda: dist.all_gather(parts, x, group=group))
+    j = i + offset
+    return parts[j] if 0 <= j < s else torch.zeros_like(x)
+
+
+class _Halo(torch.autograd.Function):
+    """The left neighbour's tail forward, the right neighbour's halo
+    gradient backward."""
+
+    @staticmethod
+    def forward(ctx, tail, group):
+        ctx.group = group
+        return _gather_neighbour(tail, group, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_neighbour(grad, ctx.group, 1), None
+
+
+def seq_fftconv(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Causal FFT conv with skip of this rank's columns u (B, C, L / S) of
+    a (B, C, L) signal; k (C, Lk) the whole filter bank in the conv dtype
+    (float32 or bfloat16), D (C,) float32. C must divide by S. Returns
+    (B, C, L / S) in u's dtype."""
+    if mesh is None or mesh.seq == 1:
+        return fftconv_tagged(u.to(k.dtype), k, D).to(u.dtype)
+    s, c = mesh.seq, u.shape[1]
+    if u.dim() != 3 or c % s:
+        raise ValueError(f"seq_fftconv takes (B, C, L / S) with C divisible by S={s}; "
+                         f"got {tuple(u.shape)}")
+    rows = slice(mesh.seq_index * (c // s), (mesh.seq_index + 1) * (c // s))
+    pencil = _AllToAll.apply(u, mesh.seq_group, True)
+    y = fftconv_tagged(pencil.to(k.dtype), k[rows], D[rows]).to(u.dtype)
+    return _AllToAll.apply(y, mesh.seq_group, False)
+
+
+def seq_short_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
+                   mesh=None) -> torch.Tensor:
+    """Depthwise causal conv of this rank's columns x (B, C, L / S), the
+    halo from the left neighbour (rank 0: zeros, the causal pad)."""
+    if mesh is None or mesh.seq == 1 or w.shape[-1] == 1:
+        return short_conv_1d(x, w, b)
+    halo = _Halo.apply(x[..., x.shape[-1] - (w.shape[-1] - 1):], mesh.seq_group)
+    return short_conv_1d_with_halo(x, w, b, halo)

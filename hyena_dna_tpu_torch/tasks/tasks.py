@@ -89,6 +89,11 @@ class BaseTask:
         """(sum of NLL, count) for an exact epoch perplexity; None for non-LM tasks."""
         return None
 
+    def loss_weight(self, y: torch.Tensor) -> torch.Tensor:
+        """What this batch's loss is a mean over, as a float32 scalar: its
+        rows. Ranks of a mesh weight their losses by it (`train/step.py`)."""
+        return torch.tensor(float(y.shape[0]), device=y.device)
+
 
 class LMTask(BaseTask):
     """Next-token LM: cross-entropy over (B·L, V), ignore_index -100."""
@@ -98,6 +103,10 @@ class LMTask(BaseTask):
 
     def loss_stats(self, logits: torch.Tensor, y: torch.Tensor):
         return M.cross_entropy_stats(*self.prepare(logits, y))
+
+    def loss_weight(self, y: torch.Tensor) -> torch.Tensor:
+        """The count of targets that are not the cross-entropy's ignore index (-100)."""
+        return (y != -100).sum().float()
 
 
 class HG38Task(LMTask):

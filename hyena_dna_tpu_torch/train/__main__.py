@@ -5,13 +5,19 @@ shared `configs/config.yaml` is the base, `experiment=` composes an
 experiment file onto it, the other arguments are dot-overrides, then
 `${...}` interpolations resolve and keys starting with "__" are dropped.
 The trainer runs on the card (`device=None`); `main(argv, device="cpu")`
-runs it on the CPU with the kernels' plain versions.
+runs it on the CPU with the kernels' plain versions. A mesh config runs one
+process per rank under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m hyena_dna_tpu_torch.train experiment=hg38/hg38_medium_450k ...
 """
 
 from __future__ import annotations
 
 import sys
 from pathlib import Path
+
+import torch.distributed as dist
 
 from hyena_dna_tpu_torch.train.trainer import Trainer
 from hyena_dna_tpu_torch.utils.config import (apply_overrides, deep_merge, load_config,
@@ -54,4 +60,8 @@ def main(argv=None, device=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

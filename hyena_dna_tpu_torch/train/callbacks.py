@@ -8,7 +8,9 @@
   * `learning_rate_monitor`: the main group's lr at the global step;
   * `model_checkpoint`: after each validation, the best checkpoint on the
     monitored metric (`checkpoints/best`) and the last (`checkpoints/last`),
-    recording the next epoch so a resume starts there;
+    recording the next epoch so a resume starts there; under a mesh rank 0
+    writes them (every rank holds the same state and the same global
+    metric) and every rank waits at a barrier after each;
   * `seqlen_warmup_reload`: a curriculum of {seq_len, epochs, batch_size}
     stages, rebuilding the datasets and loaders at each stage's start;
   * `track_norms`: the global gradient norm every `log_every` steps;
@@ -20,6 +22,7 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, List, Optional
 
+from hyena_dna_tpu_torch.parallel import launch
 from hyena_dna_tpu_torch.train.checkpoint import save_checkpoint
 from hyena_dna_tpu_torch.train.optim import label_params
 
@@ -95,6 +98,12 @@ class ModelCheckpoint(Callback):
         self.best: Optional[float] = None
         self.dirpath = dirpath
 
+    @staticmethod
+    def _save(*args, **kwargs):
+        if launch.is_main_process():
+            save_checkpoint(*args, **kwargs)
+        launch.barrier()
+
     def on_validation_end(self, trainer, metrics):
         base = self.dirpath or (trainer.run_dir + "/checkpoints")
         value = metrics.get(self.monitor)
@@ -107,14 +116,14 @@ class ModelCheckpoint(Callback):
                 value < self.best if self.mode == "min" else value > self.best)
             if better:
                 self.best = float(value)
-                save_checkpoint(base + "/best", trainer.state, step,
-                                loader_state=trainer.loader_state(),
-                                metadata={"monitor": self.monitor, "value": float(value),
-                                          "epoch": next_epoch}, keep=1)
+                self._save(base + "/best", trainer.state, step,
+                           loader_state=trainer.loader_state(),
+                           metadata={"monitor": self.monitor, "value": float(value),
+                                     "epoch": next_epoch}, keep=1)
         if self.save_last:
-            save_checkpoint(base + "/last", trainer.state, step,
-                            loader_state=trainer.loader_state(),
-                            metadata={"epoch": next_epoch}, keep=1)
+            self._save(base + "/last", trainer.state, step,
+                       loader_state=trainer.loader_state(),
+                       metadata={"epoch": next_epoch}, keep=1)
 
 
 def _stage_boundaries(stage_params) -> List[int]:

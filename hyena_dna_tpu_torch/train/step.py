@@ -14,6 +14,18 @@ and for an LM task `nll_sum` and `token_count` (exact perplexity
 statistics). Dropout masks come from `generator`, so one seed gives one
 loss.
 
+Under a mesh of several ranks (`make_train_step(task, accum, mesh)`), each
+rank runs its rows (and, with a seq axis, its columns) of every
+microbatch, and the step's gradient is the single-process gradient of the
+global batch's mean loss: each rank's microbatch loss is weighted by its
+share of the global microbatch (`task.loss_weight`: its targets for an LM
+task, its rows otherwise; one all-reduce of the weights per step), and the
+gradients, summed over the microbatches and divided by `accum`, are
+all-reduced over every rank (`mesh.grad_group`, a missing gradient as
+zero) in one flat float32 buffer that also carries the loss and the
+perplexity statistics. The clip then sees the global norm, and every rank
+applies the same update.
+
 `make_eval_step(task, return_logits)` returns `eval_step(state, batch)`:
 the loss, the task's device metrics and the perplexity statistics in eval
 mode, and with `return_logits` also the logits, which the trainer gathers
@@ -25,7 +37,9 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
+from hyena_dna_tpu_torch.parallel.launch import timed
 from hyena_dna_tpu_torch.train.state import TrainState
 
 
@@ -35,8 +49,23 @@ def _model_out(model, x, extra, **kw):
     return out[0] if isinstance(out, tuple) else out
 
 
-def make_train_step(task, accumulate_grad_batches: int = 1) -> Callable:
+def _all_reduce_grads(model, extras, group):
+    """Sum every parameter's gradient (None as zero) and the `extras`
+    scalars over `group` in one flat float32 buffer; returns the extras."""
+    params = list(model.parameters())
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+                      for p in params] + [e.reshape(1).float() for e in extras])
+    timed("all_reduce", flat, lambda: dist.all_reduce(flat, group=group))
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p).to(p.dtype)
+        offset += p.numel()
+    return list(flat[offset:])
+
+
+def make_train_step(task, accumulate_grad_batches: int = 1, mesh=None) -> Callable:
     accum = accumulate_grad_batches
+    group = mesh.grad_group if mesh is not None and mesh.size > 1 else None
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None
                    ) -> Dict[str, torch.Tensor]:
@@ -49,12 +78,20 @@ def make_train_step(task, accumulate_grad_batches: int = 1) -> Callable:
         for p in model.parameters():
             p.grad = None
         micro = x.shape[0] // accum
+        if group is not None:  # each rank's share of each global microbatch
+            w = torch.stack([task.loss_weight(y[i * micro:(i + 1) * micro])
+                             for i in range(accum)])
+            total = w.clone()
+            timed("all_reduce", total, lambda: dist.all_reduce(total, group=group))
+            share = torch.where(total > 0, w / total.clamp(min=1e-30), torch.zeros_like(w))
         loss_sum, stats = 0.0, None
         for i in range(accum):
             rows = slice(i * micro, (i + 1) * micro)
             logits = _model_out(model, x[rows], {k: v[rows] for k, v in extra.items()},
                                 generator=generator)
             loss = task.compute_loss(logits, y[rows], train=True)
+            if group is not None:
+                loss = loss * share[i]
             loss.backward()
             loss_sum = loss_sum + loss.detach()
             s = task.loss_stats(logits.detach(), y[rows])
@@ -64,6 +101,10 @@ def make_train_step(task, accumulate_grad_batches: int = 1) -> Callable:
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
+        if group is not None:
+            extras = [torch.as_tensor(loss_sum)] + (list(stats) if stats is not None else [])
+            loss_sum, *rest = _all_reduce_grads(model, extras, group)
+            stats = tuple(rest) if stats is not None else None
         metrics = {"loss": loss_sum / accum, "grad_norm": state.apply_gradients()}
         if stats is not None:
             metrics["nll_sum"], metrics["token_count"] = stats

@@ -25,9 +25,29 @@ numeric policy is set first (`utils/numerics.py::set_card_numerics`).
 Weights are drawn on the CPU from `train.seed` and moved to the device;
 dropout masks come from a generator on the device seeded the same way.
 
-Mesh. `mesh.data` of -1 or 1 is one card. A data axis over more cards and
-sequence or tensor parallelism wait for ROADMAP.md Queue 1 item 10: the
-trainer raises for `mesh.data > 1`, `mesh.seq > 1` or `mesh.model > 1`.
+Mesh (`parallel/`). One process per rank, launched by torchrun
+(`python -m torch.distributed.run --nproc_per_node N -m
+hyena_dna_tpu_torch.train experiment=...`); `mesh.data` x `mesh.seq` must
+be the number of ranks (`mesh.data` -1 takes the rest; a single process is
+the 1 x 1 mesh). Each rank's device is `cuda:{LOCAL_RANK % cards}` and the
+backend NCCL when each rank has a card of its own, else gloo
+(`parallel/launch.py`). The data axis: each data rank reads its strided
+share of every epoch's order (`data/loader.py`), `batch_size *
+accumulate_grad_batches` must divide by `mesh.data` (the JAX check) and so
+must `batch_size` (each rank's microbatch). The seq axis: each rank takes
+its contiguous L / S columns of every 2-D array of the batch, and the `lm`,
+`dna_embedding` and `lm_simple` models get the mesh (JAX `trainer.py:222`;
+the Hyena mixers take the sequence-sharded route); the sequence length
+(L - 1 for the LM tasks) must divide by `mesh.seq`, and a decoder head,
+another model, position-dependent metrics or host metrics under a seq
+axis raise. The step's gradient and logged loss are those of the global
+batch (`train/step.py`); evaluation sums, counts and the host metrics'
+predictions are reduced over the ranks, so every rank reports the global
+value. Weights are drawn on every rank from `train.seed`; dropout is
+seeded per rank from (seed, data index, seq index). Rank 0 alone writes
+`metrics.jsonl` and the checkpoints and prints, with a barrier after each
+checkpoint and at `close`; every rank loads. `mesh.model > 1` (tensor
+parallelism) raises: ROADMAP.md Queue 1 item 21.
 """
 
 from __future__ import annotations
@@ -40,12 +60,15 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from hyena_dna_tpu_torch.data.datamodules import DATASET_REGISTRY
 from hyena_dna_tpu_torch.models.blocks import torch_dtype
 from hyena_dna_tpu_torch.models.heads import (NDDecoder, PackedDecoder, RetrievalDecoder,
                                               SequenceDecoder, StateDecoder, TokenDecoder)
+from hyena_dna_tpu_torch.parallel import launch
+from hyena_dna_tpu_torch.parallel.sharding import make_mesh
 from hyena_dna_tpu_torch.tasks import TASK_REGISTRY
 from hyena_dna_tpu_torch.tasks import metrics as M
 from hyena_dna_tpu_torch.train.callbacks import CALLBACK_REGISTRY
@@ -83,6 +106,7 @@ DECODER_REGISTRY = {
 }
 
 PRECISION = {"16": torch.bfloat16, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+SEQ_MODELS = ("lm", "dna_embedding", "lm_simple")  # the models that take the mesh (JAX :222)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,6 +117,11 @@ def resolve_device(device=None) -> torch.device:
                                "device='cpu' to run the kernels' plain versions")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def rank_seed(seed: int, data_index: int, seq_index: int) -> int:
+    """The dropout seed of the rank at (data_index, seq_index)."""
+    return int(np.random.SeedSequence((seed, data_index, seq_index)).generate_state(1)[0])
 
 
 def _to_device(batch, device: torch.device):
@@ -111,29 +140,31 @@ def _to_device(batch, device: torch.device):
 class Trainer:
     def __init__(self, config: Dict[str, Any], device=None):
         set_card_numerics()
-        self.device = resolve_device(device)
         self.config = config
         self.train_cfg = dict(config.get("train", {}))
         self.trainer_cfg = dict(config.get("trainer", {}))
         self.seed = int(self.train_cfg.get("seed", 0))
-        self.generator = torch.Generator(device=self.device).manual_seed(self.seed)
-
-        mesh = dict(config.get("mesh", {}))
-        for axis, default in (("data", -1), ("seq", 1), ("model", 1)):
-            size = int(mesh.get(axis, default))
-            if size > 1:
-                raise NotImplementedError(
-                    f"mesh.{axis}={size}: the port trains on one card; data, sequence and "
-                    "tensor parallelism wait for ROADMAP.md Queue 1 item 10")
+        mesh_cfg = {k: int(v) for k, v in dict(config.get("mesh", {})).items()}
+        self.device = launch.initialize_distributed(resolve_device(device))
+        self.mesh = make_mesh(**mesh_cfg)
+        self.accumulate_grad_batches = int(self.trainer_cfg.get("accumulate_grad_batches", 1)
+                                           or 1)
+        seed = self.seed if self.mesh.size == 1 else rank_seed(
+            self.seed, self.mesh.data_index, self.mesh.seq_index)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.run_dir = str(self.train_cfg.get("run_dir", "runs/default"))
-        Path(self.run_dir).mkdir(parents=True, exist_ok=True)
-        self._metrics_file = open(Path(self.run_dir) / "metrics.jsonl", "a")
+        self._metrics_file = None
+        if launch.is_main_process():
+            Path(self.run_dir).mkdir(parents=True, exist_ok=True)
+            self._metrics_file = open(Path(self.run_dir) / "metrics.jsonl", "a")
 
         ds_cfg = dict(config["dataset"])
         ds_name = ds_cfg.pop("_name_")
         ds_cfg.setdefault("seed", self.seed)
         self.datamodule = DATASET_REGISTRY[ds_name](**ds_cfg)
+        self.datamodule.process_index = self.mesh.data_index
+        self.datamodule.process_count = self.mesh.data
         self.datamodule.setup()
 
         task_cfg = dict(config.get("task", {"_name_": "lm"}))
@@ -142,6 +173,8 @@ class Trainer:
         if self.task_name == "hg38":
             task_cfg.setdefault("seq_len", self.datamodule.max_length)
         self.task = TASK_REGISTRY[self.task_name](**task_cfg)
+        self._check_shapes()
+        self._check_seq(config)
 
         init = torch.Generator().manual_seed(self.seed)
         self.model = self._build_model(dict(config["model"]), config.get("decoder"),
@@ -167,8 +200,6 @@ class Trainer:
         self.epoch = 0
         self.global_step = 0
         self._train_loader = None
-        self.accumulate_grad_batches = int(self.trainer_cfg.get("accumulate_grad_batches", 1)
-                                           or 1)
         self.frozen_labels = None
         self.state = create_train_state(self.model, build_optimizer(self.model,
                                                                     **self.tx_kwargs)[0])
@@ -179,16 +210,58 @@ class Trainer:
         if self.ema_decay:
             self.ema_params = {n: p.detach().clone() for n, p in self.model.named_parameters()}
 
-        self.train_step = make_train_step(self.task, self.accumulate_grad_batches)
+        self.train_step = make_train_step(self.task, self.accumulate_grad_batches, self.mesh)
         self.eval_step = make_eval_step(self.task,
                                         return_logits=bool(self.task.host_metric_names))
         self.callbacks = [CALLBACK_REGISTRY[name](**(cb_cfg or {}))
                           for name, cb_cfg in (config.get("callbacks") or {}).items()
                           if name in CALLBACK_REGISTRY]
 
+    def _check_shapes(self) -> None:
+        """What the mesh splits, at the start and at each loader rebuild (a
+        curriculum stage): every microbatch's rows over the data axis (JAX
+        `trainer.py:120-127`), the sequence over the seq axis."""
+        batch_size, n_data, accum = (self.datamodule.batch_size, self.mesh.data,
+                                     self.accumulate_grad_batches)
+        if (batch_size * accum) % n_data:
+            raise ValueError(
+                f"batch_size*accumulate_grad_batches={batch_size * accum} must be divisible "
+                f"by the mesh data axis ({n_data}); set mesh.data or batch_size accordingly")
+        if batch_size % n_data:
+            raise ValueError(f"batch_size={batch_size} must be divisible by the mesh data "
+                             f"axis ({n_data}): each data rank runs its share of every "
+                             "microbatch")
+        s = self.mesh.seq
+        if s == 1:
+            return
+        length = self.datamodule.max_length - (self.task_name in ("lm", "hg38"))
+        if length % s:
+            raise ValueError(f"the sequence length {length} must be divisible by mesh.seq={s} "
+                             "(dataset.max_length - 1 for the LM tasks)")
+
+    def _check_seq(self, config) -> None:
+        """What the seq axis takes: a token-wise model and task."""
+        s = self.mesh.seq
+        if s == 1:
+            return
+        name = config["model"].get("_name_", "lm")
+        decoder = config.get("decoder")
+        if isinstance(decoder, dict):
+            decoder = decoder.get("_name_", "sequence")
+        if name not in SEQ_MODELS or (name != "lm" and decoder not in (None, "id")):
+            raise NotImplementedError(f"mesh.seq={s} takes the {SEQ_MODELS} models without a "
+                                      "decoder head")
+        position = set(self.task.metric_fns) & {"last_k_ppl", "per_token_ppl"}
+        if position or self.task.host_metric_names:
+            raise NotImplementedError(f"mesh.seq={s}: the metrics "
+                                      f"{sorted(position) + self.task.host_metric_names} need "
+                                      "whole sequences")
+
     def _build_model(self, model_cfg: dict, decoder_cfg, generator) -> nn.Module:
         name = model_cfg.pop("_name_", "lm")
         dm = self.datamodule
+        if self.mesh.seq > 1:  # the sequence-sharded route (JAX trainer.py:222-225)
+            model_cfg["mesh"] = self.mesh
         model_cfg.setdefault("vocab_size", getattr(dm, "vocab_size", 12))
         precision = str(self.trainer_cfg.get("precision", "32"))
         model_cfg.setdefault("dtype", PRECISION.get(precision, torch.float32))
@@ -239,6 +312,9 @@ class Trainer:
         self.log({"pretrained/loaded_tensors": info["loaded"]})
 
     def log(self, metrics: Dict[str, Any]):
+        """Rank 0 writes the record to metrics.jsonl and prints it."""
+        if self._metrics_file is None:
+            return
         record = {"step": int(self.global_step), "epoch": self.epoch, **metrics}
         self._metrics_file.write(json.dumps(record, default=float) + "\n")
         self._metrics_file.flush()
@@ -247,7 +323,9 @@ class Trainer:
         print(f"[step {self.global_step}] {pretty}", flush=True)
 
     def close(self) -> None:
-        self._metrics_file.close()
+        if self._metrics_file is not None:
+            self._metrics_file.close()
+        launch.barrier()
 
     def loader_state(self):
         return self._train_loader.state_dict() if self._train_loader else {}
@@ -285,10 +363,13 @@ class Trainer:
             for cb in self.callbacks:
                 cb.on_epoch_start(self)
             if self._train_loader is None:
-                # a loader batch holds accum microbatches; the step cuts them
+                # a loader batch holds accum microbatches of this data rank's
+                # rows; the step cuts them
+                self._check_shapes()
                 self._train_loader = self.datamodule.train_dataloader()
                 self._train_loader.batch_size = (self.datamodule.batch_size
-                                                 * self.accumulate_grad_batches)
+                                                 * self.accumulate_grad_batches
+                                                 // self.mesh.data)
                 val_loader = self.datamodule.val_dataloader()
                 if pending_loader_state:
                     self._train_loader.load_state_dict(pending_loader_state)
@@ -306,7 +387,8 @@ class Trainer:
             for i, batch in enumerate(tl):
                 if limit_train_batches and i >= limit_train_batches:
                     break
-                metrics = self.train_step(self.state, _to_device(batch, self.device),
+                metrics = self.train_step(self.state,
+                                          _to_device(self.mesh.local_batch(batch), self.device),
                                           self.generator)
                 if self.ema_params is not None:
                     self._ema_update()
@@ -367,6 +449,15 @@ class Trainer:
             for name, p in self.model.named_parameters():
                 p.copy_(params[name])
 
+    @staticmethod
+    def _gather(obj, group, size: int) -> list:
+        """`obj` of every rank of `group` (of `size` ranks), in rank order."""
+        if size == 1:
+            return [obj]
+        parts = [None] * size
+        dist.all_gather_object(parts, obj, group=group)
+        return parts
+
     def _evaluate(self, loader, split: str) -> Dict[str, float]:
         sums: Dict[str, Any] = {}
         weights: Dict[str, float] = {}
@@ -379,7 +470,7 @@ class Trainer:
             if limit and n_batches >= int(limit):
                 break
             bsz = len(batch[0])
-            batch = _to_device(batch, self.device)
+            batch = _to_device(self.mesh.local_batch(batch), self.device)
             out = self.eval_step(self.state, batch)
             metrics, logits = out if isinstance(out, tuple) else (out, None)
             for k, v in metrics.items():
@@ -393,8 +484,20 @@ class Trainer:
                 nll_sum += float(metrics["nll_sum"])
                 token_count += float(metrics["token_count"])
             if streamer is not None and logits is not None:
-                streamer.update(logits.detach().float().cpu().numpy(), batch[1].cpu().numpy())
+                for preds, labels in self._gather(
+                        (logits.detach().float().cpu().numpy(), batch[1].cpu().numpy()),
+                        self.mesh.data_group, self.mesh.data):
+                    streamer.update(preds, labels)
             n_batches += 1
+        if self.mesh.size > 1:  # every rank reports the global value
+            parts = self._gather((sums, weights, nll_sum, token_count, n_batches),
+                                 self.mesh.grad_group, self.mesh.size)
+            sums, weights, nll_sum, token_count, n_batches = {}, {}, 0.0, 0.0, 0
+            for rank_sums, rank_weights, nll, count, n in parts:
+                for k, v in rank_sums.items():
+                    sums[k] = sums.get(k, 0.0) + v
+                    weights[k] = weights.get(k, 0.0) + rank_weights[k]
+                nll_sum, token_count, n_batches = nll_sum + nll, token_count + count, n_batches + n
         result = {}
         for k in sums:
             v = sums[k] / weights[k]

@@ -1,7 +1,8 @@
 """The port's `Trainer` held against the JAX `Trainer` on the CPU: the hg38
 LM config with its callbacks, resume from `checkpoints/last`, the
 step-bounded epoch's data order, config composition over every experiment
-file, and the trainer's refusals (no card, a mesh over several cards).
+file, and the trainer's refusals (no card, a mesh over several ranks in one
+process, tensor parallelism).
 
 Both trainers run the same config (float32, `embed_dropout` 0, one device,
 d_model 32, 2 layers, L 64, every step logged); the JAX trainer's initial
@@ -243,10 +244,15 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path, tiny_genome, mo
 
 @pytest.mark.parametrize("mesh", [{"data": 2}, {"seq": 2}, {"model": 2}])
 def test_trainer_refuses_a_mesh_over_cards(tmp_path, tiny_genome, mesh):
+    """A data or seq axis over several ranks in one process (no torchrun)
+    raises and says how to launch; tensor parallelism raises whatever the
+    ranks, citing its ROADMAP item."""
     fa, bed = tiny_genome
     cfg = lm_config(tmp_path / "run", fa, bed)
     cfg["mesh"] = mesh
-    with pytest.raises(NotImplementedError, match="item 10"):
+    error, match = ((NotImplementedError, "item 21") if "model" in mesh
+                    else (ValueError, "one process per rank with torchrun"))
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
 
 

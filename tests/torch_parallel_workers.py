@@ -1,0 +1,235 @@
+"""Rank functions of the port's data- and sequence-parallel tests, run in
+ranks started by `hyena_dna_tpu_torch.parallel.spawn` (gloo on the CPU).
+
+Spawned ranks import this module afresh, so it imports neither JAX nor the
+suite's conftest: the test files make the JAX side in the pytest process
+and hand inputs and parameters over as files; each rank writes what it
+computed to `out/<name>_rank<r>.pt`.
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from hyena_dna_tpu_torch.models import ConvLMHeadModel, HyenaOperator
+from hyena_dna_tpu_torch.ops.distributed import seq_fftconv, seq_short_conv
+from hyena_dna_tpu_torch.parallel import launch
+from hyena_dna_tpu_torch.parallel.launch import COLLECTIVES
+from hyena_dna_tpu_torch.parallel.sharding import make_mesh
+
+B, C, L = 2, 16, 128  # the shapes of tests/test_seq_parallel.py
+D_OP = 16
+LM_LAYER = dict(_name_="hyena", emb_dim=5, filter_order=16, l_max=L, w=10)
+LM_KW = dict(d_model=16, n_layer=2, d_inner=64, vocab_size=12, pad_vocab_size_multiple=8,
+             layer=LM_LAYER, embed_dropout=0.0)
+OP_KW = dict(d_model=D_OP, l_max=L, filter_order=16, filter_cfg=dict(emb_dim=5))
+
+
+def ops_inputs() -> dict:
+    """The seeded numpy inputs of the op and model checks."""
+    rng = np.random.default_rng(0)
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    return {"u": f32(B, C, L), "k": f32(C, L), "D": f32(C), "x": f32(B, C, L),
+            "w": f32(C, 3), "b": f32(C), "dy": f32(B, C, L),
+            "op_u": f32(B, L, D_OP), "op_dy": f32(B, L, D_OP),
+            "tokens": rng.integers(7, 11, size=(B, L)).astype(np.int64)}
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The mean next-token NLL of tests/test_seq_parallel.py."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets[..., None]).mean()
+
+
+def _t(a, grad=False):
+    return torch.tensor(a).requires_grad_(grad)
+
+
+def _grads(module) -> dict:
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
+            for n, p in module.named_parameters()}
+
+
+def _summed(grads: dict) -> dict:
+    for g in grads.values():
+        dist.all_reduce(g)
+    return grads
+
+
+def ops_and_models(out: str, params: str) -> None:
+    """Join the group through torchrun's variables (`initialize_distributed`),
+    build the 2 x 2 mesh and sum the ranks over each of its groups, then on
+    the rank's rows (a contiguous block here) and columns: `seq_fftconv`
+    forward and backward (a loss of sum(y * dy)), `seq_short_conv` forward
+    and backward, the collectives they issued, a `HyenaOperator` and a
+    `ConvLMHeadModel` with the mesh (parameters from the JAX modules)."""
+    torch.set_num_threads(1)
+    device = launch.initialize_distributed(torch.device("cpu"))
+    mesh = make_mesh(data=2, seq=2)
+    res = {"device": str(device), "backend": dist.get_backend(), "rank": launch.rank(),
+           "world": launch.world_size(), "main": launch.is_main_process(),
+           "coords": (mesh.data_index, mesh.seq_index)}
+    for axis in ("data", "seq"):  # the sum of the ranks in each of this rank's groups
+        t = torch.tensor(float(launch.rank()))
+        dist.all_reduce(t, group=getattr(mesh, f"{axis}_group"))
+        res[f"{axis}_group_sum"] = float(t)
+    launch.barrier()
+    a = ops_inputs()
+    rows = slice(mesh.data_index * (B // mesh.data), (mesh.data_index + 1) * (B // mesh.data))
+    cols = mesh.seq_columns(L)
+    local = lambda name: np.ascontiguousarray(a[name][rows][..., cols])
+
+    COLLECTIVES.reset()
+    u, k, D = _t(local("u"), True), _t(a["k"], True), _t(a["D"], True)
+    y = seq_fftconv(u, k, D, mesh)
+    calls_fwd = dict(COLLECTIVES.calls)
+    (y * _t(local("dy"))).sum().backward()
+    res["fftconv"] = {"y": y.detach(), "du": u.grad, "dk": _summed({"k": k.grad})["k"],
+                      "dD": _summed({"D": D.grad})["D"], "calls_fwd": calls_fwd,
+                      "calls": dict(COLLECTIVES.calls), "bytes": dict(COLLECTIVES.bytes)}
+    COLLECTIVES.reset()
+    x, w, b = _t(local("x"), True), _t(a["w"], True), _t(a["b"], True)
+    yc = seq_short_conv(x, w, b, mesh)
+    (yc * _t(local("dy"))).sum().backward()
+    res["short_conv"] = {"y": yc.detach(), "dx": x.grad, "dw": _summed({"w": w.grad})["w"],
+                         "db": _summed({"b": b.grad})["b"], "calls": dict(COLLECTIVES.calls)}
+
+    sd = torch.load(params, weights_only=True)
+    op = HyenaOperator(**OP_KW, mesh=mesh)
+    op.load_state_dict(sd["op"], strict=False)
+    ou = _t(np.ascontiguousarray(a["op_u"][rows][:, cols]), True)
+    oy = op(ou)
+    (oy * _t(np.ascontiguousarray(a["op_dy"][rows][:, cols]))).sum().backward()
+    res["op"] = {"y": oy.detach(), "du": ou.grad, "grads": _summed(_grads(op))}
+
+    lm = ConvLMHeadModel(**LM_KW, mesh=mesh)
+    lm.load_state_dict(sd["lm"], strict=False)
+    tokens = torch.from_numpy(a["tokens"])
+    targets = torch.roll(tokens, -1, dims=1)
+    loss = lm_loss(lm(tokens[rows][:, cols]), targets[rows][:, cols]) / mesh.size
+    loss.backward()
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    res["lm"] = {"loss": total, "grads": _summed(_grads(lm))}
+    torch.save(res, Path(out) / f"ops_rank{launch.rank()}.pt")
+
+
+def write_genome(root: Path) -> tuple:
+    """The genome fixture of tests/test_trainer.py: 4096 bases, 32 train,
+    4 valid and 4 test intervals of 64."""
+    rng = np.random.default_rng(0)
+    seq = "".join(rng.choice(list("ACGT"), size=4096))
+    fa, bed = root / "g.fa", root / "g.bed"
+    with open(fa, "w") as f:
+        f.write(">chr1\n")
+        for i in range(0, len(seq), 60):
+            f.write(seq[i:i + 60] + "\n")
+    with open(bed, "w") as f:
+        for i in range(32):
+            f.write(f"chr1\t{i * 128}\t{i * 128 + 64}\ttrain\n")
+        for split, start in (("valid", 0), ("test", 2048)):
+            for i in range(4):
+                f.write(f"chr1\t{start + i * 64}\t{start + i * 64 + 64}\t{split}\n")
+    return fa, bed
+
+
+def lm_config(run_dir, fa, bed, mesh: dict, **extra_train) -> dict:
+    """tests/test_trainer.py's sequence-parallel config (max_length 65, so
+    L - 1 = 64 splits over seq; l_max 67; one epoch), cut to 4 steps an
+    epoch, dropout off."""
+    return {
+        "train": {"seed": 1, "run_dir": str(run_dir), **extra_train},
+        "mesh": dict(mesh),
+        "trainer": {"max_epochs": 1, "precision": "32", "gradient_clip_val": 1.0,
+                    "log_every_n_steps": 1, "limit_train_batches": 4},
+        "dataset": {"_name_": "hg38", "bed_file": str(bed), "fasta_file": str(fa),
+                    "batch_size": 4, "max_length": 65, "add_eos": True},
+        "task": {"_name_": "hg38", "loss": "cross_entropy"},
+        "model": {"_name_": "lm", "d_model": 32, "n_layer": 2, "d_inner": 128,
+                  "vocab_size": 12, "pad_vocab_size_multiple": 8, "embed_dropout": 0.0,
+                  "layer": {"_name_": "hyena", "emb_dim": 5, "filter_order": 16,
+                            "l_max": 67, "w": 10, "lr": 6e-4, "wd": 0.0,
+                            "lr_pos_emb": 0.0}},
+        "optimizer": {"lr": 3e-3, "weight_decay": 0.1},
+        "scheduler": {"_name_": "cosine_warmup_timm", "t_initial": 64,
+                      "warmup_t": 4, "lr_min": 3e-4, "warmup_lr_init": 1e-6},
+        "callbacks": {"timer": {}, "params": {},
+                      "model_checkpoint": {"monitor": "val/loss", "mode": "min"}},
+    }
+
+
+def write_benchmark(root: Path) -> Path:
+    """The GenomicBenchmarks fixture of tests/test_trainer.py: a toy task of
+    two motifs, 32 + 32 train and 8 + 8 test sequences."""
+    rng = np.random.default_rng(1)
+    for split in ("train", "test"):
+        for label, motif in (("pos", "ACGTACGT"), ("neg", "TTTTCCCC")):
+            d = root / "bench" / "toy_task" / split / label
+            d.mkdir(parents=True)
+            for i in range(32 if split == "train" else 8):
+                (d / f"{i}.txt").write_text(motif + "".join(rng.choice(list("ACGT"), size=24)))
+    return root / "bench"
+
+
+def cls_config(run_dir, bench, mesh: dict) -> dict:
+    """tests/test_torch_port_finetune.py's classification config (pool
+    head, accuracy, the host metrics), batch 8, two epochs, dropout off."""
+    return {
+        "train": {"seed": 0, "run_dir": str(run_dir)},
+        "mesh": dict(mesh),
+        "trainer": {"max_epochs": 2, "precision": "32", "log_every_n_steps": 1},
+        "dataset": {"_name_": "genomic_benchmark", "dataset_name": "toy_task",
+                    "dest_path": str(bench), "d_output": 2, "batch_size": 8,
+                    "max_length": 32, "use_padding": True},
+        "task": {"_name_": "multiclass", "loss": "cross_entropy", "metrics": ["accuracy"],
+                 "host_metrics": ["mcc", "f1_macro", "roc_auc_macro"]},
+        "model": {"_name_": "dna_embedding", "d_model": 32, "n_layer": 2, "d_inner": 128,
+                  "vocab_size": 12, "pad_vocab_size_multiple": 8, "embed_dropout": 0.0,
+                  "layer": {"_name_": "hyena", "emb_dim": 5, "filter_order": 16,
+                            "l_max": 66, "w": 10}},
+        "decoder": {"_name_": "sequence", "mode": "pool", "l_output": 0},
+        "optimizer": {"lr": 1e-3, "weight_decay": 0.0},
+        "callbacks": {},
+    }
+
+
+def run_trainer(config: dict, params=None):
+    """Build the port's Trainer on the CPU, load `params` (a state dict
+    file) if given, fit, close; returns (trainer, final metrics), the
+    trainer's `step_shapes` the shape of each train step's token batch."""
+    from hyena_dna_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(config, device="cpu")
+    step, trainer.step_shapes = trainer.train_step, []
+
+    def train_step(state, batch, generator=None):  # records its token batch's shape
+        trainer.step_shapes.append(list(batch[0].shape))
+        return step(state, batch, generator)
+
+    trainer.train_step = train_step
+    if params is not None:
+        missing, unexpected = trainer.model.load_state_dict(
+            torch.load(params, weights_only=True), strict=False)
+        assert not unexpected and all(k.endswith(("pos_emb.t", ".freq")) for k in missing)
+    try:
+        return trainer, trainer.fit()
+    finally:
+        trainer.close()
+
+
+def trainers(out: str, jobs: list) -> None:
+    """Run each (name, config, params file or None) job's trainer in turn
+    on the spawned ranks; each rank writes its mesh coordinates, final
+    metrics and the shapes of the token batches its train steps took."""
+    torch.set_num_threads(1)
+    res = {}
+    for name, config, params in jobs:
+        trainer, final = run_trainer(config, params)
+        res[name] = {"final": final, "coords": (trainer.mesh.data_index, trainer.mesh.seq_index),
+                     "mesh": trainer.mesh.shape, "step": trainer.global_step,
+                     "shapes": trainer.step_shapes}
+    torch.save(res, Path(out) / f"trainers_rank{launch.rank()}.pt")
