@@ -217,10 +217,34 @@ line:
             shipped), max_length 131,073, batch 2 (a row a data rank),
             `accumulate_grad_batches` 1, the curriculum off, 3 steps: (b)'s
             checks.
+11. tensor  tensor parallelism, the mesh's model axis
+            (`parallel/sharding.py`, `ops/distributed.py`'s TP
+            collectives), 4 ranks on the one card over gloo, phase 6's
+            genome. (a) kernels A and A' on a rank's channel slice: u 4 x
+            32768 x 256 (d_in) onto W (256, 3 d_c) at d_c 128 and 64 (a
+            model axis of 2 and of 4), float32 and bf16, against their plain
+            versions at TOL, with ms, bound and library (cuBLAS + cuDNN
+            depthwise conv + gate) times; B and C on 11b's 1 x 64 x 131,072
+            bf16 slice. (b) `experiment=hg38/hg38_large_1m_singlechip` at
+            full width (d 256 x 8, d_inner 1024, order-2 Hyena, bf16,
+            float32 residual, residual cells g 2) on `mesh.model=4`, cut:
+            max_length 1,000,446 -> 131,073, batch 1, `accumulate_grad_batches`
+            8 -> 1, warmup 1000 -> 0, 2 steps, one val and one test batch:
+            losses finite, equal on every rank, the last below the first; A
+            20, A', B and C 8 a step on every rank at the slice shapes (1 x
+            131,072 x 256 -> 64 a chunk) and nothing else; step ms, tokens/s,
+            peak GiB a rank, a step's host seconds inside the collectives and
+            waiting for the card before them. (c) its model, dropout off, one
+            micro-step on a seeded 1 x 131,072 row: the ranks' loss and every
+            gathered whole gradient against one process on the card (mesh 1),
+            loss 5e-3 relative, gradients 5e-2 of each max|g|. (d)
+            `experiment=hg38/hg38_large_1m` on seq 2 x model 2 (data 2 x seq
+            8 shipped), 131,073 tokens, batch 1, the curriculum off: (c)'s
+            check, B and C 8 a micro-step on every rank.
 Launch counts are zeroed just before this slice's path in phase 2 and
 before each request of phases 4 and 5, each run of phases 6, 8 and 9 and
-each part of phases 7 and 9, and read just after it; in phase 10 on each
-rank before each of its runs.
+each part of phases 7 and 9, and read just after it; in phases 10 and 11
+on each rank before each of its runs.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
@@ -232,7 +256,8 @@ at the trainer's shapes under "trainer" and at the species curriculum's
 last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; phase 9's
 launches (9c's mixed stack and 9d's general Hyena path) under
 "models_launches"; B and C at phase 10's channel pencils with the ranks'
-launches under "parallel"; the bf16 rows of A,
+launches under "parallel"; A, A', B and C at phase 11's channel slices
+with the ranks' launches under "tensor_parallel"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
 readings, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
@@ -338,17 +363,26 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def front_inputs(B, L, dtype, seed, d=D_MODEL):
-    """u in `dtype`, float32 parameters at the model's init scales."""
+def front_inputs(B, L, dtype, seed, d=D_MODEL, d_c=None):
+    """u (B, L, d) in `dtype`, float32 parameters at the model's init
+    scales for a chunk width d_c (default d; a tensor-parallel rank's
+    d / M)."""
     import torch
 
+    d_c = d_c or d
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.randn(B, L, d, device="cuda", generator=g).to(getattr(torch, dtype))
-    w = torch.randn(d, 3 * d, device="cuda", generator=g) * 0.02
-    bp = torch.randn(3 * d, device="cuda", generator=g) * 0.02
-    wc = (torch.rand(3, 3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
-    bc = (torch.rand(3 * d, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
+    w = torch.randn(d, 3 * d_c, device="cuda", generator=g) * 0.02
+    bp = torch.randn(3 * d_c, device="cuda", generator=g) * 0.02
+    wc = (torch.rand(3, 3 * d_c, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
+    bc = (torch.rand(3 * d_c, device="cuda", generator=g) * 2 - 1) / math.sqrt(3)
     return g, (u, w, bp, wc, bc)
+
+
+def front_shape(B, L, d, d_c, dtype) -> str:
+    """A front-end row's shape: d, or d_in and d_c for a channel slice."""
+    return (f"B={B} L={L} d={d} {dtype}" if d_c == d
+            else f"B={B} L={L} d_in={d} d_c={d_c} {dtype}")
 
 
 def check_wgmma(probe, b_cols: int, phase: str, seed: int):
@@ -439,13 +473,15 @@ def kernel_ptxas(kernels) -> dict:
     return out
 
 
-def check_front(FF, B, L, seed, dtype="float32", d=D_MODEL):
+def check_front(FF, B, L, seed, dtype="float32", d=D_MODEL, d_c=None):
     """Kernel A against `reference_fwd` (float32 arithmetic on u's values;
-    bf16 u: vx and x0 rounded once, see ops/fused_front.py)."""
+    bf16 u: vx and x0 rounded once, see ops/fused_front.py); d_c: the
+    chunk width of a tensor-parallel rank's slice (default d)."""
     import torch
     import torch.nn.functional as F
 
-    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d)
+    d_c = d_c or d
+    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d, d_c)
     vx, x0 = FF.fused_proj_conv_gate(u, w, bp, wc, bc)
     torch.cuda.synchronize()
     vx_ref, x0_ref = FF.reference_fwd(u, w, bp, wc, bc)
@@ -455,14 +491,15 @@ def check_front(FF, B, L, seed, dtype="float32", d=D_MODEL):
 
     def library():  # torch.matmul + cuDNN depthwise conv1d + gate, in u's dtype
         proj = torch.matmul(u, lw) + lbp
-        conv = F.conv1d(proj.transpose(1, 2), conv_w, lbc, padding=2, groups=3 * d)[..., :L]
-        return conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d]
+        conv = F.conv1d(proj.transpose(1, 2), conv_w, lbc, padding=2,
+                        groups=3 * d_c)[..., :L]
+        return conv[:, 2 * d_c:] * conv[:, d_c:2 * d_c], conv[:, :d_c]
 
     size = u.element_size()
-    nbytes = size * (B * L * d + 2 * B * d * L) + 4 * (d * 3 * d + 3 * 3 * d + 2 * 3 * d)
-    flops = B * L * (2 * d * 3 * d + 3 * d * 7 + d)
+    nbytes = size * (B * L * d + 2 * B * d_c * L) + 4 * (d * 3 * d_c + 3 * 3 * d_c + 2 * 3 * d_c)
+    flops = B * L * (2 * d * 3 * d_c + 3 * d_c * 7 + d_c)
     bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
-    return {"name": "fused_front", "shape": f"B={B} L={L} d={d} {dtype}",
+    return {"name": "fused_front", "shape": front_shape(B, L, d, d_c, dtype),
             "max_abs_err": max(e[0] for e in err), "max_rel_err": max(e[1] for e in err),
             "ms": time_ms(lambda: FF.fused_proj_conv_gate(u, w, bp, wc, bc)),
             "plain_ms": time_ms(lambda: FF.reference_fwd(u, w, bp, wc, bc)),
@@ -506,15 +543,17 @@ def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=(), C=D_MODEL):
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_front_bwd(FF, B, L, seed, dtype="float32", d=D_MODEL):
+def check_front_bwd(FF, B, L, seed, dtype="float32", d=D_MODEL, d_c=None):
     """Kernel A' against `reference_bwd` (du in u's dtype, the parameter
-    gradients float32)."""
+    gradients float32); d_c as `check_front`'s (du is then the rank's
+    partial sum)."""
     import torch
     import torch.nn.functional as F
 
-    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d)
-    dvx = torch.randn(B, d, L, device="cuda", generator=g).to(u.dtype)
-    dx0 = torch.randn(B, d, L, device="cuda", generator=g).to(u.dtype)
+    d_c = d_c or d
+    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d, d_c)
+    dvx = torch.randn(B, d_c, L, device="cuda", generator=g).to(u.dtype)
+    dx0 = torch.randn(B, d_c, L, device="cuda", generator=g).to(u.dtype)
     args = (u, w, bp, wc, bc, dvx, dx0)
     out = FF.front_bwd(*args)
     torch.cuda.synchronize()
@@ -530,15 +569,16 @@ def check_front_bwd(FF, B, L, seed, dtype="float32", d=D_MODEL):
         with torch.enable_grad():
             proj = torch.matmul(lu, lw) + lbp
             conv = F.conv1d(proj.transpose(1, 2), conv_w, conv_b, padding=2,
-                            groups=3 * d)[..., :L]
-            outs = (conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d])
+                            groups=3 * d_c)[..., :L]
+            outs = (conv[:, 2 * d_c:] * conv[:, d_c:2 * d_c], conv[:, :d_c])
             return torch.autograd.grad(outs, leaves + [conv_w, conv_b], (dvx, dx0))
 
     size = u.element_size()
-    nbytes = size * (2 * B * L * d + 2 * B * d * L) + 4 * (2 * d * 3 * d + 11 * 3 * d)
-    flops = 3 * 2 * B * L * d * 3 * d + B * L * 3 * d * 16
+    nbytes = (size * (2 * B * L * d + 2 * B * d_c * L)
+              + 4 * (2 * d * 3 * d_c + 11 * 3 * d_c))
+    flops = 3 * 2 * B * L * d * 3 * d_c + B * L * 3 * d_c * 16
     bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
-    return {"name": "fused_front_bwd", "shape": f"B={B} L={L} d={d} {dtype}",
+    return {"name": "fused_front_bwd", "shape": front_shape(B, L, d, d_c, dtype),
             "route": "pallas_hyena.py:395", "errors": {k: v[0] for k, v in errs.items()},
             "max_abs_err": max(e[0] for e in errs.values()),
             "max_rel_err": max(e[1] for e in errs.values()),
@@ -2521,10 +2561,10 @@ PAR_LAUNCHES = {"fftconv": N_LAYER, "fftconv_bwd": N_LAYER}  # a micro-step of t
 STAGED = []  # collectives the port stages through host memory under gloo: none (10a)
 
 
-def parallel_data(genome: Path, run_dir: Path) -> list:
+def parallel_data(genome: Path, run_dir: Path, steps: int = PAR_STEPS) -> list:
     return [f"dataset.bed_file={genome / 'synthetic_hg38.bed'}",
             f"dataset.fasta_file={genome / 'synthetic_hg38.fa'}", f"train.run_dir={run_dir}",
-            f"trainer.limit_train_batches={PAR_STEPS}", "trainer.max_epochs=1",
+            f"trainer.limit_train_batches={steps}", "trainer.max_epochs=1",
             "trainer.log_every_n_steps=1", "trainer.limit_val_batches=1",
             # the shipped warmups (600, 1000 steps) hold the lr near 1e-6 for
             # three steps; at the shipped peak lr from step 0 the loss falls
@@ -2637,40 +2677,46 @@ def parallel_trainer(kernels, cfg: dict) -> dict:
     finally:
         COLLECTIVES.synchronize = False
         trainer.close()
-    return {"steps": steps, "launches": read_counts(kernels), "mesh": trainer.mesh.shape,
-            "coords": [trainer.mesh.data_index, trainer.mesh.seq_index],
+    mesh = trainer.mesh
+    return {"steps": steps, "launches": read_counts(kernels), "mesh": mesh.shape,
+            "coords": ([mesh.data_index, mesh.seq_index] if mesh.model == 1
+                       else [mesh.data_index, mesh.seq_index, mesh.model_index]),
             "final": {k: v for k, v in final.items() if isinstance(v, float)}}
 
 
-def parallel_grads(cfg: dict, seed: int):
-    """10c on one rank: one micro-step of the model with dropout off on the
-    rank's columns of a seeded 1 x 450,001 token row, its loss weighted by
-    the rank's share of the tokens, the gradients and loss all-reduced by
-    the train step's own reduction. Returns (loss, {name: gradient})."""
-    import torch
-
-    from hyena_dna_tpu_torch.train.step import _all_reduce_grads
+def parallel_grads(cfg: dict, seed: int, length: int = PAR_L):
+    """10c (and 11c, 11d) on one rank: one micro-step of the model with
+    dropout off on the rank's columns of a seeded 1 x (length + 1) token
+    row, its loss weighted by the rank's share of the tokens, the gradients
+    and loss reduced by the train step's own reduction
+    (`train/step.py::reduce_gradients`) and, under a model axis, the sharded
+    gradients gathered whole. Returns (loss, {name: gradient})."""
+    from hyena_dna_tpu_torch.parallel.sharding import gather_state_dict, tp_layout
+    from hyena_dna_tpu_torch.train.step import reduce_gradients
     from hyena_dna_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg)
-    x, y = parity_tokens(seed, trainer.device)
-    cols = trainer.mesh.seq_columns(x.shape[1])
+    mesh = trainer.mesh
+    x, y = parity_tokens(seed, trainer.device, length)
+    cols = mesh.seq_columns(x.shape[1])
     model = trainer.model.train()
     logits = model(x[:, cols].contiguous(), trainer.generator)
-    loss = trainer.task.compute_loss(logits, y[:, cols], train=True) / trainer.mesh.size
+    loss = trainer.task.compute_loss(logits, y[:, cols], train=True) / mesh.replicas
     loss.backward()
-    (total,) = _all_reduce_grads(model, [loss.detach()], trainer.mesh.grad_group)
-    grads = {n: p.grad.detach().float().cpu() for n, p in model.named_parameters()}
+    (total,) = reduce_gradients(model, [loss.detach()], mesh)
+    grads = gather_state_dict({n: p.grad.detach() for n, p in model.named_parameters()}, mesh,
+                              tp_layout(model))
+    grads = {n: g.float().cpu() for n, g in grads.items()}
     trainer.close()
     return float(total), grads
 
 
-def parity_tokens(seed: int, device):
-    """A seeded 1 x 450,001 row of base tokens (ids 7-10) as (x, y)."""
+def parity_tokens(seed: int, device, length: int = PAR_L):
+    """A seeded 1 x (length + 1) row of base tokens (ids 7-10) as (x, y)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    ids = torch.randint(7, 11, (1, PAR_L + 1), generator=g)
+    ids = torch.randint(7, 11, (1, length + 1), generator=g)
     return ids[:, :-1].to(device), ids[:, 1:].to(device)
 
 
@@ -2724,35 +2770,41 @@ def parallel_ranks(tmp: str, seed: int) -> None:
     (tmp / f"par_rank{launch.rank()}.json").write_text(json.dumps(res))
 
 
-def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float) -> dict:
-    """Log a phase 10 trainer run from every rank's record and raise unless
-    its losses are finite and the last below the first, every rank saw the
-    same losses, and every step launched B and C PAR_LAUNCHES times a
-    micro-step and nothing else. Returns the launches summed over ranks."""
+def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float,
+                       expected: dict | None = None, phase: str = "parallel",
+                       steps: int = PAR_STEPS) -> dict:
+    """Log a phase 10 (or 11) trainer run from every rank's record and raise
+    unless its losses are finite and the last below the first, every rank
+    saw the same losses, and every step launched `expected` (by default B
+    and C PAR_LAUNCHES times a micro-step) and nothing else. Returns the
+    launches summed over ranks."""
     import statistics
 
     runs = [r[part] for r in ranks]
     losses = [s["loss"] for s in runs[0]["steps"]]
-    expect = {n: PAR_LAUNCHES.get(n, 0) * accum for n in runs[0]["launches"]}
+    expected = expected or {n: c * accum for n, c in PAR_LAUNCHES.items()}
+    expect = {n: expected.get(n, 0) for n in runs[0]["launches"]}
     step_s = [max(r["steps"][i]["seconds"] for r in runs) for i in range(len(losses))]
     # a rank's mean host seconds a step: inside the collectives after the card
     # was synchronised (the data's trip plus the wait for the slowest rank), and
     # in those synchronisations (the card's work queued before each collective)
-    per_step = lambda key: [statistics.mean(
+    mean_host_s = lambda key: [statistics.mean(
         sum(c[key] for c in r["steps"][i]["collectives"].values()) for r in runs)
         for i in range(len(losses))]
-    coll_s, wait_s = per_step("seconds"), per_step("wait_seconds")
-    tokens = runs[0]["steps"][0]["shape"][0] * runs[0]["steps"][0]["shape"][1] * len(runs)
+    coll_s, wait_s = mean_host_s("seconds"), mean_host_s("wait_seconds")
+    # each model group runs the same tokens: count the data x seq ranks' own
+    tokens = (runs[0]["steps"][0]["shape"][0] * runs[0]["steps"][0]["shape"][1] * len(runs)
+              // runs[0]["mesh"]["model"])
     # gloo returns when the data has moved; NCCL once enqueued, so its host seconds are no share
     gloo = ranks[0]["backend"] == "gloo"
-    checks = {"steps": len(losses) == PAR_STEPS,
+    checks = {"steps": len(losses) == steps,
               "losses_finite": all(math.isfinite(v) for v in losses),
               "loss_falls": losses[-1] < losses[0],
               "ranks_agree": all([s["loss"] for s in r["steps"]] == losses for r in runs),
               "launches_per_step": all(s["launches"] == expect for r in runs
                                        for s in r["steps"])}
     ok = all(checks.values())
-    log({"phase": "parallel", "part": label, "mesh": runs[0]["mesh"],
+    log({"phase": phase, "part": label, "mesh": runs[0]["mesh"],
          "coords": [r["coords"] for r in runs], "backend": ranks[0]["backend"],
          "staged_collectives": STAGED, "steps": len(losses),
          "step_ms": [t * 1e3 for t in step_s], "step_ms_median": statistics.median(step_s) * 1e3,
@@ -2770,12 +2822,52 @@ def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float
          "expected_per_step": expect, "final": runs[0]["final"], "checks": checks,
          "seconds": time.perf_counter() - t0, "ok": ok})
     if not ok:
-        raise AssertionError(f"phase 10 {label} failed its checks: {checks}")
+        raise AssertionError(f"phase {phase} {label} failed its checks: {checks}")
     total = {}
     for r in runs:
         for n, c in r["launches"].items():
             total[n] = total.get(n, 0) + c
     return total
+
+
+def one_process_parity(cfg: dict, seed: int, length: int, ranks: list, part: str,
+                       grads_file: Path, label: str, phase: str) -> None:
+    """The micro-step of `parallel_grads` in this process on the card (mesh
+    1, the fused route) against the ranks' (their loss and rank 0's whole
+    gradients in `grads_file`): loss within MODEL_BF16["loss"] relative,
+    every gradient within MODEL_BF16["grads"] of its max |g|, and the same
+    loss on every rank."""
+    import torch
+
+    from hyena_dna_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg)
+    x, y = parity_tokens(seed, trainer.device, length)
+    model = trainer.model.train()
+    loss = trainer.task.compute_loss(model(x, trainer.generator), y, train=True)
+    loss.backward()
+    loss = loss.item()
+    ours = torch.load(grads_file, weights_only=True)
+    rank_loss = ranks[0][part]["loss"]
+    loss_err = abs(rank_loss - loss) / abs(loss)
+    worst, worst_name = 0.0, None
+    for name, p in model.named_parameters():
+        ref = p.grad.detach().float().cpu()
+        err = (ours[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    trainer.close()
+    ok = (loss_err <= MODEL_BF16["loss"] and worst <= MODEL_BF16["grads"]
+          and set(ours) == {n for n, _ in model.named_parameters()}
+          and all(r[part]["loss"] == rank_loss for r in ranks))
+    log({"phase": phase, "part": label, "loss_ranks": rank_loss, "loss_single": loss,
+         "loss_rel_err": loss_err, "worst_grad_err_of_max": worst, "worst_param": worst_name,
+         "tol": {"loss": MODEL_BF16["loss"], "grads": MODEL_BF16["grads"]}, "ok": ok})
+    del trainer, model
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"phase {part}: the ranks' loss or gradients disagree with one "
+                             "process")
 
 
 def parallel_phase(FB, kernels, tmp: Path, seed: int) -> dict:
@@ -2813,38 +2905,131 @@ def parallel_phase(FB, kernels, tmp: Path, seed: int) -> dict:
         for n, c in check_parallel_run(ranks, part, label, accum, t_phase).items():
             total[n] = total.get(n, 0) + c
     # 10c: the same micro-step in this process on the card (mesh 1, the fused route)
-    from hyena_dna_tpu_torch.train.trainer import Trainer
-
-    cfgs = parallel_configs(tmp)
-    trainer = Trainer(cfgs["10c_single"])
-    x, y = parity_tokens(seed + 1, trainer.device)
-    model = trainer.model.train()
-    loss = trainer.task.compute_loss(model(x, trainer.generator), y, train=True)
-    loss.backward()
-    loss = loss.item()
-    ours = torch.load(tmp / "par_grads.pt", weights_only=True)
-    rank_loss = ranks[0]["10c"]["loss"]
-    loss_err = abs(rank_loss - loss) / abs(loss)
-    worst, worst_name = 0.0, None
-    for name, p in model.named_parameters():
-        ref = p.grad.detach().float().cpu()
-        err = (ours[name] - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
-        if err > worst:
-            worst, worst_name = err, name
-    trainer.close()
-    ok = loss_err <= MODEL_BF16["loss"] and worst <= MODEL_BF16["grads"] and all(
-        r["10c"]["loss"] == rank_loss for r in ranks)
-    log({"phase": "parallel", "part": "10c 4 ranks vs one process, 1 x 450,000 bf16, dropout off",
-         "loss_ranks": rank_loss, "loss_single": loss, "loss_rel_err": loss_err,
-         "worst_grad_err_of_max": worst, "worst_param": worst_name,
-         "tol": {"loss": MODEL_BF16["loss"], "grads": MODEL_BF16["grads"]}, "ok": ok})
-    if not ok:
-        raise AssertionError("phase 10c: the ranks' loss or gradients disagree with one process")
-    del trainer, model, loss
+    one_process_parity(parallel_configs(tmp)["10c_single"], seed + 1, PAR_L, ranks, "10c",
+                       tmp / "par_grads.pt",
+                       "10c 4 ranks vs one process, 1 x 450,000 bf16, dropout off", "parallel")
     torch.cuda.empty_cache()
     log({"phase": "parallel", "part": "summary", "seconds": time.perf_counter() - t_phase,
          "launches": total})
     return total
+
+
+# Phase 11, tensor parallelism: 4 ranks on a model axis (gloo when they
+# share one card), the 1M single-chip config at full width cut to 131,072
+# tokens a row, kernels A and A' on each rank's 64-channel slice
+TP_WORLD = 4
+TP_LENGTH = 131_073  # dataset.max_length: 131,072 tokens a row (fft 2^18), 1M's 1,000,446 cut
+TP_TOKENS = TP_LENGTH - 1
+TP_SLICES = (128, 64)  # d_c of a model axis of 2 and of 4 at d_model 256
+# 11b's steps: each moves 49 float32 partial sums of 128 MiB through gloo's
+# host ring (about 0.3 s each on one card), so two, not phase 10's three
+TP_STEPS = 2
+
+
+def tp_configs(tmp: Path) -> dict:
+    """11b-11d's configs and the one-process configs 11c and 11d are held
+    to (`train/__main__.py::build_config`)."""
+    from hyena_dna_tpu_torch.train.__main__ import build_config
+
+    genome = tmp / "genome"
+    cut = [f"dataset.max_length={TP_LENGTH}", "dataset.batch_size=1",
+           "trainer.accumulate_grad_batches=1"]
+    single = ["experiment=hg38/hg38_large_1m_singlechip"] + cut
+    large = ["experiment=hg38/hg38_large_1m", "mesh.data=1"] + cut
+    off = ["model.embed_dropout=0.0"]
+    data = lambda name: parallel_data(genome, tmp / name)
+    cfgs = {"11b": build_config(single + ["mesh.model=4"]
+                                + parallel_data(genome, tmp / "tp_1m", TP_STEPS)),
+            "11c": build_config(single + off + ["mesh.model=4"] + data("tp_parity")),
+            "11c_single": build_config(single + off + data("tp_parity_single")),
+            "11d": build_config(large + off + ["mesh.seq=2", "mesh.model=2"] + data("tp_seq")),
+            "11d_single": build_config(large + off + ["mesh.seq=1", "mesh.model=1"]
+                                       + data("tp_seq_single"))}
+    for name in ("11d", "11d_single"):
+        cfgs[name]["callbacks"].pop("seqlen_warmup_reload")  # the curriculum is cut
+    return cfgs
+
+
+def tp_ranks(tmp: str, seed: int) -> None:
+    """Each rank of the phase 11 world: join (`initialize_distributed`: the
+    card, gloo when the ranks share it), then 11b's trainer run and the
+    micro-steps of 11c and 11d, each with its launches."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel import launch
+    from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
+    kernels = port_kernels()
+    launch.initialize_distributed(torch.device("cuda"))
+    tmp = Path(tmp)
+    cfgs = tp_configs(tmp)
+    res = {"backend": torch.distributed.get_backend(),
+           "11b": parallel_trainer(kernels, cfgs["11b"])}
+    for i, part in enumerate(("11c", "11d")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(kernels)
+        loss, grads = parallel_grads(cfgs[part], seed + 1 + i, TP_TOKENS)
+        res[part] = {"loss": loss, "launches": read_counts(kernels)}
+        if launch.is_main_process():
+            torch.save(grads, tmp / f"{part}_grads.pt")
+        del grads
+    (tmp / f"tp_rank{launch.rank()}.json").write_text(json.dumps(res))
+
+
+def tp_phase(FF, FB, kernels, tmp: Path, seed: int):
+    """Phase 11 in phase 6's directory (its genome). 11a: kernels A and A'
+    on a rank's channel slice (d_in 256, d_c 128 and 64, float32 and bf16,
+    4 x 32768) and B and C on 11b's 1 x 64 x 131072 slice, each against
+    its plain version; then the world of ranks (11b-11d) and the one-process
+    sides of 11c and 11d. Returns (11a's rows, the launches of 11b-11d
+    summed over the ranks)."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    rows = []
+    for i, (dtype, d_c) in enumerate((dt, c) for dt in ("float32", "bfloat16")
+                                     for c in TP_SLICES):
+        rows += [check_front(FF, 4, 32768, 120 + 2 * i, dtype, d_c=d_c),
+                 check_front_bwd(FF, 4, 32768, 121 + 2 * i, dtype, d_c=d_c)]
+    rows += [check_conv(FB, 1, TP_TOKENS, "bfloat16", "pallas_fftconv_n3.py:413 TP slice", 130,
+                        C=D_MODEL // TP_WORLD),
+             check_conv_bwd(FB, FB.fftconv_bwd_retransform, 1, TP_TOKENS, "bfloat16",
+                            "pallas_fftconv_n3.py:629 TP slice", 131, C=D_MODEL // TP_WORLD)]
+    for row in rows:
+        log({"phase": "tensor_parallel", "part": "11a slice kernels", **row})
+    torch.cuda.empty_cache()
+    spawn(tp_ranks, TP_WORLD, args=(str(tmp), seed), timeout=900)
+    ranks = [json.loads((tmp / f"tp_rank{r}.json").read_text()) for r in range(TP_WORLD)]
+    fronts = expected_launches("bf16", 1, remat="residual", group=2, residual="fp32")
+    total = check_parallel_run(ranks, "11b", "11b experiment=hg38/hg38_large_1m_singlechip, "
+                               "model 4", 1, t_phase, fronts, "tensor_parallel", TP_STEPS)
+    seq_route = {n: N_LAYER if n in ("fftconv", "fftconv_bwd") else 0 for n in fronts}
+    checks = {"11c_launches": all(r["11c"]["launches"] == fronts for r in ranks),
+              "11d_launches": all(r["11d"]["launches"] == seq_route for r in ranks)}
+    log({"phase": "tensor_parallel", "part": "11c/11d launches a micro-step",
+         "11c": ranks[0]["11c"]["launches"], "11d": ranks[0]["11d"]["launches"],
+         "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"phase 11 launches: {checks}")
+    for r in ranks:
+        for part in ("11c", "11d"):
+            for n, c in r[part]["launches"].items():
+                total[n] = total.get(n, 0) + c
+    cfgs = tp_configs(tmp)
+    one_process_parity(cfgs["11c_single"], seed + 1, TP_TOKENS, ranks, "11c",
+                       tmp / "11c_grads.pt", "11c model 4 vs one process, 1 x 131,072 bf16, "
+                       "dropout off", "tensor_parallel")
+    one_process_parity(cfgs["11d_single"], seed + 2, TP_TOKENS, ranks, "11d",
+                       tmp / "11d_grads.pt", "11d experiment=hg38/hg38_large_1m, seq 2 x "
+                       "model 2 vs one process, 1 x 131,072 bf16, dropout off",
+                       "tensor_parallel")
+    log({"phase": "tensor_parallel", "part": "summary", "seconds": time.perf_counter() - t_phase,
+         "launches": total})
+    return rows, total
 
 
 def port_kernels() -> list:
@@ -3080,6 +3265,10 @@ def main() -> int:
         parallel_launches = parallel_phase(FB, kernels, Path(trainer_tmp), seed=22)
         for name, n in parallel_launches.items():
             total[name] += n
+        # phase 11 on the same genome
+        tp_rows, tp_launches = tp_phase(FF, FB, kernels, Path(trainer_tmp), seed=23)
+        for name, n in tp_launches.items():
+            total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3157,6 +3346,13 @@ def main() -> int:
                                                 **{k: r[k] for k in timing}}
                                    for r in parallel_rows if r["name"] == name}}
                 for name in ("fftconv", "fftconv_bwd")}
+    # the tensor-parallel rows (phase 11a: A and A' on a rank's channel slice,
+    # B and C on 11b's slice) with the ranks' launches in 11b-11d
+    tensor_parallel = {name: {"launches": tp_launches.get(name, 0),
+                              "slices": {r["shape"]: {"max_abs_err": r["max_abs_err"],
+                                                      **{k: r[k] for k in timing}}
+                                         for r in tp_rows if r["name"] == name}}
+                       for name in ("fused_front", "fused_front_bwd", "fftconv", "fftconv_bwd")}
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -3173,7 +3369,8 @@ def main() -> int:
          **({"trainer": trainer[name]} if name in trainer else {}),
          **({"models_launches": models_launches[name]} if models_launches.get(name) else {}),
          **({"species": species[name]} if name in species else {}),
-         **({"parallel": parallel[name]} if name in parallel else {})}
+         **({"parallel": parallel[name]} if name in parallel else {}),
+         **({"tensor_parallel": tensor_parallel[name]} if name in tensor_parallel else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

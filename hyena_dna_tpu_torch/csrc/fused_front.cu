@@ -4,12 +4,15 @@
 //   conv = causal depthwise k=3 conv of proj over time, zero left padding,
 //          plus the conv bias bc                        (taps wc, time-major)
 //   [x0 | x1 | v] = conv split along channels
-//   vx = v * x1, x0                                     both (B, d, L)
+//   vx = v * x1, x0                                     both (B, dc, L)
 //
-// u (B, L, d), vx and x0 are float32, or all three bfloat16 (the bf16
+// u (B, L, di), vx and x0 are float32, or all three bfloat16 (the bf16
 // model: vx and x0 in u's dtype, as the Pallas kernel's out_dtype =
-// u.dtype); W (d, 3d), bp (3d), wc (3, 3d) with wc[j] multiplying
-// proj[t - 2 + j] and bc (3d) are float32. The arithmetic is float32 either
+// u.dtype); W (di, 3 dc), bp (3 dc), wc (3, 3 dc) with wc[j] multiplying
+// proj[t - 2 + j] and bc (3 dc) are float32. di is u's width and dc the
+// width of one output chunk: di == dc == d in the whole model; a
+// tensor-parallel rank projects u onto its dc = d / M channels of each
+// chunk [x0 | x1 | v]. The arithmetic is float32 either
 // way: bf16 u is widened on load, so proj stays float32 and vx, x0 are
 // rounded once.
 //
@@ -33,24 +36,24 @@
 // does not synchronise; returns the cudaError_t of the launch.
 extern "C" int hyena_fused_front_fwd(const float* u, const float* w, const float* bp,
                                      const float* wc, const float* bc, float* vx, float* x0,
-                                     int B, int L, int d, cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, L, d, stream);
+                                     int B, int L, int di, int dc, cudaStream_t stream) {
+  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, L, di, dc, stream);
 }
 
 // As hyena_fused_front_fwd with u, vx and x0 bfloat16, the parameters
 // float32, on the tensor cores; ws: scratch for W's bf16 pairs,
-// hyena_front_ws_numel(d) bf16 values.
+// hyena_front_ws_numel(di, dc) bf16 values.
 extern "C" int hyena_fused_front_fwd_bf16(const __nv_bfloat16* u, const float* w,
                                           const float* bp, const float* wc, const float* bc,
                                           __nv_bfloat16* vx, __nv_bfloat16* x0,
-                                          __nv_bfloat16* ws, int B, int L, int d,
+                                          __nv_bfloat16* ws, int B, int L, int di, int dc,
                                           cudaStream_t stream) {
-  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, L, d, stream);
+  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, L, di, dc, stream);
 }
 
-// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
-// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
-extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
+// (di, dc) (-1 if it exceeds an int); the wrapper sizes the scratch by it.
+extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }
 
 // A check of wgmma.cuh alone, for the tests: one warpgroup computes
 // c (64 x N) = a (64 x 64) . b (64 x N) with a (64, 64) and b (64, 64)

@@ -32,7 +32,7 @@
 extern "C" int hyena_fused_front4_fwd(const float* u, const float* w, const float* bp,
                                       const float* wc, const float* bc, float* vx, float* x0,
                                       int B, int L, int lp, int d, cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, lp, d, stream);
+  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, lp, d, d, stream);
 }
 
 // As hyena_fused_front4_fwd with u, vx and x0 bfloat16, the parameters
@@ -42,9 +42,9 @@ extern "C" int hyena_fused_front4_fwd_bf16(const __nv_bfloat16* u, const float* 
                                            __nv_bfloat16* vx, __nv_bfloat16* x0,
                                            __nv_bfloat16* ws, int B, int L, int lp, int d,
                                            cudaStream_t stream) {
-  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, lp, d, stream);
+  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, lp, d, d, stream);
 }
 
-// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
-// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
-extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
+// (di, dc) (-1 if it exceeds an int): kernel A's helper, called with (d, d).
+extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }

@@ -34,7 +34,7 @@ extern "C" int hyena_fused_front4_bwd(const float* u, const float* w, const floa
                                       int lp, int d, int tiles, int slices,
                                       cudaStream_t stream) {
   return FRONT_NS::launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part,
-                                 dwpart, B, L, lp, d, tiles, slices, stream);
+                                 dwpart, B, L, lp, d, d, tiles, slices, stream);
 }
 
 // As hyena_fused_front4_bwd with u, dvx, dx0 and du bfloat16, the rest
@@ -49,13 +49,15 @@ extern "C" int hyena_fused_front4_bwd_bf16(const __nv_bfloat16* u, const float* 
                                            int B, int L, int lp, int d, int runs,
                                            cudaStream_t stream) {
   return FRONT_NS::launch_bf16(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, ws, part, dwpart, B,
-                               L, lp, d, runs, stream);
+                               L, lp, d, d, runs, stream);
 }
 
-// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
-// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
-extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
+// (di, dc) (-1 if it exceeds an int): kernel A''s helper, called with (d, d).
+extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }
 
-// The run count `runs` the bf16 entry takes at (B, L, d); the wrapper sizes
-// part and dwpart by it.
-extern "C" int hyena_front_bwd_runs(int B, int L, int d) { return FRONT_NS::bwd_runs(B, L, d); }
+// The run count `runs` the bf16 entry takes at (B, L, di, dc): kernel A''s
+// helper, called with (B, L, d, d).
+extern "C" int hyena_front_bwd_runs(int B, int L, int di, int dc) {
+  return FRONT_NS::bwd_runs(B, L, di, dc);
+}

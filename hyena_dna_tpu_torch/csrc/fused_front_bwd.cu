@@ -1,9 +1,10 @@
 // Kernel A': backward of the fused Hyena front end (kernel A), for Hopper.
 //
-// From the cotangents dvx, dx0 (B, d, L) of kernel A's outputs, emits du
-// (B, L, d), dW (d, 3d) and the bias and tap gradients dbp, dwc, dbc (the
-// math and the design are in fused_front_bwd_common.cuh, shared with kernel
-// A4').
+// From the cotangents dvx, dx0 (B, dc, L) of kernel A's outputs, emits du
+// (B, L, di), dW (di, 3 dc) and the bias and tap gradients dbp, dwc, dbc
+// (the math and the design are in fused_front_bwd_common.cuh, shared with
+// kernel A4'). di == dc == d in the whole model; on a tensor-parallel rank
+// dc = d / M and du is the rank's partial sum.
 //
 // Replaces hyena_dna_tpu/ops/pallas_hyena.py::_bwd_pallas (_bwd_kernel /
 // _bwd_body, wired in _fpcg_bwd), the backward of every order-2 Hyena layer.
@@ -18,40 +19,45 @@
 #define FRONT_NS front_bwd
 #include "fused_front_bwd_common.cuh"
 
-// All pointers to contiguous float32 device memory: u (B, L, d), w (d, 3d),
-// bp (3d), wc (3, 3d), bc (3d), dvx and dx0 (B, d, L); outputs du (B, L, d),
-// dw (d, 3d) and dparams (5, 3d) = [dbp; dwc[0..2]; dbc]. Scratch: dproj
-// (B * L * 3d), part (B * tiles * 5 * 3d) with tiles = ceil(L / 60), dwpart
-// (slices * d * 3d). Launches on `stream`, does not synchronise; returns
-// the cudaError_t of the launches (0 on success).
+// All pointers to contiguous float32 device memory: u (B, L, di), w (di,
+// 3 dc), bp (3 dc), wc (3, 3 dc), bc (3 dc), dvx and dx0 (B, dc, L);
+// outputs du (B, L, di), dw (di, 3 dc) and dparams (5, 3 dc) = [dbp;
+// dwc[0..2]; dbc]. Scratch: dproj (B * L * 3 dc), part (B * tiles * 5 *
+// 3 dc) with tiles = ceil(L / 60), dwpart (slices * di * 3 dc). Launches
+// on `stream`, does not synchronise; returns the cudaError_t of the
+// launches (0 on success).
 extern "C" int hyena_fused_front_bwd(const float* u, const float* w, const float* bp,
                                      const float* wc, const float* bc, const float* dvx,
                                      const float* dx0, float* du, float* dw, float* dparams,
                                      float* dproj, float* part, float* dwpart, int B, int L,
-                                     int d, int tiles, int slices, cudaStream_t stream) {
+                                     int di, int dc, int tiles, int slices,
+                                     cudaStream_t stream) {
   return FRONT_NS::launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part,
-                                 dwpart, B, L, L, d, tiles, slices, stream);
+                                 dwpart, B, L, L, di, dc, tiles, slices, stream);
 }
 
 // As hyena_fused_front_bwd with u, dvx, dx0 and du bfloat16, the rest
 // float32, on the tensor cores, with no dproj scratch. Scratch: ws
-// (hyena_front_ws_numel(d) bf16), part (runs * 5 * 3d) and dwpart (runs *
-// d * 3d) float32; runs: the dW pass's split of the B * ceil(L / 60) time
-// tiles, hyena_front_bwd_runs(B, L, d) (any other is refused).
+// (hyena_front_ws_numel(di, dc) bf16), part (runs * 5 * 3 dc) and dwpart
+// (runs * di * 3 dc) float32; runs: the dW pass's split of the B *
+// ceil(L / 60) time tiles, hyena_front_bwd_runs(B, L, di, dc) (any other is
+// refused).
 extern "C" int hyena_fused_front_bwd_bf16(const __nv_bfloat16* u, const float* w,
                                           const float* bp, const float* wc, const float* bc,
                                           const __nv_bfloat16* dvx, const __nv_bfloat16* dx0,
                                           __nv_bfloat16* du, float* dw, float* dparams,
                                           __nv_bfloat16* ws, float* part, float* dwpart, int B,
-                                          int L, int d, int runs, cudaStream_t stream) {
+                                          int L, int di, int dc, int runs, cudaStream_t stream) {
   return FRONT_NS::launch_bf16(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, ws, part, dwpart, B,
-                               L, L, d, runs, stream);
+                               L, L, di, dc, runs, stream);
 }
 
-// bf16 values of the split-W scratch `ws` the bf16 entry takes at width d
-// (-1 if it exceeds an int); the wrapper sizes the scratch by it.
-extern "C" int hyena_front_ws_numel(int d) { return FRONT_NS::tc::ws_numel(d); }
+// bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
+// (di, dc) (-1 if it exceeds an int); the wrapper sizes the scratch by it.
+extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }
 
-// The run count `runs` the bf16 entry takes at (B, L, d); the wrapper sizes
-// part and dwpart by it.
-extern "C" int hyena_front_bwd_runs(int B, int L, int d) { return FRONT_NS::bwd_runs(B, L, d); }
+// The run count `runs` the bf16 entry takes at (B, L, di, dc); the wrapper
+// sizes part and dwpart by it.
+extern "C" int hyena_front_bwd_runs(int B, int L, int di, int dc) {
+  return FRONT_NS::bwd_runs(B, L, di, dc);
+}

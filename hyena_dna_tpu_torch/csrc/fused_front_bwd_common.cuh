@@ -5,12 +5,15 @@
 // of vx and x0 is a constant zero, so its cotangents carry nothing). One
 // template, so the two cannot drift.
 //
-// Forward: proj = u @ W + bp (B, L, 3d); conv = causal k=3 depthwise conv
+// Forward: proj = u @ W + bp (B, L, 3 dc); conv = causal k=3 depthwise conv
 // of proj over time + bc (taps wc, wc[j] multiplies proj[t - 2 + j], zero
-// left padding); [x0 | x1 | v] = conv; outputs vx = v * x1 and x0.
+// left padding); [x0 | x1 | v] = conv; outputs vx = v * x1 and x0. u is
+// (B, L, di), W (di, 3 dc), the outputs and their cotangents (B, dc, ld):
+// the whole model runs di == dc (d); a tensor-parallel rank runs di = d and
+// dc = d / M, its channel slice of each chunk, and its du is a partial sum.
 //
 // Backward, from the cotangents dvx, dx0:
-//   dconv = [dx0 | dvx * v | dvx * x1]                  (B, L, 3d)
+//   dconv = [dx0 | dvx * v | dvx * x1]                  (B, L, 3 dc)
 //   dproj[s] = wc[0] dconv[s+2] + wc[1] dconv[s+1] + wc[2] dconv[s]
 //   du  = dproj @ W^T        dW  = u^T @ dproj          dbp = sum_s dproj[s]
 //   dwc[j] = sum_t dconv[t] proj[t - 2 + j]             dbc = sum_t dconv[t]
@@ -41,7 +44,7 @@
 // each pass recomputes proj and dconv for its tile from u, dvx and dx0.
 //  * A'1, front_bwd_du_kernel: one block (two warpgroups) per (120-time
 //    tile, 256-input chunk of du, batch row). The u rows t0-2 .. t0+125 stay
-//    in shared memory while the block loops over the d / 16 channel groups
+//    in shared memory while the block loops over the dc / 16 channel groups
 //    (W panels double-buffered as in kernel A). Per group: project the x1
 //    and v columns (m64n32k16), form dconv and the transposed conv in
 //    registers (dproj_item: one thread per channel and 8 times), split
@@ -84,12 +87,12 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
     const float* __restrict__ u, const float* __restrict__ w, const float* __restrict__ bp,
     const float* __restrict__ wc, const float* __restrict__ bc, const float* __restrict__ dvx,
     const float* __restrict__ dx0, float* __restrict__ dproj, float* __restrict__ part, int L,
-    int ld, int d) {
+    int ld, int di, int dc) {
   extern __shared__ float smem[];
   auto us = reinterpret_cast<float(*)[kRows + 1]>(smem);
   auto ws = reinterpret_cast<float(*)[kCols]>(smem + kUsSize);
   auto ps = reinterpret_cast<float(*)[kStride]>(smem + kUsSize + kWsSize);
-  auto dc = reinterpret_cast<float(*)[kStride]>(smem + kUsSize + kWsSize + kRows * kStride);
+  auto dg = reinterpret_cast<float(*)[kStride]>(smem + kUsSize + kWsSize + kRows * kStride);
 
   const int c0 = blockIdx.x * kCB;
   const int tile = blockIdx.y;
@@ -98,9 +101,9 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int d3 = 3 * d;
+  const int d3 = 3 * dc;
   const int trow0 = t0 - 2;  // time of projected row 0
-  const float* ub = u + static_cast<int64_t>(b) * L * d;
+  const float* ub = u + static_cast<int64_t>(b) * L * di;
 
   // projection of rows t0-2 .. t0+61, columns [x0 | x1 | v] of channels c0..c0+31
   float acc[4][6];
@@ -108,19 +111,19 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
   for (int r = 0; r < 4; ++r)
 #pragma unroll
     for (int j = 0; j < 6; ++j) acc[r][j] = 0.f;
-  for (int k0 = 0; k0 < d; k0 += kTK) {
+  for (int k0 = 0; k0 < di; k0 += kTK) {
     for (int i = tid; i < kRows * kTK; i += kThreads) {
       const int r = i / kTK, kk = i % kTK;
       const int t = trow0 + r;
-      us[kk][r] = (t >= 0 && t < L && k0 + kk < d)
-                      ? ub[static_cast<int64_t>(t) * d + k0 + kk]
+      us[kk][r] = (t >= 0 && t < L && k0 + kk < di)
+                      ? ub[static_cast<int64_t>(t) * di + k0 + kk]
                       : 0.f;
     }
     for (int i = tid; i < kTK * kCols; i += kThreads) {
       const int kk = i / kCols, j = i % kCols;
       const int ch = c0 + j % kCB;
-      ws[kk][j] = (k0 + kk < d && ch < d)
-                      ? w[static_cast<int64_t>(k0 + kk) * d3 + (j / kCB) * d + ch]
+      ws[kk][j] = (k0 + kk < di && ch < dc)
+                      ? w[static_cast<int64_t>(k0 + kk) * d3 + (j / kCB) * dc + ch]
                       : 0.f;
     }
     __syncthreads();
@@ -147,7 +150,7 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
     for (int j = 0; j < 6; ++j) {
       const int col = tx + 16 * j;
       const int ch = c0 + col % kCB;
-      ps[row][col] = (live && ch < d) ? acc[r][j] + bp[(col / kCB) * d + ch] : 0.f;
+      ps[row][col] = (live && ch < dc) ? acc[r][j] + bp[(col / kCB) * dc + ch] : 0.f;
     }
   }
   __syncthreads();
@@ -158,24 +161,24 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
     const int t = t0 + rr;
     const int ch = c0 + c;
     float g0 = 0.f, g1 = 0.f, g2 = 0.f;
-    if (t < L && ch < d) {
+    if (t < L && ch < dc) {
       float x[2];
 #pragma unroll
       for (int grp = 1; grp < 3; ++grp) {
         const int col = grp * kCB + c;
-        const int gc = grp * d + ch;
+        const int gc = grp * dc + ch;
         x[grp - 1] = ps[rr][col] * wc[gc] + ps[rr + 1][col] * wc[d3 + gc] +
                      ps[rr + 2][col] * wc[2 * d3 + gc] + bc[gc];
       }
-      const int64_t o = (static_cast<int64_t>(b) * d + ch) * ld + t;
+      const int64_t o = (static_cast<int64_t>(b) * dc + ch) * ld + t;
       const float gvx = dvx[o];
       g0 = dx0[o];
       g1 = gvx * x[1];  // d x1 = dvx * v
       g2 = gvx * x[0];  // d v  = dvx * x1
     }
-    dc[rr][c] = g0;
-    dc[rr][kCB + c] = g1;
-    dc[rr][2 * kCB + c] = g2;
+    dg[rr][c] = g0;
+    dg[rr][kCB + c] = g1;
+    dg[rr][2 * kCB + c] = g2;
   }
   __syncthreads();
 
@@ -184,23 +187,23 @@ __global__ void __launch_bounds__(kThreads) front_bwd_tile_kernel(
     const int rr = i / kCols, col = i % kCols;
     const int s = t0 + rr;
     const int ch = c0 + col % kCB;
-    if (s >= L || ch >= d) continue;
-    const int gc = (col / kCB) * d + ch;
+    if (s >= L || ch >= dc) continue;
+    const int gc = (col / kCB) * dc + ch;
     dproj[(static_cast<int64_t>(b) * L + s) * d3 + gc] =
-        wc[gc] * dc[rr + 2][col] + wc[d3 + gc] * dc[rr + 1][col] + wc[2 * d3 + gc] * dc[rr][col];
+        wc[gc] * dg[rr + 2][col] + wc[d3 + gc] * dg[rr + 1][col] + wc[2 * d3 + gc] * dg[rr][col];
   }
 
   // per-tile partial sums over the 60 owned times
   if (tid < kCols) {
     const int col = tid;
     const int ch = c0 + col % kCB;
-    if (ch < d) {
-      const int gc = (col / kCB) * d + ch;
+    if (ch < dc) {
+      const int gc = (col / kCB) * dc + ch;
       const float w0 = wc[gc], w1 = wc[d3 + gc], w2 = wc[2 * d3 + gc];
       float sbp = 0.f, s0 = 0.f, s1 = 0.f, s2 = 0.f, sbc = 0.f;
       for (int rr = 0; rr < kOut; ++rr) {
-        const float g = dc[rr][col];
-        sbp += w0 * dc[rr + 2][col] + w1 * dc[rr + 1][col] + w2 * g;
+        const float g = dg[rr][col];
+        sbp += w0 * dg[rr + 2][col] + w1 * dg[rr + 1][col] + w2 * g;
         s0 += g * ps[rr][col];
         s1 += g * ps[rr + 1][col];
         s2 += g * ps[rr + 2][col];
@@ -317,28 +320,30 @@ __global__ void __launch_bounds__(kThreads) front_bwd_sum_kernel(
 inline int launch(const float* u, const float* w, const float* bp, const float* wc,
                   const float* bc, const float* dvx, const float* dx0, float* du, float* dw,
                   float* dparams, float* dproj, float* part, float* dwpart, int B, int L,
-                  int ld, int d, int tiles, int slices, cudaStream_t stream) {
+                  int ld, int di, int dc, int tiles, int slices, cudaStream_t stream) {
   const int64_t rows = static_cast<int64_t>(B) * L;
-  if (B < 1 || L < 1 || d < 1 || ld < L || B > 65535 || tiles != (L + kOut - 1) / kOut ||
+  if (B < 1 || L < 1 || di < 1 || dc < 1 || ld < L || B > 65535 ||
+      tiles != (L + kOut - 1) / kOut ||
       tiles > 65535 || slices < 1 || slices > 65535 || (rows + kGM - 1) / kGM > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int d3 = 3 * d;
+  const int d3 = 3 * dc;
   const int M = static_cast<int>(rows);
   cudaFuncSetAttribute(front_bwd_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(kTileSmem));
-  front_bwd_tile_kernel<<<dim3((d + kCB - 1) / kCB, tiles, B), kThreads, kTileSmem, stream>>>(
-      u, w, bp, wc, bc, dvx, dx0, dproj, part, L, ld, d);
-  // du = dproj @ W^T: A = dproj (M, 3d), B(k, n) = W[n, k]
+  front_bwd_tile_kernel<<<dim3((dc + kCB - 1) / kCB, tiles, B), kThreads, kTileSmem, stream>>>(
+      u, w, bp, wc, bc, dvx, dx0, dproj, part, L, ld, di, dc);
+  // du = dproj @ W^T: A = dproj (M, 3 dc), B(k, n) = W[n, k], W (di, 3 dc)
   front_bwd_gemm_kernel<false, false>
-      <<<dim3((d + kGN - 1) / kGN, (M + kGM - 1) / kGM, 1), kThreads, 0, stream>>>(
-          dproj, d3, w, d3, du, d, 0, M, d, d3, d3);
-  // dW slices = u^T @ dproj over runs of rows: A(m, k) = u[k, m], B = dproj (M, 3d)
+      <<<dim3((di + kGN - 1) / kGN, (M + kGM - 1) / kGM, 1), kThreads, 0, stream>>>(
+          dproj, d3, w, d3, du, di, 0, M, di, d3, d3);
+  // dW slices = u^T @ dproj over runs of rows: A(m, k) = u[k, m], B = dproj (M, 3 dc)
   const int k_chunk = static_cast<int>((rows + slices - 1) / slices);
   front_bwd_gemm_kernel<true, true>
-      <<<dim3((d3 + kGN - 1) / kGN, (d + kGM - 1) / kGM, slices), kThreads, 0, stream>>>(
-          u, d, dproj, d3, dwpart, d3, static_cast<int64_t>(d) * d3, d, d3, M, k_chunk);
-  front_bwd_sum_kernel<<<(d * d3 + 31) / 32, kThreads, 0, stream>>>(dwpart, slices, d * d3, dw);
+      <<<dim3((d3 + kGN - 1) / kGN, (di + kGM - 1) / kGM, slices), kThreads, 0, stream>>>(
+          u, di, dproj, d3, dwpart, d3, static_cast<int64_t>(di) * d3, di, d3, M, k_chunk);
+  front_bwd_sum_kernel<<<(di * d3 + 31) / 32, kThreads, 0, stream>>>(dwpart, slices, di * d3,
+                                                                      dw);
   front_bwd_sum_kernel<<<(kParts * d3 + 31) / 32, kThreads, 0, stream>>>(part, B * tiles,
                                                                          kParts * d3, dparams);
   return static_cast<int>(cudaGetLastError());
@@ -362,13 +367,13 @@ constexpr int kDwCotBuf = 2 * kC * kDwCotStride;  // bf16 values of one tile's c
 constexpr int kUPanelDw = kDwRows * wgmma::kRowBytes;
 constexpr int kParts = 5;                    // dbp, dwc[0], dwc[1], dwc[2], dbc
 
-__host__ __device__ inline int du_smem_bytes(int d) {
-  const Dims D(d);
+__host__ __device__ inline int du_smem_bytes(int di, int dc) {
+  const Dims D(di, dc);
   return 1024 + D.Pm * kUPanelDu + 2 * D.w_bytes() + 2 * kUPanelDu + kDuRows * kDuPs * 4 +
          2 * kC * kDuCotStride * 2;
 }
-__host__ __device__ inline int dw_smem_bytes(int d) {
-  const Dims D(d);
+__host__ __device__ inline int dw_smem_bytes(int di, int dc) {
+  const Dims D(di, dc);
   return 1024 + 2 * D.Pm * kUPanelDw + D.w_bytes() + 2 * kUPanelDw + kDwRows * kDwPs * 4 +
          2 * kDwCotBuf * 2;
 }
@@ -377,9 +382,9 @@ template <int kP>
 __global__ void __launch_bounds__(kThreads, 1) front_bwd_du_kernel(
     const bf16* __restrict__ u, const bf16* __restrict__ ws, const float* __restrict__ bp,
     const float* __restrict__ wc, const float* __restrict__ bc, const bf16* __restrict__ dvx,
-    const bf16* __restrict__ dx0, bf16* __restrict__ du, int L, int ld, int d) {
+    const bf16* __restrict__ dx0, bf16* __restrict__ du, int L, int ld, int di, int dc) {
   extern __shared__ uint8_t smem_raw[];
-  const Dims D(d);
+  const Dims D(di, dc);
   constexpr int kWBytes = 2 * kP * kWPanelBytes;
   const int t0 = blockIdx.x * kDuOut, nc = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, wg = tid / 128, tw = tid % 128;
@@ -390,13 +395,13 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_du_kernel(
   uint8_t* dp_lo = dp_hi + kUPanelDu;
   float* ps = reinterpret_cast<float*>(dp_lo + kUPanelDu);
   bf16* cs = reinterpret_cast<bf16*>(ps + kDuRows * kDuPs);
-  const bool vec_u = d % 8 == 0, vec_c = ld % 8 == 0;
+  const bool vec_u = di % 8 == 0, vec_c = ld % 8 == 0;
   const int nsteps = D.G * D.nchunk;
   // input chunks in the order nc + 1, ..., nc: the last one's W panels are du's B
   auto chunk_of = [&](int s) { return (nc + 1 + s % D.nchunk) % D.nchunk; };
 
   zero_smem(dp_hi, 2 * kUPanelDu);  // rows past the 120 owned stay zero
-  if (D.nchunk == 1) load_u(U, u, b, t0 - 2, kDuRows, L, d, 0, kP, vec_u);
+  if (D.nchunk == 1) load_u(U, u, b, t0 - 2, kDuRows, L, di, 0, kP, vec_u);
   load_w<kP>(W0, ws, D, 0, chunk_of(0));
   cp_commit();
 
@@ -411,7 +416,7 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_du_kernel(
       const int s = g * D.nchunk + sub, ic = chunk_of(s);
       __syncthreads();  // the last step's products and dproj pass are done with U, W, cs
       if (D.nchunk > 1) {
-        load_u(U, u, b, t0 - 2, kDuRows, L, d, kChunk * ic, kP, vec_u);
+        load_u(U, u, b, t0 - 2, kDuRows, L, di, kChunk * ic, kP, vec_u);
         cp_commit();
       }
       const bool more = s + 1 < nsteps;
@@ -420,7 +425,7 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_du_kernel(
         cp_commit();
       }
       if (sub == 0) {  // this group's cotangents, waited for after the projection
-        load_cot(cs, kDuCotStride, dvx, dx0, b, g, t0, kDuCot, L, ld, d, vec_c);
+        load_cot(cs, kDuCotStride, dvx, dx0, b, g, t0, kDuCot, L, ld, dc, vec_c);
         cp_commit();
       }
       if (sub == 0 && more) cp_wait<2>();
@@ -437,14 +442,14 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_du_kernel(
     }
     const uint32_t wb = W0 + ((g * D.nchunk + D.nchunk - 1) & 1) * kWBytes;  // chunk nc's W
 
-    store_ps<32>(ps, kDuPs, pj, tw, 64 * wg, 0, kC, bp, g, d, t0 - 2, L);
+    store_ps<32>(ps, kDuPs, pj, tw, 64 * wg, 0, kC, bp, g, dc, t0 - 2, L);
     cp_wait<0>();
     __syncthreads();
     {
       const int c = tid % kC, k = tid / kC;
-      if (k < kDuOut / 8 && kC * g + c < d)
+      if (k < kDuOut / 8 && kC * g + c < dc)
         dproj_item<8, false>(ps, kDuPs, 0, cs + c * kDuCotStride, cs + (kC + c) * kDuCotStride,
-                             8 * k, wc, bc, d, g, c, dp_hi, dp_lo, 0, no_sums);
+                             8 * k, wc, bc, dc, g, c, dp_hi, dp_lo, 0, no_sums);
     }
     wgmma::fence_proxy_async();
     __syncthreads();
@@ -479,13 +484,13 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_du_kernel(
       const int row = 64 * wg + wgmma::frag_row(tw, k);
       const int t = t0 + row;
       const int i = kChunk * nc + 64 * q + wgmma::frag_col(tw, k);
-      if (row >= kDuOut || t >= L || i >= d) continue;
-      bf16* o = du + (static_cast<int64_t>(b) * L + t) * d + i;
-      if (d % 2 == 0) {
+      if (row >= kDuOut || t >= L || i >= di) continue;
+      bf16* o = du + (static_cast<int64_t>(b) * L + t) * di + i;
+      if (di % 2 == 0) {
         *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(acc[q][k], acc[q][k + 1]);
       } else {
         o[0] = __float2bfloat16_rn(acc[q][k]);
-        if (i + 1 < d) o[1] = __float2bfloat16_rn(acc[q][k + 1]);
+        if (i + 1 < di) o[1] = __float2bfloat16_rn(acc[q][k + 1]);
       }
     }
   }
@@ -496,9 +501,9 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
     const bf16* __restrict__ u, const bf16* __restrict__ ws, const float* __restrict__ bp,
     const float* __restrict__ wc, const float* __restrict__ bc, const bf16* __restrict__ dvx,
     const bf16* __restrict__ dx0, float* __restrict__ part, float* __restrict__ dwpart, int L,
-    int ld, int d, int n_tiles, int tiles_per_run) {
+    int ld, int di, int dc, int n_tiles, int tiles_per_run) {
   extern __shared__ uint8_t smem_raw[];
-  const Dims D(d);
+  const Dims D(di, dc);
   constexpr int kUBytes = kP * kUPanelDw;
   // warpgroup wg takes kM0 (wg 0) or kM1 (wg 1) dW input panels from wg * kM0
   constexpr int kM0 = (kP + 1) / 2, kM1 = kP / 2;
@@ -512,7 +517,7 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
   uint8_t* dp_lo = dp_hi + kUPanelDw;
   float* ps = reinterpret_cast<float*>(dp_lo + kUPanelDw);
   bf16* cs0 = reinterpret_cast<bf16*>(ps + kDwRows * kDwPs);  // buffer i at cs0 + i * kDwCotBuf
-  const bool vec_u = d % 8 == 0, vec_c = ld % 8 == 0;
+  const bool vec_u = di % 8 == 0, vec_c = ld % 8 == 0;
   const bool resident = D.nchunk == 1;
   auto chunk_of = [&](int sub) { return (mc + 1 + sub) % D.nchunk; };
   const int q0 = run * tiles_per_run;
@@ -524,8 +529,8 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
   auto load_tile = [&](int q, int buf, int ic) {
     const int t0 = tile_t0(q);
     load_cot(cs0 + buf * kDwCotBuf, kDwCotStride, dvx, dx0, tile_b(q), g, t0 & ~7, kDwCot, L, ld,
-             d, vec_c);
-    load_u(U0 + buf * kUBytes, u, tile_b(q), t0 - 2, kDwRows, L, d, kChunk * ic, kP, vec_u);
+             dc, vec_c);
+    load_u(U0 + buf * kUBytes, u, tile_b(q), t0 - 2, kDwRows, L, di, kChunk * ic, kP, vec_u);
   };
 
   zero_smem(dp_hi, 2 * kUPanelDw);  // rows 0, 1, 62, 63 (times not owned) stay zero
@@ -539,7 +544,7 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
   float pj[12];
   float acc[2][24];
   const int c = tid % kC, k = tid / kC;
-  const bool item = k < kDwOut / 4 && kC * g + c < d;
+  const bool item = k < kDwOut / 4 && kC * g + c < dc;
   for (int q = q0; q < q_end; ++q) {
     const int n = q - q0, buf = resident ? n & 1 : 0;
     const int t0 = tile_t0(q);
@@ -569,13 +574,13 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
       wgmma::wait<0>();
       wgmma::fence_operand(pj);
     }
-    store_ps<24>(ps, kDwPs, pj, tw, 0, 24 * wg, 0, bp, g, d, t0 - 2, L);
+    store_ps<24>(ps, kDwPs, pj, tw, 0, 24 * wg, 0, bp, g, dc, t0 - 2, L);
     __syncthreads();
     if (item) {
       const int o = t0 - (t0 & ~7);  // local row 0 in the cotangent rows
       // dproj row r is time t0 - 2 + r, as u row r: the rows dW pairs
       dproj_item<4, true>(ps, kDwPs, kC, cs + c * kDwCotStride + o,
-                          cs + (kC + c) * kDwCotStride + o, 4 * k, wc, bc, d, g, c, dp_hi, dp_lo,
+                          cs + (kC + c) * kDwCotStride + o, 4 * k, wc, bc, dc, g, c, dp_hi, dp_lo,
                           2, sums);
     }
     wgmma::fence_proxy_async();
@@ -618,7 +623,7 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
   }
 
   // this run's dW rows (inputs) 256 mc + 64 panel + row, columns of group g
-  const int d3 = 3 * d;
+  const int d3 = 3 * dc;
 #pragma unroll
   for (int m = 0; m < 2; ++m) {
     const int panel = kM0 * wg + m;
@@ -628,8 +633,8 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
       const int i = kChunk * mc + 64 * panel + wgmma::frag_row(tw, e);
       const int j = wgmma::frag_col(tw, e);
       const int ch = kC * g + j % kC;
-      if (i < d && ch < d)
-        dwpart[(static_cast<int64_t>(run) * d + i) * d3 + (j / kC) * d + ch] = dw[m][e];
+      if (i < di && ch < dc)
+        dwpart[(static_cast<int64_t>(run) * di + i) * d3 + (j / kC) * dc + ch] = dw[m][e];
     }
   }
   if (mc != 0) return;
@@ -644,10 +649,10 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
   if (tid < kParts * kJ) {
     const int quantity = tid / kJ, j = tid % kJ;
     const int p = j / kC, cc = j % kC, ch = kC * g + cc;
-    if (ch < d) {
+    if (ch < dc) {
       float t = 0.f;
       for (int kq = 0; kq < kDwOut / 4; ++kq) t += red[(kq * kC + cc) * 15 + 3 * quantity + p];
-      part[(static_cast<int64_t>(run) * kParts + quantity) * d3 + p * d + ch] = t;
+      part[(static_cast<int64_t>(run) * kParts + quantity) * d3 + p * dc + ch] = t;
     }
   }
 }
@@ -656,13 +661,13 @@ __global__ void __launch_bounds__(kThreads, 1) front_bwd_dw_kernel(
 
 constexpr int kDwBlocks = 528;  // A'2 blocks aimed at: 4 per SM of an H100
 
-// The A'2 pass's number of runs of 60-time tiles at (B, L, d): about
+// The A'2 pass's number of runs of 60-time tiles at (B, L, di, dc): about
 // kDwBlocks blocks in all (channel groups x input chunks x runs), none
-// empty. It depends on B, L and d alone, never on ld, so A4' gives A''s bits.
-// -1 for a size below 1.
-inline int bwd_runs(int B, int L, int d) {
-  if (B < 1 || L < 1 || d < 1) return -1;
-  const tc::Dims D(d);
+// empty. It depends on B, L, di and dc alone, never on ld, so A4' gives A''s
+// bits. -1 for a size below 1.
+inline int bwd_runs(int B, int L, int di, int dc) {
+  if (B < 1 || L < 1 || di < 1 || dc < 1) return -1;
+  const tc::Dims D(di, dc);
   const int64_t tiles = static_cast<int64_t>(B) * ((L + tc::kDwOut - 1) / tc::kDwOut);
   const int blocks = D.G * D.nchunk;
   int64_t runs = (kDwBlocks + blocks - 1) / blocks;
@@ -679,28 +684,30 @@ inline int bwd_tiles_per_run(int B, int L, int runs) {
   return (n + runs - 1) / runs;
 }
 
-// bf16 du (B, L, d), dw (d, 3d), dparams (5, 3d) from bf16 u, dvx, dx0 on
-// the tensor cores. Scratch: ws (tc::ws_numel(d) bf16), part (runs * 5 *
-// 3d), dwpart (runs * d * 3d), runs = bwd_runs(B, L, d). ld == L for kernel A'.
+// bf16 du (B, L, di), dw (di, 3 dc), dparams (5, 3 dc) from bf16 u, dvx, dx0
+// on the tensor cores. Scratch: ws (tc::ws_numel(di, dc) bf16), part (runs *
+// 5 * 3 dc), dwpart (runs * di * 3 dc), runs = bwd_runs(B, L, di, dc). ld ==
+// L for kernel A'.
 inline int launch_bf16(const __nv_bfloat16* u, const float* w, const float* bp, const float* wc,
                        const float* bc, const __nv_bfloat16* dvx, const __nv_bfloat16* dx0,
                        __nv_bfloat16* du, float* dw, float* dparams, __nv_bfloat16* ws,
-                       float* part, float* dwpart, int B, int L, int ld, int d, int runs,
+                       float* part, float* dwpart, int B, int L, int ld, int di, int dc, int runs,
                        cudaStream_t stream) {
-  const tc::Dims D(d);
+  const tc::Dims D(di, dc);
   const int64_t n_tiles = static_cast<int64_t>(B) * ((L + tc::kDwOut - 1) / tc::kDwOut);
-  if (B < 1 || L < 1 || d < 1 || ld < L || B > 65535 || n_tiles > (1ll << 30) ||
-      (L + tc::kDuOut - 1) / tc::kDuOut > 65535 || D.G > 65535 || runs != bwd_runs(B, L, d)) {
+  if (B < 1 || L < 1 || di < 1 || dc < 1 || ld < L || B > 65535 || n_tiles > (1ll << 30) ||
+      (L + tc::kDuOut - 1) / tc::kDuOut > 65535 || D.G > 65535 ||
+      runs != bwd_runs(B, L, di, dc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int per_run = bwd_tiles_per_run(B, L, runs);
-  int rc = tc::split_w(w, ws, d, stream);
+  int rc = tc::split_w(w, ws, di, dc, stream);
   if (rc != 0) return rc;
-  rc = tc::with_panels(d, [&](auto kp) {
+  rc = tc::with_panels(di, [&](auto kp) {
     constexpr int kP = decltype(kp)::value;
     const auto du_kernel = tc::front_bwd_du_kernel<kP>;
     const auto dw_kernel = tc::front_bwd_dw_kernel<kP>;
-    const int smem_du = tc::du_smem_bytes(d), smem_dw = tc::dw_smem_bytes(d);
+    const int smem_du = tc::du_smem_bytes(di, dc), smem_dw = tc::dw_smem_bytes(di, dc);
     int err = static_cast<int>(
         cudaFuncSetAttribute(du_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_du));
     if (err == 0)
@@ -708,14 +715,15 @@ inline int launch_bf16(const __nv_bfloat16* u, const float* w, const float* bp, 
           cudaFuncSetAttribute(dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dw));
     if (err != 0) return err;
     du_kernel<<<dim3((L + tc::kDuOut - 1) / tc::kDuOut, D.nchunk, B), tc::kThreads, smem_du,
-                stream>>>(u, ws, bp, wc, bc, dvx, dx0, du, L, ld, d);
+                stream>>>(u, ws, bp, wc, bc, dvx, dx0, du, L, ld, di, dc);
     dw_kernel<<<dim3(D.G, D.nchunk, runs), tc::kThreads, smem_dw, stream>>>(
-        u, ws, bp, wc, bc, dvx, dx0, part, dwpart, L, ld, d, static_cast<int>(n_tiles), per_run);
+        u, ws, bp, wc, bc, dvx, dx0, part, dwpart, L, ld, di, dc, static_cast<int>(n_tiles),
+        per_run);
     return static_cast<int>(cudaGetLastError());
   });
   if (rc != 0) return rc;
-  const int d3 = 3 * d;
-  front_bwd_sum_kernel<<<(d * d3 + 31) / 32, kThreads, 0, stream>>>(dwpart, runs, d * d3, dw);
+  const int d3 = 3 * dc;
+  front_bwd_sum_kernel<<<(di * d3 + 31) / 32, kThreads, 0, stream>>>(dwpart, runs, di * d3, dw);
   front_bwd_sum_kernel<<<(tc::kParts * d3 + 31) / 32, kThreads, 0, stream>>>(
       part, runs, tc::kParts * d3, dparams);
   return static_cast<int>(cudaGetLastError());

@@ -25,8 +25,14 @@
 //    64) bf16, already swizzled, so a block copies it as it is.
 //  * dproj: rows = times, one panel along j (48 of 64 used), hi and lo;
 //    du's A (K-major, K = j) and dW's B (MN-major, K = t, N = j).
-// d <= 256 fits one chunk of 4 panels: the u tile and a group's W stay in
-// shared memory across the loops. Wider d is taken in chunks of 256
+// Two widths: di, u's width (the products' K for the projection, du's N
+// and dW's M), and dc, the width of one output chunk (vx and x0 are
+// (B, dc, L); W is (di, 3 dc), bp, wc and bc 3 dc wide). The whole model
+// runs di == dc; under tensor parallelism a rank projects the whole u onto
+// its dc = d / M channels of each chunk. Input panels follow di, channel
+// groups dc.
+// di <= 256 fits one chunk of 4 panels: the u tile and a group's W stay in
+// shared memory across the loops. Wider di is taken in chunks of 256
 // inputs, reloaded per step (correct, slower; no hg38 config is wider).
 #pragma once
 
@@ -49,12 +55,12 @@ constexpr int kChunk = wgmma::kPanelCols * kChunkPanels;  // 256 inputs
 constexpr int kWPanelBytes = kJ * wgmma::kRowBytes;   // 6144
 constexpr int kWPanelElems = kWPanelBytes / 2;
 
-// Sizes that follow from d, the same on host and device.
+// Sizes that follow from di and dc, the same on host and device.
 struct Dims {
-  int P, G, nchunk, Pm;  // Pm: panels of a (full) chunk, the kernels' kP
-  __host__ __device__ explicit Dims(int d_)
-      : P((d_ + 63) / 64),
-        G((d_ + kC - 1) / kC),
+  int P, G, nchunk, Pm;  // P: input panels (di); G: channel groups (dc); Pm: the kernels' kP
+  __host__ __device__ Dims(int di, int dc)
+      : P((di + 63) / 64),
+        G((dc + kC - 1) / kC),
         nchunk((P + kChunkPanels - 1) / kChunkPanels),
         Pm(P < kChunkPanels ? P : kChunkPanels) {}
   // panels of input chunk ic
@@ -70,12 +76,12 @@ using wgmma::cp_async16;
 using wgmma::cp_commit;
 using wgmma::cp_wait;
 
-// W (d, 3d) float32 -> the (G, 2, P, 48, 64) bf16 hi / lo panels; one thread
-// per 8-value chunk of a panel row. Row j of group g is W's column
-// (j / 16) * d + 16 g + j % 16; values past d are zero.
+// W (di, 3 dc) float32 -> the (G, 2, P, 48, 64) bf16 hi / lo panels; one
+// thread per 8-value chunk of a panel row. Row j of group g is W's column
+// (j / 16) * dc + 16 g + j % 16; values past di or dc are zero.
 __global__ void __launch_bounds__(kThreads) split_w_kernel(const float* __restrict__ w,
-                                                           bf16* __restrict__ ws, int d) {
-  const Dims D(d);
+                                                           bf16* __restrict__ ws, int di, int dc) {
+  const Dims D(di, dc);
   const int64_t idx = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= static_cast<int64_t>(D.G) * D.P * kJ * 8) return;
   const int c = idx % 8;
@@ -83,12 +89,12 @@ __global__ void __launch_bounds__(kThreads) split_w_kernel(const float* __restri
   const int p = (idx / (8 * kJ)) % D.P;
   const int g = idx / (8 * kJ * D.P);
   const int ch = kC * g + j % kC;
-  const int col = (j / kC) * d + ch;
+  const int col = (j / kC) * dc + ch;
   float hi[8], lo[8];
 #pragma unroll
   for (int e = 0; e < 8; ++e) {
     const int i = 64 * p + 8 * c + e;
-    const float x = (i < d && ch < d) ? w[static_cast<int64_t>(i) * 3 * d + col] : 0.f;
+    const float x = (i < di && ch < dc) ? w[static_cast<int64_t>(i) * 3 * dc + col] : 0.f;
     const bf16 h = __float2bfloat16_rn(x);
     hi[e] = __bfloat162float(h);
     lo[e] = x - hi[e];
@@ -100,7 +106,7 @@ __global__ void __launch_bounds__(kThreads) split_w_kernel(const float* __restri
 }
 
 // Group g's W panels of input chunk ic -> dst: kP hi panels, then kP lo
-// panels; panels past d (the last chunk of a wide d) are zero-filled.
+// panels; panels past di (the last chunk of a wide di) are zero-filled.
 template <int kP>
 __device__ __forceinline__ void load_w(uint32_t dst, const bf16* ws, const Dims& D, int g, int ic) {
   constexpr int n = kP * (kWPanelBytes / 16);
@@ -114,10 +120,10 @@ __device__ __forceinline__ void load_w(uint32_t dst, const bf16* ws, const Dims&
 }
 
 // u rows t_base .. t_base + rows - 1 of batch row b, inputs i0 .. i0 + 64 pc
-// - 1, into `pc` panels of `rows` rows at dst; zero outside [0, L) x [0, d).
-// vec: d % 8 == 0, so a row's 8-value chunks are 16-byte aligned.
+// - 1, into `pc` panels of `rows` rows at dst; zero outside [0, L) x [0, di).
+// vec: di % 8 == 0, so a row's 8-value chunks are 16-byte aligned.
 __device__ __forceinline__ void load_u(uint32_t dst, const bf16* u, int b, int t_base, int rows,
-                                       int L, int d, int i0, int pc, bool vec) {
+                                       int L, int di, int i0, int pc, bool vec) {
   const int n = rows * pc * 8;
   for (int q = threadIdx.x; q < n; q += kThreads) {
     const int c = q % 8, r = (q / 8) % rows, p = q / (8 * rows);
@@ -125,15 +131,15 @@ __device__ __forceinline__ void load_u(uint32_t dst, const bf16* u, int b, int t
     const int i = i0 + 64 * p + 8 * c;
     const uint32_t a = dst + p * rows * wgmma::kRowBytes + wgmma::chunk_offset(r, c);
     const bool row_ok = t >= 0 && t < L;
-    const bf16* src = u + (static_cast<int64_t>(b) * L + (row_ok ? t : 0)) * d;
+    const bf16* src = u + (static_cast<int64_t>(b) * L + (row_ok ? t : 0)) * di;
     if (vec) {
-      const bool ok = row_ok && i < d;
+      const bool ok = row_ok && i < di;
       cp_async16(a, ok ? src + i : u, ok ? 16 : 0);
     } else {
       __align__(16) bf16 v[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e)
-        v[e] = (row_ok && i + e < d) ? src[i + e] : __float2bfloat16_rn(0.f);
+        v[e] = (row_ok && i + e < di) ? src[i + e] : __float2bfloat16_rn(0.f);
       const uint4 raw = *reinterpret_cast<const uint4*>(v);
       asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(raw.x), "r"(raw.y),
                    "r"(raw.z), "r"(raw.w)
@@ -144,9 +150,9 @@ __device__ __forceinline__ void load_u(uint32_t dst, const bf16* u, int b, int t
 
 // The cotangents of group g's 16 channels at times tb .. tb + ct - 1 (tb a
 // multiple of 8): dvx rows at cs[c * stride], dx0 rows at cs[(16 + c) *
-// stride]; zero past L and past d. vec: ld % 8 == 0.
+// stride]; zero past L and past dc. vec: ld % 8 == 0.
 __device__ __forceinline__ void load_cot(bf16* cs, int stride, const bf16* dvx, const bf16* dx0,
-                                         int b, int g, int tb, int ct, int L, int ld, int d,
+                                         int b, int g, int tb, int ct, int L, int ld, int dc,
                                          bool vec) {
   const int per_row = ct / 8;
   const int n = 2 * kC * per_row;
@@ -154,9 +160,9 @@ __device__ __forceinline__ void load_cot(bf16* cs, int stride, const bf16* dvx, 
     const int k = q % per_row, row = q / per_row;  // row: which * 16 + c
     const int c = row % kC, ch = kC * g + c;
     const int t = tb + 8 * k;
-    const int valid = ch < d ? max(0, min(8, L - t)) : 0;
+    const int valid = ch < dc ? max(0, min(8, L - t)) : 0;
     const bf16* base = row < kC ? dvx : dx0;
-    const bf16* src = base + (static_cast<int64_t>(b) * d + (ch < d ? ch : 0)) * ld + t;
+    const bf16* src = base + (static_cast<int64_t>(b) * dc + (ch < dc ? ch : 0)) * ld + t;
     bf16* dst = cs + row * stride + 8 * k;
     if (vec) {
       cp_async16(wgmma::smem_u32(dst), valid > 0 ? src : base, 2 * valid);
@@ -169,7 +175,7 @@ __device__ __forceinline__ void load_cot(bf16* cs, int stride, const bf16* dvx, 
 
 // acc (u rows urow0 .. urow0 + 63, W group rows wrow0 .. wrow0 + N - 1) +=
 // the projection over one input chunk: kP panels of u at ub (panel stride
-// upanel bytes) and of W at wb, hi and lo (zero past d). No branch between
+// upanel bytes) and of W at wb, hi and lo (zero past di). No branch between
 // the products, so ptxas keeps them asynchronous.
 template <int N, int kP>
 __device__ __forceinline__ void proj_mma(float (&acc)[N / 2], uint32_t ub, int upanel, int urow0,
@@ -193,7 +199,7 @@ __device__ __forceinline__ void proj_mma(float (&acc)[N / 2], uint32_t ub, int u
 template <int N>
 __device__ __forceinline__ void store_ps(float* ps, int stride, const float (&acc)[N / 2], int tw,
                                          int row0, int col0, int j0, const float* bp, int g,
-                                         int d, int t_first, int L) {
+                                         int dc, int t_first, int L) {
 #pragma unroll
   for (int k = 0; k < N / 2; ++k) {
     const int row = row0 + wgmma::frag_row(tw, k);
@@ -202,7 +208,7 @@ __device__ __forceinline__ void store_ps(float* ps, int stride, const float (&ac
     const int ch = kC * g + j % kC;
     const int t = t_first + row;
     ps[row * stride + col] =
-        (t >= 0 && t < L && ch < d) ? acc[k] + bp[(j / kC) * d + ch] : 0.f;
+        (t >= 0 && t < L && ch < dc) ? acc[k] + bp[(j / kC) * dc + ch] : 0.f;
   }
 }
 
@@ -226,18 +232,18 @@ __device__ __forceinline__ void put_split(uint8_t* hi, uint8_t* lo, int row, int
 template <int kR, bool kPartials>
 __device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1, const bf16* cvx,
                                            const bf16* cx0, int s0, const float* wc,
-                                           const float* bc, int d, int g, int c, uint8_t* dp_hi,
+                                           const float* bc, int dc, int g, int c, uint8_t* dp_hi,
                                            uint8_t* dp_lo, int dp_row0, float (&sums)[15]) {
-  const int d3 = 3 * d, ch = kC * g + c;
+  const int d3 = 3 * dc, ch = kC * g + c;
   float w0[3], w1[3], w2[3];
 #pragma unroll
   for (int p = 0; p < 3; ++p) {
-    const int gc = p * d + ch;
+    const int gc = p * dc + ch;
     w0[p] = wc[gc];
     w1[p] = wc[d3 + gc];
     w2[p] = wc[2 * d3 + gc];
   }
-  const float bc1 = bc[d + ch], bcv = bc[2 * d + ch];
+  const float bc1 = bc[dc + ch], bcv = bc[2 * dc + ch];
   const float* r1 = ps + px1 + c;
   const float* rv = r1 + kC;
   const float* r0 = r1 - kC;  // read only when kPartials
@@ -248,7 +254,7 @@ __device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1,
     a0 = r0[s0 * stride];
     b0 = r0[(s0 + 1) * stride];
   }
-  float dc[3][3] = {};  // [part][age]: dconv at s, s - 1, s - 2
+  float dg[3][3] = {};  // [part][age]: dconv at s, s - 1, s - 2
 #pragma unroll
   for (int m = 0; m < kR + 2; ++m) {
     const int s = s0 + m;
@@ -258,20 +264,20 @@ __device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1,
     const float gvx = to_f32(cvx[s]);
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
-      dc[p][2] = dc[p][1];
-      dc[p][1] = dc[p][0];
+      dg[p][2] = dg[p][1];
+      dg[p][1] = dg[p][0];
     }
-    dc[0][0] = to_f32(cx0[s]);
-    dc[1][0] = gvx * v;   // d x1 = dvx * v
-    dc[2][0] = gvx * x1;  // d v  = dvx * x1
+    dg[0][0] = to_f32(cx0[s]);
+    dg[1][0] = gvx * v;   // d x1 = dvx * v
+    dg[2][0] = gvx * x1;  // d v  = dvx * x1
     if (kPartials && m < kR) {
       const float c0 = r0[(s + 2) * stride];
       const float win[3][3] = {{a0, b0, c0}, {a1, b1, c1}, {av, bv, cv}};
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
 #pragma unroll
-        for (int j = 0; j < 3; ++j) sums[3 + 3 * j + p] += dc[p][0] * win[p][j];
-        sums[12 + p] += dc[p][0];
+        for (int j = 0; j < 3; ++j) sums[3 + 3 * j + p] += dg[p][0] * win[p][j];
+        sums[12 + p] += dg[p][0];
       }
       a0 = b0;
       b0 = c0;
@@ -279,7 +285,7 @@ __device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1,
     if (m >= 2) {
 #pragma unroll
       for (int p = 0; p < 3; ++p) {
-        const float dp = w0[p] * dc[p][0] + w1[p] * dc[p][1] + w2[p] * dc[p][2];
+        const float dp = w0[p] * dg[p][0] + w1[p] * dg[p][1] + w2[p] * dg[p][2];
         if (kPartials) sums[p] += dp;
         put_split(dp_hi, dp_lo, dp_row0 + s - 2, p * kC + c, dp);
       }
@@ -299,11 +305,11 @@ __device__ __forceinline__ void zero_smem(uint8_t* p, int bytes) {
 
 using wgmma::aligned_smem;
 
-// Calls f(std::integral_constant<int, Pm>) for Pm = Dims(d).Pm (1 to 4):
+// Calls f(std::integral_constant<int, Pm>) for Pm = Dims(di, .).Pm (1 to 4):
 // each kernel is instantiated per panel count so its product loops unroll.
 template <typename F>
-inline int with_panels(int d, F f) {
-  switch (Dims(d).Pm) {
+inline int with_panels(int di, F f) {
+  switch (Dims(di, 1).Pm) {
     case 1: return f(std::integral_constant<int, 1>());
     case 2: return f(std::integral_constant<int, 2>());
     case 3: return f(std::integral_constant<int, 3>());
@@ -311,19 +317,20 @@ inline int with_panels(int d, F f) {
   }
 }
 
-// bf16 values of the split-W scratch at width d, laid out as split_w_kernel
-// writes it: (G groups, hi/lo, P panels, kJ x 64); -1 past the int range.
-inline int ws_numel(int d) {
-  const Dims D(d);
+// bf16 values of the split-W scratch at widths (di, dc), laid out as
+// split_w_kernel writes it: (G groups, hi/lo, P panels, kJ x 64); -1 past
+// the int range.
+inline int ws_numel(int di, int dc) {
+  const Dims D(di, dc);
   const int64_t n = static_cast<int64_t>(D.G) * 2 * D.P * kWPanelElems;
   return n > 0x7fffffff ? -1 : static_cast<int>(n);
 }
 
-inline int split_w(const float* w, bf16* ws, int d, cudaStream_t stream) {
-  const Dims D(d);
+inline int split_w(const float* w, bf16* ws, int di, int dc, cudaStream_t stream) {
+  const Dims D(di, dc);
   const int64_t n = static_cast<int64_t>(D.G) * D.P * kJ * 8;
   split_w_kernel<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-      w, ws, d);
+      w, ws, di, dc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,6 +20,16 @@ The products run in `dtype` (flax `Dense(dtype)`); the rotary embedding
 (GPT-NeoX, non-interleaved, over the first `rotary_emb_dim` features of
 each head) is computed in float32 and cast back to the input dtype, as
 JAX's promotion does.
+
+Tensor parallelism (a `mesh` whose model axis M divides `num_heads`; the
+JAX rule `Wqkv` column-parallel, the reference's `ParallelMHA`): the rank
+holds its H / M heads of each of q, k and v (rows of `Wqkv`'s weight and
+bias) and the matching columns of `out_proj`'s weight; x enters through
+`copy_to_model`, SDPA runs on the local heads, the dropout mask is drawn
+for every head and sliced (`models/nn.py::dropout_slice`), and
+`out_proj`'s partial products are summed by `reduce_from_model` before its
+bias is added once. A head count that does not divide by M runs whole on
+each rank.
 """
 
 from __future__ import annotations
@@ -31,7 +41,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hyena_dna_tpu_torch.models.nn import dropout, linear
+from hyena_dna_tpu_torch.models.nn import dropout_slice, linear, row_parallel
+from hyena_dna_tpu_torch.ops.distributed import copy_to_model
+from hyena_dna_tpu_torch.parallel.sharding import model_axis
 
 
 def apply_rotary(q: torch.Tensor, k: torch.Tensor, rotary_dim: int):
@@ -58,7 +70,7 @@ class MHA(nn.Module):
                  dropout: float = 0.0, use_bias: bool = True, rotary_emb_dim: int = 0,
                  softmax_scale: Optional[float] = None, n_layer: int = 1,
                  init_std: float = 0.02, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model={d_model} is not a multiple of num_heads={num_heads}")
@@ -71,8 +83,17 @@ class MHA(nn.Module):
         self.n_layer = n_layer
         self.init_std = init_std
         self.dtype = dtype
-        self.Wqkv = nn.Linear(d_model, 3 * d_model, bias=use_bias)
-        self.out_proj = nn.Linear(d_model, d_model, bias=use_bias)
+        self.tp = model_axis(mesh, num_heads)
+        m = self.tp.model if self.tp is not None else 1
+        self.local_heads = num_heads // m
+        self.head0 = self.local_heads * (self.tp.model_index if self.tp is not None else 0)
+        width = d_model // m
+        self.Wqkv = nn.Linear(d_model, 3 * width, bias=use_bias)
+        self.out_proj = nn.Linear(width, d_model, bias=use_bias)
+        if self.tp is not None:  # `parallel/sharding.py::tp_layout`
+            self.tp_rules = {"Wqkv.weight": (0, 3), "out_proj.weight": (1, 1)}
+            if use_bias:
+                self.tp_rules["Wqkv.bias"] = (0, 3)
         self.init_weights(generator)
 
     @property
@@ -93,8 +114,9 @@ class MHA(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, L, d) -> (B, L, d) in `dtype`."""
         b, length, d = x.shape
-        h = self.num_heads
-        hd = d // h
+        h = self.local_heads
+        hd = d // self.num_heads
+        x = copy_to_model(x, self.tp)
         qkv = linear(x, self.Wqkv, self.dtype).reshape(b, length, 3, h, hd)
         q, k, v = qkv.unbind(2)
         if self.rotary_emb_dim > 0:
@@ -103,5 +125,6 @@ class MHA(nn.Module):
         out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
                                              v.transpose(1, 2), dropout_p=0.0,
                                              is_causal=self.causal, scale=scale)
-        out = dropout(out.transpose(1, 2), self.dropout, self.training, generator)
-        return linear(out.reshape(b, length, d), self.out_proj, self.dtype)
+        out = dropout_slice(out.transpose(1, 2), self.dropout, self.training, generator, 2,
+                            self.num_heads, self.head0).reshape(b, length, h * hd)
+        return row_parallel(out, self.out_proj, self.dtype, self.tp)

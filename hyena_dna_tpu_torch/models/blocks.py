@@ -19,6 +19,16 @@ XLA; `Mlp(use_fused=True)` takes the fused kernels F and F'
 (`ops/mlp_fused.py`) under the JAX rule, and `Block` does not set it, as
 the JAX `Block` does not.
 
+Tensor parallelism (a `mesh` whose model axis M divides the hidden width,
+the JAX rules `mlp/fc1` and `mlp/fc2`): `fc1` is column-parallel (the
+rank's hidden_features / M rows of its weight and bias) and `fc2`
+row-parallel (its weight's matching columns); x enters through
+`copy_to_model`, the rank's partial output is summed by
+`reduce_from_model`, and fc2's bias is added once after the sum. With
+`use_fused`, kernels F and F' run on the rank's hidden slice (they take any
+width), with no second bias. The mixers split themselves (`models/hyena.py`,
+`models/attention.py`); the norms and the residual stream are replicated.
+
 The residual stream's dtype: `residual_dtype` when given (a torch dtype
 or its name, e.g. "float16"; it overrides `residual_in_fp32`, as in the JAX
 `Block`), else float32 under `residual_in_fp32`, else the hidden states'.
@@ -45,10 +55,12 @@ from torch import nn
 
 from hyena_dna_tpu_torch.models.attention import MHA
 from hyena_dna_tpu_torch.models.hyena import HyenaOperator
-from hyena_dna_tpu_torch.models.nn import dropout, linear
+from hyena_dna_tpu_torch.models.nn import dropout, linear, row_parallel
+from hyena_dna_tpu_torch.ops.distributed import copy_to_model, reduce_from_model
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 from hyena_dna_tpu_torch.ops.mlp_fused import applies as mlp_fused_applies
 from hyena_dna_tpu_torch.ops.mlp_fused import mlp_fused
+from hyena_dna_tpu_torch.parallel.sharding import MODEL_ITEM, model_axis
 
 # Hyena config keys that do not change the computation: optimizer settings
 # (the optimizer labels parameters itself), the filter dropout (unimplemented
@@ -75,18 +87,18 @@ def make_mixer(d_model: int, layer_cfg: dict | None, dtype: torch.dtype = torch.
     """The block's mixer (JAX `make_mixer`): `MHA` from `attn_cfg` where
     `is_attn` (a layer index in `attn_layer_idx`), else the Hyena operator
     from a reference-style layer config (`_name_: hyena`; `_name_: mha`
-    builds `MHA` from the layer config itself). `mesh` goes to the Hyena
-    operator (its seq axis); attention under a seq axis above 1 raises."""
+    builds `MHA` from the layer config itself). `mesh` goes to the mixer
+    (the Hyena operator's seq and model axes, MHA's model axis); attention
+    under a seq axis above 1 raises."""
     cfg = dict(attn_cfg or {}) if is_attn else dict(layer_cfg or {})
     name = "mha" if is_attn else cfg.pop("_name_", "hyena")
     cfg.pop("mesh", None)  # a layer config's own mesh key: the model's mesh is used
     if name == "mha" and mesh is not None and mesh.seq > 1:
-        raise NotImplementedError("attention under a seq axis is not ported "
-                                  "(ROADMAP.md Queue 1 item 21)")
+        raise NotImplementedError(f"attention under a seq axis is not ported ({MODEL_ITEM})")
     if name == "mha":
         for key in _ATTN_DROPPED:
             cfg.pop(key, None)
-        return MHA(d_model=d_model, n_layer=n_layer, dtype=dtype, **cfg)
+        return MHA(d_model=d_model, n_layer=n_layer, dtype=dtype, mesh=mesh, **cfg)
     if name != "hyena":
         raise ValueError(f"unknown mixer {name!r} (hyena or mha)")
     for key in _TRAINING_ONLY_KEYS:
@@ -106,27 +118,36 @@ class Mlp(nn.Module):
     With `use_fused`, x cast to `dtype` goes through `ops.mlp_fused.mlp_fused`
     (kernels F and F' on the card) where the JAX `Mlp` takes its Pallas
     kernel: N = x.numel() / d a multiple of 128 and d, hidden_features and
-    out_features multiples of 128. Other shapes keep the two products, as in
-    the JAX package."""
+    out_features multiples of 128 (under a model axis, the rank's hidden
+    slice). Other shapes keep the two products, as in the JAX package."""
 
     def __init__(self, d_model: int, hidden_features: int, dtype: torch.dtype = torch.float32,
-                 use_fused: bool = False, out_features: int | None = None):
+                 use_fused: bool = False, out_features: int | None = None, mesh=None):
         super().__init__()
         self.dtype = dtype
         self.use_fused = use_fused
-        self.fc1 = nn.Linear(d_model, hidden_features)
-        self.fc2 = nn.Linear(hidden_features, out_features or d_model)
+        self.tp = model_axis(mesh, hidden_features)
+        hidden = hidden_features // (self.tp.model if self.tp is not None else 1)
+        self.fc1 = nn.Linear(d_model, hidden)
+        self.fc2 = nn.Linear(hidden, out_features or d_model)
+        if self.tp is not None:  # `parallel/sharding.py::tp_layout`
+            self.tp_rules = {"fc1.weight": (0, 1), "fc1.bias": (0, 1), "fc2.weight": (1, 1)}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = x.shape[-1]
         n = x.numel() // d
         d_out = self.fc2.out_features
-        if self.use_fused and mlp_fused_applies(n, d, self.fc1.out_features, d_out):
-            y = mlp_fused(x.reshape(n, d).to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
-                          self.fc2.weight.t(), self.fc2.bias)
-            return y.reshape(*x.shape[:-1], d_out)
-        x = F.gelu(linear(x, self.fc1, self.dtype), approximate="tanh")
-        return linear(x, self.fc2, self.dtype)
+        x = copy_to_model(x, self.tp)
+        if not (self.use_fused and mlp_fused_applies(n, d, self.fc1.out_features, d_out)):
+            h = F.gelu(linear(x, self.fc1, self.dtype), approximate="tanh")
+            return row_parallel(h, self.fc2, self.dtype, self.tp)
+        # under a model axis fc2's bias joins once, after the sum of the ranks' outputs
+        b2 = self.fc2.bias if self.tp is None else torch.zeros_like(self.fc2.bias)
+        y = mlp_fused(x.reshape(n, d).to(self.dtype), self.fc1.weight.t(), self.fc1.bias,
+                      self.fc2.weight.t(), b2).reshape(*x.shape[:-1], d_out)
+        if self.tp is None:
+            return y
+        return reduce_from_model(y, self.tp) + self.fc2.bias.to(self.dtype)
 
 
 def torch_dtype(value) -> torch.dtype | None:
@@ -157,7 +178,7 @@ class Block(nn.Module):
         self.mixer = make_mixer(d_model, layer_cfg, dtype, attn_cfg, is_attn, n_layer, mesh)
         if not identity_mlp:
             self.norm2 = LayerNormF32(d_model, eps=layer_norm_epsilon, out_dtype=dtype)
-            self.mlp = Mlp(d_model, d_inner, dtype)
+            self.mlp = Mlp(d_model, d_inner, dtype, mesh=mesh)
 
     def _add_norm(self, norm: LayerNormF32, hidden: torch.Tensor, residual):
         if residual is None:

@@ -19,6 +19,16 @@ parameter `word_embeddings.weight`, so reference state dicts load
 unchanged. `attend` casts the query and the table to `dtype` before the
 product (flax `Embed.attend` promotes both), so a bfloat16 model has
 bfloat16 logits.
+
+Tensor parallelism (a `mesh` whose model axis M divides the padded
+vocabulary; the JAX rule `word_embeddings` P("model", None), the
+reference's `ParallelGPT2Embeddings`): the rank holds the table's rows of
+its V / M tokens. The lookup is the one-hot product (or the index) over
+those rows, zero for the other tokens, summed over the ranks by
+`reduce_from_model`; the tied head takes the rank's logits over its
+tokens from `copy_to_model`'s hidden states and joins the ranks' logits
+with `gather_from_model`, so the model returns the whole padded
+vocabulary. The position table stays whole (P(None, None)).
 """
 
 from __future__ import annotations
@@ -27,27 +37,45 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hyena_dna_tpu_torch.ops.distributed import (copy_to_model, gather_from_model,
+                                                 reduce_from_model)
+from hyena_dna_tpu_torch.parallel.sharding import model_axis
+
 ONE_HOT_MAX_VOCAB = 64  # JAX `GPT2Embeddings`: vocab_size <= 64 looks up by one-hot product
 
 
 class GPT2Embeddings(nn.Module):
     def __init__(self, embed_dim: int, vocab_size: int, dtype: torch.dtype = torch.float32,
-                 max_position_embeddings: int = 0):
+                 max_position_embeddings: int = 0, mesh=None):
         super().__init__()
         self.dtype = dtype
-        self.word_embeddings = nn.Embedding(vocab_size, embed_dim)
+        self.vocab_size = vocab_size
+        self.tp = model_axis(mesh, vocab_size)
+        rows = vocab_size // (self.tp.model if self.tp is not None else 1)
+        self.vocab0 = rows * (self.tp.model_index if self.tp is not None else 0)
+        self.word_embeddings = nn.Embedding(rows, embed_dim)
+        if self.tp is not None:  # `parallel/sharding.py::tp_layout`
+            self.tp_rules = {"word_embeddings.weight": (0, 1)}
         self.position_embeddings = (nn.Embedding(max_position_embeddings, embed_dim)
                                     if max_position_embeddings > 0 else None)
 
     def forward(self, input_ids: torch.Tensor,
                 position_ids: torch.Tensor | None = None) -> torch.Tensor:
         table = self.word_embeddings.weight
-        if table.shape[0] > ONE_HOT_MAX_VOCAB:
-            emb = self.word_embeddings(input_ids).to(self.dtype)
+        if self.vocab_size > ONE_HOT_MAX_VOCAB:
+            if self.tp is None:
+                emb = self.word_embeddings(input_ids).to(self.dtype)
+            else:  # the rank's tokens; zero rows for the others
+                local = input_ids - self.vocab0
+                mine = (local >= 0) & (local < table.shape[0])
+                emb = self.word_embeddings(torch.where(mine, local, 0)).to(self.dtype)
+                emb = emb * mine[..., None].to(self.dtype)
         else:
-            vocab = torch.arange(table.shape[0], device=input_ids.device)
+            vocab = torch.arange(self.vocab0, self.vocab0 + table.shape[0],
+                                 device=input_ids.device)
             one_hot = (input_ids[..., None] == vocab).to(self.dtype)
             emb = one_hot @ table.to(self.dtype)
+        emb = reduce_from_model(emb, self.tp)
         if self.position_embeddings is None:
             return emb
         positions = self.position_embeddings.weight.to(self.dtype)
@@ -56,4 +84,6 @@ class GPT2Embeddings(nn.Module):
         return emb + positions[position_ids]
 
     def attend(self, hidden: torch.Tensor) -> torch.Tensor:
-        return F.linear(hidden.to(self.dtype), self.word_embeddings.weight.to(self.dtype))
+        hidden = copy_to_model(hidden.to(self.dtype), self.tp)
+        logits = F.linear(hidden, self.word_embeddings.weight.to(self.dtype))
+        return gather_from_model(logits, self.tp)

@@ -95,6 +95,26 @@ conv, as in the JAX package; one head and one block only. The filter bank
 is built at the global length L = S * (local length), which is also what
 `l_max` is held against.
 
+Tensor parallelism (a `mesh` whose model axis M divides d_model;
+`parallel/sharding.py`): the rank holds its d / M channels of each of the
+order + 1 chunks [x_0 .. x_{o-1} | v], as in_proj's columns (its weight's
+rows) and bias, the short filter's channels, and the matching rows of the
+filter bank and of the skip D; out_proj is row-parallel (its weight's
+columns of those channels). u enters through `copy_to_model` (its gradient,
+the ranks' partial sums, is all-reduced); on the fused route kernel A
+projects the whole u onto the rank's 3 d / M columns (W (d, 3 d / M)) and
+kernel A' gives the rank's partial du; kernels B and C (or E and E') run
+on the rank's (B, d / M, L) channels; the plain 3-D route at order > 2 and
+the sequence-sharded route split the same way. The output projection's
+partial sums go through `reduce_from_model`, then its bias is added once.
+The filter MLP is replicated, as the JAX rules leave it ("filter MLP is
+tiny"): each rank builds the whole bank and takes its rows, so its filter
+gradients are the rank's share of a sum (`tp_partial`). Dropout draws the
+whole channel mask and takes the rank's rows (`models/nn.py::dropout_slice`).
+A width that does not divide by M runs whole on each rank; `num_heads`,
+`num_blocks`, `outer_mixing`, `post_order_ffn` and `front4` under a model
+axis raise (ROADMAP.md Queue 1 item 22).
+
 Parameter names are the reference torch names: `in_proj`, `out_proj`,
 `short_filter` (a depthwise Conv1d weight ((o+1)d, 1, k)), `filter_fn`,
 and `ord_proj_w` (order, heads, heads) with `post_order_ffn`.
@@ -110,13 +130,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
-from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, linear
+from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, dropout_slice, row_parallel
 from hyena_dna_tpu_torch.ops import remat
-from hyena_dna_tpu_torch.ops.distributed import seq_fftconv, seq_short_conv
+from hyena_dna_tpu_torch.ops.distributed import copy_to_model, seq_fftconv, seq_short_conv
 from hyena_dna_tpu_torch.ops.fftconv import (GATED_MODES, fftconv_gated, fftconv_outer_4d,
                                              fftconv_tagged, next_fast_fft_size)
 from hyena_dna_tpu_torch.ops.fused_fftconv import plan_outer
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate, fused_proj_conv_gate4
+from hyena_dna_tpu_torch.parallel.sharding import MODEL_ITEM, model_axis
 
 CONV_IO_BF16_MIN_L = 1 << 15
 FRONT4_TILES = (512, 256, 128)  # the JAX route's length tiles, in order of preference
@@ -170,12 +191,21 @@ class HyenaOperator(nn.Module):
         if self.mesh is not None and not self.plain_3d:
             raise NotImplementedError("sequence-parallel Hyena takes one head and one block "
                                       "(the DNA configs), as in the JAX package")
+        self.tp = model_axis(mesh, d_model)
+        if self.tp is not None and (not self.plain_3d or front4):
+            raise NotImplementedError("tensor-parallel Hyena takes one head and one block, no "
+                                      f"outer mixing, post-order FFN or front4 ({MODEL_ITEM})")
         # the fused front (kernel A) fuses order 2 and a k = 3 short conv
         self.fused = (self.plain_3d and order == 2 and short_filter_order == 3
                       and self.mesh is None)
-        width = (order + 1) * d_model
+        # this rank's channels of each chunk: all of them without a model axis
+        m = self.tp.model if self.tp is not None else 1
+        self.d_local = d_model // m
+        i = self.tp.model_index if self.tp is not None else 0
+        self.rows = slice(i * self.d_local, (i + 1) * self.d_local)
+        width = (order + 1) * self.d_local
         self.in_proj = nn.Linear(d_model, width)
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = nn.Linear(self.d_local, d_model)
         self.short_filter = nn.Conv1d(width, width, short_filter_order, groups=width,
                                       padding=short_filter_order - 1)
         self.filter_fn = HyenaFilter(self.head_dim * (order - 1), order=filter_order,
@@ -184,6 +214,12 @@ class HyenaOperator(nn.Module):
             self.ord_proj_w = nn.Parameter(torch.empty(order, num_heads, num_heads))
         self.act = activation_fn(activation)
         self.dropout = dropout
+        if self.tp is not None:  # `parallel/sharding.py::tp_layout`
+            chunks = {"in_proj.weight": 0, "in_proj.bias": 0, "short_filter.weight": 0,
+                      "short_filter.bias": 0}
+            self.tp_rules = {name: (dim, order + 1) for name, dim in chunks.items()}
+            self.tp_rules["out_proj.weight"] = (1, 1)
+            self.tp_partial = ("filter_fn",)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator | None = None, n_layer: int = 1) -> None:
@@ -244,19 +280,20 @@ class HyenaOperator(nn.Module):
         if self.mesh is not None:  # this rank's columns of the global length
             length *= self.mesh.seq
         l_filter = min(length, self.l_max)
+        u = copy_to_model(u, self.tp)
         if not self.fused:
             uc = self._front(u)
             if self.plain_3d:
                 y = self._tail_3d(uc, l_filter, generator)
             else:
                 y = self._tail_generic(uc, l_filter, generator)
-            return linear(self.act(y), self.out_proj, self.dtype)
-        w = self.in_proj.weight.float().t().contiguous()          # (d, 3d)
+            return row_parallel(self.act(y), self.out_proj, self.dtype, self.tp)
+        w = self.in_proj.weight.float().t().contiguous()          # (d, 3 d_local)
         bp = self.in_proj.bias.float().contiguous()
         wc = self.short_filter.weight[:, 0, :].float().t().contiguous()  # (3, 3d)
         bc = self.short_filter.bias.float().contiguous()
         conv_dt = torch.bfloat16 if l_filter >= CONV_IO_BF16_MIN_L else torch.float32
-        D = self.filter_fn.bias.float().contiguous()
+        D = self.filter_fn.bias.float()[self.rows].contiguous()
         plan = self.front4_plan(b, length)
         if plan is not None:
             n1, r, m, rows_pad, tile_l = plan
@@ -269,12 +306,18 @@ class HyenaOperator(nn.Module):
             # same values, and the gate's cotangent comes back channel-major
             # through one copy instead of as a 4-D strided view
             y = y4.reshape(b, -1, rows_pad * m)[..., :length].transpose(1, 2)
-            return linear(self.act(y), self.out_proj, self.dtype)
+            return row_parallel(self.act(y), self.out_proj, self.dtype, self.tp)
         vx, x0 = fused_proj_conv_gate(u.contiguous(), w, bp, wc, bc)
-        vx = dropout(vx, self.dropout, self.training, generator)
-        k = self._filter_bank(l_filter, conv_dt)
+        vx = self._dropout(vx, generator)
+        k = self._filter_bank(l_filter, conv_dt)[self.rows]
         y = fftconv_gated(vx.to(conv_dt), x0.to(conv_dt), k, D, self.gated_conv).to(u.dtype)
-        return linear(self.act(y.transpose(1, 2)), self.out_proj, self.dtype)
+        return row_parallel(self.act(y.transpose(1, 2)), self.out_proj, self.dtype, self.tp)
+
+    def _dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
+        """Dropout of the rank's channels (dim 1) of the whole (B, d, ...)
+        tensor's mask."""
+        return dropout_slice(x, self.dropout, self.training, generator, 1, self.d_model,
+                             self.rows.start or 0)
 
     def _front(self, u: torch.Tensor) -> torch.Tensor:
         """in_proj -> (B, (o+1)d, L) -> causal depthwise short conv, in
@@ -306,18 +349,20 @@ class HyenaOperator(nn.Module):
         under a seq axis every conv is `seq_fftconv` on v in `dtype`, in the
         conv I/O dtype of the global length, and the last gate a multiply
         (JAX `distributed=True`)."""
-        *x, v = uc.split(self.d_model, dim=1)
+        *x, v = uc.split(self.d_local, dim=1)
         if self.mesh is not None:
             conv_dt = torch.bfloat16 if l_filter >= CONV_IO_BF16_MIN_L else torch.float32
             k, bias = self._general_bank(l_filter, self.d_model, conv_dt)
+            k, bias = k[:, self.rows], bias[:, self.rows]
             for i, x_i in enumerate(reversed(x[1:])):
-                v = dropout(v * x_i, self.dropout, self.training, generator)
+                v = self._dropout(v * x_i, generator)
                 v = seq_fftconv(v, k[i].contiguous(), bias[i].float().contiguous(), self.mesh)
             return (v * x[0]).transpose(1, 2)
         k, bias = self._general_bank(l_filter, self.d_model)
+        k, bias = k[:, self.rows], bias[:, self.rows]
         last = self.order - 2
         for i, x_i in enumerate(reversed(x[1:])):
-            v = dropout(v * x_i, self.dropout, self.training, generator)
+            v = self._dropout(v * x_i, generator)
             vf, k_i, d_i = v.float().contiguous(), k[i].contiguous(), bias[i].float().contiguous()
             if i == last:
                 v = fftconv_gated(vf, x[0].float().contiguous(), k_i, d_i,

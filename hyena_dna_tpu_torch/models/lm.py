@@ -38,8 +38,19 @@ axis S is above 1, each rank runs the model on its contiguous L / S
 columns and every Hyena mixer takes the sequence-sharded route
 (`models/hyena.py`); the embeddings, norms, MLPs and head are per token
 and need no collective. Learned positions and attention layers under a
-seq axis raise (ROADMAP.md Queue 1 item 21). The data axis needs nothing
+seq axis raise (ROADMAP.md Queue 1 item 22). The data axis needs nothing
 of the model: each data rank runs it on its rows.
+
+Tensor parallelism: with a model axis M above 1, the mesh reaches every
+module that splits (`parallel/sharding.py`): the vocab-parallel embedding
+and tied head (`models/embeddings.py`; the logits come back over the whole
+padded vocabulary, as the JAX model returns them), each Hyena mixer
+(`models/hyena.py`: kernels A, A', B and C on the rank's d / M channels of
+each chunk), each MHA (`models/attention.py`: its heads split) and each MLP
+(`models/blocks.py`: fc1 column- and fc2 row-parallel); the norms and the
+residual stream are replicated. Build a tensor-parallel model with
+`parallel/sharding.py::build_sharded`, which draws the weights whole and
+gives the rank its slices, as the trainer does.
 
 Weights start from the GPT-2 init, drawn from an explicit `torch.Generator`:
 Linear weights N(0, 0.02) and Embedding weights N(0, `init_std`) with zero
@@ -98,6 +109,7 @@ from hyena_dna_tpu_torch.models.hyena import HyenaOperator
 from hyena_dna_tpu_torch.models.nn import dropout
 from hyena_dna_tpu_torch.ops import remat
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
+from hyena_dna_tpu_torch.parallel.sharding import MODEL_ITEM
 
 
 def _pad_vocab(vocab_size: int, multiple: int) -> int:
@@ -118,14 +130,15 @@ class LMBackbone(nn.Module):
                  attn_cfg: dict | None = None, max_position_embeddings: int = 0, mesh=None):
         super().__init__()
         if mesh is not None and mesh.seq > 1 and max_position_embeddings > 0:
-            raise NotImplementedError("learned positions under a seq axis are not ported "
-                                      "(ROADMAP.md Queue 1 item 21)")
+            raise NotImplementedError(f"learned positions under a seq axis are not ported "
+                                      f"({MODEL_ITEM})")
         self.remat = checkpoint_mixer or checkpoint_mlp
         self.residual_cells = self.remat and remat_residual_only and not identity_mlp
         self.remat_group_size = max(1, remat_group_size)
         self.remat_names = ((remat.CONV_OUT_TAG,) * remat_save_conv
                             + (remat.FILTER_K_TAG,) * remat_save_filter)
-        self.embeddings = GPT2Embeddings(d_model, vocab_size, dtype, max_position_embeddings)
+        self.embeddings = GPT2Embeddings(d_model, vocab_size, dtype, max_position_embeddings,
+                                         mesh)
         attn_idx = set(attn_layer_idx or ())
         self.layers = nn.ModuleList(
             Block(d_model, d_inner, layer, residual_in_fp32, layer_norm_epsilon,
@@ -241,7 +254,7 @@ class ConvLMHeadModel(_LMBase):
 
     @property
     def d_output(self) -> int:
-        return self.backbone.embeddings.word_embeddings.num_embeddings
+        return self.backbone.embeddings.vocab_size
 
     def forward(self, input_ids: torch.Tensor | None,
                 generator: torch.Generator | None = None,

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from hyena_dna_tpu_torch.ops.distributed import reduce_from_model
+
 
 def _laplace(x: torch.Tensor) -> torch.Tensor:
     mu, sigma = math.sqrt(0.5), math.sqrt(0.25)
@@ -153,6 +155,22 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     return x * keep / (1.0 - p)
 
 
+def dropout_slice(x: torch.Tensor, p: float, training: bool,
+                  generator: Optional[torch.Generator], dim: int, whole: int,
+                  start: int) -> torch.Tensor:
+    """`dropout` of x, the slice [start, start + x.shape[dim]) along `dim`
+    of a tensor `whole` long there: the mask is drawn for the whole tensor
+    and sliced, so a rank of a model axis drops what the run without one
+    drops at those positions, and every rank's generator stays in step."""
+    if not training or p == 0.0 or p >= 1.0 or x.shape[dim] == whole:
+        return dropout(x, p, training, generator)
+    shape = list(x.shape)
+    shape[dim] = whole
+    keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(1.0 - p,
+                                                                          generator=generator)
+    return x * keep.narrow(dim, start, x.shape[dim]) / (1.0 - p)
+
+
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """`layer(x)` computed in `dtype`: the input, the float32 weight and the
     bias are cast to it first (flax `Dense(dtype)` promotes all three), so
@@ -160,3 +178,13 @@ def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     its gradients reach the float32 parameters through the casts."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype, mesh) -> torch.Tensor:
+    """`linear(x, layer, dtype)` of a row-parallel layer: under a model axis
+    (`mesh`, else None) the rank's partial product over its columns of the
+    weight, summed over the ranks (`reduce_from_model`), then the bias once."""
+    if mesh is None:
+        return linear(x, layer, dtype)
+    part = reduce_from_model(F.linear(x.to(dtype), layer.weight.to(dtype)), mesh)
+    return part if layer.bias is None else part + layer.bias.to(dtype)

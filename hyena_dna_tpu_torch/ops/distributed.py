@@ -1,5 +1,6 @@
 """Sequence-sharded convolutions: the channel-pencil FFT conv and the halo
-short conv (mirrors `hyena_dna_tpu/ops/distributed.py`).
+short conv (mirrors `hyena_dna_tpu/ops/distributed.py`); and the
+conjugate collectives of tensor parallelism over a mesh's model axis.
 
 Under a mesh with a seq axis of size S, each rank holds a (B, C, L / S)
 block of columns (`parallel/sharding.py`, its contiguous columns).
@@ -30,7 +31,23 @@ block of columns (`parallel/sharding.py`, its contiguous columns).
 With a seq axis of 1 (or no mesh) both are the single-device ops, as in
 the JAX package.
 
-Each collective is counted in `parallel.launch.COLLECTIVES`.
+Tensor parallelism (`parallel/sharding.py`: a model axis of M ranks, each
+holding a slice of a layer's columns or rows; the JAX package lets GSPMD
+insert these, the reference writes them by hand in flash-attn's parallel
+layers). Each is an `autograd.Function` over the mesh's model group:
+
+  * `copy_to_model`: the identity forward, an all-reduce of the gradient
+    backward (a replicated input entering column-parallel layers: each
+    rank's input gradient is its share of the sum);
+  * `reduce_from_model`: an all-reduce forward, the identity backward (the
+    rank's partial output of a row-parallel layer);
+  * `gather_from_model`: an all-gather along the last dimension forward,
+    the rank's slice of the gradient backward (the vocab-parallel logits).
+
+The all-reduces sum in float32 and round once to the tensor's dtype.
+
+Each collective is counted in `parallel.launch.COLLECTIVES`; a failed one
+raises, which ends the run.
 """
 
 from __future__ import annotations
@@ -124,3 +141,67 @@ def seq_short_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
         return short_conv_1d(x, w, b)
     halo = _Halo.apply(x[..., x.shape[-1] - (w.shape[-1] - 1):], mesh.seq_group)
     return short_conv_1d_with_halo(x, w, b, halo)
+
+
+def _all_reduce_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over `group`, taken in float32, rounded once to x's dtype."""
+    total = x.float().contiguous()
+    if total is x:
+        total = total.clone()
+    timed("tp_all_reduce", total, lambda: dist.all_reduce(total, group=group))
+    return total.to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_f32(grad, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, index):
+        ctx.index, ctx.width = index, x.shape[-1]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        timed("tp_all_gather", x, lambda: dist.all_gather(parts, x, group=group))
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w = ctx.width
+        return grad[..., ctx.index * w:(ctx.index + 1) * w].contiguous(), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x as it is; its gradient all-reduced over the model group."""
+    return x if mesh is None or mesh.model == 1 else _CopyToModel.apply(x, mesh.model_group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of every model rank's x (float32, rounded once); its
+    gradient passes as it is."""
+    return x if mesh is None or mesh.model == 1 else _ReduceFromModel.apply(x, mesh.model_group)
+
+
+def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every model rank's x joined along the last dimension in rank order;
+    the gradient's slice of this rank backward."""
+    if mesh is None or mesh.model == 1:
+        return x
+    return _GatherFromModel.apply(x, mesh.model_group, mesh.model_index)

@@ -57,6 +57,34 @@ def fftconv_ref(u: torch.Tensor, k: torch.Tensor,
     return y.to(u.dtype)
 
 
+def fftconv_h3(k: torch.Tensor, ssm_kernel: torch.Tensor, D: torch.Tensor, q: torch.Tensor,
+               v: torch.Tensor, head_dim: int = 1,
+               ssm_kernel_rev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The H3 gated FFT conv (JAX `ops/fftconv.py::fftconv_h3`, the
+    reference's `src/ops/fftconv.py`): kv = k (x) v, the outer product of
+    each head's channels, convolved causally with `ssm_kernel` (plus its
+    reverse's conjugate spectrum, where given) plus the D skip, then
+    contracted with q. k, q, v (B, H, L) with H = heads * head_dim;
+    ssm_kernel (H, L); D (H,); a head_dim above 1 takes one head (H ==
+    head_dim), as the JAX function does. Plain `torch.fft` in float32 (no
+    kernel of its own, as in the JAX package); returns v's dtype."""
+    seqlen = k.shape[-1]
+    n = next_fast_fft_size(2 * seqlen)
+    f32 = torch.float32
+    kernel_f = torch.fft.rfft(ssm_kernel.to(f32), n=n)
+    if ssm_kernel_rev is not None:
+        kernel_f = kernel_f + torch.fft.rfft(ssm_kernel_rev.to(f32), n=n).conj()
+    b, h = k.shape[0], ssm_kernel.shape[0]
+    kv = torch.einsum("bfhl,bghl->bfghl", k.reshape(b, -1, head_dim, seqlen).to(f32),
+                      v.reshape(b, -1, head_dim, seqlen).to(f32))
+    kv_f = torch.fft.rfft(kv, n=n) / n
+    kernel_f = kernel_f.reshape(h // head_dim, head_dim, 1, n // 2 + 1)
+    y = (torch.fft.irfft(kv_f * kernel_f, n=n) * n)[..., :seqlen]
+    out = y + kv * D.to(f32).reshape(h // head_dim, head_dim, 1, 1)
+    out = torch.einsum("bfghl,bfhl->bghl", out, q.reshape(b, -1, head_dim, seqlen).to(f32))
+    return out.reshape(b, -1, seqlen).to(v.dtype)
+
+
 def fftconv_aliased(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
     """The conv of a (C, Lk) filter that may be longer than the (..., C, L)
     signal, circular at exactly n = 2L (JAX `fftconv_aliased`): the filter

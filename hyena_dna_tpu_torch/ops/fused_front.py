@@ -3,8 +3,15 @@
 Counterpart of `hyena_dna_tpu/ops/pallas_hyena.py::fused_proj_conv_gate`
 and its custom VJP:
 
-  u (B, L, d) --u @ W + bp--> (B, L, 3d) --causal k=3 depthwise conv + bc-->
-  split [x0 | x1 | v] --> vx = v * x1, x0, both channel-major (B, d, L).
+  u (B, L, d_in) --u @ W + bp--> (B, L, 3 d_c) --causal k=3 depthwise conv + bc-->
+  split [x0 | x1 | v] --> vx = v * x1, x0, both channel-major (B, d_c, L).
+
+Two widths: d_in, u's width, and d_c, the width of one output chunk, read
+off W (d_in, 3 d_c). The whole model runs d_in == d_c == d. Under tensor
+parallelism (`models/hyena.py`) a rank of a model axis of M holds in_proj's
+columns of its d / M channels of each chunk, so it projects the whole u onto
+d_c = d / M channels; its du is a partial sum that the model axis reduces.
+The kernels take both widths; the 4-D kernels A4 and A4' take d_in == d_c.
 
 `fused_proj_conv_gate` is the `torch.autograd.Function` `FusedProjConvGate`:
 its forward is kernel A (`csrc/fused_front.cu`) and its backward kernel A'
@@ -62,13 +69,15 @@ from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # float32 u: the CUDA-core bodies; bf16 u: the tensor-core bodies, which take
 # the split-W scratch `ws` and, backward, the dW run count instead of dproj
-_FWD_ARGS = [_P] * 7 + [_I] * 3 + [_P]
-_FWD_BF16_ARGS = [_P] * 8 + [_I] * 3 + [_P]
-_BWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
-_BWD_BF16_ARGS = [_P] * 13 + [_I] * 4 + [_P]
-# the bf16 entries' scratch sizes, from the C layout (host functions, not launches)
-_SIZES = {"hyena_front_ws_numel": [_I]}
-_BWD_SIZES = {**_SIZES, "hyena_front_bwd_runs": [_I] * 3}
+# (B, L, d_in, d_c after the pointers)
+_FWD_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_FWD_BF16_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 13 + [_I] * 6 + [_P]
+_BWD_BF16_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+# the bf16 entries' scratch sizes, from the C layout (host functions, not
+# launches): ws_numel(d_in, d_c), bwd_runs(B, L, d_in, d_c)
+_SIZES = {"hyena_front_ws_numel": [_I] * 2}
+_BWD_SIZES = {**_SIZES, "hyena_front_bwd_runs": [_I] * 4}
 KERNEL = _cuda.Kernel("fused_front", {"hyena_fused_front_fwd": _FWD_ARGS,
                                       "hyena_fused_front_fwd_bf16": _FWD_BF16_ARGS,
                                       "hyena_front_wgmma_probe": [_P] * 3 + [_I, _P], **_SIZES})
@@ -100,11 +109,12 @@ PROBE_MODES = {0: 48, 1: 32, 2: 24, 3: 64, 4: 48}
 
 def reference_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version (JAX `pallas_hyena._reference_fwd`, with the
-    projection kept in float32: see the module docstring)."""
-    proj = u.float() @ w.float() + bp.float()  # (B, L, 3d)
-    proj_t = proj.transpose(-1, -2)  # (B, 3d, L)
+    projection kept in float32: see the module docstring). The chunk width
+    is W's columns over 3."""
+    proj = u.float() @ w.float() + bp.float()  # (B, L, 3 d_c)
+    proj_t = proj.transpose(-1, -2)  # (B, 3 d_c, L)
     conv = short_conv_1d(proj_t, wc.float().transpose(0, 1), bc.float())
-    d = conv.shape[1] // 3
+    d = w.shape[1] // 3
     x0, x1, v = conv[:, :d], conv[:, d:2 * d], conv[:, 2 * d:]
     return (v * x1).to(u.dtype), x0.to(u.dtype)
 
@@ -115,13 +125,13 @@ def reference_bwd(u, w, bp, wc, bc, dvx, dx0):
     conv, then the parameter and input grads. Returns (du in u's dtype; dw,
     dbp, dwc, dbc in float32)."""
     f32 = torch.float32
-    proj = u.to(f32) @ w.to(f32) + bp.to(f32)  # (B, L, 3d)
-    proj_t = proj.transpose(1, 2)  # (B, 3d, L)
+    proj = u.to(f32) @ w.to(f32) + bp.to(f32)  # (B, L, 3 d_c)
+    proj_t = proj.transpose(1, 2)  # (B, 3 d_c, L)
     conv = short_conv_1d(proj_t, wc.t().to(f32), bc.to(f32))
-    d = conv.shape[1] // 3
+    d = w.shape[1] // 3
     x1, v = conv[:, d:2 * d], conv[:, 2 * d:]
     dvx = dvx.to(f32)
-    dconv = torch.cat([dx0.to(f32), dvx * v, dvx * x1], dim=1)  # (B, 3d, L)
+    dconv = torch.cat([dx0.to(f32), dvx * v, dvx * x1], dim=1)  # (B, 3 d_c, L)
     # transpose of conv[t] = sum_j wc[j] proj[t-2+j]: dproj[s] = sum_j wc[j] dconv[s+2-j]
     # (dconv zero past L); dwc[j] = sum_t dconv[t] proj[t-2+j] (proj zero before 0)
     wc = wc.to(f32)
@@ -130,7 +140,7 @@ def reference_bwd(u, w, bp, wc, bc, dvx, dx0):
     dproj_t = sum(dconv_r[..., 2 - j:2 - j + length] * wc[j][None, :, None] for j in range(3))
     dwc = torch.stack([(dconv * proj_l[..., j:j + length]).sum((0, 2)) for j in range(3)])
     dbc = dconv.sum((0, 2))
-    dproj = dproj_t.transpose(1, 2)  # (B, L, 3d)
+    dproj = dproj_t.transpose(1, 2)  # (B, L, 3 d_c)
     du = (dproj @ w.to(f32).t()).to(u.dtype)
     dw = u.to(f32).reshape(-1, u.shape[-1]).t() @ dproj.reshape(-1, dproj.shape[-1])
     return du, dw, dproj.sum((0, 1)), dwc, dbc
@@ -158,7 +168,7 @@ def split_reference_fwd(u, w, bp, wc, bc, proj_terms="hh hl"):
     `reference_fwd`'s conv and gate. Not called by the kernels."""
     proj = _pair_mm(u, split_bf16(w), proj_terms) + bp.float()
     conv = short_conv_1d(proj.transpose(-1, -2), wc.float().transpose(0, 1), bc.float())
-    d = conv.shape[1] // 3
+    d = w.shape[1] // 3
     return conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d]
 
 
@@ -175,7 +185,7 @@ def split_reference_bwd(u, w, bp, wc, bc, dvx, dx0, proj_terms="hh hl",
     proj_t = proj.transpose(1, 2)
     wc = wc.to(f32)
     conv = short_conv_1d(proj_t, wc.t(), bc.to(f32))
-    d = conv.shape[1] // 3
+    d = w.shape[1] // 3
     x1, v = conv[:, d:2 * d], conv[:, 2 * d:]
     dvx = dvx.to(f32)
     dconv = torch.cat([dx0.to(f32), dvx * v, dvx * x1], dim=1)
@@ -183,7 +193,7 @@ def split_reference_bwd(u, w, bp, wc, bc, dvx, dx0, proj_terms="hh hl",
     dconv_r, proj_l = F.pad(dconv, (0, 2)), F.pad(proj_t, (2, 0))
     dproj_t = sum(dconv_r[..., 2 - j:2 - j + length] * wc[j][None, :, None] for j in range(3))
     dwc = torch.stack([(dconv * proj_l[..., j:j + length]).sum((0, 2)) for j in range(3)])
-    dproj = dproj_t.transpose(1, 2)  # (B, L, 3d)
+    dproj = dproj_t.transpose(1, 2)  # (B, L, 3 d_c)
     dp = split_bf16(dproj)
     du = _pair_mm(dp, tuple(t.t() for t in wp), du_terms)
     rows = lambda t: t.reshape(-1, t.shape[-1])
@@ -207,20 +217,25 @@ def wgmma_probe(a, b, mode: int):
     return c
 
 
-def _check(out_shape=None, **tensors) -> str:
+def _check(out_shape=None, square=False, **tensors) -> str:
     """Raise on what kernels A, A', A4 and A4' do not take; return the C
-    entry point's dtype suffix. The activations (u, dvx, dx0) are all
-    float32 or all bfloat16, the parameters float32; the cotangents have
-    `out_shape` per batch row, (d, L) when None."""
-    u = tensors["u"]
+    entry point's dtype suffix. u is (B, L, d_in) and W (d_in, 3 d_c), any
+    d_c (`square`: d_c == d_in, which the 4-D kernels take); the activations (u, dvx, dx0) are all float32 or all bfloat16, the
+    parameters float32; the cotangents have `out_shape` per batch row,
+    (d_c, L) when None."""
+    u, w = tensors["u"], tensors["w"]
     if u.dim() != 3:
-        raise ValueError(f"u must be (B, L, d), got {tuple(u.shape)}")
+        raise ValueError(f"u must be (B, L, d_in), got {tuple(u.shape)}")
     if u.dtype not in _SUFFIX:
         raise TypeError(f"kernels A and A' take float32 or bfloat16 u; u is {u.dtype}")
-    b, length, d = u.shape
+    b, length, d_in = u.shape
+    if w.dim() != 2 or w.shape[0] != d_in or w.shape[1] % 3 or w.shape[1] == 0:
+        raise ValueError(f"w must be (d_in, 3 d_c) with d_in={d_in}, got {tuple(w.shape)}")
+    d = w.shape[1] // 3
+    if square and d != d_in:
+        raise ValueError(f"kernels A4 and A4' take W (d, 3d); got d_in={d_in}, d_c={d}")
     cot = (b,) + tuple(out_shape or (d, length))
-    expect = {"w": (d, 3 * d), "bp": (3 * d,), "wc": (3, 3 * d), "bc": (3 * d,),
-              "dvx": cot, "dx0": cot}
+    expect = {"bp": (3 * d,), "wc": (3, 3 * d), "bc": (3 * d,), "dvx": cot, "dx0": cot}
     for name, t in tensors.items():
         if name in expect and tuple(t.shape) != expect[name]:
             raise ValueError(f"{name} must be {expect[name]}, got {tuple(t.shape)}")
@@ -240,12 +255,13 @@ def front_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
     if not _cuda.on_card(u):
         return reference_fwd(u, w, bp, wc, bc)
     suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc)
-    b, length, d = u.shape
+    b, length, d_in = u.shape
+    d = w.shape[1] // 3
     vx = torch.empty((b, d, length), device=u.device, dtype=u.dtype)
     x0 = torch.empty_like(vx)
     KERNEL.launch("hyena_fused_front_fwd" + suffix,
                   *map(_cuda.ptr, (u, w, bp, wc, bc, vx, x0) + _w_split(KERNEL, u, d)),
-                  b, length, d, _cuda.stream_handle(u))
+                  b, length, d_in, d, _cuda.stream_handle(u))
     return vx, x0
 
 
@@ -255,40 +271,42 @@ def front_bwd(u, w, bp, wc, bc, dvx, dx0):
     if not _cuda.on_card(u):
         return reference_bwd(u, w, bp, wc, bc, dvx, dx0)
     suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx, dx0=dx0)
-    b, length, d = u.shape
+    b, length, d_in = u.shape
+    d = w.shape[1] // 3
     du = torch.empty_like(u)
-    dw, dparams, scratch, sizes = _bwd_buffers(KERNEL_BWD, u)
+    dw, dparams, scratch, sizes = _bwd_buffers(KERNEL_BWD, u, d)
     KERNEL_BWD.launch("hyena_fused_front_bwd" + suffix,
                       *map(_cuda.ptr, (u, w, bp, wc, bc, dvx, dx0, du, dw, dparams) + scratch),
-                      b, length, d, *sizes, _cuda.stream_handle(u))
+                      b, length, d_in, d, *sizes, _cuda.stream_handle(u))
     return du, dw, dparams[0], dparams[1:4], dparams[4]
 
 
 def _w_split(kernel, u, d) -> tuple:
-    """The bf16 kernels' split-W scratch, as a 1-tuple, sized by `kernel`'s
-    C helper (the layout lives in `csrc/fused_front_tc.cuh`); () for
-    float32 u."""
+    """The bf16 kernels' split-W scratch for W (d_in, 3 d), d_in u's
+    width, as a 1-tuple, sized by `kernel`'s C helper (the layout lives in
+    `csrc/fused_front_tc.cuh`); () for float32 u."""
     if u.dtype != torch.bfloat16:
         return ()
-    numel = kernel.lib().hyena_front_ws_numel(d)
+    numel = kernel.lib().hyena_front_ws_numel(u.shape[-1], d)
     return (torch.empty(numel, device=u.device, dtype=torch.bfloat16),)
 
 
-def _bwd_buffers(kernel, u):
-    """Kernel A' (A4')'s outputs dw (d, 3d) and dparams (5, 3d), its scratch
-    in its C entry's order and its trailing sizes: float32 u: (dproj, part,
-    dwpart), (tiles, slices); bf16 u: (ws, part, dwpart), (runs,), runs from
-    `kernel`'s C helper (it depends on B, L and d alone)."""
-    b, length, d = u.shape
+def _bwd_buffers(kernel, u, d):
+    """Kernel A' (A4')'s outputs dw (d_in, 3d) and dparams (5, 3d) for a
+    chunk width d, its scratch in its C entry's order and its trailing
+    sizes: float32 u: (dproj, part, dwpart), (tiles, slices); bf16 u: (ws,
+    part, dwpart), (runs,), runs from `kernel`'s C helper (it depends on B,
+    L, d_in and d alone)."""
+    b, length, d_in = u.shape
     new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
-    dw, dparams = new(d, 3 * d), new(5, 3 * d)
+    dw, dparams = new(d_in, 3 * d), new(5, 3 * d)
     if u.dtype == torch.bfloat16:
-        runs = kernel.lib().hyena_front_bwd_runs(b, length, d)
-        scratch = _w_split(kernel, u, d) + (new(runs * 5 * 3 * d), new(runs, d, 3 * d))
+        runs = kernel.lib().hyena_front_bwd_runs(b, length, d_in, d)
+        scratch = _w_split(kernel, u, d) + (new(runs * 5 * 3 * d), new(runs, d_in, 3 * d))
         return dw, dparams, scratch, (runs,)
     tiles = -(-length // BWD_TILE)
     slices = max(1, min(64, b * length // BWD_ROWS_PER_SLICE))
-    scratch = (new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d, 3 * d))
+    scratch = (new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d_in, 3 * d))
     return dw, dparams, scratch, (tiles, slices)
 
 
@@ -309,9 +327,9 @@ class FusedProjConvGate(torch.autograd.Function):
 def fused_proj_conv_gate(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
     """(vx, x0) of the fused front end, differentiable in every input.
 
-    u: (B, L, d); w: (d, 3d); bp: (3d,); wc: (3, 3d) conv taps, time-major
-    (wc[j] multiplies proj[t-2+j]); bc: (3d,). Returns two (B, d, L) tensors
-    in u's dtype.
+    u: (B, L, d_in); w: (d_in, 3 d_c); bp: (3 d_c,); wc: (3, 3 d_c) conv
+    taps, time-major (wc[j] multiplies proj[t-2+j]); bc: (3 d_c,). Returns
+    two (B, d_c, L) tensors in u's dtype.
     """
     return FusedProjConvGate.apply(u, w, bp, wc, bc)
 
@@ -356,7 +374,7 @@ def front4_fwd(u, w, bp, wc, bc, rows_pad: int, m: int):
     `reference_fwd4` on a CPU one."""
     if not _cuda.on_card(u):
         return reference_fwd4(u, w, bp, wc, bc, rows_pad, m)
-    suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc)
+    suffix = _check(square=True, u=u, w=w, bp=bp, wc=wc, bc=bc)
     b, length, d = u.shape
     vx4 = torch.empty((b, d, rows_pad, m), device=u.device, dtype=u.dtype)
     x04 = torch.empty_like(vx4)
@@ -371,13 +389,13 @@ def front4_bwd(u, w, bp, wc, bc, dvx4, dx04):
     tensor, `reference_bwd4` on a CPU one."""
     if not _cuda.on_card(u):
         return reference_bwd4(u, w, bp, wc, bc, dvx4, dx04)
-    suffix = _check(dvx4.shape[1:], u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx4, dx0=dx04)
+    suffix = _check(dvx4.shape[1:], True, u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx4, dx0=dx04)
     b, length, d = u.shape
     lp = dvx4.shape[2] * dvx4.shape[3]
     if lp < length:
         raise ValueError(f"cotangents hold {lp} times, fewer than L={length}")
     du = torch.empty_like(u)
-    dw, dparams, scratch, sizes = _bwd_buffers(KERNEL4_BWD, u)
+    dw, dparams, scratch, sizes = _bwd_buffers(KERNEL4_BWD, u, d)
     KERNEL4_BWD.launch("hyena_fused_front4_bwd" + suffix,
                        *map(_cuda.ptr, (u, w, bp, wc, bc, dvx4, dx04, du, dw, dparams) + scratch),
                        b, length, lp, d, *sizes, _cuda.stream_handle(u))

@@ -1,4 +1,4 @@
-"""Data and sequence parallelism: the mesh of ranks and their launch."""
+"""Data, sequence and tensor parallelism: the mesh of ranks and their launch."""
 
 from hyena_dna_tpu_torch.parallel.launch import (barrier, initialize_distributed,
                                                  is_main_process, spawn)

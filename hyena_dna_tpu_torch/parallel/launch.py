@@ -1,5 +1,5 @@
-"""Process launch for data and sequence parallelism (the counterpart of
-`hyena_dna_tpu/parallel/launch.py`).
+"""Process launch for data, sequence and tensor parallelism (the
+counterpart of `hyena_dna_tpu/parallel/launch.py`).
 
 One process per rank, started by torchrun:
 
@@ -22,8 +22,9 @@ nothing through host memory. Rank 0 prints the backend and the
 rank-to-device map on a line of its own.
 
 `COLLECTIVES` counts each collective the port issues on a training path
-(`ops/distributed.py`'s all-to-alls and halo all-gathers, the train step's
-all-reduces): calls, bytes this rank sends and host seconds inside the
+(`ops/distributed.py`'s all-to-alls, halo all-gathers and tensor-parallel
+all-reduces and all-gathers, the train step's and optimizer's all-reduces,
+`parallel/sharding.py`'s gathers of whole tensors): calls, bytes this rank sends and host seconds inside the
 call. Under gloo a call on the card's tensors first waits for the kernels
 queued before it, so those seconds hold that wait too; under NCCL the call
 returns once it is enqueued. A measurement that wants the collectives

@@ -4,12 +4,14 @@ The port's training entry (mirrors `hyena_dna_tpu/train/__main__.py`): the
 shared `configs/config.yaml` is the base, `experiment=` composes an
 experiment file onto it, the other arguments are dot-overrides, then
 `${...}` interpolations resolve and keys starting with "__" are dropped.
-The trainer runs on the card (`device=None`); `main(argv, device="cpu")`
-runs it on the CPU with the kernels' plain versions. A mesh config runs one
-process per rank under torchrun:
+The trainer runs on the card; `--device cpu` (or `main(argv,
+device="cpu")`) runs it on the CPU with the kernels' plain versions. A mesh
+config runs one process per rank under torchrun:
 
     python -m torch.distributed.run --nproc_per_node 4 \
         -m hyena_dna_tpu_torch.train experiment=hg38/hg38_medium_450k ...
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m hyena_dna_tpu_torch.train experiment=hg38/hg38_large_1m_singlechip mesh.model=4 ...
 """
 
 from __future__ import annotations
@@ -52,7 +54,14 @@ def build_config(argv):
 
 
 def main(argv=None, device=None):
-    trainer = Trainer(build_config(sys.argv[1:] if argv is None else argv), device=device)
+    """Train on `argv`'s config; its `--device NAME` sets `device` (default
+    the card)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if "--device" in argv:
+        i = argv.index("--device")
+        device = argv[i + 1]
+        del argv[i:i + 2]
+    trainer = Trainer(build_config(argv), device=device)
     try:
         return trainer.fit()
     finally:

@@ -9,8 +9,8 @@
   * `model_checkpoint`: after each validation, the best checkpoint on the
     monitored metric (`checkpoints/best`) and the last (`checkpoints/last`),
     recording the next epoch so a resume starts there; under a mesh rank 0
-    writes them (every rank holds the same state and the same global
-    metric) and every rank waits at a barrier after each;
+    writes them (every rank holds the same global metric, and the tensors
+    are gathered whole first) and every rank waits at a barrier after each;
   * `seqlen_warmup_reload`: a curriculum of {seq_len, epochs, batch_size}
     stages, rebuilding the datasets and loaders at each stage's start;
   * `track_norms`: the global gradient norm every `log_every` steps;
@@ -23,6 +23,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from hyena_dna_tpu_torch.parallel import launch
+from hyena_dna_tpu_torch.parallel.sharding import SHARDED, tp_layout
 from hyena_dna_tpu_torch.train.checkpoint import save_checkpoint
 from hyena_dna_tpu_torch.train.optim import label_params
 
@@ -69,10 +70,15 @@ class ParamsLog(Callback):
         pass
 
     def on_fit_start(self, trainer):
+        """The whole model's counts: a tensor-parallel rank's sharded
+        parameters count M times."""
         model = trainer.state.model
         labels = label_params(model)
         frozen = trainer.frozen_labels or {}
-        sizes = {name: p.numel() for name, p in model.named_parameters()}
+        layout = tp_layout(model)
+        sizes = {name: p.numel() * (trainer.mesh.model if name in layout
+                                    and layout[name][0] == SHARDED else 1)
+                 for name, p in model.named_parameters()}
         total = sum(sizes.values())
         trainable = sum(n for name, n in sizes.items()
                         if labels.get(name) != "frozen" and frozen.get(name) != "frozen")
@@ -100,8 +106,7 @@ class ModelCheckpoint(Callback):
 
     @staticmethod
     def _save(*args, **kwargs):
-        if launch.is_main_process():
-            save_checkpoint(*args, **kwargs)
+        save_checkpoint(*args, **kwargs)  # every rank: rank 0 writes
         launch.barrier()
 
     def on_validation_end(self, trainer, metrics):

@@ -9,6 +9,13 @@ and `host_state_<step>.json` ({"loader_state", "metadata", "step"}); the
 newest `keep` steps are kept. Each file is written to a temporary name and
 renamed into place, so a crash leaves the previous checkpoint whole.
 
+Under a mesh every rank calls `save_checkpoint` and rank 0 writes. The
+tensors are whole: under a model axis (tensor parallelism) the model's and
+the optimizer's sharded tensors are gathered over the model group first
+(`parallel/sharding.py::gather_state_dict`, `Optimizer.state_dict`), and
+`restore_checkpoint` gives every rank its slices of them, so a checkpoint
+written under one mesh resumes under any other.
+
 Which files the port reads. Its own checkpoints, and the reference's
 `.pt` / `.ckpt` state dicts (a file, or a directory holding
 `weights.ckpt`), through `utils/convert.py::load_reference_state_dict`. It
@@ -35,6 +42,8 @@ from typing import Dict, Optional
 
 import torch
 
+from hyena_dna_tpu_torch.parallel import launch
+from hyena_dna_tpu_torch.parallel.sharding import gather_state_dict, shard_state_dict, tp_layout
 from hyena_dna_tpu_torch.utils.convert import load_reference_state_dict
 
 _STATE = re.compile(r"^state_(\d+)\.pt$")
@@ -70,11 +79,15 @@ def _refuse_orbax(path: Path) -> None:
 def save_checkpoint(ckpt_dir, state, step: int, loader_state: Optional[dict] = None,
                     metadata: Optional[dict] = None, keep: int = 2) -> None:
     """Write the model, the optimizer and the step, plus the loader state and
-    metadata, as step `step`; drop all but the newest `keep` steps."""
+    metadata, as step `step`; drop all but the newest `keep` steps. Every
+    rank of a mesh calls it (the tensors are gathered whole); rank 0 writes."""
+    model = gather_state_dict(state.model.state_dict(), state.optimizer.mesh,
+                              tp_layout(state.model))
+    payload = {"model": model, "optimizer": state.optimizer.state_dict(), "step": int(step)}
+    if not launch.is_main_process():
+        return
     ckpt_dir = Path(ckpt_dir).resolve()
     ckpt_dir.mkdir(parents=True, exist_ok=True)
-    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-               "step": int(step)}
     _atomic_write(ckpt_dir / f"state_{step}.pt", lambda p: torch.save(payload, p))
     host = {"loader_state": loader_state or {}, "metadata": metadata or {}, "step": int(step)}
     _atomic_write(ckpt_dir / f"host_state_{step}.json",
@@ -94,7 +107,8 @@ def latest_step(ckpt_dir) -> Optional[int]:
 
 def restore_checkpoint(ckpt_dir, state, step: Optional[int] = None):
     """Load step `step` (default the newest) into `state`'s model and
-    optimizer, in place. Returns (state, loader_state, metadata)."""
+    optimizer, in place (under a model axis, each rank's slices). Returns
+    (state, loader_state, metadata)."""
     ckpt_dir = Path(ckpt_dir).resolve()
     if ckpt_dir.is_dir():
         _refuse_orbax(ckpt_dir)
@@ -104,7 +118,8 @@ def restore_checkpoint(ckpt_dir, state, step: Optional[int] = None):
     device = next(state.model.parameters()).device
     payload = torch.load(ckpt_dir / f"state_{step}.pt", map_location=device,
                          weights_only=True)
-    state.model.load_state_dict(payload["model"])
+    state.model.load_state_dict(shard_state_dict(payload["model"], state.optimizer.mesh,
+                                                 tp_layout(state.model)))
     state.optimizer.load_state_dict(payload["optimizer"])
     loader_state, metadata = {}, {}
     host_file = ckpt_dir / f"host_state_{step}.json"
@@ -148,9 +163,11 @@ def _canonical(name: str) -> str:
 
 
 def load_backbone_hook(model: torch.nn.Module, pretrained: Dict[str, torch.Tensor],
-                       freeze_backbone: bool = False):
+                       freeze_backbone: bool = False, shard=None):
     """Copy every `backbone.` tensor of `pretrained` into `model` (in place),
-    keeping the scratch head. Returns (model, info): info["loaded"] counts
+    keeping the scratch head; `shard(name, tensor)`, where given, takes the
+    rank's slice of a whole tensor for the model's entry `name` (tensor
+    parallelism). Returns (model, info): info["loaded"] counts
     the parameters loaded, info["scratch"] names the state entries left as
     they were, info["frozen"] is {parameter name: "frozen" | None} under
     `freeze_backbone` (every backbone parameter frozen), else None."""
@@ -163,6 +180,8 @@ def load_backbone_hook(model: torch.nn.Module, pretrained: Dict[str, torch.Tenso
         if src is None:
             skipped.append(name)
             continue
+        if shard is not None:
+            src = shard(name, src)
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"shape mismatch at {name}: {tuple(src.shape)} vs "
                              f"{tuple(dst.shape)}")

@@ -29,6 +29,16 @@ The clip is written out: every gradient is scaled by c / ||g|| when the
 global norm ||g|| over all parameters exceeds c (`clip_grad_norm_` adds
 1e-6 to the norm, which optax does not). Each group's lr is its schedule
 evaluated at the step count before the increment, as optax does.
+
+Under a model axis (`mesh`, tensor parallelism: `parallel/sharding.py`) a
+rank holds slices of the sharded parameters and their moments. The global
+norm sums a sharded parameter's squares over the model group (one
+all-reduce) and counts a whole one once; LAMB's per-tensor ||w|| and ||a||
+of a sharded tensor are summed over the model group the same way (one
+all-reduce a step), so both equal the values without a model axis.
+`state_dict` gathers the moments whole (a collective: every rank calls it)
+and `load_state_dict` takes the rank's slices, so a checkpoint's optimizer
+state resumes under any mesh.
 """
 
 from __future__ import annotations
@@ -37,7 +47,12 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from hyena_dna_tpu_torch.parallel.launch import timed
+from hyena_dna_tpu_torch.parallel.sharding import (SHARDED, gather_tensor, shard_tensor,
+                                                   tp_layout)
 
 NO_DECAY_SUBSTRINGS = ("norm1", "norm2", "ln_f", "word_embeddings", "position_embeddings")
 
@@ -145,9 +160,16 @@ class Lamb(torch.optim.Optimizer):
                  weight_decay: float = 0.0):
         super().__init__(params, {"lr": lr, "betas": tuple(betas), "eps": eps,
                                   "weight_decay": weight_decay})
+        # under a model axis: the sharded tensors and the group over which
+        # their norms sum (`Optimizer` sets both)
+        self.sharded, self.model_group = set(), None
 
     @torch.no_grad()
     def step(self, closure=None):
+        """One step; under a model axis a sharded tensor's ||w||^2 and
+        ||a||^2 are summed over the model group, in one all-reduce of every
+        tensor's pair."""
+        items = []
         for group in self.param_groups:
             b1, b2 = group["betas"]
             eps, wd, lr = group["eps"], group["weight_decay"], group["lr"]
@@ -160,10 +182,21 @@ class Lamb(torch.optim.Optimizer):
                 m.mul_(b1).add_(p.grad, alpha=1.0 - b1)
                 v.mul_(b2).add_(p.grad * p.grad, alpha=1.0 - b2)
                 a = m.float() / (v.float().sqrt() + eps) + wd * p.float()
-                wn = p.float().norm().clamp(0.0, 10.0)
-                an = a.norm()
-                trust = torch.where((wn == 0) | (an == 0), torch.ones_like(wn), wn / (an + eps))
-                p.add_((-lr * trust * a).to(p.dtype))
+                items.append((p, a, lr, eps))
+        if not items:
+            return
+        sq = torch.stack([torch.stack([p.float().pow(2).sum(), a.pow(2).sum()])
+                          for p, a, _, _ in items])
+        if self.model_group is not None:
+            mine = torch.tensor([id(p) in self.sharded for p, _, _, _ in items],
+                                device=sq.device)[:, None]
+            part = sq * mine
+            timed("tp_all_reduce", part, lambda: dist.all_reduce(part, group=self.model_group))
+            sq = torch.where(mine, part, sq)
+        for (p, a, lr, eps), (w2, a2) in zip(items, sq):
+            wn, an = w2.sqrt().clamp(0.0, 10.0), a2.sqrt()
+            trust = torch.where((wn == 0) | (an == 0), torch.ones_like(wn), wn / (an + eps))
+            p.add_((-lr * trust * a).to(p.dtype))
 
 
 OPTIMIZERS = {"adamw": torch.optim.AdamW, "adam": torch.optim.Adam, "lamb": Lamb}
@@ -176,30 +209,73 @@ class Optimizer:
     `step()` reads the gradients in `p.grad` (a missing one counts as
     zero, as a JAX gradient would be), returns the global gradient norm
     before the clip, and advances the step count. `state_dict` /
-    `load_state_dict` carry the step count and the moments.
+    `load_state_dict` carry the step count and the moments (whole tensors
+    under a model axis).
     """
 
     def __init__(self, model: nn.Module, labels: Dict[str, str],
                  hparams: Dict[str, tuple], schedules: Dict[str, Callable],
                  betas, eps: float, gradient_clip_val: Optional[float],
-                 optimizer_name: str = "adamw"):
+                 optimizer_name: str = "adamw", mesh=None):
         self.params = [p for _, p in model.named_parameters()]
         self.gradient_clip_val = gradient_clip_val
         self.schedules = schedules
         self.count = 0
-        groups = []
+        groups, self.slots = [], []  # slots: (layout entry or None) per state index
+        self.mesh = mesh if mesh is not None and mesh.model > 1 else None
+        layout = tp_layout(model) if self.mesh is not None else {}
+        sharded = lambda name: layout.get(name, ("",))[0] == SHARDED
         for label, (lr, wd) in hparams.items():
-            ps = [p for name, p in model.named_parameters() if labels[name] == label]
-            if ps and lr != 0.0:  # lr 0: frozen, no update at all
-                groups.append({"params": ps, "lr": lr, "weight_decay": wd, "label": label})
+            named = [(name, p) for name, p in model.named_parameters() if labels[name] == label]
+            if named and lr != 0.0:  # lr 0: frozen, no update at all
+                groups.append({"params": [p for _, p in named], "lr": lr, "weight_decay": wd,
+                               "label": label})
+                self.slots += [layout[name] if sharded(name) else None for name, _ in named]
         self.inner = OPTIMIZERS[optimizer_name](groups, betas=tuple(betas), eps=eps)
+        self.sharded = [p for name, p in model.named_parameters() if sharded(name)]
+        if self.mesh is not None and isinstance(self.inner, Lamb):
+            self.inner.sharded = {id(p) for p in self.sharded}
+            self.inner.model_group = self.mesh.model_group
+
+    def _moments(self, state: dict, fn) -> dict:
+        """The inner state with `fn(tensor, layout entry)` applied to each
+        sharded parameter's moments, in index order (the same on every rank)."""
+        out = {}
+        for i in sorted(state):
+            slot = self.slots[i]
+            out[i] = {k: (fn(v, slot) if slot is not None and torch.is_tensor(v) and v.dim()
+                          else v) for k, v in state[i].items()}
+        return out
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "inner": self.inner.state_dict()}
+        """The step count and the moments, whole; under a model axis a
+        collective."""
+        inner = self.inner.state_dict()
+        if self.mesh is not None:
+            inner["state"] = self._moments(inner["state"],
+                                           lambda v, s: gather_tensor(v, *s[1:], self.mesh))
+        return {"count": self.count, "inner": inner}
 
     def load_state_dict(self, state: dict) -> None:
+        """From whole moments; under a model axis each rank takes its slices."""
         self.count = int(state["count"])
-        self.inner.load_state_dict(state["inner"])
+        inner = state["inner"]
+        if self.mesh is not None:
+            inner = {**inner, "state": self._moments(
+                inner["state"], lambda v, s: shard_tensor(v, *s[1:], self.mesh))}
+        self.inner.load_state_dict(inner)
+
+    def _global_norm(self, grads) -> torch.Tensor:
+        """||g|| over every parameter; a sharded one's squares summed over
+        the model group."""
+        ids = {id(p) for p in self.sharded}
+        square = lambda sel: sum((g.float().pow(2).sum() for p, g in zip(self.params, grads)
+                                  if (id(p) in ids) == sel), torch.zeros((), device=grads[0].device))
+        part = square(True)
+        if self.mesh is not None:
+            timed("tp_all_reduce", part,
+                  lambda: dist.all_reduce(part, group=self.mesh.model_group))
+        return torch.sqrt(part + square(False))
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -207,7 +283,7 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        norm = self._global_norm(grads)
         if self.gradient_clip_val:
             c = float(self.gradient_clip_val)
             factor = torch.where(norm > c, c / norm, torch.ones_like(norm))
@@ -227,13 +303,14 @@ def build_optimizer(model: nn.Module, lr: float = 6e-4, weight_decay: float = 0.
                     scheduler: Optional[dict] = None,
                     gradient_clip_val: Optional[float] = 1.0,
                     frozen: Optional[Dict[str, Optional[str]]] = None,
-                    optimizer_name: str = "adamw"):
+                    optimizer_name: str = "adamw", mesh=None):
     """(Optimizer, labels) with the JAX `build_optimizer` defaults.
 
     `scheduler` is e.g. {"_name_": "cosine_warmup_timm", "t_initial": ...};
     each group's schedule has that shape anchored at the group's own lr.
     `frozen`: {parameter name: "frozen" | None} overrides; "frozen"
-    parameters get no update.
+    parameters get no update. `mesh`: under a model axis, the norms and the
+    moments' checkpoint form as the `Optimizer` docstring says.
     """
     if optimizer_name not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer_name!r}")
@@ -253,4 +330,4 @@ def build_optimizer(model: nn.Module, lr: float = 6e-4, weight_decay: float = 0.
         if label == "frozen" and name in labels:
             labels[name] = "frozen"
     return (Optimizer(model, labels, hparams, schedules, betas, eps, gradient_clip_val,
-                      optimizer_name), labels)
+                      optimizer_name, mesh), labels)

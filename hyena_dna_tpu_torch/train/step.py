@@ -26,6 +26,16 @@ zero) in one flat float32 buffer that also carries the loss and the
 perplexity statistics. The clip then sees the global norm, and every rank
 applies the same update.
 
+Under a model axis (tensor parallelism, `parallel/sharding.py`) the ranks
+of a model group run the same rows and columns and compute the same loss,
+so the loss weights, the loss and the statistics are reduced over
+`mesh.grad_group` (the data x seq ranks of this rank's model index) with
+the sharded parameters' gradients, in one flat buffer; the whole
+parameters' gradients go over every rank (the world group) in a second
+one: a replicated parameter's identical gradient is counted once (scaled
+by 1 / M first), a partial one (`tp_partial`, the filter MLP of a split
+Hyena operator) summed over the model axis.
+
 `make_eval_step(task, return_logits)` returns `eval_step(state, batch)`:
 the loss, the task's device metrics and the perplexity statistics in eval
 mode, and with `return_logits` also the logits, which the trainer gathers
@@ -40,6 +50,7 @@ import torch
 import torch.distributed as dist
 
 from hyena_dna_tpu_torch.parallel.launch import timed
+from hyena_dna_tpu_torch.parallel.sharding import PARTIAL, SHARDED, tp_layout
 from hyena_dna_tpu_torch.train.state import TrainState
 
 
@@ -49,12 +60,15 @@ def _model_out(model, x, extra, **kw):
     return out[0] if isinstance(out, tuple) else out
 
 
-def _all_reduce_grads(model, extras, group):
-    """Sum every parameter's gradient (None as zero) and the `extras`
-    scalars over `group` in one flat float32 buffer; returns the extras."""
-    params = list(model.parameters())
-    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
-                      for p in params] + [e.reshape(1).float() for e in extras])
+def _all_reduce_flat(params, extras, group, scale=None):
+    """Sum the gradients of `params` (None as zero; each times its `scale`,
+    where given) and the `extras` scalars over `group` in one flat float32
+    buffer; returns the extras."""
+    grads = [(p.grad if p.grad is not None else torch.zeros_like(p)).reshape(-1).float()
+             for p in params]
+    if scale is not None:
+        grads = [g * c if c != 1 else g for g, c in zip(grads, scale)]
+    flat = torch.cat(grads + [e.reshape(1).float() for e in extras])
     timed("all_reduce", flat, lambda: dist.all_reduce(flat, group=group))
     offset = 0
     for p in params:
@@ -63,9 +77,32 @@ def _all_reduce_grads(model, extras, group):
     return list(flat[offset:])
 
 
+def reduce_gradients(model, extras, mesh):
+    """Every gradient of the global batch's loss on every rank, from each
+    rank's own (`extras`, scalars summed with them); returns the summed
+    extras. Without a model axis, one flat sum over every rank; with one,
+    the sharded parameters' and the extras over `mesh.grad_group` (skipped
+    when the model axis is the whole mesh), the whole ones over every rank,
+    a replicated gradient scaled by 1 / M first."""
+    if mesh.model == 1:
+        return _all_reduce_flat(list(model.parameters()), extras, mesh.grad_group)
+    layout = tp_layout(model)
+    named = list(model.named_parameters())
+    kind = lambda name: layout.get(name, ("",))[0]
+    sharded = [p for n, p in named if kind(n) == SHARDED]
+    whole = [(n, p) for n, p in named if kind(n) != SHARDED]
+    if mesh.replicas > 1:
+        extras = _all_reduce_flat(sharded, extras, mesh.grad_group)
+    _all_reduce_flat([p for _, p in whole], [], dist.group.WORLD,
+                     [1.0 if kind(n) == PARTIAL else 1.0 / mesh.model for n, _ in whole])
+    return list(extras)
+
+
 def make_train_step(task, accumulate_grad_batches: int = 1, mesh=None) -> Callable:
     accum = accumulate_grad_batches
-    group = mesh.grad_group if mesh is not None and mesh.size > 1 else None
+    tp = mesh is not None and mesh.model > 1
+    # the loss weights' group: the ranks of this rank's model index
+    group = mesh.grad_group if mesh is not None and mesh.replicas > 1 else None
 
     def train_step(state: TrainState, batch, generator: torch.Generator | None = None
                    ) -> Dict[str, torch.Tensor]:
@@ -101,9 +138,9 @@ def make_train_step(task, accumulate_grad_batches: int = 1, mesh=None) -> Callab
             for p in model.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
-        if group is not None:
+        if group is not None or tp:
             extras = [torch.as_tensor(loss_sum)] + (list(stats) if stats is not None else [])
-            loss_sum, *rest = _all_reduce_grads(model, extras, group)
+            loss_sum, *rest = reduce_gradients(model, extras, mesh)
             stats = tuple(rest) if stats is not None else None
         metrics = {"loss": loss_sum / accum, "grad_norm": state.apply_gradients()}
         if stats is not None:

@@ -27,9 +27,9 @@ dropout masks come from a generator on the device seeded the same way.
 
 Mesh (`parallel/`). One process per rank, launched by torchrun
 (`python -m torch.distributed.run --nproc_per_node N -m
-hyena_dna_tpu_torch.train experiment=...`); `mesh.data` x `mesh.seq` must
-be the number of ranks (`mesh.data` -1 takes the rest; a single process is
-the 1 x 1 mesh). Each rank's device is `cuda:{LOCAL_RANK % cards}` and the
+hyena_dna_tpu_torch.train experiment=...`); `mesh.data` x `mesh.seq` x
+`mesh.model` must be the number of ranks (`mesh.data` -1 takes the rest; a
+single process is the 1 x 1 x 1 mesh). Each rank's device is `cuda:{LOCAL_RANK % cards}` and the
 backend NCCL when each rank has a card of its own, else gloo
 (`parallel/launch.py`). The data axis: each data rank reads its strided
 share of every epoch's order (`data/loader.py`), `batch_size *
@@ -44,10 +44,23 @@ axis raise. The step's gradient and logged loss are those of the global
 batch (`train/step.py`); evaluation sums, counts and the host metrics'
 predictions are reduced over the ranks, so every rank reports the global
 value. Weights are drawn on every rank from `train.seed`; dropout is
-seeded per rank from (seed, data index, seq index). Rank 0 alone writes
+seeded per rank from (seed, data index, seq index), with no model index,
+so the ranks of a model group draw the same masks (a run whose only axis
+is the model axis draws the single process's). Rank 0 alone writes
 `metrics.jsonl` and the checkpoints and prints, with a barrier after each
-checkpoint and at `close`; every rank loads. `mesh.model > 1` (tensor
-parallelism) raises: ROADMAP.md Queue 1 item 21.
+checkpoint and at `close`; every rank loads.
+
+The model axis (tensor parallelism, `parallel/sharding.py`): the `lm`,
+`dna_embedding` and `lm_simple` models get the mesh and split where its
+size M divides a module's width (the Hyena mixers' d_model, MHA's heads,
+the MLPs' d_inner, the padded vocabulary); a width that does not divide,
+another model and a decoder head run whole on each rank. The weights are
+drawn whole from `train.seed` and each rank takes its slices
+(`build_sharded`), so the run starts from the weights of the run without
+a model axis; a pretrained state dict is sliced the same way. Every rank
+of a model group reads the same batch; the gradients, the clip norm and
+LAMB's norms are reduced as `train/step.py` and `train/optim.py` say, and
+the checkpoints hold whole tensors (`train/checkpoint.py`).
 """
 
 from __future__ import annotations
@@ -68,7 +81,8 @@ from hyena_dna_tpu_torch.models.blocks import torch_dtype
 from hyena_dna_tpu_torch.models.heads import (NDDecoder, PackedDecoder, RetrievalDecoder,
                                               SequenceDecoder, StateDecoder, TokenDecoder)
 from hyena_dna_tpu_torch.parallel import launch
-from hyena_dna_tpu_torch.parallel.sharding import make_mesh
+from hyena_dna_tpu_torch.parallel.sharding import (MODEL_ITEM, build_sharded, make_mesh,
+                                                   shard_state_dict, tp_layout)
 from hyena_dna_tpu_torch.tasks import TASK_REGISTRY
 from hyena_dna_tpu_torch.tasks import metrics as M
 from hyena_dna_tpu_torch.train.callbacks import CALLBACK_REGISTRY
@@ -149,7 +163,7 @@ class Trainer:
         self.mesh = make_mesh(**mesh_cfg)
         self.accumulate_grad_batches = int(self.trainer_cfg.get("accumulate_grad_batches", 1)
                                            or 1)
-        seed = self.seed if self.mesh.size == 1 else rank_seed(
+        seed = self.seed if self.mesh.replicas == 1 else rank_seed(
             self.seed, self.mesh.data_index, self.mesh.seq_index)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -191,7 +205,7 @@ class Trainer:
             filter_lr=layer_cfg.get("lr", 1e-3), filter_wd=float(layer_cfg.get("wd", 0.0)),
             lr_pos_emb=float(layer_cfg.get("lr_pos_emb", 1e-5)), scheduler=sched_cfg,
             gradient_clip_val=self.trainer_cfg.get("gradient_clip_val", 1.0),
-            optimizer_name=opt_name)
+            optimizer_name=opt_name, mesh=self.mesh)
         s_cfg = dict(sched_cfg)
         s_name = s_cfg.pop("_name_", "constant")
         s_cfg.pop("t_in_epochs", None)
@@ -250,25 +264,30 @@ class Trainer:
             decoder = decoder.get("_name_", "sequence")
         if name not in SEQ_MODELS or (name != "lm" and decoder not in (None, "id")):
             raise NotImplementedError(f"mesh.seq={s} takes the {SEQ_MODELS} models without a "
-                                      "decoder head")
+                                      f"decoder head ({MODEL_ITEM})")
         position = set(self.task.metric_fns) & {"last_k_ppl", "per_token_ppl"}
         if position or self.task.host_metric_names:
             raise NotImplementedError(f"mesh.seq={s}: the metrics "
                                       f"{sorted(position) + self.task.host_metric_names} need "
-                                      "whole sequences")
+                                      f"whole sequences ({MODEL_ITEM})")
 
     def _build_model(self, model_cfg: dict, decoder_cfg, generator) -> nn.Module:
         name = model_cfg.pop("_name_", "lm")
         dm = self.datamodule
-        if self.mesh.seq > 1:  # the sequence-sharded route (JAX trainer.py:222-225)
-            model_cfg["mesh"] = self.mesh
+        mesh = None
+        if (self.mesh.seq > 1 or self.mesh.model > 1) and name in SEQ_MODELS:
+            mesh = self.mesh  # the sharded routes (JAX trainer.py:222-225)
         model_cfg.setdefault("vocab_size", getattr(dm, "vocab_size", 12))
         precision = str(self.trainer_cfg.get("precision", "32"))
         model_cfg.setdefault("dtype", PRECISION.get(precision, torch.float32))
         model_cfg["dtype"] = torch_dtype(model_cfg["dtype"])
         if isinstance(model_cfg.get("layer"), dict):
             model_cfg["layer"] = dict(model_cfg["layer"])
-        backbone = MODEL_REGISTRY[name](generator=generator, **model_cfg)
+        def build(mesh, gen):
+            return MODEL_REGISTRY[name](generator=gen, **model_cfg,
+                                        **({"mesh": mesh} if mesh is not None else {}))
+
+        backbone = build_sharded(build, mesh, generator)
         if name == "lm" or decoder_cfg is None:
             return backbone
         dec_cfg = (dict(decoder_cfg) if isinstance(decoder_cfg, dict)
@@ -299,9 +318,12 @@ class Trainer:
         hook = hook_cfg.get("_name_") or "load_backbone"
         if hook != "load_backbone":
             raise NotImplementedError(f"model state hook {hook!r}")
+        layout = tp_layout(self.model)
         _, info = load_backbone_hook(self.model, pretrained,
                                      freeze_backbone=bool(hook_cfg.get("freeze_backbone",
-                                                                       False)))
+                                                                       False)),
+                                     shard=lambda name, t: shard_state_dict(
+                                         {name: t}, self.mesh, layout)[name])
         self.frozen_labels = info["frozen"]
         if self.frozen_labels:
             # the optimizer was built before the hook: rebuild it with the
@@ -489,9 +511,9 @@ class Trainer:
                         self.mesh.data_group, self.mesh.data):
                     streamer.update(preds, labels)
             n_batches += 1
-        if self.mesh.size > 1:  # every rank reports the global value
+        if self.mesh.replicas > 1:  # every rank reports the global value
             parts = self._gather((sums, weights, nll_sum, token_count, n_batches),
-                                 self.mesh.grad_group, self.mesh.size)
+                                 self.mesh.grad_group, self.mesh.replicas)
             sums, weights, nll_sum, token_count, n_batches = {}, {}, 0.0, 0.0, 0
             for rank_sums, rank_weights, nll, count, n in parts:
                 for k, v in rank_sums.items():

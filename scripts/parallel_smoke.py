@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Phase 10 of `chip_smoke.py` alone: build the port's kernels, write phase
-6's synthetic genome, then the parallel phase (10a-10d) on 4 ranks.
+"""Phases 10 and 11 of `chip_smoke.py` alone: build the port's kernels,
+write phase 6's synthetic genome, then the data- and sequence-parallel
+phase (10a-10d) and the tensor-parallel phase (11a-11d), each on 4 ranks.
 
-    python3 scripts/parallel_smoke.py
+    python3 scripts/parallel_smoke.py [--phases 10,11]
 
 On one card the ranks share it over gloo; on a host with 4 cards each
 rank takes its own and the backend rule (`parallel/launch.py`) gives NCCL.
-Prints phase 10's lines and the cards' names and power limits; exits
+Prints the phases' lines and the cards' names and power limits; exits
 non-zero if a check fails or there is no card.
 """
 
+import argparse
 import subprocess
 import sys
 import tempfile
@@ -25,11 +27,16 @@ import chip_smoke as C  # noqa: E402
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description="phases 10 and 11 of chip_smoke.py")
+    parser.add_argument("--phases", default="10,11", help="comma-separated: 10, 11")
+    phases = set(parser.parse_args().phases.split(","))
+
     if not torch.cuda.is_available():
         print("parallel_smoke: no CUDA device", file=sys.stderr)
         return 2
     from hyena_dna_tpu_torch import _cuda
     from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+    from hyena_dna_tpu_torch.ops import fused_front as FF
     from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
     set_card_numerics()
@@ -44,7 +51,10 @@ def main() -> int:
         subprocess.run([sys.executable, str(ROOT / "scripts" / "make_synthetic_genome.py"),
                         str(tmp / "genome"), "--bases", "4000000", "--chroms", "2",
                         "--seed", "18"], check=True, timeout=600, capture_output=True)
-        C.parallel_phase(FB, kernels, tmp, seed=22)
+        if "10" in phases:
+            C.parallel_phase(FB, kernels, tmp, seed=22)
+        if "11" in phases:
+            C.tp_phase(FF, FB, kernels, tmp, seed=23)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
           flush=True)

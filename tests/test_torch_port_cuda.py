@@ -294,6 +294,40 @@ def test_fused_front_bf16_matches_plain(card, B, L, d):
         _close(got, want, *(BF16_TOL if i == 0 else (1e-4, 1e-4)))
 
 
+SLICES = [(4, 300, 256, 64, "float32"), (4, 300, 256, 128, "bfloat16"),
+          (2, 200, 256, 64, "bfloat16"), (1, 130, 320, 40, "bfloat16"),
+          (2, 61, 64, 20, "float32"), (1, 4096, 256, 128, "float32")]
+
+
+@pytest.mark.parametrize("B,L,d_in,d_c,dtype", SLICES)
+def test_fused_front_channel_slice_matches_plain(card, B, L, d_in, d_c, dtype):
+    """Kernels A and A' on a tensor-parallel rank's slice: u (B, L, d_in)
+    projected onto W (d_in, 3 d_c), d_c < d_in, against the plain versions
+    (float32: 1e-4; bf16: one bf16 step in vx, x0 and du, 1e-4 in the
+    float32 parameter gradients). du (B, L, d_in) is the rank's partial sum;
+    the rank's slice of a whole W gives the whole front end's rows."""
+    g = torch.Generator().manual_seed(L + d_c)
+    dt = getattr(torch, dtype)
+    u = torch.randn(B, L, d_in, generator=g).to(dt)
+    params = [torch.randn(d_in, 3 * d_c, generator=g) * 0.05,
+              torch.randn(3 * d_c, generator=g) * 0.1, torch.randn(3, 3 * d_c, generator=g),
+              torch.randn(3 * d_c, generator=g) * 0.1]
+    cot = [torch.randn(B, d_c, L, generator=g).to(dt) for _ in range(2)]
+    tol = BF16_TOL if dt == BF16 else (1e-4, 1e-4)
+    args = [t.to(card) for t in [u] + params]
+    before = (FF.KERNEL.launches, FF.KERNEL_BWD.launches)
+    vx, x0 = FF.front_fwd(*args)
+    assert vx.shape == x0.shape == (B, d_c, L)
+    for got, ref in zip((vx, x0), FF.reference_fwd(*args)):
+        _close(got, ref, *tol)
+    out = FF.front_bwd(*args, *(c.to(card) for c in cot))
+    assert (FF.KERNEL.launches, FF.KERNEL_BWD.launches) == (before[0] + 1, before[1] + 1)
+    ref = FF.reference_bwd(*args, *(c.to(card) for c in cot))
+    for i, (got, want) in enumerate(zip(out, ref)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        _close(got, want, *(tol if i == 0 else (1e-4, 1e-4)))
+
+
 def test_bf16_wrappers_reject_what_kernels_do_not_take(card):
     x = torch.zeros(8, 256, device=card, dtype=BF16)
     w = torch.ones(256, device=card)
@@ -664,15 +698,15 @@ def test_front_bf16_scratch_sizes_from_c(card, B, L, d, monkeypatch):
     on the dW run count (so A4' takes A''s runs), and kernel A' refuses a
     run count other than its own, before any launch."""
     libs = [k.lib() for k in (FF.KERNEL, FF.KERNEL4, FF.KERNEL_BWD, FF.KERNEL4_BWD)]
-    numel = {lib.hyena_front_ws_numel(d) for lib in libs}
-    runs = {lib.hyena_front_bwd_runs(B, L, d) for lib in libs[2:]}
+    numel = {lib.hyena_front_ws_numel(d, d) for lib in libs}
+    runs = {lib.hyena_front_bwd_runs(B, L, d, d) for lib in libs[2:]}
     assert len(numel) == len(runs) == 1 and min(numel) > 0 and min(runs) >= 1
     if B * L > 4096:
         return
     real = FF._bwd_buffers
 
-    def one_run_more(kernel, u):
-        dw, dparams, (ws, _, _), (r,) = real(kernel, u)
+    def one_run_more(kernel, u, d_c):
+        dw, dparams, (ws, _, _), (r,) = real(kernel, u, d_c)
         new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
         return dw, dparams, (ws, new((r + 1) * 5 * 3 * d), new(r + 1, d, 3 * d)), (r + 1,)
 

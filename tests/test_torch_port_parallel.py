@@ -123,7 +123,7 @@ def test_rank_without_a_card_raises(monkeypatch):
 
 def test_single_process_mesh_and_refusals(monkeypatch):
     """Without torchrun's variables nothing is joined and the mesh is 1 x 1;
-    a mesh over more ranks than the run has, and tensor parallelism, raise."""
+    a mesh over more ranks than the run has raises, on any axis."""
     for var in launch.TORCHRUN_VARS:
         monkeypatch.delenv(var, raising=False)
     assert launch.initialize_distributed(torch.device("cpu")) == torch.device("cpu")
@@ -134,7 +134,7 @@ def test_single_process_mesh_and_refusals(monkeypatch):
     launch.barrier()
     with pytest.raises(ValueError, match="needs 4 ranks, the run has 1"):
         make_mesh(data=2, seq=2)
-    with pytest.raises(NotImplementedError, match="item 21"):
+    with pytest.raises(ValueError, match="needs 2 ranks, the run has 1"):
         make_mesh(model=2)
 
 

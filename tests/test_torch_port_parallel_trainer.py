@@ -11,11 +11,16 @@ ranks), both at d 32 x 2, float32, with their mixer and MLP checkpoint
 cells and `accumulate_grad_batches` 2 and 1: the 450k config 4 steps at
 L 64, the 1M one its seqlen curriculum cut to two stages of 4 steps (L 32,
 batch 4, then L 64, batch 2); tests/test_torch_port_finetune.py's classification config on a data
-axis of 4 (the host metrics gathered over the ranks); then checkpoints
-across meshes. Each run of the port starts from the
-JAX trainer's initial parameters (`utils/convert.py`) with dropout off,
-and every logged train loss and the val / test loss and perplexity must
-agree within 2e-4 relative, the tolerance of PR 13's Trainer parity.
+axis of 4 (the host metrics gathered over the ranks); tensor
+parallelism: `experiment=hg38/hg38_hyena` and `hg38_attention` (attention
+dropout off) at d 32 x 2, L 64, batch 8, on a data 2 x model 2 mesh; then
+checkpoints across meshes, the model axis's included (written under model
+2, resumed by one process and on data 2 x seq 2; written by one process
+and on data 2 x seq 2, resumed under model 2). Each run of the port starts
+from the JAX trainer's initial parameters (`utils/convert.py`) with
+dropout off, and every logged train loss and the val / test loss and
+perplexity must agree within 2e-4 relative, the tolerance of the
+single-process Trainer parity (tests/test_torch_port_trainer.py).
 """
 
 import json
@@ -35,6 +40,8 @@ from hyena_dna_tpu_torch.utils.convert import flax_to_torch_state_dict
 
 RTOL = 2e-4
 WORLD = 4
+TP_MESH = {"data": 2, "model": 2}
+TP_EXTRA = ["dataset.batch_size=8"]  # 4 steps an epoch of the genome's 32 rows
 
 
 # hg38_large_1m's seqlen curriculum at the test's size: two stages of one
@@ -43,16 +50,16 @@ CURRICULUM = [{"seq_len": 33, "epochs": 1, "batch_size": 4},
               {"seq_len": 65, "epochs": 1, "batch_size": 2}]
 
 
-def experiment(name, run_dir, fa, bed, mesh, accum, epochs=1):
+def experiment(name, run_dir, fa, bed, mesh, accum, epochs=1, extra=()):
     """A shipped mesh experiment at the test's size (the JAX and port
-    compositions are equal: tests/test_torch_port_trainer.py); a seqlen
-    curriculum runs at CURRICULUM's stages."""
+    compositions are equal: tests/test_torch_port_trainer.py), `extra`
+    overrides after; a seqlen curriculum runs at CURRICULUM's stages."""
     argv = [f"experiment=hg38/{name}", f"dataset.bed_file={bed}", f"dataset.fasta_file={fa}",
             "dataset.max_length=65", "model.d_model=32", "model.n_layer=2",
             "model.d_inner=128", "model.embed_dropout=0.0", "trainer.precision=32",
             f"trainer.max_epochs={epochs}", "trainer.limit_train_batches=4",
             "trainer.log_every_n_steps=1", f"trainer.accumulate_grad_batches={accum}",
-            f"train.run_dir={run_dir}"] + [f"mesh.{k}={v}" for k, v in mesh.items()]
+            f"train.run_dir={run_dir}"] + [f"mesh.{k}={v}" for k, v in mesh.items()] + list(extra)
     cfg = build_config(argv)
     assert cfg == jax_build_config(argv)
     if "seqlen_warmup_reload" in cfg["callbacks"]:
@@ -92,6 +99,10 @@ def runs(tmp_path_factory):
         "large_1m": experiment("hg38_large_1m", root / "large_1m", fa, bed,
                                {"data": 2, "seq": 2}, 1, epochs=len(CURRICULUM)),
         "cls_data4": W.cls_config(root / "cls_data4", W.write_benchmark(root), {"data": 4}),
+        "hyena_tp": experiment("hg38_hyena", root / "hyena_tp", fa, bed, TP_MESH, 1,
+                               extra=TP_EXTRA),
+        "attention_tp": experiment("hg38_attention", root / "attention_tp", fa, bed, TP_MESH, 1,
+                                   extra=TP_EXTRA + ["model.attn_cfg.dropout=0.0"]),
     }
     jax_final, params = {}, {}
     for name, cfg in cfgs.items():
@@ -114,21 +125,39 @@ def runs(tmp_path_factory):
         ("resume_2x2_from_2x2", {"data": 2, "seq": 2}, ckpt_2x2),
         ("resume_single_from_2x2", {"data": 1}, ckpt_2x2),
         ("resume_single_from_single", {"data": 1}, ckpt_single))}
+    resume_cfg["resume_tp_from_2x2"] = resume("resume_tp_from_2x2", TP_MESH, ckpt_2x2)
+    # the model axis: hg38_hyena written under data 2 x model 2 and by one process
+    hyena = lambda name, mesh, ckpt: experiment(
+        "hg38_hyena", root / name, fa, bed, mesh, 1,
+        extra=TP_EXTRA + [f"train.ckpt={ckpt}", "trainer.max_epochs=2"])
+    W.run_trainer(experiment("hg38_hyena", root / "hyena_single", fa, bed, {"data": 1}, 1,
+                             extra=TP_EXTRA), params["hyena_tp"])
+    ckpt_tp = str(root / "hyena_tp" / "checkpoints" / "last")
+    ckpt_hyena = str(root / "hyena_single" / "checkpoints" / "last")
+    resume_cfg.update({
+        "resume_2x2_from_tp": hyena("resume_2x2_from_tp", {"data": 2, "seq": 2}, ckpt_tp),
+        "resume_single_from_tp": hyena("resume_single_from_tp", {"data": 1}, ckpt_tp),
+        "resume_tp_from_hyena_single": hyena("resume_tp_from_hyena_single", TP_MESH, ckpt_hyena),
+        "resume_single_from_hyena_single": hyena("resume_single_from_hyena_single", {"data": 1},
+                                                 ckpt_hyena)})
     for cfg in resume_cfg.values():
         cfg["trainer"]["max_epochs"] = 2
     jobs = [(name, cfg, str(params[name])) for name, cfg in cfgs.items()]
-    jobs += [(name, resume_cfg[name], None) for name in ("resume_2x2_from_single",
-                                                          "resume_2x2_from_2x2")]
+    jobs += [(name, resume_cfg[name], None) for name in (
+        "resume_2x2_from_single", "resume_2x2_from_2x2", "resume_tp_from_2x2",
+        "resume_2x2_from_tp", "resume_tp_from_hyena_single")]
     spawn(W.trainers, WORLD, args=(str(root), jobs))
     ranks = [torch.load(root / f"trainers_rank{r}.pt", weights_only=False)
              for r in range(WORLD)]
     port_single = {name: W.run_trainer(resume_cfg[name])[1]
-                   for name in ("resume_single_from_2x2", "resume_single_from_single")}
+                   for name in ("resume_single_from_2x2", "resume_single_from_single",
+                                "resume_single_from_tp", "resume_single_from_hyena_single")}
     return {"root": root, "jax": jax_final, "ranks": ranks, "single": single_final,
             "port_single": port_single}
 
 
-@pytest.mark.parametrize("name", ["lm_2x2", "medium_450k", "large_1m"])
+@pytest.mark.parametrize("name", ["lm_2x2", "medium_450k", "large_1m", "hyena_tp",
+                                  "attention_tp"])
 def test_mesh_trainer_matches_jax(runs, name):
     """Every logged train loss and the test loss and perplexity against the
     JAX Trainer on the same mesh; every rank reports the same results."""
@@ -210,3 +239,31 @@ def test_checkpoint_resumes_under_another_mesh(runs, source):
     final = lambda name: (runs["ranks"][0][name]["final"] if name.startswith("resume_2x2")
                           else runs["port_single"][name])
     assert_final_match(final(ours), final(ref))
+
+
+@pytest.mark.parametrize("ours,ref", [
+    ("resume_single_from_tp", "resume_2x2_from_tp"),
+    ("resume_tp_from_hyena_single", "resume_single_from_hyena_single"),
+    ("resume_tp_from_2x2", "resume_single_from_2x2")])
+def test_checkpoint_resumes_across_the_model_axis(runs, ours, ref):
+    """A checkpoint written under data 2 x model 2 (whole tensors, the
+    optimizer's moments gathered) resumes in one process and on data 2 x
+    seq 2 with the same losses; one written by one process or on data 2 x
+    seq 2 resumes under data 2 x model 2 (each rank its slices) with the
+    losses of one process's resume."""
+    root = runs["root"]
+    assert_losses_match(train_losses(root / ours), train_losses(root / ref), ours)
+    assert train_losses(root / ours)[0][0] == 5  # the second epoch's first step
+    final = lambda name: (runs["ranks"][0][name]["final"] if name in runs["ranks"][0]
+                          else runs["port_single"][name])
+    assert_final_match(final(ours), final(ref))
+
+
+def test_model_axis_layout(runs):
+    """The model-axis runs number their ranks with model innermost; each
+    rank of a model group reports the same metrics."""
+    for r, res in enumerate(runs["ranks"]):
+        for name in ("hyena_tp", "attention_tp", "resume_tp_from_2x2"):
+            assert res[name]["mesh"] == {"data": 2, "seq": 1, "model": 2}
+            assert res[name]["coords"] == (r // 2, 0)
+            assert res[name]["final"] == runs["ranks"][0][name]["final"]

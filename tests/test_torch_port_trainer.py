@@ -244,15 +244,12 @@ def test_trainer_needs_a_card_unless_asked_for_the_cpu(tmp_path, tiny_genome, mo
 
 @pytest.mark.parametrize("mesh", [{"data": 2}, {"seq": 2}, {"model": 2}])
 def test_trainer_refuses_a_mesh_over_cards(tmp_path, tiny_genome, mesh):
-    """A data or seq axis over several ranks in one process (no torchrun)
-    raises and says how to launch; tensor parallelism raises whatever the
-    ranks, citing its ROADMAP item."""
+    """A data, seq or model axis over several ranks in one process (no
+    torchrun) raises and says how to launch."""
     fa, bed = tiny_genome
     cfg = lm_config(tmp_path / "run", fa, bed)
     cfg["mesh"] = mesh
-    error, match = ((NotImplementedError, "item 21") if "model" in mesh
-                    else (ValueError, "one process per rank with torchrun"))
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match="one process per rank with torchrun"):
         Trainer(cfg, device="cpu")
 
 

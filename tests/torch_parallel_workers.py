@@ -198,8 +198,8 @@ def cls_config(run_dir, bench, mesh: dict) -> dict:
 
 
 def run_trainer(config: dict, params=None):
-    """Build the port's Trainer on the CPU, load `params` (a state dict
-    file) if given, fit, close; returns (trainer, final metrics), the
+    """Build the port's Trainer on the CPU, load `params` (a whole state
+    dict file) if given, fit, close; returns (trainer, final metrics), the
     trainer's `step_shapes` the shape of each train step's token batch."""
     from hyena_dna_tpu_torch.train.trainer import Trainer
 
@@ -211,9 +211,12 @@ def run_trainer(config: dict, params=None):
         return step(state, batch, generator)
 
     trainer.train_step = train_step
-    if params is not None:
-        missing, unexpected = trainer.model.load_state_dict(
-            torch.load(params, weights_only=True), strict=False)
+    if params is not None:  # whole tensors: under a model axis the rank takes its slices
+        from hyena_dna_tpu_torch.parallel.sharding import shard_state_dict, tp_layout
+
+        missing, unexpected = trainer.model.load_state_dict(shard_state_dict(
+            torch.load(params, weights_only=True), trainer.mesh, tp_layout(trainer.model)),
+            strict=False)
         assert not unexpected and all(k.endswith(("pos_emb.t", ".freq")) for k in missing)
     try:
         return trainer, trainer.fit()
@@ -233,3 +236,149 @@ def trainers(out: str, jobs: list) -> None:
                      "mesh": trainer.mesh.shape, "step": trainer.global_step,
                      "shapes": trainer.step_shapes}
     torch.save(res, Path(out) / f"trainers_rank{launch.rank()}.pt")
+
+
+# ---- tensor parallelism (tests/test_torch_port_tensor_parallel.py) -----------
+
+TP_LAYER = dict(_name_="hyena", emb_dim=5, filter_order=16, l_max=L, w=10)
+# tests/test_seq_parallel.py's tensor-parallel model
+TP_LM_KW = dict(d_model=32, n_layer=2, d_inner=128, vocab_size=12, pad_vocab_size_multiple=8,
+                layer=TP_LAYER, embed_dropout=0.0)
+TP_OP_KW = dict(d_model=32, l_max=L, filter_order=16, filter_cfg=dict(emb_dim=5))
+TP_MHA_KW = dict(d_model=64, num_heads=8, rotary_emb_dim=4)
+
+
+def tp_inputs() -> dict:
+    """The seeded numpy inputs of the tensor-parallel checks."""
+    rng = np.random.default_rng(1)
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    return {"op_u": f32(B, L, 32), "op_dy": f32(B, L, 32), "mlp_x": f32(B, L, 32),
+            "mlp_dy": f32(B, L, 32), "attn_x": f32(B, L, 64), "attn_dy": f32(B, L, 64),
+            "emb_ids": rng.integers(0, 16, size=(B, L)).astype(np.int64),
+            "emb_dy": f32(B, L, 32), "head_h": f32(B, L, 32), "head_dy": f32(B, L, 16),
+            "tokens": rng.integers(7, 11, size=(B, L)).astype(np.int64)}
+
+
+def whole_grads(module, mesh) -> dict:
+    """Every parameter's whole gradient from the ranks' own: a sharded one
+    gathered, a partial one summed over the model group, a replicated one
+    as it is."""
+    from hyena_dna_tpu_torch.parallel.sharding import PARTIAL, SHARDED, gather_tensor, tp_layout
+
+    layout, out = tp_layout(module), {}
+    for name, g in _grads(module).items():
+        kind = layout.get(name, ("",))
+        if kind[0] == SHARDED:
+            g = gather_tensor(g, *kind[1:], mesh)
+        elif kind[0] == PARTIAL:
+            dist.all_reduce(g, group=mesh.model_group)
+        out[name] = g
+    return out
+
+
+def _aliases(module) -> dict:
+    """{name: the name it shares its parameter with} for every parameter
+    name that `named_parameters()` leaves out as a second name of one
+    tensor (a filter's Sin `freq`, which the JAX module holds once)."""
+    first = {}
+    for name, p in module.named_parameters(remove_duplicate=False):
+        first.setdefault(id(p), name)
+    return {name: first[id(p)] for name, p in module.named_parameters(remove_duplicate=False)
+            if first[id(p)] != name}
+
+
+def _layer_run(module, inputs: list, cotangents: list, fn) -> dict:
+    """fn(module, *inputs) -> outputs; the loss sum(out * cotangent)."""
+    xs = [_t(x, x.dtype == np.float32) for x in inputs]
+    outs = fn(module, *xs)
+    sum((o * _t(c)).sum() for o, c in zip(outs, cotangents)).backward()
+    return {"out": [o.detach() for o in outs], "dx": [x.grad for x in xs if x.requires_grad]}
+
+
+def tensor_parallel(out: str, params: str) -> None:
+    """The tensor-parallel checks on 4 ranks: the layers against the port's
+    whole modules (Mlp, the vocab-parallel embedding and head, MHA with its
+    heads split, all on a model axis of 4), the Hyena operator and the LM
+    (parameters from the JAX modules) on model 4 and on seq 2 x model 2,
+    then the clip norm and a LAMB step against one process."""
+    from hyena_dna_tpu_torch.models.attention import MHA
+    from hyena_dna_tpu_torch.models.blocks import Mlp
+    from hyena_dna_tpu_torch.models.embeddings import GPT2Embeddings
+    from hyena_dna_tpu_torch.parallel.sharding import (build_sharded, gather_state_dict,
+                                                       shard_state_dict, tp_layout)
+    from hyena_dna_tpu_torch.train.optim import build_optimizer
+    from hyena_dna_tpu_torch.train.step import reduce_gradients
+
+    torch.set_num_threads(1)
+    launch.initialize_distributed(torch.device("cpu"))
+    mesh = make_mesh(data=1, seq=1, model=4)
+    mesh_sm = make_mesh(data=1, seq=2, model=2)
+    a = tp_inputs()
+    res = {"coords": (mesh.model_index, mesh_sm.seq_index, mesh_sm.model_index)}
+
+    layers = {
+        "mlp": (lambda m, g: _seeded(Mlp(32, 128, mesh=m), g), ["mlp_x"], ["mlp_dy"],
+                lambda mod, x: [mod(x)]),
+        "embedding": (lambda m, g: _seeded(GPT2Embeddings(32, 16, mesh=m), g),
+                      ["emb_ids", "head_h"], ["emb_dy", "head_dy"],
+                      lambda mod, ids, h: [mod(ids), mod.attend(h)]),
+        "mha": (lambda m, g: MHA(**TP_MHA_KW, generator=g, mesh=m), ["attn_x"], ["attn_dy"],
+                lambda mod, x: [mod(x)]),
+    }
+    res["layers"] = {}
+    for name, (build, ins, cots, fn) in layers.items():
+        whole = build(None, torch.Generator().manual_seed(3))
+        ref = _layer_run(whole, [a[k] for k in ins], [a[k] for k in cots], fn)
+        ref["grads"] = _grads(whole)
+        split = build_sharded(build, mesh, torch.Generator().manual_seed(3))
+        ours = _layer_run(split, [a[k] for k in ins], [a[k] for k in cots], fn)
+        ours["grads"] = whole_grads(split, mesh)
+        ours["sharded"] = sorted(tp_layout(split))
+        res["layers"][name] = {"ref": ref, "tp": ours}
+
+    sd = torch.load(params, weights_only=True)
+    op = HyenaOperator(**TP_OP_KW, mesh=mesh)
+    op.load_state_dict(shard_state_dict(sd["op"], mesh, tp_layout(op)))
+    ou = _t(a["op_u"], True)
+    oy = op(ou)
+    (oy * _t(a["op_dy"])).sum().backward()
+    res["op"] = {"y": oy.detach(), "du": ou.grad, "grads": whole_grads(op, mesh),
+                 "aliases": _aliases(op)}
+
+    tokens = torch.from_numpy(a["tokens"])
+    targets = torch.roll(tokens, -1, dims=1)
+    for key, m in (("lm_model4", mesh), ("lm_seq2_model2", mesh_sm)):
+        lm = ConvLMHeadModel(**TP_LM_KW, mesh=m)
+        layout = tp_layout(lm)
+        lm.load_state_dict(shard_state_dict(sd["lm"], m, layout))
+        cols = m.seq_columns(L)
+        loss = lm_loss(lm(tokens[:, cols]), targets[:, cols]) / m.replicas
+        loss.backward()
+        (total,) = reduce_gradients(lm, [loss.detach()], m)
+        grads = gather_state_dict({n: p.grad.clone() for n, p in lm.named_parameters()}, m,
+                                  layout)
+        res[key] = {"loss": total, "grads": grads, "layout": sorted(layout),
+                    "aliases": _aliases(lm)}
+        if key == "lm_model4":  # a clipped LAMB step on these gradients
+            kw = dict(lr=1e-2, weight_decay=0.1, gradient_clip_val=0.05, optimizer_name="lamb")
+            opt = build_optimizer(lm, mesh=m, **kw)[0]
+            norm = opt.step()
+            res["lamb"] = {"norm": norm, "params": gather_state_dict(
+                {n: p.detach() for n, p in lm.named_parameters()}, m, layout)}
+            whole = ConvLMHeadModel(**TP_LM_KW)
+            whole.load_state_dict(sd["lm"])
+            for n, p in whole.named_parameters():
+                p.grad = grads[n].clone()
+            ref_opt = build_optimizer(whole, **kw)[0]
+            res["lamb_ref"] = {"norm": ref_opt.step(), "params": {
+                n: p.detach() for n, p in whole.named_parameters()}}
+    torch.save(res, Path(out) / f"tp_rank{launch.rank()}.pt")
+
+
+def _seeded(module, generator):
+    """`module` with its weights drawn N(0, 0.02) from `generator` in
+    parameter order."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.normal_(0.0, 0.02, generator=generator)
+    return module
