@@ -241,10 +241,38 @@ line:
             `experiment=hg38/hg38_large_1m` on seq 2 x model 2 (data 2 x seq
             8 shipped), 131,073 tokens, batch 1, the curriculum off: (c)'s
             check, B and C 8 a micro-step on every rank.
+12. mesh_rest  the mesh combinations the seq and model axes took last,
+            4 ranks on the one card over gloo, phase 6's genome. (a) kernels
+            A4 and A4' on a rank's channel slice: u 1 x 131,072 x 256 onto
+            W (256, 3 d_c) at d_c 128 and 64, float32 and bf16, the 4-D plan
+            (16, 128, 128), against their plain versions at TOL (A4's tail
+            exactly zero), with ms, bound and library times. (b)
+            `experiment=hg38/hg38_large_1m_singlechip model.layer.front4=true`
+            on `mesh.model=4` at phase 11's cut (131,073, batch 1), 2 steps:
+            losses finite, equal on every rank and falling; A4 20, A4', B and
+            C 8 a step on every rank and nothing else; then one micro-step,
+            dropout off, against one process (phase 11c's check). (c)
+            `experiment=hg38/species_classification` (d 128, 2 layers, pool
+            head) at max_length 131,072 on `mesh.seq=4`, batch 4 (32 shipped),
+            on human and mouse genomes of 140,000-base chromosomes made from
+            a seed: 2 steps (losses finite and equal on every rank, not
+            asked to fall: the shipped warm-up keeps the lr near 1e-6; B and
+            C twice a step, the sequence-sharded route), an evaluation
+            (loss and accuracy finite and the same on every rank), and a
+            micro-step against one process. (d)
+            `experiment=hg38/hg38_attention` (8 heads, learned positions) at
+            max_length 8,193 on data 2 x seq 2, batch 4, attention dropout
+            off, `last_k_ppl` 1024: 2 steps (no kernel), an evaluation (loss
+            and `last_k_ppl` finite and the same on every rank), and a
+            micro-step against one process. (e) phase 9d's order-3 operator (d 256, bf16)
+            with two heads, `post_order_ffn` and `outer_mixing` on the model
+            pairs of data 2 x model 2 at 1 x 32768: each rank one head, B and C
+            twice, y, du and every gathered gradient against the operator
+            whole on the card (1e-2 / 2e-2 / 5e-2 of max).
 Launch counts are zeroed just before this slice's path in phase 2 and
 before each request of phases 4 and 5, each run of phases 6, 8 and 9 and
-each part of phases 7 and 9, and read just after it; in phases 10 and 11
-on each rank before each of its runs.
+each part of phases 7 and 9, and read just after it; in phases 10-12 on
+each rank before each of its runs.
 
 It then prints the card's name and power limit, one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
@@ -257,7 +285,9 @@ last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; phase 9's
 launches (9c's mixed stack and 9d's general Hyena path) under
 "models_launches"; B and C at phase 10's channel pencils with the ranks'
 launches under "parallel"; A, A', B and C at phase 11's channel slices
-with the ranks' launches under "tensor_parallel"; the bf16 rows of A,
+with the ranks' launches under "tensor_parallel"; A4 and A4' at phase
+12a's channel slices and every kernel's launches in phase 12 under
+"mesh_rest"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
 readings, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
@@ -598,11 +628,12 @@ def front4_plan(L, plan):
 
 def front4_library(u, w, bp, wc, bc, rows, m):
     """torch.matmul + cuDNN depthwise conv1d + gate + zero pad, in u's dtype:
-    the one-call-each yardstick of kernel A4."""
+    the one-call-each yardstick of kernel A4 (W (d_in, 3 d))."""
     import torch
     import torch.nn.functional as F
 
-    b, L, d = u.shape
+    b, L = u.shape[:2]
+    d = w.shape[1] // 3
     proj = torch.matmul(u, w.to(u.dtype)) + bp.to(u.dtype)
     conv = F.conv1d(proj.transpose(1, 2), wc.t().contiguous()[:, None, :].to(u.dtype),
                     bc.to(u.dtype), padding=2, groups=3 * d)[..., :L]
@@ -610,26 +641,29 @@ def front4_library(u, w, bp, wc, bc, rows, m):
     return pad(conv[:, 2 * d:] * conv[:, d:2 * d]), pad(conv[:, :d])
 
 
-def check_front4(FF, B, L, plan, dtype, seed):
+def check_front4(FF, B, L, plan, dtype, seed, d_c=None):
     """Kernel A4 against `reference_fwd4` (kernel A's tolerance); the tail
-    past L must be exactly zero."""
+    past L must be exactly zero; d_c as `check_front`'s (a rank's W (d,
+    3 d_c))."""
     import torch
 
     d = D_MODEL
+    d_c = d_c or d
     rows, m, tile = front4_plan(L, plan)
-    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed)
+    _, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d, d_c)
     vx4, x04 = FF.fused_proj_conv_gate4(u, w, bp, wc, bc, rows, m, tile)
     torch.cuda.synchronize()
     vx_ref, x0_ref = FF.reference_fwd4(u, w, bp, wc, bc, rows, m)
     err = [compare(vx4, vx_ref, dtype), compare(x04, x0_ref, dtype)]
-    tail = max(int(torch.count_nonzero(t.reshape(B, d, -1)[..., L:])) for t in (vx4, x04))
+    tail = max(int(torch.count_nonzero(t.reshape(B, d_c, -1)[..., L:])) for t in (vx4, x04))
     if tail:
         raise AssertionError(f"kernel A4 left {tail} nonzero values past L={L}")
     size, lp = u.element_size(), rows * m
-    nbytes = size * (B * L * d + 2 * B * d * lp) + 4 * (d * 3 * d + 3 * 3 * d + 2 * 3 * d)
-    flops = B * L * (2 * d * 3 * d + 3 * d * 7 + d)
+    nbytes = (size * (B * L * d + 2 * B * d_c * lp)
+              + 4 * (d * 3 * d_c + 3 * 3 * d_c + 2 * 3 * d_c))
+    flops = B * L * (2 * d * 3 * d_c + 3 * d_c * 7 + d_c)
     bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
-    return {"name": "fused_front4", "shape": f"B={B} L={L} d={d} {dtype}",
+    return {"name": "fused_front4", "shape": front_shape(B, L, d, d_c, dtype),
             "plan": list(plan), "rows_pad": rows, "m": m, "tile_l": tile, "tail_nonzero": tail,
             "route": "pallas_hyena.py:197",
             "max_abs_err": max(e[0] for e in err), "max_rel_err": max(e[1] for e in err),
@@ -639,16 +673,18 @@ def check_front4(FF, B, L, plan, dtype, seed):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def check_front4_bwd(FF, B, L, plan, dtype, seed):
+def check_front4_bwd(FF, B, L, plan, dtype, seed, d_c=None):
     """Kernel A4' against `reference_bwd4`, with cotangents that are random
-    in the tail too (both must ignore it)."""
+    in the tail too (both must ignore it); d_c as `check_front4`'s (du is
+    then the rank's partial sum)."""
     import torch
 
     d = D_MODEL
+    d_c = d_c or d
     rows, m, tile = front4_plan(L, plan)
-    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed)
-    dvx4 = torch.randn(B, d, rows, m, device="cuda", generator=g).to(u.dtype)
-    dx04 = torch.randn(B, d, rows, m, device="cuda", generator=g).to(u.dtype)
+    g, (u, w, bp, wc, bc) = front_inputs(B, L, dtype, seed, d, d_c)
+    dvx4 = torch.randn(B, d_c, rows, m, device="cuda", generator=g).to(u.dtype)
+    dx04 = torch.randn(B, d_c, rows, m, device="cuda", generator=g).to(u.dtype)
     args = (u, w, bp, wc, bc, dvx4, dx04)
     out = FF.front4_bwd(*args)
     torch.cuda.synchronize()
@@ -662,10 +698,11 @@ def check_front4_bwd(FF, B, L, plan, dtype, seed):
             return torch.autograd.grad(front4_library(*leaves, rows, m), leaves, (dvx4, dx04))
 
     size = u.element_size()
-    nbytes = size * (2 * B * L * d + 2 * B * d * L) + 4 * (2 * d * 3 * d + 11 * 3 * d)
-    flops = 3 * 2 * B * L * d * 3 * d + B * L * 3 * d * 16
+    nbytes = (size * (2 * B * L * d + 2 * B * d_c * L)
+              + 4 * (2 * d * 3 * d_c + 11 * 3 * d_c))
+    flops = 3 * 2 * B * L * d * 3 * d_c + B * L * 3 * d_c * 16
     bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
-    return {"name": "fused_front4_bwd", "shape": f"B={B} L={L} d={d} {dtype}",
+    return {"name": "fused_front4_bwd", "shape": front_shape(B, L, d, d_c, dtype),
             "plan": list(plan), "route": "pallas_hyena.py:448",
             "errors": {k: v[0] for k, v in errs.items()},
             "max_abs_err": max(e[0] for e in errs.values()),
@@ -2119,24 +2156,27 @@ def chromatin_phase(cli, kernels, tmp: Path, seed: int) -> dict:
     return total
 
 
-def write_species(root: Path, seed: int) -> list:
-    """Five species directories, every chromosome of their
-    SPECIES_CHROMOSOME_SPLITS entry as `chr{n}.fa`, human's valid ones as
-    `chr{n}.fna.gz`; each species at its SPECIES_GC. Returns the paths the
-    datasets must decompress the gzipped ones to."""
+def write_species(root: Path, seed: int, species=tuple(SPECIES_GC),
+                  n_bases: int = SPECIES_CHROM_BASES) -> list:
+    """The directories of `species` (by default all five), every chromosome
+    of their SPECIES_CHROMOSOME_SPLITS entry as `chr{n}.fa` of `n_bases`
+    bases, human's valid ones as `chr{n}.fna.gz`; each species at its
+    SPECIES_GC. Returns the paths the datasets must decompress the gzipped
+    ones to."""
     from hyena_dna_tpu_torch.data.species import SPECIES_CHROMOSOME_SPLITS
 
     rng = np.random.default_rng(seed)
     bases = np.frombuffer(b"ACGT", np.uint8)
     unpacked = []
-    for spec, gc in SPECIES_GC.items():
+    for spec in species:
+        gc = SPECIES_GC[spec]
         d = root / spec
         d.mkdir(parents=True)
         splits = SPECIES_CHROMOSOME_SPLITS[spec]
         p = [(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2]
         for split in ("train", "valid", "test"):
             for c in splits[split]:
-                seq = bases[rng.choice(4, SPECIES_CHROM_BASES, p=p)].tobytes()
+                seq = bases[rng.choice(4, n_bases, p=p)].tobytes()
                 text = (f">chr{c}\n".encode()
                         + b"".join(seq[i:i + 80] + b"\n" for i in range(0, len(seq), 80)))
                 if spec == "human" and split == "valid":
@@ -2684,11 +2724,13 @@ def parallel_trainer(kernels, cfg: dict) -> dict:
             "final": {k: v for k, v in final.items() if isinstance(v, float)}}
 
 
-def parallel_grads(cfg: dict, seed: int, length: int = PAR_L):
-    """10c (and 11c, 11d) on one rank: one micro-step of the model with
-    dropout off on the rank's columns of a seeded 1 x (length + 1) token
-    row, its loss weighted by the rank's share of the tokens, the gradients
-    and loss reduced by the train step's own reduction
+def parallel_grads(cfg: dict, seed: int, length: int = PAR_L, label: int | None = None):
+    """10c (and 11c, 11d, 12b-12d) on one rank: one micro-step of the model
+    with dropout off on the rank's columns of a seeded 1 x (length + 1)
+    token row (with `label`, a classification row: the first `length`
+    tokens and that label, whole on every rank), its loss weighted by the
+    rank's share (of the tokens, or 1 / replicas of a per-sequence loss),
+    the gradients and loss reduced by the train step's own reduction
     (`train/step.py::reduce_gradients`) and, under a model axis, the sharded
     gradients gathered whole. Returns (loss, {name: gradient})."""
     from hyena_dna_tpu_torch.parallel.sharding import gather_state_dict, tp_layout
@@ -2697,11 +2739,12 @@ def parallel_grads(cfg: dict, seed: int, length: int = PAR_L):
 
     trainer = Trainer(cfg)
     mesh = trainer.mesh
-    x, y = parity_tokens(seed, trainer.device, length)
+    x, y = parity_tokens(seed, trainer.device, length, label)
     cols = mesh.seq_columns(x.shape[1])
     model = trainer.model.train()
     logits = model(x[:, cols].contiguous(), trainer.generator)
-    loss = trainer.task.compute_loss(logits, y[:, cols], train=True) / mesh.replicas
+    y = y[:, cols] if y.dim() == 2 else y
+    loss = trainer.task.compute_loss(logits, y, train=True) / mesh.replicas
     loss.backward()
     (total,) = reduce_gradients(model, [loss.detach()], mesh)
     grads = gather_state_dict({n: p.grad.detach() for n, p in model.named_parameters()}, mesh,
@@ -2711,12 +2754,15 @@ def parallel_grads(cfg: dict, seed: int, length: int = PAR_L):
     return float(total), grads
 
 
-def parity_tokens(seed: int, device, length: int = PAR_L):
-    """A seeded 1 x (length + 1) row of base tokens (ids 7-10) as (x, y)."""
+def parity_tokens(seed: int, device, length: int = PAR_L, label: int | None = None):
+    """A seeded 1 x (length + 1) row of base tokens (ids 7-10) as (x, y); with
+    `label`, (its first `length` tokens, the (1,) label)."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     ids = torch.randint(7, 11, (1, length + 1), generator=g)
+    if label is not None:
+        return ids[:, :-1].to(device), torch.tensor([label], device=device)
     return ids[:, :-1].to(device), ids[:, 1:].to(device)
 
 
@@ -2772,12 +2818,12 @@ def parallel_ranks(tmp: str, seed: int) -> None:
 
 def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float,
                        expected: dict | None = None, phase: str = "parallel",
-                       steps: int = PAR_STEPS) -> dict:
-    """Log a phase 10 (or 11) trainer run from every rank's record and raise
-    unless its losses are finite and the last below the first, every rank
-    saw the same losses, and every step launched `expected` (by default B
-    and C PAR_LAUNCHES times a micro-step) and nothing else. Returns the
-    launches summed over ranks."""
+                       steps: int = PAR_STEPS, falls: bool = True) -> dict:
+    """Log a phase 10 (11, 12) trainer run from every rank's record and raise
+    unless its losses are finite and (with `falls`) the last below the
+    first, every rank saw the same losses, and every step launched
+    `expected` (by default B and C PAR_LAUNCHES times a micro-step) and
+    nothing else. Returns the launches summed over ranks."""
     import statistics
 
     runs = [r[part] for r in ranks]
@@ -2799,7 +2845,7 @@ def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float
     gloo = ranks[0]["backend"] == "gloo"
     checks = {"steps": len(losses) == steps,
               "losses_finite": all(math.isfinite(v) for v in losses),
-              "loss_falls": losses[-1] < losses[0],
+              "loss_falls": losses[-1] < losses[0] or not falls,
               "ranks_agree": all([s["loss"] for s in r["steps"]] == losses for r in runs),
               "launches_per_step": all(s["launches"] == expect for r in runs
                                        for s in r["steps"])}
@@ -2831,7 +2877,7 @@ def check_parallel_run(ranks: list, part: str, label: str, accum: int, t0: float
 
 
 def one_process_parity(cfg: dict, seed: int, length: int, ranks: list, part: str,
-                       grads_file: Path, label: str, phase: str) -> None:
+                       grads_file: Path, label: str, phase: str, cls: int | None = None) -> None:
     """The micro-step of `parallel_grads` in this process on the card (mesh
     1, the fused route) against the ranks' (their loss and rank 0's whole
     gradients in `grads_file`): loss within MODEL_BF16["loss"] relative,
@@ -2842,7 +2888,7 @@ def one_process_parity(cfg: dict, seed: int, length: int, ranks: list, part: str
     from hyena_dna_tpu_torch.train.trainer import Trainer
 
     trainer = Trainer(cfg)
-    x, y = parity_tokens(seed, trainer.device, length)
+    x, y = parity_tokens(seed, trainer.device, length, cls)
     model = trainer.model.train()
     loss = trainer.task.compute_loss(model(x, trainer.generator), y, train=True)
     loss.backward()
@@ -3028,6 +3074,248 @@ def tp_phase(FF, FB, kernels, tmp: Path, seed: int):
                        "model 2 vs one process, 1 x 131,072 bf16, dropout off",
                        "tensor_parallel")
     log({"phase": "tensor_parallel", "part": "summary", "seconds": time.perf_counter() - t_phase,
+         "launches": total})
+    return rows, total
+
+
+# Phase 12, the mesh's remaining combinations: kernels A4 and A4' on a
+# rank's channel slice (12a, this process), then one world of MR_WORLD
+# ranks on the one card (gloo) for 12b-12e, each rank writing its record
+MR_WORLD = 4
+MR_STEPS = 2
+MR_SPECIES_LENGTH = 131_072  # 12c: species_classification's window, the seq-4 cut
+MR_SPECIES_BATCH = 4  # shipped 32: four ranks' activations on one card
+MR_SPECIES_BASES = 140_000  # human and mouse chromosomes that hold a 131,072 window
+MR_ATTN_LENGTH = 8193  # 12d: hg38_attention's max_length (8192 tokens a row)
+MR_ATTN_BATCH = 4  # shipped 256, cut for the time limit
+MR_LAST_K = 1024
+MR_OP_SHAPE = (1, 32768)  # 12e: phase 9d's operator, one row (outer mixing's 4-D products)
+MR_OP_TOL = {"y": 1e-2, "du": 2e-2, "grads": 5e-2}  # the bf16 operator, as 9d and MODEL_BF16
+MR_F4_PLAN = (16, 128, 128)  # fft 2^18: the 4-D plan at 131,072 tokens, odd B
+
+
+def mesh_rest_configs(tmp: Path) -> dict:
+    """12b-12d's configs and the one-process configs their micro-steps are
+    held to (`train/__main__.py::build_config`)."""
+    from hyena_dna_tpu_torch.train.__main__ import build_config
+
+    genome = tmp / "genome"
+    data = lambda name, steps=MR_STEPS: parallel_data(genome, tmp / name, steps)
+    front4 = ["experiment=hg38/hg38_large_1m_singlechip", "model.layer.front4=true",
+              f"dataset.max_length={TP_LENGTH}", "dataset.batch_size=1",
+              "trainer.accumulate_grad_batches=1"]
+    species = ["experiment=hg38/species_classification",
+               f"dataset.species_dir={tmp / 'species_131k'}",
+               f"dataset.max_length={MR_SPECIES_LENGTH}",
+               f"dataset.batch_size={MR_SPECIES_BATCH}",
+               f"dataset.total_size={MR_SPECIES_BATCH * MR_STEPS}"]
+    attention = ["experiment=hg38/hg38_attention", f"dataset.max_length={MR_ATTN_LENGTH}",
+                 f"dataset.batch_size={MR_ATTN_BATCH}", f"task.last_k_ppl={MR_LAST_K}",
+                 f"task.seq_len={MR_ATTN_LENGTH - 1}"]
+    off = ["model.embed_dropout=0.0"]
+    attn_off = off + ["model.attn_cfg.dropout=0.0"]
+    cfgs = {"12b": build_config(front4 + ["mesh.model=4"] + data("mr_front4")),
+            "12b_parity": build_config(front4 + off + ["mesh.model=4"] + data("mr_f4_parity")),
+            "12b_single": build_config(front4 + off + data("mr_f4_single")),
+            "12c": build_config(species + ["mesh.seq=4"] + data("mr_species")),
+            "12c_parity": build_config(species + off + ["mesh.seq=4"] + data("mr_sp_parity")),
+            "12c_single": build_config(species + off + data("mr_sp_single")),
+            "12d": build_config(attention + attn_off + ["mesh.data=2", "mesh.seq=2"]
+                                + data("mr_attention")),
+            "12d_parity": build_config(attention + attn_off + ["mesh.data=2", "mesh.seq=2"]
+                                       + data("mr_at_parity")),
+            "12d_single": build_config(attention + attn_off + data("mr_at_single"))}
+    return cfgs
+
+
+def general_hyena_tp(kernels, mesh, seed: int) -> dict:
+    """12e on one rank of a model pair: phase 9d's order-3 operator (d 256,
+    bf16) with two heads, `post_order_ffn` and `outer_mixing` split over the
+    model axis of 2 (each rank one head: kernels B and C on its head's
+    (B, head_dim) convs), forward and backward at MR_OP_SHAPE, against the
+    same operator whole on the card (the same weights, input and cotangent):
+    y, du and every gathered gradient."""
+    import torch
+
+    from hyena_dna_tpu_torch.models.hyena import HyenaOperator
+    from hyena_dna_tpu_torch.parallel.sharding import (PARTIAL, SHARDED, gather_tensor,
+                                                       shard_state_dict, tp_layout)
+
+    b, length = MR_OP_SHAPE
+    kw = dict(d_model=D_MODEL, l_max=length, order=3, num_heads=2, filter_order=64,
+              post_order_ffn=True, outer_mixing=True, filter_cfg=dict(emb_dim=5, w=10),
+              dtype=torch.bfloat16)
+    whole = HyenaOperator(**kw)
+    whole.init_weights(torch.Generator().manual_seed(seed))
+    split = HyenaOperator(**kw, mesh=mesh)
+    layout = tp_layout(split)
+    split.load_state_dict(shard_state_dict(whole.state_dict(), mesh, layout))
+    whole, split = whole.cuda().train(), split.cuda().train()
+    gen = torch.Generator().manual_seed(seed + 1)
+    u = torch.randn(b, length, D_MODEL, generator=gen).to("cuda", torch.bfloat16)
+    dy = torch.randn(b, length, D_MODEL, generator=gen).to("cuda", torch.bfloat16)
+
+    def run(op):
+        x = u.clone().requires_grad_(True)
+        y = op(x)
+        y.backward(dy)
+        return y.detach(), x.grad
+
+    zero_counts(kernels)
+    y, du = run(split)
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    grads = {}
+    for name, prm in split.named_parameters():
+        g = prm.grad.detach().float()
+        kind = layout.get(name, ("",))
+        if kind[0] == SHARDED:
+            g = gather_tensor(g, *kind[1:], mesh)
+        elif kind[0] == PARTIAL:
+            torch.distributed.all_reduce(g, group=mesh.model_group)
+        grads[name] = g
+    y_ref, du_ref = run(whole)
+    ref = {n: p.grad.detach().float() for n, p in whole.named_parameters()}
+    err = {"y": rel_err(y, y_ref), "du": rel_err(du, du_ref),
+           "grads": max(rel_err(grads[n], ref[n]) for n in ref)}
+    worst = max(ref, key=lambda n: rel_err(grads[n], ref[n]))
+    return {"launches": launches, "rel_err": err, "worst_param": worst,
+            "same_params": sorted(grads) == sorted(ref), "split": split.split,
+            "finite": bool(torch.isfinite(y).all()), "coords": [mesh.model_index]}
+
+
+def mesh_rest_ranks(tmp: str, seed: int) -> None:
+    """Each rank of the phase 12 world: join (`initialize_distributed`: the
+    card, gloo when the ranks share it), then 12b's trainer run (model 4,
+    front4) and micro-step, 12c's (species, seq 4) and 12d's (attention,
+    data 2 x seq 2), then 12e's operator on the model pairs of a data 2 x
+    model 2 mesh (data index 0 runs it, index 1 waits)."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel import launch
+    from hyena_dna_tpu_torch.parallel.sharding import make_mesh
+    from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
+
+    set_card_numerics()
+    kernels = port_kernels()
+    launch.initialize_distributed(torch.device("cuda"))
+    tmp = Path(tmp)
+    cfgs = mesh_rest_configs(tmp)
+    res = {"backend": torch.distributed.get_backend()}
+    label = {"12b": None, "12c": 1, "12d": None}
+    length = {"12b": TP_TOKENS, "12c": MR_SPECIES_LENGTH, "12d": MR_ATTN_LENGTH - 1}
+    for i, part in enumerate(("12b", "12c", "12d")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        res[part] = parallel_trainer(kernels, cfgs[part])
+        gc.collect()
+        torch.cuda.empty_cache()
+        zero_counts(kernels)
+        loss, grads = parallel_grads(cfgs[f"{part}_parity"], seed + 1 + i, length[part],
+                                     label[part])
+        res[f"{part}_parity"] = {"loss": loss, "launches": read_counts(kernels)}
+        if launch.is_main_process():
+            torch.save(grads, tmp / f"{part}_grads.pt")
+        del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_mesh(data=2, seq=1, model=2)
+    if mesh.data_index == 0:
+        res["12e"] = general_hyena_tp(kernels, mesh, seed + 5)
+    launch.barrier()
+    (tmp / f"mr_rank{launch.rank()}.json").write_text(json.dumps(res))
+
+
+def mesh_rest_phase(FF, kernels, tmp: Path, seed: int):
+    """Phase 12 in phase 6's directory (its genome). 12a: kernels A4 and A4'
+    on a rank's channel slice (1 x 131,072 x 256 onto d_c 128 and 64,
+    float32 and bf16, plan (16, 128, 128)) against their plain versions;
+    then the world of ranks (12b-12e) and the one-process sides of 12b-12d.
+    Returns (12a's rows, the launches of 12b-12e summed over the ranks)."""
+    import torch
+
+    from hyena_dna_tpu_torch.parallel import spawn
+
+    t_phase = time.perf_counter()
+    rows = []
+    for i, (dtype, d_c) in enumerate((dt, c) for dt in ("float32", "bfloat16")
+                                     for c in TP_SLICES):
+        rows += [check_front4(FF, 1, TP_TOKENS, MR_F4_PLAN, dtype, 140 + 2 * i, d_c),
+                 check_front4_bwd(FF, 1, TP_TOKENS, MR_F4_PLAN, dtype, 141 + 2 * i, d_c)]
+    for row in rows:
+        log({"phase": "mesh_rest", "part": "12a A4 and A4' on a channel slice", **row})
+    torch.cuda.empty_cache()
+    write_species(tmp / "species_131k", seed, ("human", "mouse"), MR_SPECIES_BASES)
+    spawn(mesh_rest_ranks, MR_WORLD, args=(str(tmp), seed), timeout=900)
+    ranks = [json.loads((tmp / f"mr_rank{r}.json").read_text()) for r in range(MR_WORLD)]
+    front4 = expected_launches("bf16", 1, remat="residual", group=2, front4=True,
+                               residual="fp32")
+    seq_route = lambda n_layer: {n: n_layer if n in ("fftconv", "fftconv_bwd") else 0
+                                 for n in front4}
+    species_layers = 2
+    expected = {"12b": front4, "12c": seq_route(species_layers), "12d": seq_route(0)}
+    labels = {"12b": "12b experiment=hg38/hg38_large_1m_singlechip front4, model 4",
+              "12c": "12c experiment=hg38/species_classification, seq 4",
+              "12d": "12d experiment=hg38/hg38_attention, data 2 x seq 2, last_k_ppl"}
+    total = {}
+    for part in ("12b", "12c", "12d"):
+        # 12c's two steps need not lower the loss: the shipped species run
+        # warms up from lr 1e-6 over 60 steps (step 2 at 2.6e-6) with embed
+        # dropout 0.1, on two batches of other random windows; its check of
+        # the math is the micro-step against one process below
+        for n, c in check_parallel_run(ranks, part, labels[part], 1, t_phase, expected[part],
+                                       "mesh_rest", MR_STEPS, falls=part != "12c").items():
+            total[n] = total.get(n, 0) + c
+    finals = {part: ranks[0][part]["final"] for part in ("12c", "12d")}
+    checks = {f"{p}_launches": all(r[f"{p}_parity"]["launches"] == expected[p] for r in ranks)
+              for p in expected}
+    # the evaluations: finite, and the same on every rank (the seq ranks'
+    # pooled logits and per-position NLL joined by the collectives)
+    agree = lambda a, b: all(abs(a[k] - b[k]) <= 1e-6 * max(abs(b[k]), 1.0) for k in b
+                             if isinstance(b[k], float)) and a.keys() == b.keys()
+    for part, keys in (("12c", ("test/loss", "test/accuracy")),
+                       ("12d", ("test/loss", "test/last_k_ppl"))):
+        checks[f"{part}_eval_finite"] = all(math.isfinite(finals[part].get(k, math.nan))
+                                            for k in keys)
+        checks[f"{part}_eval_ranks_agree"] = all(agree(r[part]["final"], finals[part])
+                                                 for r in ranks)
+    log({"phase": "mesh_rest", "part": "12b-12d micro-step launches and evaluations",
+         "launches": {p: ranks[0][f"{p}_parity"]["launches"] for p in expected},
+         "final": finals, "checks": checks, "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"phase 12 launches or evaluations: {checks}")
+    for r in ranks:
+        for part in expected:
+            for n, c in r[f"{part}_parity"]["launches"].items():
+                total[n] = total.get(n, 0) + c
+    cfgs = mesh_rest_configs(tmp)
+    cls = {"12c": 1}
+    length = {"12b": TP_TOKENS, "12c": MR_SPECIES_LENGTH, "12d": MR_ATTN_LENGTH - 1}
+    for i, part in enumerate(("12b", "12c", "12d")):
+        one_process_parity(cfgs[f"{part}_single"], seed + 1 + i, length[part], ranks,
+                           f"{part}_parity", tmp / f"{part}_grads.pt",
+                           f"{labels[part]} vs one process, dropout off", "mesh_rest",
+                           cls.get(part))
+    ops = [r["12e"] for r in ranks if "12e" in r]
+    conv = {n: 2 if n in ("fftconv", "fftconv_bwd") else 0 for n in front4}
+    checks = {"ranks": len(ops) == 2, "launches": all(o["launches"] == conv for o in ops),
+              "split": all(o["split"] == "heads" for o in ops),
+              "finite": all(o["finite"] for o in ops),
+              "same_params": all(o["same_params"] for o in ops),
+              **{f"{k}_within_tol": all(o["rel_err"][k] <= tol for o in ops)
+                 for k, tol in MR_OP_TOL.items()}}
+    log({"phase": "mesh_rest", "part": "12e order-3 Hyena, 2 heads, post-order FFN and outer "
+         "mixing, model 2 vs whole", "B": MR_OP_SHAPE[0], "L": MR_OP_SHAPE[1], "d": D_MODEL,
+         "precision": "bf16", "rel_err": [o["rel_err"] for o in ops],
+         "worst_param": [o["worst_param"] for o in ops], "tol": MR_OP_TOL,
+         "launches_per_rank": [o["launches"] for o in ops], "checks": checks,
+         "ok": all(checks.values())})
+    if not all(checks.values()):
+        raise AssertionError(f"phase 12e failed its checks: {checks}")
+    for o in ops:
+        for n, c in o["launches"].items():
+            total[n] = total.get(n, 0) + c
+    log({"phase": "mesh_rest", "part": "summary", "seconds": time.perf_counter() - t_phase,
          "launches": total})
     return rows, total
 
@@ -3269,6 +3557,10 @@ def main() -> int:
         tp_rows, tp_launches = tp_phase(FF, FB, kernels, Path(trainer_tmp), seed=23)
         for name, n in tp_launches.items():
             total[name] += n
+        # phase 12 on the same genome
+        mr_rows, mr_launches = mesh_rest_phase(FF, kernels, Path(trainer_tmp), seed=24)
+        for name, n in mr_launches.items():
+            total[name] += n
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -3353,6 +3645,14 @@ def main() -> int:
                                                       **{k: r[k] for k in timing}}
                                          for r in tp_rows if r["name"] == name}}
                        for name in ("fused_front", "fused_front_bwd", "fftconv", "fftconv_bwd")}
+    # phase 12: A4 and A4' on a rank's channel slice (12a) with the ranks'
+    # launches of every kernel in 12b-12e
+    mesh_rest = {name: {"launches": mr_launches.get(name, 0),
+                        **({"slices": {r["shape"]: {"max_abs_err": r["max_abs_err"],
+                                                    **{k: r[k] for k in timing}}
+                                       for r in mr_rows if r["name"] == name}}
+                           if name in front4 else {})}
+                 for name in sources if mr_launches.get(name, 0) or name in front4}
     # errors: the worst over every shape checked in phase 2 (bf16 dk sums
     # B * L products, so one bf16 step of it is large in absolute terms)
     log({"kernels": [
@@ -3370,7 +3670,8 @@ def main() -> int:
          **({"models_launches": models_launches[name]} if models_launches.get(name) else {}),
          **({"species": species[name]} if name in species else {}),
          **({"parallel": parallel[name]} if name in parallel else {}),
-         **({"tensor_parallel": tensor_parallel[name]} if name in tensor_parallel else {})}
+         **({"tensor_parallel": tensor_parallel[name]} if name in tensor_parallel else {}),
+         **({"mesh_rest": mesh_rest[name]} if name in mesh_rest else {})}
         for name, row in headline.items()]})
     log({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -2,8 +2,9 @@
 // Hopper.
 //
 // Kernel A's math (fused_front_common.cuh): proj = u @ W + bp, the causal
-// k=3 depthwise conv with bias, vx = v * x1 and x0. The outputs are
-// (B, d, rows_pad, m), which is the padded flat (B, d, lp) with
+// k=3 depthwise conv with bias, vx = v * x1 and x0, at kernel A's two
+// widths (u (B, L, di), W (di, 3 dc); a tensor-parallel rank's dc = d / M).
+// The outputs are (B, dc, rows_pad, m), which is the padded flat (B, dc, lp) with
 // lp = rows_pad * m >= L: times t < L hold the results and every t in
 // [L, lp) is zero, the causal FFT's zero padding written once at the source.
 // The 4-D conv entries (ops/fused_fftconv.py::fftconv_outer_fwd4) read it as
@@ -26,13 +27,16 @@
 #define FRONT_NS front4_fwd
 #include "fused_front_common.cuh"
 
-// All pointers to contiguous float32 device memory: u (B, L, d), vx and x0
-// (B, d, lp). Launches on `stream`, does not synchronise; returns the
-// cudaError_t of the launch.
+// All pointers to contiguous float32 device memory: u (B, L, di), W
+// (di, 3 dc), vx and x0 (B, dc, lp): di == dc == d in the whole model, dc =
+// d / M on a rank of a model axis of M (its channels of each chunk).
+// Launches on `stream`, does not synchronise; returns the cudaError_t of
+// the launch.
 extern "C" int hyena_fused_front4_fwd(const float* u, const float* w, const float* bp,
                                       const float* wc, const float* bc, float* vx, float* x0,
-                                      int B, int L, int lp, int d, cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, lp, d, d, stream);
+                                      int B, int L, int lp, int di, int dc,
+                                      cudaStream_t stream) {
+  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, lp, di, dc, stream);
 }
 
 // As hyena_fused_front4_fwd with u, vx and x0 bfloat16, the parameters
@@ -40,11 +44,11 @@ extern "C" int hyena_fused_front4_fwd(const float* u, const float* w, const floa
 extern "C" int hyena_fused_front4_fwd_bf16(const __nv_bfloat16* u, const float* w,
                                            const float* bp, const float* wc, const float* bc,
                                            __nv_bfloat16* vx, __nv_bfloat16* x0,
-                                           __nv_bfloat16* ws, int B, int L, int lp, int d,
-                                           cudaStream_t stream) {
-  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, lp, d, d, stream);
+                                           __nv_bfloat16* ws, int B, int L, int lp, int di,
+                                           int dc, cudaStream_t stream) {
+  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, lp, di, dc, stream);
 }
 
 // bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
-// (di, dc) (-1 if it exceeds an int): kernel A's helper, called with (d, d).
+// (di, dc) (-1 if it exceeds an int): kernel A's helper.
 extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }

@@ -26,38 +26,40 @@
 #include "fused_front_bwd_common.cuh"
 
 // As hyena_fused_front_bwd (fused_front_bwd.cu) with dvx and dx0
-// (B, d, lp), lp >= L; all pointers to contiguous float32 device memory.
+// (B, dc, lp), lp >= L; u and du (B, L, di), W (di, 3 dc): on a rank of a
+// model axis du is the rank's partial sum. All pointers to contiguous
+// float32 device memory.
 extern "C" int hyena_fused_front4_bwd(const float* u, const float* w, const float* bp,
                                       const float* wc, const float* bc, const float* dvx,
                                       const float* dx0, float* du, float* dw, float* dparams,
                                       float* dproj, float* part, float* dwpart, int B, int L,
-                                      int lp, int d, int tiles, int slices,
+                                      int lp, int di, int dc, int tiles, int slices,
                                       cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part,
-                                 dwpart, B, L, lp, d, d, tiles, slices, stream);
+  return FRONT_NS::launch(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, dproj, part, dwpart, B,
+                          L, lp, di, dc, tiles, slices, stream);
 }
 
 // As hyena_fused_front4_bwd with u, dvx, dx0 and du bfloat16, the rest
 // float32, on the tensor cores: the scratch and runs as
-// hyena_fused_front_bwd_bf16's (the runs depend on B, L and d, not lp, so
-// A4' gives A''s bits).
+// hyena_fused_front_bwd_bf16's (the runs depend on B, L, di and dc, not
+// lp, so A4' gives A''s bits).
 extern "C" int hyena_fused_front4_bwd_bf16(const __nv_bfloat16* u, const float* w,
                                            const float* bp, const float* wc, const float* bc,
                                            const __nv_bfloat16* dvx, const __nv_bfloat16* dx0,
                                            __nv_bfloat16* du, float* dw, float* dparams,
                                            __nv_bfloat16* ws, float* part, float* dwpart,
-                                           int B, int L, int lp, int d, int runs,
+                                           int B, int L, int lp, int di, int dc, int runs,
                                            cudaStream_t stream) {
   return FRONT_NS::launch_bf16(u, w, bp, wc, bc, dvx, dx0, du, dw, dparams, ws, part, dwpart, B,
-                               L, lp, d, d, runs, stream);
+                               L, lp, di, dc, runs, stream);
 }
 
 // bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
-// (di, dc) (-1 if it exceeds an int): kernel A''s helper, called with (d, d).
+// (di, dc) (-1 if it exceeds an int): kernel A''s helper.
 extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }
 
 // The run count `runs` the bf16 entry takes at (B, L, di, dc): kernel A''s
-// helper, called with (B, L, d, d).
+// helper.
 extern "C" int hyena_front_bwd_runs(int B, int L, int di, int dc) {
   return FRONT_NS::bwd_runs(B, L, di, dc);
 }

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import mmap
 import os
+import tempfile
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -96,12 +97,21 @@ class FastaFile:
                 raise FileNotFoundError(f"no index at {fai} and build_index=False")
             recs = build_fai(self.path)
             self._index = {r[0]: r[1:] for r in recs}
-            try:  # cache the index for subsequent runs
-                with open(fai, "w") as f:
+            # cache the index for subsequent runs: written to a file of its
+            # own and renamed into place, so a process that opens the FASTA
+            # at the same moment (the ranks of a mesh) never reads a partly
+            # written index
+            part = None
+            try:
+                fd, part = tempfile.mkstemp(suffix=".part", prefix=fai.name + ".",
+                                            dir=fai.parent)
+                with os.fdopen(fd, "w") as f:
                     for name, (length, offset, lb, lw) in self._index.items():
                         f.write(f"{name}\t{length}\t{offset}\t{lb}\t{lw}\n")
-            except OSError:
-                pass  # read-only dir; keep the in-memory index
+                os.replace(part, fai)
+            except OSError:  # read-only dir; keep the in-memory index
+                if part is not None:
+                    Path(part).unlink(missing_ok=True)
         self._file = open(self.path, "rb")
         self._mmap = mmap.mmap(self._file.fileno(), 0, access=mmap.ACCESS_READ)
 

@@ -16,6 +16,7 @@ gzipped chromosome (`chr{n}.fna.gz`) is decompressed once beside itself.
 from __future__ import annotations
 
 import gzip
+import os
 from pathlib import Path
 from typing import Dict, List, Optional, Union
 
@@ -162,9 +163,14 @@ class SpeciesDataset:
                 return p
         gz = spec_path / f"chr{chrom}.fna.gz"
         if gz.exists():  # decompress once, as upstream does
+            # into a file of this process's own, renamed into place at once: the
+            # ranks of a mesh read the same directory, and none may find the
+            # .fna half written
             out = spec_path / f"chr{chrom}.fna"
-            with gzip.open(gz, "rb") as f_in, open(out, "wb") as f_out:
+            part = spec_path / f"chr{chrom}.fna.{os.getpid()}.part"
+            with gzip.open(gz, "rb") as f_in, open(part, "wb") as f_out:
                 f_out.write(f_in.read())
+            os.replace(part, out)
             return out
         raise FileNotFoundError(f"no chr{chrom}.fna/.fa under {spec_path}")
 

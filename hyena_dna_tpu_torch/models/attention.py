@@ -30,6 +30,19 @@ for every head and sliced (`models/nn.py::dropout_slice`), and
 `out_proj`'s partial products are summed by `reduce_from_model` before its
 bias is added once. A head count that does not divide by M runs whole on
 each rank.
+
+Sequence parallelism (a `mesh` whose seq axis S is above 1; the JAX
+package shards the batch P("data", "seq") and lets GSPMD run attention on
+the global view): rank r holds the queries of its L / S columns, q stays
+local, and k and v are gathered over the seq group
+(`ops/distributed.py::seq_gather`, one all-gather of the stacked pair; the
+gradient comes back reduce-scattered). Under `causal` the rank needs only
+the first (r + 1) L / S keys; its queries sit at an offset, so the causal
+mask is aligned to the lower-right corner
+(`torch.nn.attention.bias.causal_lower_right`, which keeps SDPA's fused
+backends; `is_causal=True` would align it to the top-left). Rotary
+embeddings use the global positions, and the dropout mask is drawn for the
+whole (B, L, H, hd) output and sliced at the rank's columns (and heads).
 """
 
 from __future__ import annotations
@@ -40,20 +53,22 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.attention.bias import causal_lower_right
 
 from hyena_dna_tpu_torch.models.nn import dropout_slice, linear, row_parallel
-from hyena_dna_tpu_torch.ops.distributed import copy_to_model
+from hyena_dna_tpu_torch.ops.distributed import copy_to_model, seq_gather
 from hyena_dna_tpu_torch.parallel.sharding import model_axis
 
 
-def apply_rotary(q: torch.Tensor, k: torch.Tensor, rotary_dim: int):
+def apply_rotary(q: torch.Tensor, k: torch.Tensor, rotary_dim: int, start: int = 0):
     """Rotary embeddings on q, k (B, L, H, hd) over their first `rotary_dim`
     features: halves x1, x2 -> (x1 cos - x2 sin, x1 sin + x2 cos) with the
-    frequencies 10000^(-2i / rotary_dim) at positions 0..L-1."""
+    frequencies 10000^(-2i / rotary_dim) at positions start..start+L-1."""
     length = q.shape[1]
     inv_freq = 1.0 / (10000 ** (torch.arange(0, rotary_dim, 2, device=q.device,
                                              dtype=torch.float32) / rotary_dim))
-    freqs = torch.outer(torch.arange(length, device=q.device, dtype=torch.float32), inv_freq)
+    positions = torch.arange(start, start + length, device=q.device, dtype=torch.float32)
+    freqs = torch.outer(positions, inv_freq)
     cos, sin = freqs.cos()[None, :, None], freqs.sin()[None, :, None]
 
     def rot(x):
@@ -84,6 +99,7 @@ class MHA(nn.Module):
         self.init_std = init_std
         self.dtype = dtype
         self.tp = model_axis(mesh, num_heads)
+        self.seq = mesh if mesh is not None and mesh.seq > 1 else None
         m = self.tp.model if self.tp is not None else 1
         self.local_heads = num_heads // m
         self.head0 = self.local_heads * (self.tp.model_index if self.tp is not None else 0)
@@ -119,12 +135,19 @@ class MHA(nn.Module):
         x = copy_to_model(x, self.tp)
         qkv = linear(x, self.Wqkv, self.dtype).reshape(b, length, 3, h, hd)
         q, k, v = qkv.unbind(2)
+        r, s = (self.seq.seq_index, self.seq.seq) if self.seq is not None else (0, 1)
         if self.rotary_emb_dim > 0:
-            q, k = apply_rotary(q, k, self.rotary_emb_dim)
+            q, k = apply_rotary(q, k, self.rotary_emb_dim, r * length)
+        mask = {"is_causal": self.causal}
+        if s > 1:  # every rank's keys and values, up to this rank's last column if causal
+            keys = (r + 1) * length if self.causal else s * length
+            k, v = seq_gather(torch.stack([k, v]), self.seq, dim=2)[:, :, :keys].unbind(0)
+            if self.causal and r > 0:
+                mask = {"attn_mask": causal_lower_right(length, keys)}
         scale = self.softmax_scale or 1.0 / math.sqrt(hd)
         out = F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                             v.transpose(1, 2), dropout_p=0.0,
-                                             is_causal=self.causal, scale=scale)
-        out = dropout_slice(out.transpose(1, 2), self.dropout, self.training, generator, 2,
-                            self.num_heads, self.head0).reshape(b, length, h * hd)
-        return row_parallel(out, self.out_proj, self.dtype, self.tp)
+                                             v.transpose(1, 2), dropout_p=0.0, scale=scale,
+                                             **mask)
+        out = dropout_slice(out.transpose(1, 2), self.dropout, self.training, generator,
+                            (1, s * length, r * length), (2, self.num_heads, self.head0))
+        return row_parallel(out.reshape(b, length, h * hd), self.out_proj, self.dtype, self.tp)

@@ -60,7 +60,7 @@ from hyena_dna_tpu_torch.ops.distributed import copy_to_model, reduce_from_model
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
 from hyena_dna_tpu_torch.ops.mlp_fused import applies as mlp_fused_applies
 from hyena_dna_tpu_torch.ops.mlp_fused import mlp_fused
-from hyena_dna_tpu_torch.parallel.sharding import MODEL_ITEM, model_axis
+from hyena_dna_tpu_torch.parallel.sharding import model_axis
 
 # Hyena config keys that do not change the computation: optimizer settings
 # (the optimizer labels parameters itself), the filter dropout (unimplemented
@@ -88,13 +88,10 @@ def make_mixer(d_model: int, layer_cfg: dict | None, dtype: torch.dtype = torch.
     `is_attn` (a layer index in `attn_layer_idx`), else the Hyena operator
     from a reference-style layer config (`_name_: hyena`; `_name_: mha`
     builds `MHA` from the layer config itself). `mesh` goes to the mixer
-    (the Hyena operator's seq and model axes, MHA's model axis); attention
-    under a seq axis above 1 raises."""
+    (the Hyena operator's and MHA's seq and model axes)."""
     cfg = dict(attn_cfg or {}) if is_attn else dict(layer_cfg or {})
     name = "mha" if is_attn else cfg.pop("_name_", "hyena")
     cfg.pop("mesh", None)  # a layer config's own mesh key: the model's mesh is used
-    if name == "mha" and mesh is not None and mesh.seq > 1:
-        raise NotImplementedError(f"attention under a seq axis is not ported ({MODEL_ITEM})")
     if name == "mha":
         for key in _ATTN_DROPPED:
             cfg.pop(key, None)

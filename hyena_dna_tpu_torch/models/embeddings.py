@@ -29,6 +29,12 @@ those rows, zero for the other tokens, summed over the ranks by
 tokens from `copy_to_model`'s hidden states and joins the ranks' logits
 with `gather_from_model`, so the model returns the whole padded
 vocabulary. The position table stays whole (P(None, None)).
+
+Sequence parallelism (a `mesh` whose seq axis S is above 1): the rank holds
+its contiguous L / S columns, so its default positions start at its first
+global column, seq_index * L / S, not at 0; an explicit `position_ids` is
+already global. The lookup and the table's gradient need no collective
+(the train step sums the ranks' gradients).
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ class GPT2Embeddings(nn.Module):
         self.dtype = dtype
         self.vocab_size = vocab_size
         self.tp = model_axis(mesh, vocab_size)
+        self.seq = mesh if mesh is not None and mesh.seq > 1 else None
         rows = vocab_size // (self.tp.model if self.tp is not None else 1)
         self.vocab0 = rows * (self.tp.model_index if self.tp is not None else 0)
         self.word_embeddings = nn.Embedding(rows, embed_dim)
@@ -80,7 +87,9 @@ class GPT2Embeddings(nn.Module):
             return emb
         positions = self.position_embeddings.weight.to(self.dtype)
         if position_ids is None:
-            return emb + positions[:input_ids.shape[1]]
+            length = input_ids.shape[1]
+            start = self.seq.seq_index * length if self.seq is not None else 0
+            return emb + positions[start:start + length]
         return emb + positions[position_ids]
 
     def attend(self, hidden: torch.Tensor) -> torch.Tensor:

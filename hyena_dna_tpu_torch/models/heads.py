@@ -38,6 +38,28 @@ default, as the JAX trainer builds its heads) through `models/nn.py::linear`.
 `output_transform` of the sequence, token and N-D decoders, flax's
 `lecun_normal` (a normal truncated at two standard deviations, scaled to
 variance 1 / fan_in) for the retrieval and state heads; biases zero.
+
+Sequence parallelism (`mesh` with a seq axis S above 1; the JAX package
+runs its heads on the global view under GSPMD): each rank holds its
+contiguous L / S columns of x, and every mode keeps its global meaning,
+written with the collectives of `ops/distributed.py`, whose backwards are
+their exact adjoints:
+  * `last` and `first`: each rank places its part of the l_output global
+    positions in a zero window, and `seq_sum` joins the windows;
+  * `pool` and `sum`: the local float32 cumsum plus the exclusive prefix of
+    the earlier ranks' sums (`seq_exclusive_prefix`), divided (pool) by the
+    global position, then windowed as `last`;
+  * masked `pool` and `ragged`: the global end index (the mask's count,
+    summed over the ranks, or `lengths`) picks the owning rank's value,
+    and `seq_sum` gives it to every rank;
+  * `l_output=None` keeps every position: the rank's own columns of the
+    global running values, a per-token output.
+`NDDecoder`'s mean over L is the `seq_sum` of the ranks' sums over the
+global length; `RetrievalDecoder`'s feature is a `SequenceDecoder`;
+`TokenDecoder` and `PackedDecoder` are per token and `StateDecoder` reads
+no length, so they need nothing. Every seq rank ends with the same
+per-sequence output; the train step weights each rank's copy of its loss
+by 1 / S (`train/step.py`).
 """
 
 from __future__ import annotations
@@ -50,6 +72,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hyena_dna_tpu_torch.models.nn import linear
+from hyena_dna_tpu_torch.ops.distributed import seq_exclusive_prefix, seq_sum
 
 
 def _normal_(layer: nn.Linear, std: float, generator: Optional[torch.Generator]) -> None:
@@ -66,14 +89,20 @@ def _lecun_normal_(layer: nn.Linear, generator: Optional[torch.Generator]) -> No
         layer.bias.zero_()
 
 
+def _seq_axis(mesh):
+    """`mesh` when it has a seq axis above 1, else None."""
+    return mesh if mesh is not None and mesh.seq > 1 else None
+
+
 class SequenceDecoder(nn.Module):
     def __init__(self, d_model: int, d_output: Optional[int] = None,
                  l_output: Optional[int] = None, mode: str = "last",
                  use_lengths: bool = False, init_std: float = 0.02,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         if mode not in ("last", "first", "pool", "sum", "ragged"):
             raise NotImplementedError(f"mode {mode}")
+        self.seq = _seq_axis(mesh)
         self.l_output = l_output
         self.mode = mode
         self.init_std = init_std
@@ -87,32 +116,58 @@ class SequenceDecoder(nn.Module):
     def forward(self, x: torch.Tensor, state=None, lengths=None,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         squeeze = self.l_output == 0
-        l_output = x.shape[-2] if self.l_output is None else max(self.l_output, 1)
-        if self.mode == "last":
-            x = x[..., x.shape[-2] - l_output:, :]
-        elif self.mode == "first":
-            x = x[..., :l_output, :]
-        elif self.mode == "pool":
-            denom = torch.arange(1, x.shape[-2] + 1, dtype=torch.float32,
-                                 device=x.device)[:, None]
-            cummean = (torch.cumsum(x.float(), dim=-2) / denom).to(x.dtype)
-            if mask is None:
-                x = cummean[..., x.shape[-2] - l_output:, :]
-            else:
-                ends = mask.sum(dim=-1).reshape(x.shape[0]).long() - 1
-                x = cummean[torch.arange(x.shape[0], device=x.device), ends, :][:, None, :]
-        elif self.mode == "sum":
-            x = torch.cumsum(x.float(), dim=-2)[..., x.shape[-2] - l_output:, :].to(x.dtype)
-        else:  # ragged
-            if lengths is None:
-                raise ValueError("lengths required for ragged mode")
-            idx = torch.as_tensor(lengths, device=x.device).reshape(-1).long() - 1
-            x = x[torch.arange(x.shape[0], device=x.device), idx, :][:, None, :]
+        x = self._pool(x, lengths, mask)
         if squeeze:
             x = x.squeeze(-2)
         if self.output_transform is not None:
             x = linear(x, self.output_transform, self.dtype)
         return x
+
+    def _pool(self, x, lengths, mask) -> torch.Tensor:
+        """The mode's (B, l_output, d) of the global sequence, from this
+        rank's columns x (B, L / S, d) (all of them without a seq axis): the
+        same on every seq rank, or with `l_output=None` the rank's columns of
+        the per-token result."""
+        mesh, local, dtype = self.seq, x.shape[-2], x.dtype
+        offset, length = ((mesh.seq_index * local, mesh.seq * local) if mesh is not None
+                          else (0, local))
+        if self.mode in ("pool", "sum"):  # the global running sums in float32
+            xf = x.float()
+            x = (torch.cumsum(xf, dim=-2)
+                 + seq_exclusive_prefix(xf.sum(dim=-2, keepdim=True), mesh))
+            if self.mode == "pool":
+                x = x / torch.arange(offset + 1, offset + local + 1, dtype=torch.float32,
+                                     device=x.device)[:, None]
+            x = x.to(dtype)
+        if self.mode == "ragged" or (self.mode == "pool" and mask is not None):
+            if self.mode == "ragged":
+                if lengths is None:
+                    raise ValueError("lengths required for ragged mode")
+                ends = torch.as_tensor(lengths, device=x.device).reshape(-1).long() - 1
+            else:  # the mask's global count
+                ends = seq_sum(mask.reshape(x.shape[0], -1).sum(dim=-1).float(), mesh)
+                ends = ends.long() - 1
+            # an end of -1 (an empty sequence) indexes from the back, as in JAX
+            return self._pick(x, torch.remainder(ends, length) - offset)[:, None, :]
+        if self.l_output is None:
+            return x
+        n = max(self.l_output, 1)
+        start = length - n if self.mode != "first" else 0
+        # this rank's part of the global positions [start, start + n), in place;
+        # an empty part is still a slice of x, so every rank's backward
+        # reaches the collective
+        lo, hi = max(start, offset), min(start + n, offset + local)
+        part, left = ((x[..., lo - offset:hi - offset, :], lo - start) if hi > lo
+                      else (x[..., :0, :], 0))
+        return seq_sum(F.pad(part, (0, 0, left, n - left - part.shape[-2])), mesh)
+
+    def _pick(self, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """x[b, idx[b]] (B, d) for the rank that holds column idx[b] of
+        its columns x (B, L / S, d), given on every seq rank."""
+        mine = (idx >= 0) & (idx < x.shape[-2])
+        rows = torch.arange(x.shape[0], device=x.device)
+        picked = x[rows, idx.clamp(0, x.shape[-2] - 1)] * mine[:, None].to(x.dtype)
+        return seq_sum(picked, self.seq)
 
 
 class TokenDecoder(nn.Module):
@@ -136,10 +191,11 @@ class NDDecoder(nn.Module):
     """Mean over the length ("pool") or not ("full"), then a Linear."""
 
     def __init__(self, d_model: int, d_output: Optional[int] = None, mode: str = "pool",
-                 init_std: float = 0.02, dtype: torch.dtype = torch.float32):
+                 init_std: float = 0.02, dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
         if mode not in ("pool", "full"):
             raise ValueError(f"mode {mode!r} is not pool or full")
+        self.seq = _seq_axis(mesh)
         self.mode = mode
         self.init_std = init_std
         self.dtype = dtype
@@ -150,8 +206,10 @@ class NDDecoder(nn.Module):
             _normal_(self.output_transform, self.init_std, generator)
 
     def forward(self, x: torch.Tensor, state=None, **kwargs) -> torch.Tensor:
-        if self.mode == "pool":
-            x = x.mean(dim=-2)
+        if self.mode == "pool":  # the global mean, summed in float32
+            total = seq_sum(x.float().sum(dim=-2), self.seq)
+            s = 1 if self.seq is None else self.seq.seq
+            x = (total / (x.shape[-2] * s)).to(x.dtype)
         if self.output_transform is not None:
             x = linear(x, self.output_transform, self.dtype)
         return x
@@ -196,9 +254,10 @@ class RetrievalDecoder(nn.Module):
 
     def __init__(self, d_input: int, n_classes: int, d_model: Optional[int] = None,
                  nli: bool = True, activation: str = "relu", mode: str = "pool",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         super().__init__()
-        self.feature = SequenceDecoder(d_input, None, l_output=0, mode=mode, dtype=dtype)
+        self.feature = SequenceDecoder(d_input, None, l_output=0, mode=mode, dtype=dtype,
+                                       mesh=mesh)
         self.retrieval = RetrievalHead(d_input, d_model or d_input, n_classes, nli,
                                        activation, dtype)
 

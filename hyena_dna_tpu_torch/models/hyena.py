@@ -111,9 +111,34 @@ The filter MLP is replicated, as the JAX rules leave it ("filter MLP is
 tiny"): each rank builds the whole bank and takes its rows, so its filter
 gradients are the rank's share of a sum (`tp_partial`). Dropout draws the
 whole channel mask and takes the rank's rows (`models/nn.py::dropout_slice`).
-A width that does not divide by M runs whole on each rank; `num_heads`,
-`num_blocks`, `outer_mixing`, `post_order_ffn` and `front4` under a model
-axis raise (ROADMAP.md Queue 1 item 22).
+With `front4` the rank's kernel A4 writes its (B, d / M, rows_pad, m)
+channels (W (d, 3 d / M)), kernel A4' gives its partial du, and the 4-D
+conv runs on its rows of the padded bank. A width that does not divide by
+M runs whole on each rank.
+
+The general path under a model axis (the JAX rules split in_proj's columns,
+the short filter and out_proj's rows whatever the options;
+`_tail_generic` lays the columns out head-major, (heads, (order + 1)
+head_dim)):
+  * where M divides `num_heads` the rank holds heads h0 .. h0 + H / M
+    whole: contiguous columns of in_proj and the short filter, contiguous
+    input rows of out_proj. Blocks fold L and outer mixing stays inside a
+    head, so neither needs a collective; the post-order FFN mixes heads,
+    so v is gathered over the model group before each of its products
+    (`ops/distributed.py::gather_along`, the gradient reduce-scattered)
+    and the rank computes its own output heads;
+  * else, where M divides head_dim (one head with blocks, say), the rank
+    holds its head_dim / M channels of each chunk of each head, as the 3-D
+    path splits d. The post-order FFN mixes heads channel by channel, so it
+    needs nothing; outer mixing sums over every channel of x_i, and its
+    dropout falls on the outer product before that sum, so x_i is gathered
+    over the model group and the rank forms its v channels' products;
+  * else the operator runs whole on each rank.
+The filter bank (order - 1, head_dim, L) is shared by every head: each
+rank builds it whole and takes the rows it convolves, so its gradient, and
+`ord_proj_w`'s (each rank forms its output heads or channels), is the
+rank's share of a sum (`tp_partial`). Dropout masks are drawn whole and
+sliced on the split dimension.
 
 Parameter names are the reference torch names: `in_proj`, `out_proj`,
 `short_filter` (a depthwise Conv1d weight ((o+1)d, 1, k)), `filter_fn`,
@@ -130,14 +155,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from hyena_dna_tpu_torch.models.filters import HyenaFilter
-from hyena_dna_tpu_torch.models.nn import activation_fn, dropout, dropout_slice, row_parallel
+from hyena_dna_tpu_torch.models.nn import activation_fn, dropout_slice, row_parallel
 from hyena_dna_tpu_torch.ops import remat
-from hyena_dna_tpu_torch.ops.distributed import copy_to_model, seq_fftconv, seq_short_conv
+from hyena_dna_tpu_torch.ops.distributed import (copy_to_model, gather_along, seq_fftconv,
+                                                  seq_short_conv)
 from hyena_dna_tpu_torch.ops.fftconv import (GATED_MODES, fftconv_gated, fftconv_outer_4d,
                                              fftconv_tagged, next_fast_fft_size)
 from hyena_dna_tpu_torch.ops.fused_fftconv import plan_outer
 from hyena_dna_tpu_torch.ops.fused_front import fused_proj_conv_gate, fused_proj_conv_gate4
-from hyena_dna_tpu_torch.parallel.sharding import MODEL_ITEM, model_axis
+from hyena_dna_tpu_torch.parallel.sharding import model_axis
 
 CONV_IO_BF16_MIN_L = 1 << 15
 FRONT4_TILES = (512, 256, 128)  # the JAX route's length tiles, in order of preference
@@ -191,10 +217,14 @@ class HyenaOperator(nn.Module):
         if self.mesh is not None and not self.plain_3d:
             raise NotImplementedError("sequence-parallel Hyena takes one head and one block "
                                       "(the DNA configs), as in the JAX package")
-        self.tp = model_axis(mesh, d_model)
-        if self.tp is not None and (not self.plain_3d or front4):
-            raise NotImplementedError("tensor-parallel Hyena takes one head and one block, no "
-                                      f"outer mixing, post-order FFN or front4 ({MODEL_ITEM})")
+        # the model-axis split: "chunks" (the 3-D routes: each rank its d / M
+        # channels of each chunk), "heads" or "channels" (the general path)
+        if self.plain_3d:
+            self.tp, self.split = model_axis(mesh, d_model), "chunks"
+        elif model_axis(mesh, num_heads) is not None:
+            self.tp, self.split = mesh, "heads"
+        else:
+            self.tp, self.split = model_axis(mesh, self.head_dim), "channels"
         # the fused front (kernel A) fuses order 2 and a k = 3 short conv
         self.fused = (self.plain_3d and order == 2 and short_filter_order == 3
                       and self.mesh is None)
@@ -203,6 +233,12 @@ class HyenaOperator(nn.Module):
         self.d_local = d_model // m
         i = self.tp.model_index if self.tp is not None else 0
         self.rows = slice(i * self.d_local, (i + 1) * self.d_local)
+        # the general path's local heads and head channels, and where they start
+        heads = self.split == "heads"
+        self.local_heads = num_heads // m if heads else num_heads
+        self.local_head_dim = self.head_dim if heads else self.head_dim // m
+        self.head0 = i * self.local_heads if heads else 0
+        self.channel0 = 0 if heads else i * self.local_head_dim
         width = (order + 1) * self.d_local
         self.in_proj = nn.Linear(d_model, width)
         self.out_proj = nn.Linear(self.d_local, d_model)
@@ -215,11 +251,15 @@ class HyenaOperator(nn.Module):
         self.act = activation_fn(activation)
         self.dropout = dropout
         if self.tp is not None:  # `parallel/sharding.py::tp_layout`
-            chunks = {"in_proj.weight": 0, "in_proj.bias": 0, "short_filter.weight": 0,
-                      "short_filter.bias": 0}
-            self.tp_rules = {name: (dim, order + 1) for name, dim in chunks.items()}
-            self.tp_rules["out_proj.weight"] = (1, 1)
-            self.tp_partial = ("filter_fn",)
+            # in_proj's columns: [x_0 .. x_{o-1} | v] (chunks), head-major
+            # ((heads, (o + 1) head_dim): the rank's heads are contiguous), or
+            # each head's (o + 1) chunks of head_dim (channels)
+            n_in = {"chunks": order + 1, "heads": 1, "channels": num_heads * (order + 1)}
+            n_out = {"chunks": 1, "heads": 1, "channels": num_heads}
+            names = ("in_proj.weight", "in_proj.bias", "short_filter.weight", "short_filter.bias")
+            self.tp_rules = {name: (0, n_in[self.split]) for name in names}
+            self.tp_rules["out_proj.weight"] = (1, n_out[self.split])
+            self.tp_partial = ("filter_fn",) + ("ord_proj_w",) * post_order_ffn
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator | None = None, n_layer: int = 1) -> None:
@@ -248,7 +288,9 @@ class HyenaOperator(nn.Module):
         (batch, length) input (JAX `_try_front4`), else None."""
         if not self.front4 or not self.fused or length > self.l_max:
             return None
-        spec = plan_outer(next_fast_fft_size(2 * length), self.d_model, length, batch)
+        # the plan of the conv this rank runs: its d_local channels (d / M under
+        # a model axis); the outer table, like the JAX one, does not read it
+        spec = plan_outer(next_fast_fft_size(2 * length), self.d_local, length, batch)
         if spec is None:
             return None
         n1, r, m = spec
@@ -298,8 +340,8 @@ class HyenaOperator(nn.Module):
         if plan is not None:
             n1, r, m, rows_pad, tile_l = plan
             vx4, x04 = fused_proj_conv_gate4(u.contiguous(), w, bp, wc, bc, rows_pad, m, tile_l)
-            vx4 = dropout(vx4, self.dropout, self.training, generator)
-            k4 = self._filter_bank(l_filter, conv_dt, rows_pad, m)
+            vx4 = self._dropout(vx4, generator)
+            k4 = self._filter_bank(l_filter, conv_dt, rows_pad, m)[self.rows]
             v4 = fftconv_outer_4d(vx4.to(conv_dt), k4, D, n1, r, m)
             y4 = (v4 * x04.to(conv_dt)).to(u.dtype)
             # flatten and cut before the transpose (JAX transposes first): the
@@ -316,8 +358,16 @@ class HyenaOperator(nn.Module):
     def _dropout(self, x: torch.Tensor, generator) -> torch.Tensor:
         """Dropout of the rank's channels (dim 1) of the whole (B, d, ...)
         tensor's mask."""
-        return dropout_slice(x, self.dropout, self.training, generator, 1, self.d_model,
-                             self.rows.start or 0)
+        return dropout_slice(x, self.dropout, self.training, generator,
+                             (1, self.d_model, self.rows.start or 0))
+
+    def _head_dropout(self, x: torch.Tensor, generator, channel_dim: int) -> torch.Tensor:
+        """Dropout on the general path's (B, heads, ...) tensors: the whole
+        mask sliced on the rank's heads (dim 1) or on its channels of a head
+        (`channel_dim`)."""
+        cut = ((1, self.num_heads, self.head0) if self.split == "heads"
+               else (channel_dim, self.head_dim, self.channel0))
+        return dropout_slice(x, self.dropout, self.training, generator, cut)
 
     def _front(self, u: torch.Tensor) -> torch.Tensor:
         """in_proj -> (B, (o+1)d, L) -> causal depthwise short conv, in
@@ -373,20 +423,31 @@ class HyenaOperator(nn.Module):
 
     def _tail_generic(self, uc: torch.Tensor, l_filter: int, generator) -> torch.Tensor:
         """Heads, blocks, outer mixing, post-order FFN (JAX `_tail_generic`):
-        (B, (o+1)d, L) -> (B, L, d)."""
+        (B, (o+1)d, L) -> (B, L, d); under a model axis the rank's heads or
+        head channels (see the module docstring)."""
         b, _, l_seq = uc.shape
-        z, ho, hd, o = self.num_blocks, self.num_heads, self.head_dim, self.order
+        z, o = self.num_blocks, self.order
+        ho, hd = self.local_heads, self.local_head_dim
         uc = uc.reshape(b, ho, hd * (o + 1), z, l_seq // z)
         *x, v = uc.split(hd, dim=2)
-        k, bias = self._general_bank(l_filter, hd)
+        k, bias = self._general_bank(l_filter, self.head_dim)
+        cols = slice(self.channel0, self.channel0 + hd)
+        k, bias = k[:, cols], bias[:, cols]
+        group = self.tp.model_group if self.tp is not None else None
         for i, x_i in enumerate(reversed(x[1:])):
             if self.outer_mixing:
+                if group is not None and self.split == "channels":  # every channel of x_i
+                    x_i = gather_along(x_i, group, 2)
                 v = v[:, :, None] * x_i[:, :, :, None]
-                v = dropout(v, self.dropout, self.training, generator).sum(2)
+                v = self._head_dropout(v, generator, 3).sum(2)
             else:
-                v = dropout(v * x_i, self.dropout, self.training, generator)
+                v = self._head_dropout(v * x_i, generator, 2)
             v = self.filter_fn(v, l_seq // z, k=k[i], bias=bias[i])
             if self.post_order_ffn:
-                v = torch.einsum("ji,bjvzl->bivzl", self.ord_proj_w[i].to(v.dtype), v)
+                w = self.ord_proj_w[i]
+                if group is not None and self.split == "heads":  # every head, the rank's out
+                    v = gather_along(v, group, 1)
+                    w = w[:, self.head0:self.head0 + ho]
+                v = torch.einsum("ji,bjvzl->bivzl", w.to(v.dtype), v)
         y = v * x[0]
         return y.permute(0, 3, 4, 1, 2).reshape(b, l_seq, ho * hd)

@@ -36,10 +36,11 @@ cells, `residual_dtype` and `identity_mlp` take either mixer.
 Sequence parallelism: with `mesh` (a `parallel.sharding.Mesh`) whose seq
 axis S is above 1, each rank runs the model on its contiguous L / S
 columns and every Hyena mixer takes the sequence-sharded route
-(`models/hyena.py`); the embeddings, norms, MLPs and head are per token
-and need no collective. Learned positions and attention layers under a
-seq axis raise (ROADMAP.md Queue 1 item 22). The data axis needs nothing
-of the model: each data rank runs it on its rows.
+(`models/hyena.py`); learned positions start at the rank's first column
+(`models/embeddings.py`) and attention gathers the keys and values over
+the seq group (`models/attention.py`); the norms, MLPs and head are per
+token and need no collective. The data axis needs nothing of the model:
+each data rank runs it on its rows.
 
 Tensor parallelism: with a model axis M above 1, the mesh reaches every
 module that splits (`parallel/sharding.py`): the vocab-parallel embedding
@@ -109,7 +110,6 @@ from hyena_dna_tpu_torch.models.hyena import HyenaOperator
 from hyena_dna_tpu_torch.models.nn import dropout
 from hyena_dna_tpu_torch.ops import remat
 from hyena_dna_tpu_torch.ops.layer_norm import LayerNormF32
-from hyena_dna_tpu_torch.parallel.sharding import MODEL_ITEM
 
 
 def _pad_vocab(vocab_size: int, multiple: int) -> int:
@@ -129,9 +129,6 @@ class LMBackbone(nn.Module):
                  identity_mlp: bool = False, residual_dtype=None, attn_layer_idx=None,
                  attn_cfg: dict | None = None, max_position_embeddings: int = 0, mesh=None):
         super().__init__()
-        if mesh is not None and mesh.seq > 1 and max_position_embeddings > 0:
-            raise NotImplementedError(f"learned positions under a seq axis are not ported "
-                                      f"({MODEL_ITEM})")
         self.remat = checkpoint_mixer or checkpoint_mlp
         self.residual_cells = self.remat and remat_residual_only and not identity_mlp
         self.remat_group_size = max(1, remat_group_size)

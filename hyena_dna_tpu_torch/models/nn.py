@@ -146,29 +146,37 @@ def dropout(x: torch.Tensor, p: float, training: bool,
     """Inverted dropout (flax `nn.Dropout`): zero with probability p and
     scale the rest by 1/(1-p), only in training. The mask comes from
     `generator` (on x's device), so one seed gives one mask; the identity
-    when not training or p == 0, as `deterministic=True` is in JAX."""
+    when not training or p == 0, as `deterministic=True` is in JAX. The mask
+    is drawn contiguous, so it depends on x's shape and not its strides
+    (`dropout_slice` draws the same mask for a slice of x)."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    keep = torch.empty(x.shape, dtype=x.dtype, device=x.device).bernoulli_(1.0 - p,
+                                                                        generator=generator)
     return x * keep / (1.0 - p)
 
 
 def dropout_slice(x: torch.Tensor, p: float, training: bool,
-                  generator: Optional[torch.Generator], dim: int, whole: int,
-                  start: int) -> torch.Tensor:
-    """`dropout` of x, the slice [start, start + x.shape[dim]) along `dim`
-    of a tensor `whole` long there: the mask is drawn for the whole tensor
-    and sliced, so a rank of a model axis drops what the run without one
-    drops at those positions, and every rank's generator stays in step."""
-    if not training or p == 0.0 or p >= 1.0 or x.shape[dim] == whole:
+                  generator: Optional[torch.Generator], *cuts) -> torch.Tensor:
+    """`dropout` of x, a slice of a larger tensor: each cut (dim, whole,
+    start) says that x holds [start, start + x.shape[dim]) of a dimension
+    `whole` long there. The mask is drawn for the whole tensor and sliced,
+    so a rank of a model or seq axis drops what the run without one drops
+    at those positions when the ranks' generators agree, and the ranks'
+    generators move in step."""
+    cuts = [c for c in cuts if x.shape[c[0]] != c[1]]
+    if not training or p == 0.0 or p >= 1.0 or not cuts:
         return dropout(x, p, training, generator)
     shape = list(x.shape)
-    shape[dim] = whole
+    for dim, whole, _ in cuts:
+        shape[dim] = whole
     keep = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(1.0 - p,
-                                                                          generator=generator)
-    return x * keep.narrow(dim, start, x.shape[dim]) / (1.0 - p)
+                                                                         generator=generator)
+    for dim, _, start in cuts:
+        keep = keep.narrow(dim, start, x.shape[dim])
+    return x * keep / (1.0 - p)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:

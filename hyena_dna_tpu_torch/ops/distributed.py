@@ -46,6 +46,26 @@ layers). Each is an `autograd.Function` over the mesh's model group:
 
 The all-reduces sum in float32 and round once to the tensor's dtype.
 
+The mesh-rest collectives, each an `autograd.Function` whose backward is
+the exact adjoint of its forward, so that every rank may backpropagate its
+own share of the loss and the train step's gradient sum over the ranks
+(`train/step.py`) is the gradient of the global loss:
+
+  * `gather_along(x, group, dim)`: every rank's x joined along `dim` in
+    group order; backward, the reduce-scatter of the gathered gradient
+    (each rank gets the sum of every rank's gradient of its own slice).
+    Gloo has no reduce-scatter, so it is an `all_to_all_single` of the
+    slices and a float32 sum in group order. `seq_gather` is it over the
+    seq group (attention's keys and values, the position metrics' NLL),
+    and the tensor-parallel general Hyena path uses it over the model
+    group (v before the post-order FFN, x_i before outer mixing);
+  * `seq_sum`: the sum over the seq group forward and backward (a value
+    every rank reads whole, built from disjoint parts of the ranks: the
+    decoder heads' picked and windowed positions);
+  * `seq_exclusive_prefix`: the sum of the earlier seq ranks' x (zeros on
+    the first); backward, the sum of the later ranks' gradients (the
+    running sums and means of the pooled heads).
+
 Each collective is counted in `parallel.launch.COLLECTIVES`; a failed one
 raises, which ends the run.
 """
@@ -205,3 +225,96 @@ def gather_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh is None or mesh.model == 1:
         return x
     return _GatherFromModel.apply(x, mesh.model_group, mesh.model_index)
+
+
+# ---- the mesh-rest collectives ----------------------------------------------
+
+
+def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The sum over `group` of x, this rank's 1/S slice along `dim` (S the
+    group's size), summed in float32 in group order and rounded once: an
+    all-to-all of the S slices (gloo has no reduce-scatter)."""
+    s = dist.get_world_size(group)
+    send = torch.stack(x.chunk(s, dim)).contiguous()
+    recv = torch.empty_like(send)
+    timed("reduce_scatter", send, lambda: dist.all_to_all_single(recv, send, group=group))
+    return recv.float().sum(0).to(x.dtype)
+
+
+class _GatherAlong(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        timed("all_gather", x, lambda: dist.all_gather(parts, x, group=group))
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad.contiguous(), ctx.group, ctx.dim), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce_f32(grad, ctx.group), None
+
+
+def _rank_sum(x: torch.Tensor, group, ranks) -> torch.Tensor:
+    """The float32 sum of the x of the group ranks in `ranks` (zeros if
+    none), from an all-gather, in x's dtype."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    timed("all_gather", x, lambda: dist.all_gather(parts, x, group=group))
+    total = torch.zeros_like(x, dtype=torch.float32)
+    for j in ranks:
+        total += parts[j].float()
+    return total.to(x.dtype)
+
+
+class _ExclusivePrefix(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _rank_sum(x, group, range(dist.get_rank(group)))
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group
+        return _rank_sum(grad, g, range(dist.get_rank(g) + 1, dist.get_world_size(g))), None
+
+
+def gather_along(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Every rank's x of `group` joined along `dim` in group order; its
+    gradient reduce-scattered back."""
+    return _GatherAlong.apply(x, group, dim)
+
+
+def seq_gather(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """The whole sequence from every seq rank's columns along `dim` (x
+    itself without a seq axis); the gradient reduce-scattered back."""
+    if mesh is None or mesh.seq == 1:
+        return x
+    return _GatherAlong.apply(x, mesh.seq_group, dim)
+
+
+def seq_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of every seq rank's x (float32, rounded once), and the same
+    sum of the gradients backward."""
+    if mesh is None or mesh.seq == 1:
+        return x
+    return _SumOver.apply(x, mesh.seq_group)
+
+
+def seq_exclusive_prefix(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum of the x of the seq ranks before this one (zeros on the
+    first); backward, the sum of the gradients of the ranks after it."""
+    if mesh is None or mesh.seq == 1:
+        return torch.zeros_like(x)
+    return _ExclusivePrefix.apply(x, mesh.seq_group)

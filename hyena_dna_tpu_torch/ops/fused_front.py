@@ -11,7 +11,7 @@ off W (d_in, 3 d_c). The whole model runs d_in == d_c == d. Under tensor
 parallelism (`models/hyena.py`) a rank of a model axis of M holds in_proj's
 columns of its d / M channels of each chunk, so it projects the whole u onto
 d_c = d / M channels; its du is a partial sum that the model axis reduces.
-The kernels take both widths; the 4-D kernels A4 and A4' take d_in == d_c.
+Every kernel of the module, A4 and A4' included, takes both widths.
 
 `fused_proj_conv_gate` is the `torch.autograd.Function` `FusedProjConvGate`:
 its forward is kernel A (`csrc/fused_front.cu`) and its backward kernel A'
@@ -85,10 +85,10 @@ KERNEL_BWD = _cuda.Kernel("fused_front_bwd", {"hyena_fused_front_bwd": _BWD_ARGS
                                               "hyena_fused_front_bwd_bf16": _BWD_BF16_ARGS,
                                               **_BWD_SIZES})
 # kernels A4 and A4': kernel A's and A''s arguments plus lp after L
-_FWD4_ARGS = [_P] * 7 + [_I] * 4 + [_P]
-_FWD4_BF16_ARGS = [_P] * 8 + [_I] * 4 + [_P]
-_BWD4_ARGS = [_P] * 13 + [_I] * 6 + [_P]
-_BWD4_BF16_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+_FWD4_ARGS = [_P] * 7 + [_I] * 5 + [_P]
+_FWD4_BF16_ARGS = [_P] * 8 + [_I] * 5 + [_P]
+_BWD4_ARGS = [_P] * 13 + [_I] * 7 + [_P]
+_BWD4_BF16_ARGS = [_P] * 13 + [_I] * 6 + [_P]
 KERNEL4 = _cuda.Kernel("fused_front4", {"hyena_fused_front4_fwd": _FWD4_ARGS,
                                         "hyena_fused_front4_fwd_bf16": _FWD4_BF16_ARGS,
                                         **_SIZES})
@@ -217,10 +217,10 @@ def wgmma_probe(a, b, mode: int):
     return c
 
 
-def _check(out_shape=None, square=False, **tensors) -> str:
+def _check(out_shape=None, **tensors) -> str:
     """Raise on what kernels A, A', A4 and A4' do not take; return the C
     entry point's dtype suffix. u is (B, L, d_in) and W (d_in, 3 d_c), any
-    d_c (`square`: d_c == d_in, which the 4-D kernels take); the activations (u, dvx, dx0) are all float32 or all bfloat16, the
+    d_c; the activations (u, dvx, dx0) are all float32 or all bfloat16, the
     parameters float32; the cotangents have `out_shape` per batch row,
     (d_c, L) when None."""
     u, w = tensors["u"], tensors["w"]
@@ -232,8 +232,6 @@ def _check(out_shape=None, square=False, **tensors) -> str:
     if w.dim() != 2 or w.shape[0] != d_in or w.shape[1] % 3 or w.shape[1] == 0:
         raise ValueError(f"w must be (d_in, 3 d_c) with d_in={d_in}, got {tuple(w.shape)}")
     d = w.shape[1] // 3
-    if square and d != d_in:
-        raise ValueError(f"kernels A4 and A4' take W (d, 3d); got d_in={d_in}, d_c={d}")
     cot = (b,) + tuple(out_shape or (d, length))
     expect = {"bp": (3 * d,), "wc": (3, 3 * d), "bc": (3 * d,), "dvx": cot, "dx0": cot}
     for name, t in tensors.items():
@@ -354,7 +352,7 @@ def check_plan4(length: int, rows_pad: int, m: int, tile_l: int) -> None:
 
 def reference_fwd4(u, w, bp, wc, bc, rows_pad: int, m: int):
     """Plain version of kernel A4: `reference_fwd`, zero-padded to
-    lp = rows_pad * m and viewed as (B, d, rows_pad, m)."""
+    lp = rows_pad * m and viewed as (B, d_c, rows_pad, m)."""
     vx, x0 = reference_fwd(u, w, bp, wc, bc)
     pad = lambda t: F.pad(t, (0, rows_pad * m - t.shape[-1])).reshape(
         *t.shape[:2], rows_pad, m)
@@ -363,24 +361,26 @@ def reference_fwd4(u, w, bp, wc, bc, rows_pad: int, m: int):
 
 def reference_bwd4(u, w, bp, wc, bc, dvx4, dx04):
     """Plain version of kernel A4': `reference_bwd` on the cotangents'
-    first L times."""
-    b, length, d = u.shape
+    first L times (W (d_in, 3 d_c), the cotangents (B, d_c, rows_pad, m))."""
+    b, length = u.shape[:2]
+    d = w.shape[1] // 3
     cut = lambda t: t.reshape(b, d, -1)[..., :length]
     return reference_bwd(u, w, bp, wc, bc, cut(dvx4), cut(dx04))
 
 
 def front4_fwd(u, w, bp, wc, bc, rows_pad: int, m: int):
-    """(vx4, x04) (B, d, rows_pad, m): kernel A4 on a CUDA tensor,
+    """(vx4, x04) (B, d_c, rows_pad, m): kernel A4 on a CUDA tensor,
     `reference_fwd4` on a CPU one."""
     if not _cuda.on_card(u):
         return reference_fwd4(u, w, bp, wc, bc, rows_pad, m)
-    suffix = _check(square=True, u=u, w=w, bp=bp, wc=wc, bc=bc)
-    b, length, d = u.shape
+    suffix = _check(u=u, w=w, bp=bp, wc=wc, bc=bc)
+    b, length, d_in = u.shape
+    d = w.shape[1] // 3
     vx4 = torch.empty((b, d, rows_pad, m), device=u.device, dtype=u.dtype)
     x04 = torch.empty_like(vx4)
     KERNEL4.launch("hyena_fused_front4_fwd" + suffix,
                    *map(_cuda.ptr, (u, w, bp, wc, bc, vx4, x04) + _w_split(KERNEL4, u, d)),
-                   b, length, rows_pad * m, d, _cuda.stream_handle(u))
+                   b, length, rows_pad * m, d_in, d, _cuda.stream_handle(u))
     return vx4, x04
 
 
@@ -389,8 +389,9 @@ def front4_bwd(u, w, bp, wc, bc, dvx4, dx04):
     tensor, `reference_bwd4` on a CPU one."""
     if not _cuda.on_card(u):
         return reference_bwd4(u, w, bp, wc, bc, dvx4, dx04)
-    suffix = _check(dvx4.shape[1:], True, u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx4, dx0=dx04)
-    b, length, d = u.shape
+    suffix = _check(dvx4.shape[1:], u=u, w=w, bp=bp, wc=wc, bc=bc, dvx=dvx4, dx0=dx04)
+    b, length, d_in = u.shape
+    d = w.shape[1] // 3
     lp = dvx4.shape[2] * dvx4.shape[3]
     if lp < length:
         raise ValueError(f"cotangents hold {lp} times, fewer than L={length}")
@@ -398,7 +399,7 @@ def front4_bwd(u, w, bp, wc, bc, dvx4, dx04):
     dw, dparams, scratch, sizes = _bwd_buffers(KERNEL4_BWD, u, d)
     KERNEL4_BWD.launch("hyena_fused_front4_bwd" + suffix,
                        *map(_cuda.ptr, (u, w, bp, wc, bc, dvx4, dx04, du, dw, dparams) + scratch),
-                       b, length, lp, d, *sizes, _cuda.stream_handle(u))
+                       b, length, lp, d_in, d, *sizes, _cuda.stream_handle(u))
     return du, dw, dparams[0], dparams[1:4], dparams[4]
 
 
@@ -419,7 +420,7 @@ class FusedProjConvGate4(torch.autograd.Function):
 
 def fused_proj_conv_gate4(u, w, bp, wc, bc, rows_pad: int, m: int,
                           tile_l: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(vx4, x04), each (B, d, rows_pad, m) in u's dtype and zero past L,
+    """(vx4, x04), each (B, d_c, rows_pad, m) in u's dtype and zero past L,
     differentiable in every tensor input; the arguments otherwise as
     `fused_proj_conv_gate`. Raises unless `check_plan4` accepts
     (L, rows_pad, m, tile_l)."""

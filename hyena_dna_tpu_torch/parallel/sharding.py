@@ -11,7 +11,8 @@ rank sits and which process groups it talks over:
   * "seq": each row's length split into contiguous L / S columns
     (`Mesh.local_batch`, `Mesh.seq_columns`); the conv
     chain runs through `ops/distributed.py` (the channel-pencil FFT conv and
-    the halo short conv) over the seq group;
+    the halo short conv) over the seq group, attention gathers its keys and
+    values, and the decoder heads and position metrics reduce over it;
   * "model": tensor parallelism, written the Megatron way: column- and
     row-parallel layers joined by the conjugate collectives of
     `ops/distributed.py` over the model group (the JAX `PARAM_RULES`
@@ -29,10 +30,10 @@ of each chunk (its channels of each of in_proj's [x0 | x1 | v], its heads
 of each of Wqkv's [q | k | v], its rows of the vocabulary). A parameter
 whose dimension does not divide by M stays whole, as the JAX
 `shard_params` leaves it; so does a module whose width does not divide
-(it runs whole on each rank). `tp_partial` names the whole parameters of
-a split module whose gradient on a rank is that rank's share of a sum (the
-filter MLP of a split Hyena operator: each rank builds the whole bank and
-takes its rows). `tp_layout(model)` collects both.
+(it runs whole on each rank). `tp_partial` names the whole submodules or
+parameters of a split module whose gradient on a rank is that rank's share
+of a sum (the filter MLP of a split Hyena operator: each rank builds the
+whole bank and takes its rows; its `ord_proj_w`). `tp_layout(model)` collects both.
 
 Gradients (`train/step.py`): a sharded parameter's over `grad_group`, the
 data x seq ranks of this rank's model index; every whole parameter's over
@@ -56,8 +57,6 @@ import torch.distributed as dist
 from torch import nn
 
 from hyena_dna_tpu_torch.parallel import launch
-
-MODEL_ITEM = "ROADMAP.md Queue 1 item 22"
 
 
 @dataclass(frozen=True)
@@ -101,14 +100,19 @@ class Mesh:
 
     def local_batch(self, batch):
         """This rank's columns of every 2-D array of a numpy batch (a tuple
-        of arrays, a trailing dict of arrays). Its rows are already its
-        own: each data rank's loader serves its strided share of the
-        epoch's order (`data/loader.py`)."""
+        of arrays, a trailing dict of arrays) that is as wide as its first
+        array, the sequence (the inputs, per-token targets, masks); other
+        arrays (per-sequence labels such as a (B, 919) chromatin profile)
+        stay whole. Its rows are already its own: each data rank's loader
+        serves its strided share of the epoch's order (`data/loader.py`)."""
         if self.seq == 1:
             return batch
+        width = batch[0].shape[1]
 
         def cut(a):
-            return a[:, self.seq_columns(a.shape[1])] if a.ndim == 2 else a
+            if a.ndim == 2 and a.shape[1] == width:
+                return a[:, self.seq_columns(width)]
+            return a
 
         return tuple({k: cut(v) for k, v in b.items()} if isinstance(b, dict) else cut(b)
                      for b in batch)
@@ -178,9 +182,12 @@ def tp_layout(model: nn.Module) -> Dict[str, tuple]:
         pre = prefix + "." if prefix else ""
         for name, (dim, chunks) in getattr(mod, "tp_rules", {}).items():
             layout[pre + name] = (SHARDED, dim, chunks)
-        for sub in getattr(mod, "tp_partial", ()):
-            for name, _ in getattr(mod, sub).named_parameters():
-                layout[f"{pre}{sub}.{name}"] = (PARTIAL,)
+        for sub in getattr(mod, "tp_partial", ()):  # submodules or parameters
+            part = getattr(mod, sub)
+            names = ([""] if isinstance(part, nn.Parameter)
+                     else ["." + name for name, _ in part.named_parameters()])
+            for name in names:
+                layout[f"{pre}{sub}{name}"] = (PARTIAL,)
     return layout
 
 

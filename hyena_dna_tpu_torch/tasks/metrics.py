@@ -30,6 +30,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hyena_dna_tpu_torch.ops.distributed import seq_gather
+
 
 # device metrics: (logits or outputs, y) -> a scalar tensor
 
@@ -133,22 +135,31 @@ def forecast_rmse(outs, y, len_batch=None):
     return ((outs - y) ** 2).mean(dim=1).sqrt().mean()
 
 
-def _position_nll(logits, y, seq_len: int):
-    logits = logits.reshape(-1, seq_len, logits.shape[-1]).float()
-    y = y.reshape(-1, seq_len)
-    return torch.logsumexp(logits, dim=-1) - logits.gather(-1, y[..., None].long())[..., 0]
+def _position_nll(logits, y, seq_len: int, mesh=None):
+    """(rows, seq_len) NLL at each global position. Under a seq axis
+    (`mesh`) the rank's logits hold its seq_len / S columns of each row: its
+    NLL is computed there and gathered over the seq group
+    (`ops/distributed.py::seq_gather`), V times fewer bytes than the logits."""
+    if mesh is None or mesh.seq == 1:
+        local = seq_len
+    else:
+        local = seq_len // mesh.seq
+    logits = logits.reshape(-1, local, logits.shape[-1]).float()
+    y = y.reshape(-1, local)
+    nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, y[..., None].long())[..., 0]
+    return seq_gather(nll, mesh)
 
 
-def last_k_ppl(logits, y, seq_len: int = 1024, k: Optional[int] = None):
+def last_k_ppl(logits, y, seq_len: int = 1024, k: Optional[int] = None, mesh=None):
     """Perplexity over the last k tokens of each sequence (k None: all)."""
-    nll = _position_nll(logits, y, seq_len)
+    nll = _position_nll(logits, y, seq_len, mesh)
     return torch.exp(nll[:, seq_len - (k or seq_len):].mean())
 
 
-def per_token_ppl(logits, y, seq_len: int = 1024, ks=None):
+def per_token_ppl(logits, y, seq_len: int = 1024, ks=None, mesh=None):
     """Perplexity at the 1-based positions `ks`: a vector over ks."""
     idx = torch.as_tensor(ks if ks is not None else [seq_len], device=logits.device) - 1
-    return torch.exp(_position_nll(logits, y, seq_len)[:, idx].mean(dim=0))
+    return torch.exp(_position_nll(logits, y, seq_len, mesh)[:, idx].mean(dim=0))
 
 
 def student_t_loss(outs, y):

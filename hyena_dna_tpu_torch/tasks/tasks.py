@@ -9,7 +9,9 @@ the train and eval steps (`train/step.py`) and the trainer's evaluation call:
   * `LMTask`: flattens (B, L, V) logits and (B, L) targets for the
     vocabulary cross-entropy and gives the perplexity statistics;
   * `HG38Task`: `LMTask` with the `last_k_ppl` and `per_token_ppl`
-    diagnostics at the dataset's sequence length;
+    diagnostics at the dataset's sequence length (under a seq axis, the
+    trainer sets the task's `mesh`, and the metrics gather the per-position
+    NLL over the seq group, `tasks/metrics.py`);
   * `ICLTask`: k-shot in-context learning, the LM's last-position logits
     (B, V) against the 1-token label target (B, 1) that `data/icl.py`
     emits;
@@ -110,17 +112,23 @@ class LMTask(BaseTask):
 
 
 class HG38Task(LMTask):
-    """LMTask with the genomics perplexity diagnostics at `seq_len`."""
+    """LMTask with the genomics perplexity diagnostics at `seq_len` (the
+    global length; `mesh`, set by the trainer under a seq axis, says how the
+    logits are split)."""
+
+    mesh = None
 
     def __init__(self, *args, last_k_ppl: Optional[int] = None, per_token_ppl=None,
                  seq_len: int = 1024, **kwargs):
         super().__init__(*args, **kwargs)
         if last_k_ppl is not None:
-            self.metric_fns["last_k_ppl"] = partial(M.last_k_ppl, seq_len=seq_len, k=last_k_ppl)
+            self.metric_fns["last_k_ppl"] = lambda logits, y: M.last_k_ppl(
+                logits, y, seq_len=seq_len, k=last_k_ppl, mesh=self.mesh)
             self.metric_names.append("last_k_ppl")
         if per_token_ppl is not None:
-            self.metric_fns["per_token_ppl"] = partial(M.per_token_ppl, seq_len=seq_len,
-                                                       ks=list(per_token_ppl))
+            ks = list(per_token_ppl)
+            self.metric_fns["per_token_ppl"] = lambda logits, y: M.per_token_ppl(
+                logits, y, seq_len=seq_len, ks=ks, mesh=self.mesh)
             self.metric_names.append("per_token_ppl")
 
 

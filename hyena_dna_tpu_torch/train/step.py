@@ -24,7 +24,13 @@ gradients, summed over the microbatches and divided by `accum`, are
 all-reduced over every rank (`mesh.grad_group`, a missing gradient as
 zero) in one flat float32 buffer that also carries the loss and the
 perplexity statistics. The clip then sees the global norm, and every rank
-applies the same update.
+applies the same update. Under a seq axis a per-sequence target (a decoder
+head's label) is whole on each of the S seq ranks, which each compute the
+same loss: its rows count S times in the all-reduced total, so each copy
+carries 1 / S of its data rank's share, the shares still sum to one global
+loss, and the heads' collectives (`ops/distributed.py`), whose backwards
+are exact adjoints, return to each rank its columns' part of the
+gradient.
 
 Under a model axis (tensor parallelism, `parallel/sharding.py`) the ranks
 of a model group run the same rows and columns and compute the same loss,

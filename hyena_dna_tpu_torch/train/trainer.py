@@ -35,18 +35,29 @@ backend NCCL when each rank has a card of its own, else gloo
 share of every epoch's order (`data/loader.py`), `batch_size *
 accumulate_grad_batches` must divide by `mesh.data` (the JAX check) and so
 must `batch_size` (each rank's microbatch). The seq axis: each rank takes
-its contiguous L / S columns of every 2-D array of the batch, and the `lm`,
-`dna_embedding` and `lm_simple` models get the mesh (JAX `trainer.py:222`;
-the Hyena mixers take the sequence-sharded route); the sequence length
-(L - 1 for the LM tasks) must divide by `mesh.seq`, and a decoder head,
-another model, position-dependent metrics or host metrics under a seq
-axis raise. The step's gradient and logged loss are those of the global
+its contiguous L / S columns of every 2-D array of the batch as wide as
+the sequence (`Mesh.local_batch`; per-sequence labels stay whole), and the
+sequence length (L - 1 for the LM tasks) must divide by `mesh.seq`. The
+`lm`, `dna_embedding` and `lm_simple` models get the mesh (JAX
+`trainer.py:222`): the Hyena mixers take the sequence-sharded route,
+attention gathers its keys and values, learned positions start at the
+rank's first column, and the decoder heads pool over the global sequence
+(`models/heads.py`), so every seq rank holds the same per-sequence output.
+Another model (`model`, `adaptive_lm`; the JAX package shards its batch too
+and lets GSPMD run it) runs whole on every seq rank: its input columns are
+gathered over the seq group, and a per-token output is cut back to the
+rank's columns (`run_whole_on_seq`). The position metrics gather the
+per-position NLL over the seq group (`tasks/metrics.py`), and the host
+metrics' per-token predictions are gathered over the seq group before the
+data group. The step's gradient and logged loss are those of the global
 batch (`train/step.py`); evaluation sums, counts and the host metrics'
 predictions are reduced over the ranks, so every rank reports the global
 value. Weights are drawn on every rank from `train.seed`; dropout is
 seeded per rank from (seed, data index, seq index), with no model index,
 so the ranks of a model group draw the same masks (a run whose only axis
-is the model axis draws the single process's). Rank 0 alone writes
+is the model axis draws the single process's); a model that runs whole on
+every seq rank is seeded with seq index 0, so its seq ranks draw the same
+masks. Rank 0 alone writes
 `metrics.jsonl` and the checkpoints and prints, with a barrier after each
 checkpoint and at `close`; every rank loads.
 
@@ -81,9 +92,11 @@ from hyena_dna_tpu_torch.models.blocks import torch_dtype
 from hyena_dna_tpu_torch.models.heads import (NDDecoder, PackedDecoder, RetrievalDecoder,
                                               SequenceDecoder, StateDecoder, TokenDecoder)
 from hyena_dna_tpu_torch.parallel import launch
-from hyena_dna_tpu_torch.parallel.sharding import (MODEL_ITEM, build_sharded, make_mesh,
-                                                   shard_state_dict, tp_layout)
+from hyena_dna_tpu_torch.ops.distributed import seq_gather
+from hyena_dna_tpu_torch.parallel.sharding import (build_sharded, make_mesh, shard_state_dict,
+                                                   tp_layout)
 from hyena_dna_tpu_torch.tasks import TASK_REGISTRY
+from hyena_dna_tpu_torch.tasks.tasks import LMTask
 from hyena_dna_tpu_torch.tasks import metrics as M
 from hyena_dna_tpu_torch.train.callbacks import CALLBACK_REGISTRY
 from hyena_dna_tpu_torch.train.checkpoint import (load_backbone_hook, load_pretrained,
@@ -121,6 +134,33 @@ DECODER_REGISTRY = {
 
 PRECISION = {"16": torch.bfloat16, "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
 SEQ_MODELS = ("lm", "dna_embedding", "lm_simple")  # the models that take the mesh (JAX :222)
+SEQ_DECODERS = ("sequence", "nd", "retrieval")  # the heads that reduce over L
+
+
+def run_whole_on_seq(model: nn.Module, mesh) -> nn.Module:
+    """`model`, run whole on every seq rank of `mesh`: forward hooks gather
+    its input's columns (and a keyword tensor as wide, a mask) over the seq
+    group, and cut an output (or a tuple's first) of ndim >= 3 as long as
+    the whole sequence back to the rank's columns. A per-sequence output
+    stays whole."""
+    def gather(module, args, kwargs):
+        x, *rest = args
+        width = x.shape[1]
+        kwargs = {k: seq_gather(v, mesh) if torch.is_tensor(v) and v.dim() == 2
+                  and v.shape[1] == width else v for k, v in kwargs.items()}
+        return (seq_gather(x, mesh), *rest), kwargs
+
+    def cut(module, args, kwargs, out):
+        first = out[0] if isinstance(out, tuple) else out
+        length = args[0].shape[1]
+        if first.dim() < 3 or first.shape[1] != length:
+            return out
+        first = first[:, mesh.seq_columns(length)]
+        return (first, *out[1:]) if isinstance(out, tuple) else first
+
+    model.register_forward_pre_hook(gather, with_kwargs=True)
+    model.register_forward_hook(cut, with_kwargs=True)
+    return model
 
 
 def resolve_device(device=None) -> torch.device:
@@ -163,8 +203,11 @@ class Trainer:
         self.mesh = make_mesh(**mesh_cfg)
         self.accumulate_grad_batches = int(self.trainer_cfg.get("accumulate_grad_batches", 1)
                                            or 1)
+        # a model that runs whole on every seq rank draws one set of masks
+        self.seq_whole = (self.mesh.seq > 1
+                          and config["model"].get("_name_", "lm") not in SEQ_MODELS)
         seed = self.seed if self.mesh.replicas == 1 else rank_seed(
-            self.seed, self.mesh.data_index, self.mesh.seq_index)
+            self.seed, self.mesh.data_index, 0 if self.seq_whole else self.mesh.seq_index)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         self.run_dir = str(self.train_cfg.get("run_dir", "runs/default"))
@@ -187,8 +230,8 @@ class Trainer:
         if self.task_name == "hg38":
             task_cfg.setdefault("seq_len", self.datamodule.max_length)
         self.task = TASK_REGISTRY[self.task_name](**task_cfg)
+        self.task.mesh = self.mesh if self.mesh.seq > 1 else None
         self._check_shapes()
-        self._check_seq(config)
 
         init = torch.Generator().manual_seed(self.seed)
         self.model = self._build_model(dict(config["model"]), config.get("decoder"),
@@ -248,28 +291,11 @@ class Trainer:
         s = self.mesh.seq
         if s == 1:
             return
-        length = self.datamodule.max_length - (self.task_name in ("lm", "hg38"))
+        # an LM task's inputs drop the window's last token
+        length = self.datamodule.max_length - isinstance(self.task, LMTask)
         if length % s:
             raise ValueError(f"the sequence length {length} must be divisible by mesh.seq={s} "
                              "(dataset.max_length - 1 for the LM tasks)")
-
-    def _check_seq(self, config) -> None:
-        """What the seq axis takes: a token-wise model and task."""
-        s = self.mesh.seq
-        if s == 1:
-            return
-        name = config["model"].get("_name_", "lm")
-        decoder = config.get("decoder")
-        if isinstance(decoder, dict):
-            decoder = decoder.get("_name_", "sequence")
-        if name not in SEQ_MODELS or (name != "lm" and decoder not in (None, "id")):
-            raise NotImplementedError(f"mesh.seq={s} takes the {SEQ_MODELS} models without a "
-                                      f"decoder head ({MODEL_ITEM})")
-        position = set(self.task.metric_fns) & {"last_k_ppl", "per_token_ppl"}
-        if position or self.task.host_metric_names:
-            raise NotImplementedError(f"mesh.seq={s}: the metrics "
-                                      f"{sorted(position) + self.task.host_metric_names} need "
-                                      f"whole sequences ({MODEL_ITEM})")
 
     def _build_model(self, model_cfg: dict, decoder_cfg, generator) -> nn.Module:
         name = model_cfg.pop("_name_", "lm")
@@ -289,13 +315,13 @@ class Trainer:
 
         backbone = build_sharded(build, mesh, generator)
         if name == "lm" or decoder_cfg is None:
-            return backbone
+            return run_whole_on_seq(backbone, self.mesh) if self.seq_whole else backbone
         dec_cfg = (dict(decoder_cfg) if isinstance(decoder_cfg, dict)
                    else {"_name_": decoder_cfg})
         dec_name = dec_cfg.pop("_name_", "sequence")
         dec_cls = DECODER_REGISTRY[dec_name]
         if dec_cls is None:
-            return backbone
+            return run_whole_on_seq(backbone, self.mesh) if self.seq_whole else backbone
         # the decoder's size from the model and the dataset
         if dec_name == "retrieval":
             dec_cfg.setdefault("d_input", model_cfg["d_model"])
@@ -305,9 +331,12 @@ class Trainer:
             dec_cfg.setdefault("d_output", getattr(dm, "d_output", None))
         if dec_name == "sequence":
             dec_cfg.setdefault("l_output", getattr(dm, "l_output", None))
+        if mesh is not None and mesh.seq > 1 and dec_name in SEQ_DECODERS:
+            dec_cfg["mesh"] = mesh  # pooled over the global sequence
         decoder = dec_cls(**dec_cfg)
         decoder.init_weights(generator)
-        return BackboneWithDecoder(backbone, decoder)
+        model = BackboneWithDecoder(backbone, decoder)
+        return run_whole_on_seq(model, self.mesh) if self.seq_whole else model
 
     def _maybe_load_pretrained(self):
         path = self.train_cfg.get("pretrained_model_path")
@@ -506,9 +535,13 @@ class Trainer:
                 nll_sum += float(metrics["nll_sum"])
                 token_count += float(metrics["token_count"])
             if streamer is not None and logits is not None:
-                for preds, labels in self._gather(
-                        (logits.detach().float().cpu().numpy(), batch[1].cpu().numpy()),
-                        self.mesh.data_group, self.mesh.data):
+                preds, labels = logits.detach().float().cpu().numpy(), batch[1].cpu().numpy()
+                if self.mesh.seq > 1 and labels.ndim == 2 and labels.shape[1] == batch[0].shape[1]:
+                    # per-token predictions: the whole sequence from the seq ranks
+                    parts = self._gather((preds, labels), self.mesh.seq_group, self.mesh.seq)
+                    preds, labels = (np.concatenate(a, axis=1) for a in zip(*parts))
+                for preds, labels in self._gather((preds, labels), self.mesh.data_group,
+                                                  self.mesh.data):
                     streamer.update(preds, labels)
             n_batches += 1
         if self.mesh.replicas > 1:  # every rank reports the global value

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Phases 10 and 11 of `chip_smoke.py` alone: build the port's kernels,
+"""Phases 10-12 of `chip_smoke.py` alone: build the port's kernels,
 write phase 6's synthetic genome, then the data- and sequence-parallel
-phase (10a-10d) and the tensor-parallel phase (11a-11d), each on 4 ranks.
+phase (10a-10d), the tensor-parallel phase (11a-11d) and the mesh's
+remaining combinations (12a-12e), each on 4 ranks.
 
-    python3 scripts/parallel_smoke.py [--phases 10,11]
+    python3 scripts/parallel_smoke.py [--phases 10,11,12]
 
 On one card the ranks share it over gloo; on a host with 4 cards each
 rank takes its own and the backend rule (`parallel/launch.py`) gives NCCL.
@@ -27,8 +28,8 @@ import chip_smoke as C  # noqa: E402
 def main() -> int:
     import torch
 
-    parser = argparse.ArgumentParser(description="phases 10 and 11 of chip_smoke.py")
-    parser.add_argument("--phases", default="10,11", help="comma-separated: 10, 11")
+    parser = argparse.ArgumentParser(description="phases 10-12 of chip_smoke.py")
+    parser.add_argument("--phases", default="10,11,12", help="comma-separated: 10, 11, 12")
     phases = set(parser.parse_args().phases.split(","))
 
     if not torch.cuda.is_available():
@@ -55,6 +56,8 @@ def main() -> int:
             C.parallel_phase(FB, kernels, tmp, seed=22)
         if "11" in phases:
             C.tp_phase(FF, FB, kernels, tmp, seed=23)
+        if "12" in phases:
+            C.mesh_rest_phase(FF, kernels, tmp, seed=24)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip(),
           flush=True)

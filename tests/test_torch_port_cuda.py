@@ -638,6 +638,43 @@ def test_fused_front4_bwd_matches_plain(card, B, L, d, rows, m, tile, dtype):
         _close(got, want, 1e-3, 1e-3)
 
 
+# kernels A4 and A4' on a tensor-parallel rank's slice: (B, L, d_in, d_c,
+# rows_pad, m, tile_l), W (d_in, 3 d_c) with d_c < d_in
+FRONT4_SLICES = [(1, 1536, 8, 4, 16, 128, 512), (2, 512, 64, 20, 8, 128, 256),
+                 (1, 131072, 256, 128, 1024, 128, 512), (1, 131072, 256, 64, 1024, 128, 512)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,d_in,d_c,rows,m,tile", FRONT4_SLICES)
+def test_fused_front4_channel_slice_matches_plain(card, B, L, d_in, d_c, rows, m, tile, dtype):
+    """Kernels A4 and A4' on a rank's W (d_in, 3 d_c) against
+    `reference_fwd4` / `reference_bwd4` (the tail past L exactly zero; vx4,
+    x04 and the partial du at the dtype's tolerance, the parameter
+    gradients 1e-3 of their max, sums over B * L rows in another order)."""
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(L + d_c)
+    u = torch.randn(B, L, d_in, generator=g).to(dt)
+    params = [torch.randn(d_in, 3 * d_c, generator=g) * 0.05,
+              torch.randn(3 * d_c, generator=g) * 0.1, torch.randn(3, 3 * d_c, generator=g),
+              torch.randn(3 * d_c, generator=g) * 0.1]
+    cot = [torch.randn(B, d_c, rows, m, generator=g).to(dt) for _ in range(2)]
+    tol = (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
+    args = [t.to(card) for t in [u] + params]
+    before = (FF.KERNEL4.launches, FF.KERNEL4_BWD.launches)
+    vx4, x04 = FF.fused_proj_conv_gate4(*args, rows, m, tile)
+    assert vx4.shape == x04.shape == (B, d_c, rows, m)
+    for out, want in zip((vx4, x04), FF.reference_fwd4(*args, rows, m)):
+        _close(out, want, *tol)
+        assert not out.reshape(B, d_c, -1)[..., L:].any()
+    out = FF.front4_bwd(*args, *(c.to(card) for c in cot))
+    assert (FF.KERNEL4.launches, FF.KERNEL4_BWD.launches) == (before[0] + 1, before[1] + 1)
+    ref = FF.reference_bwd4(*args, *(c.to(card) for c in cot))
+    assert out[0].shape == (B, L, d_in) and out[1].shape == (d_in, 3 * d_c)
+    _close(out[0], ref[0], *tol)
+    for got, want in zip(out[1:], ref[1:]):
+        _close(got, want, 1e-3, 1e-3)
+
+
 @pytest.mark.parametrize("mode", sorted(FF.PROBE_MODES))
 def test_wgmma_probe_matches_matmul(card, mode):
     """csrc/wgmma.cuh alone: one 64 x N x 64 bf16 product in each layout and

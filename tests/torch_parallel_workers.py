@@ -382,3 +382,167 @@ def _seeded(module, generator):
         for p in module.parameters():
             p.normal_(0.0, 0.02, generator=generator)
     return module
+
+
+# ---- the mesh's remaining combinations (tests/test_torch_port_mesh_rest.py) ---
+
+MR_B, MR_L, MR_D = 2, 64, 32
+# MHA on a seq axis: causal with and without rotary, and bidirectional
+MR_MHA = {"causal": dict(num_heads=4), "rotary": dict(num_heads=4, rotary_emb_dim=4),
+          "bidirectional": dict(num_heads=4, causal=False)}
+# an all-attention LM with learned positions (hg38_attention's layout)
+MR_ATTN_LM = dict(d_model=MR_D, n_layer=2, d_inner=64, vocab_size=12, pad_vocab_size_multiple=8,
+                  attn_layer_idx=[0, 1], attn_cfg=dict(num_heads=4),
+                  max_position_embeddings=MR_L, embed_dropout=0.0,
+                  layer=dict(_name_="hyena", emb_dim=5, filter_order=16, l_max=MR_L + 2))
+# SequenceDecoder (mode, l_output, masked); 40 positions span both ranks
+MR_DECODERS = {"last_0": ("last", 0, False), "last_40": ("last", 40, False),
+               "last_none": ("last", None, False), "first_3": ("first", 3, False),
+               "first_40": ("first", 40, False), "pool_0": ("pool", 0, False),
+               "pool_40": ("pool", 40, False), "pool_none": ("pool", None, False),
+               "pool_mask": ("pool", 0, True), "sum_0": ("sum", 0, False),
+               "sum_none": ("sum", None, False), "ragged": ("ragged", 0, False)}
+MR_LENGTHS = (50, 20)  # each row's true length: the ragged ends and the masks
+MR_D_OUT = 4
+# the general Hyena path on a model axis of 2: M divides the heads (head
+# split) or, with one head, head_dim (channel split)
+MR_HYENA = {"heads2": dict(num_heads=2), "outer_heads2": dict(num_heads=2, outer_mixing=True),
+            "ffn_one_head": dict(post_order_ffn=True),
+            "all_heads2": dict(order=3, num_heads=2, num_blocks=2, outer_mixing=True,
+                               post_order_ffn=True),
+            "all_one_head": dict(order=3, num_blocks=2, outer_mixing=True, post_order_ffn=True)}
+MR_HYENA_KW = dict(d_model=MR_D, l_max=MR_L, filter_order=16, filter_cfg=dict(emb_dim=5))
+# the 4-D route (front4) at tests/test_torch_port_front4.py's plan: fft 4096
+MR_F4_PLAN, MR_F4_N, MR_F4_L, MR_F4_D = (4, 8, 128), 4096, 1536, 8
+
+
+def mesh_rest_inputs() -> dict:
+    """The seeded numpy inputs of the mesh-rest checks."""
+    rng = np.random.default_rng(7)
+    f32 = lambda *shape: rng.normal(size=shape).astype(np.float32)
+    mask = np.zeros((MR_B, MR_L), np.float32)
+    for i, n in enumerate(MR_LENGTHS):
+        mask[i, :n] = 1.0
+    return {"x": f32(MR_B, MR_L, MR_D), "dy": f32(MR_B, MR_L, MR_D),
+            "dec_dy": f32(MR_B, MR_L, MR_D_OUT), "mask": mask,
+            "tokens": rng.integers(7, 11, size=(MR_B, MR_L + 1)).astype(np.int64),
+            "f4_u": f32(1, MR_F4_L, MR_F4_D), "f4_dy": f32(1, MR_F4_L, MR_F4_D)}
+
+
+def decoder_cotangent(a: dict, name: str) -> np.ndarray:
+    """The cotangent of decoder case `name`'s output (B, l, d_out), or
+    (B, d_out) for l_output 0."""
+    _, l_output, _ = MR_DECODERS[name]
+    if l_output is None:
+        return a["dec_dy"]
+    return a["dec_dy"][:, 0] if l_output == 0 else a["dec_dy"][:, :l_output]
+
+
+def mesh_rest(out: str, params: str) -> None:
+    """The mesh-rest checks on 2 ranks. A seq axis of 2: MHA (each case of
+    MR_MHA) and the all-attention LM with learned positions on the rank's
+    columns, every SequenceDecoder case and NDDecoder's pool (a
+    per-sequence output's loss weighted by 1 / S on each rank, the train
+    step's weighting), MHA with dropout against the same module whole from
+    the same generator. A model axis of 2: the general Hyena cases and
+    front4's operator (parameters from the JAX modules) and the general
+    path with dropout against the whole operator from the same generator."""
+    from hyena_dna_tpu_torch.models.attention import MHA
+    from hyena_dna_tpu_torch.models.heads import NDDecoder, SequenceDecoder
+    from hyena_dna_tpu_torch.models.lm import ConvLMHeadModel as LM
+    from hyena_dna_tpu_torch.ops import fused_fftconv as FB
+    from hyena_dna_tpu_torch.parallel.sharding import shard_state_dict, tp_layout
+
+    torch.set_num_threads(1)
+    launch.initialize_distributed(torch.device("cpu"))
+    seq = make_mesh(data=1, seq=2)
+    model = make_mesh(data=1, seq=1, model=2)
+    a, sd = mesh_rest_inputs(), torch.load(params, weights_only=True)
+    cols = seq.seq_columns(MR_L)
+    local = lambda name: np.ascontiguousarray(a[name][:, cols])
+    res = {"coords": (seq.seq_index, model.model_index), "mha": {}, "decoders": {},
+           "hyena": {}}
+
+    for name, kw in MR_MHA.items():
+        m = MHA(MR_D, **kw, mesh=seq)
+        m.load_state_dict(sd["mha"][name])
+        x = _t(local("x"), True)
+        y = m(x)
+        (y * _t(local("dy"))).sum().backward()
+        res["mha"][name] = {"y": y.detach(), "dx": x.grad, "grads": _summed(_grads(m))}
+    # dropout: the whole (B, L, H, hd) mask sliced at the rank's columns
+    whole = MHA(MR_D, 4, dropout=0.3, generator=torch.Generator().manual_seed(1))
+    split = MHA(MR_D, 4, dropout=0.3, mesh=seq)
+    split.load_state_dict(whole.state_dict())
+    with torch.no_grad():
+        ref = whole.train()(_t(a["x"]), torch.Generator().manual_seed(5))[:, cols]
+        y = split.train()(_t(local("x")), torch.Generator().manual_seed(5))
+    res["mha_dropout"] = float((y - ref).abs().max() / ref.abs().max())
+
+    lm = LM(**MR_ATTN_LM, mesh=seq)
+    lm.load_state_dict(sd["attn_lm"], strict=False)
+    tokens = torch.from_numpy(a["tokens"])
+    x_tok, y_tok = tokens[:, :-1], tokens[:, 1:]
+    loss = lm_loss(lm(x_tok[:, cols]), y_tok[:, cols]) / seq.seq
+    loss.backward()
+    total = loss.detach().clone()
+    dist.all_reduce(total)
+    res["attn_lm"] = {"loss": total, "grads": _summed(_grads(lm)), "aliases": _aliases(lm)}
+
+    lengths = torch.tensor(MR_LENGTHS)
+    for name, (mode, l_output, masked) in MR_DECODERS.items():
+        dec = SequenceDecoder(MR_D, MR_D_OUT, l_output, mode, mesh=seq)
+        dec.load_state_dict(sd["decoder"])
+        x = _t(local("x"), True)
+        kw = {"mask": _t(local("mask"))} if masked else {}
+        y = dec(x, lengths=lengths if mode == "ragged" else None, **kw)
+        dy = decoder_cotangent(a, name)
+        per_token = l_output is None
+        dy = np.ascontiguousarray(dy[:, cols]) if per_token else dy
+        ((y * _t(dy)).sum() / (1 if per_token else seq.seq)).backward()
+        res["decoders"][name] = {"y": y.detach(), "dx": x.grad, "grads": _summed(_grads(dec))}
+    nd = NDDecoder(MR_D, MR_D_OUT, mesh=seq)
+    nd.load_state_dict(sd["decoder"])
+    x = _t(local("x"), True)
+    y = nd(x)
+    ((y * _t(a["dec_dy"][:, 0])).sum() / seq.seq).backward()
+    res["decoders"]["nd_pool"] = {"y": y.detach(), "dx": x.grad, "grads": _summed(_grads(nd))}
+
+    for name, kw in MR_HYENA.items():
+        op = HyenaOperator(**MR_HYENA_KW, **kw, mesh=model)
+        op.load_state_dict(shard_state_dict(sd["hyena"][name], model, tp_layout(op)))
+        u = _t(a["x"], True)
+        y = op(u)
+        (y * _t(a["dy"])).sum().backward()
+        res["hyena"][name] = {"y": y.detach(), "du": u.grad, "grads": whole_grads(op, model),
+                              "aliases": _aliases(op), "split": op.split,
+                              "layout": {k: v for k, v in tp_layout(op).items()}}
+    res["hyena_dropout"] = {}
+    for name in ("all_heads2", "all_one_head"):
+        kw = dict(**MR_HYENA_KW, **MR_HYENA[name], dropout=0.2)
+        op_whole, op_split = HyenaOperator(**kw), HyenaOperator(**kw, mesh=model)
+        op_whole.load_state_dict(sd["hyena"][name])
+        op_split.load_state_dict(shard_state_dict(sd["hyena"][name], model,
+                                                  tp_layout(op_split)))
+        with torch.no_grad():
+            ref = op_whole.train()(_t(a["x"]), torch.Generator().manual_seed(9))
+            y = op_split.train()(_t(a["x"]), torch.Generator().manual_seed(9))
+        res["hyena_dropout"][name] = float((y - ref).abs().max() / ref.abs().max())
+
+    FB.OUTER_BY_N[MR_F4_N] = MR_F4_PLAN  # tests/test_front4.py's plan, as the JAX side
+    op = HyenaOperator(MR_F4_D, MR_F4_L, filter_order=16, filter_cfg=dict(emb_dim=5),
+                       front4=True, mesh=model)
+    op.load_state_dict(shard_state_dict(sd["front4"], model, tp_layout(op)))
+    u = _t(a["f4_u"], True)
+    y = op(u)
+    (y * _t(a["f4_dy"])).sum().backward()
+    res["front4"] = {"y": y.detach(), "du": u.grad, "grads": whole_grads(op, model),
+                     "aliases": _aliases(op), "plan": op.front4_plan(1, MR_F4_L)}
+    torch.save(res, Path(out) / f"mesh_rest_rank{launch.rank()}.pt")
+
+
+def mesh_rest_world(out: str, params: str, jobs: list) -> None:
+    """One world of 2 ranks for tests/test_torch_port_mesh_rest.py: the
+    module checks (`mesh_rest`), then the trainer jobs (`trainers`)."""
+    mesh_rest(out, params)
+    trainers(out, jobs)
