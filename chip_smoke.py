@@ -31,7 +31,14 @@ line:
             450k step's 1 x 450,048 (fft 2^20), then the routes no
             default path takes: the narrow plan at fft 2^19, the 3-factor
             plans at fft 2^19-2^21, kernel C's dk-spectrum
-            mode at 4 x 32768; E and E' on each route at 4 x 32768 and 2 x
+            mode at 4 x 32768; kernels B and C's short path
+            (csrc/fft_short.cuh, fft 2^4 to its cut 2^13) at every FFT size
+            to the cut (B 1 and 3, odd C, k shorter than u, L 1023 and
+            1026, float32 and bf16, C's dk in float32 too), two calls of C
+            bit-equal, the saved-spectrum modes (which keep the four-step
+            passes) once at fft 2^11, and B and C timed at the species
+            curriculum's first three stages (128 x 1024, 64 x 2048 and
+            32 x 4096 at d 128, float32); E and E' on each route at 4 x 32768 and 2 x
             65536, and E' through its generic wrappers on the specv and
             spec routes at B = 1 (1 x 32768) and at fft 2^20 (1 x 450,048,
             its row pass over a 2-CTA cluster); A4 and A4' at 1 x 1,000,448
@@ -281,7 +288,9 @@ float32, with their bf16 numbers under "bf16"; kernels E and E' on the
 specv route, the gated step's; A4 and A4' at the 1M step's shape; every
 row of B, C, E, E', A4, A4', F and F' under "routes"; A, A', B and C
 at the trainer's shapes under "trainer" and at the species curriculum's
-last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; phase 9's
+last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; B and C on
+their short path (the trainer's shape and the curriculum's first three
+stages) under "short"; phase 9's
 launches (9c's mixed stack and 9d's general Hyena path) under
 "models_launches"; B and C at phase 10's channel pencils with the ranks'
 launches under "parallel"; A, A', B and C at phase 11's channel slices
@@ -289,7 +298,7 @@ with the ranks' launches under "tensor_parallel"; A4 and A4' at phase
 12a's channel slices and every kernel's launches in phase 12 under
 "mesh_rest"; the bf16 rows of A,
 A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
-readings, C, E and E' with their passes' readings), and last
+readings, B, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
 launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
@@ -438,9 +447,10 @@ def check_wgmma(probe, b_cols: int, phase: str, seed: int):
 
 # the kernels whose ptxas readings the run prints: the tensor-core kernels
 # behind each bf16 front-end entry (csrc/fused_front_tc.cuh) and behind
-# kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels, and
-# the passes of kernels C, E and E' (csrc/fftconv_bwd.cu,
-# csrc/fftconv_gated{,_bwd}.cu)
+# kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels, the
+# passes of kernels C, E and E' (csrc/fftconv_bwd.cu,
+# csrc/fftconv_gated{,_bwd}.cu), and the short path's kernels of B and C
+# (csrc/fft_short.cuh)
 PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "fused_front4": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "fused_front_bwd": ("split_w_kernel", "front_bwd_du_kernel", "front_bwd_dw_kernel",
@@ -450,8 +460,10 @@ PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "mlp_fused": ("mlp_fwd_kernel", "round_bf16_kernel"),
                  "mlp_fused_bwd": ("mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel",
                                    "sum_splits_kernel", "round_bf16_kernel"),
+                 "fftconv": ("short_kspec_kernel", "short_conv_kernel"),
                  "fftconv_bwd": ("cols_in_kernel", "rows_fwd_kernel", "rows_grad_kernel",
-                                 "rows_grad_cluster_kernel", "cols_inv_kernel"),
+                                 "rows_grad_cluster_kernel", "cols_inv_kernel",
+                                 "short_kspec_kernel", "short_grad_kernel", "short_dk_kernel"),
                  "fftconv_gated": ("cols_in_delta_kernel", "cols_in_kernel", "rows_fwd_kernel",
                                    "rows_conv_kernel", "cols_inv_gate_kernel"),
                  "fftconv_gated_bwd": ("cols_in_delta_kernel", "cols_in_kernel",
@@ -1052,6 +1064,97 @@ def check_dk_spec(FB, B, L, dtype, plan, seed):
             "ms": time_ms(lambda: FB.fftconv_fused_dk_spec(u, dy, *plan)),
             "plain_ms": time_ms(lambda: FB.fftconv_dk_spec_ref(u, dy, n)),
             "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# Kernels B and C's short path (csrc/fft_short.cuh, n <= 2^kShortMaxLogN):
+# (B, C, L, Lk, dtype) at every FFT size from 2^4 to the cut, odd C with k as
+# long as u at L = n / 2, then B = 3 with L = n / 2 - 1 and a shorter k in
+# bf16; and the shipped lengths that are not powers of two, 1023 (fft 2^11)
+# and 1026 (fft 2^12), in both dtypes, k shorter in one of each.
+def short_cases(max_log_n: int) -> list:
+    cases = []
+    for log_n in range(4, max_log_n + 1):
+        n = 1 << log_n
+        cases += [(1, 5, n // 2, n // 2, "float32"),
+                  (3, 4, n // 2 - 1, max(1, 3 * (n // 2 - 1) // 4), "bfloat16")]
+    return cases + [(3, 7, 1023, 1023, "float32"), (3, 7, 1023, 700, "bfloat16"),
+                    (1, 3, 1026, 1026, "bfloat16"), (3, 5, 1026, 900, "float32")]
+
+
+def conv_inputs(g, B, C, L, Lk, dtype):
+    """u, dy (B, C, L) and a decaying filter k (C, Lk) in `dtype`, float32 D."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    u, dy = (torch.randn(B, C, L, device="cuda", generator=g).to(dt) for _ in range(2))
+    decay = torch.exp(-torch.arange(Lk, device="cuda") / (Lk / 8))
+    k = (torch.randn(C, Lk, device="cuda", generator=g) * 0.05 * decay).to(dt)
+    return u, dy, k, torch.randn(C, device="cuda", generator=g)
+
+
+def check_short_path(FB, seed: int) -> dict:
+    """Kernels B and C's short path at every case of `short_cases` against
+    `fftconv_ref` and `fftconv_bwd_ref` at TOL (C's dk in the I/O dtype and,
+    for bf16 I/O, in float32 too), one launch of each wrapper a call; kernel C
+    twice at the trainer's 32 x 128 x 1024 and at 3 x 7 x 1026 bf16, the same
+    bits in du, dk and dD (and kernel B's y); then the saved-spectrum modes,
+    which keep the four-step passes by design, once at fft 2^11: kernel B's
+    save_spectrum against `pair_spectrum_ref`, kernel C's spectrum route and
+    its dk-spectrum mode against their plain versions."""
+    import torch
+
+    from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
+
+    cut = FB.short_max_log_n()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    worst, sizes = {}, set()
+    cases = short_cases(cut)
+    for B, C, L, Lk, dtype in cases:
+        n = next_fast_fft_size(2 * L)
+        if not FB.short_path(n):
+            raise AssertionError(f"fft {n} is above the short path's cut 2^{cut}")
+        u, dy, k, D = conv_inputs(g, B, C, L, Lk, dtype)
+        before = FB.KERNEL.launches, FB.KERNEL_BWD.launches
+        outs = [("y", FB.fftconv_fused(u, k, D), fftconv_ref(u, k, D))]
+        dk_dtypes = (None, torch.float32) if dtype == "bfloat16" else (None,)
+        for dk_dtype in dk_dtypes:
+            got = FB.fftconv_bwd_retransform(u, dy, k, D, dk_dtype=dk_dtype)
+            want = FB.fftconv_bwd_ref(u, dy, k, D, dk_dtype=dk_dtype)
+            outs += [(name + ("_f32" if dk_dtype else ""), o, r)
+                     for name, o, r in zip(("du", "dk", "dD"), got, want)]
+        torch.cuda.synchronize()
+        launched = (FB.KERNEL.launches - before[0], FB.KERNEL_BWD.launches - before[1])
+        if launched != (1, len(dk_dtypes)):
+            raise AssertionError(f"short path {(B, C, L, Lk, dtype)}: launches {launched}")
+        for name, o, r in outs:
+            if o.dtype != r.dtype or o.shape != r.shape:
+                raise AssertionError(f"short path {name}: {o.dtype} {tuple(o.shape)} against "
+                                     f"{r.dtype} {tuple(r.shape)}")
+            key = f"{name} {dtype}"
+            rel = compare(o, r, "float32" if o.dtype == torch.float32 else dtype)[1]
+            worst[key] = max(worst.get(key, 0.0), rel)
+        sizes.add(n)
+    same_bits = {}
+    for B, C, L, dtype in ((32, TRAINER_D, 1024, "float32"), (3, 7, 1026, "bfloat16")):
+        u, dy, k, D = conv_inputs(g, B, C, L, L, dtype)
+        runs = [(FB.fftconv_fused(u, k, D), *FB.fftconv_bwd_retransform(u, dy, k, D))
+                for _ in range(2)]
+        same_bits[f"{B}x{C}x{L} {dtype}"] = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not all(same_bits.values()):
+        raise AssertionError(f"short path: two calls differ in their bits: {same_bits}")
+    u, dy, k, D = conv_inputs(g, 2, 6, 1024, 1024, "float32")
+    y, spec = FB.fftconv_fused(u, k, D, save_spectrum=True)
+    saved = {"y": compare(y, fftconv_ref(u, k, D), "float32")[1],
+             "spectrum": compare(spec, FB.pair_spectrum_ref(u, 2048), "float32")[1]}
+    for name, o, r in zip(("du", "dk", "dD"), FB.fftconv_bwd_spectrum(spec, dy, k, D),
+                          FB.fftconv_bwd_ref(u, dy, k, D)):
+        saved[f"spectrum route {name}"] = compare(o, r, "float32")[1]
+    for name, o, r in zip(("re", "im"), FB.fftconv_fused_dk_spec(u, dy, 32, 64, 1),
+                          FB.fftconv_dk_spec_ref(u, dy, 2048)):
+        saved[f"dk_spec {name}"] = compare(o, r, "float32")[1]
+    return {"phase": "short_path", "cut": 1 << cut, "fft_sizes": sorted(sizes),
+            "cases": len(cases), "max_rel_err": worst, "same_bits": same_bits,
+            "saved_spectrum_modes_at_fft_2048": saved, "ok": True}
 
 
 def mlp_inputs(B, L, dtype, seed, d=D_MODEL):
@@ -3444,6 +3547,18 @@ def main() -> int:
         check_conv_bwd(FB, FB.fftconv_bwd_retransform, 32, 1024, "float32",
                        "XLA FFT on the TPU (trainer)", 103, C=TRAINER_D)]
     rows += trainer_rows
+    # kernels B and C's short path (fft 2^4 to the cut, csrc/fft_short.cuh):
+    # the sweep against the plain versions, then the species curriculum's
+    # first three stages (phase 8c, d = 128, float32 conv I/O): 128 x 1024
+    # (fft 2^11), 64 x 2048 (fft 2^12) and 32 x 4096 (fft 2^13, the cut)
+    log(check_short_path(FB, 118))
+    short_rows = []
+    for i, (B, L) in enumerate(((128, 1024), (64, 2048), (32, 4096))):
+        stage = f"XLA FFT on the TPU (species stage {i + 1})"
+        short_rows += [check_conv(FB, B, L, "float32", stage, 120 + 2 * i, C=TRAINER_D),
+                       check_conv_bwd(FB, FB.fftconv_bwd_retransform, B, L, "float32", stage,
+                                      121 + 2 * i, C=TRAINER_D)]
+    rows += short_rows
     # the species curriculum's last stage (phase 8c): A, A' in bf16 at d = 128,
     # B and C at fft 2^16 with bf16 conv I/O, C on the retransform route the
     # checkpointed cells take
@@ -3632,6 +3747,11 @@ def main() -> int:
                            **{k: r[k] for k in timing}} for r in trainer_rows}
     species = {r["name"]: {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
                            **{k: r[k] for k in timing}} for r in species_rows}
+    # the short path's rows (fft 2^11 to 2^13): the trainer's and the
+    # species curriculum's first three stages
+    short = {name: {r["shape"]: {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}}
+                    for r in trainer_rows + short_rows if r["name"] == name}
+             for name in ("fftconv", "fftconv_bwd")}
     # the seq route's pencil rows (phase 10) with the ranks' launches
     parallel = {name: {"launches": parallel_launches.get(name, 0),
                        "pencils": {r["shape"]: {"max_abs_err": r["max_abs_err"],
@@ -3664,10 +3784,11 @@ def main() -> int:
          **({"routes": dict(route_row(r) for r in rows if r["name"] == name)}
             if name in routed else {}),
          **({"ptxas": ptxas.get(name, {})}
-            if name in ("mlp_fused", "mlp_fused_bwd", "fftconv_bwd", "fftconv_gated",
-                        "fftconv_gated_bwd") else {}),
+            if name in ("mlp_fused", "mlp_fused_bwd", "fftconv", "fftconv_bwd",
+                        "fftconv_gated", "fftconv_gated_bwd") else {}),
          **({"trainer": trainer[name]} if name in trainer else {}),
          **({"models_launches": models_launches[name]} if models_launches.get(name) else {}),
+         **({"short": short[name]} if name in short else {}),
          **({"species": species[name]} if name in species else {}),
          **({"parallel": parallel[name]} if name in parallel else {}),
          **({"tensor_parallel": tensor_parallel[name]} if name in tensor_parallel else {}),

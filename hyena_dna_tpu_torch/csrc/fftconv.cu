@@ -10,9 +10,18 @@
 //   hyena_dna_tpu/ops/pallas_fftconv.py::fftconv_fused_fwd_packed (fft 2^16-2^17, even B)
 //   hyena_dna_tpu/ops/pallas_fftconv.py::fftconv_fused_fwd        (fft 2^16, odd B)
 //   hyena_dna_tpu/ops/pallas_fftconv_n3.py::fftconv_outer_fwd     (fft 2^17-2^21)
-// and the XLA FFT the TPU used below 2^16: one kernel serves every size.
+// and the XLA FFT the TPU used below 2^16. Two paths serve every size:
+//   * the short path (fft_short.cuh) at n <= 2^kShortMaxLogN (2^13): each
+//     channel pair's row whole in one block's shared memory, two launches
+//     (K + D once a call, then the conv with the batch spread over the grid),
+//     no scratch in device memory;
+//   * the four-step passes below, above the cut, and at every size when the
+//     caller asks for u's saved spectrum (save_spectrum): that spectrum is
+//     kept in the four-step layout kernel C's spectrum route reads, so the
+//     mode branches to the four-step passes here by design (no route of the
+//     model saves a spectrum below 2^16).
 //
-// What bounds it on the H100: the four-step plan's complex64 scratch in
+// The four-step passes. What bounds them on the H100: the plan's complex64 scratch in
 // device memory between passes (a 2^21 row is 16 MB, past any block's
 // shared memory). Per (batch, channel pair) u's chain moves about 40 n
 // bytes (pass 1 writes 8n; pass 2 reads 8n, reads 8n of k's spectrum and
@@ -55,6 +64,7 @@
 //    (row f1, natural f2) and is private to kernels B and C.
 #define FFT_NS conv_fwd
 #include "fft_common.cuh"
+#include "fft_short.cuh"
 
 namespace FFT_NS {
 
@@ -82,22 +92,36 @@ int launch_all(const T* u, const T* k, const float* D, T* y, float2* scratch, fl
 }  // namespace FFT_NS
 
 // u (B, C, L), k (C, Lk), y (B, C, L) contiguous, all float32 (is_bf16 == 0)
-// or all bfloat16; D (C,) float32. scratch holds B * ceil(C/2) * n complex64,
-// kspec ceil(C/2) * n. uspec is null, or B * ceil(C/2) * n complex64 that
-// receives u's pass-2 spectrum for kernel C. Launches on `stream`, does not
-// synchronise; returns the cudaError_t of the launches (0 on success).
+// or all bfloat16; D (C,) float32. kspec holds ceil(C/2) * n complex64.
+// scratch holds B * ceil(C/2) * n complex64, and may be null on the short
+// path (n <= 2^kShortMaxLogN with uspec null), which does not touch it.
+// uspec is null, or B * ceil(C/2) * n complex64 that receives u's pass-2
+// spectrum for kernel C (the four-step passes at every n). Launches on
+// `stream`, does not synchronise; returns the cudaError_t of the launches (0
+// on success).
 extern "C" int hyena_fftconv_fwd(const void* u, const void* k, const float* D, void* y,
                                  void* scratch, void* kspec, void* uspec, int B, int C, int L,
                                  int Lk, int n, int is_bf16, cudaStream_t stream) {
   using namespace FFT_NS;
   if (!valid_fft_size(n) || L < 1 || 2 * L > n || Lk < 1 || Lk > L || B < 1 || C < 1 ||
-      (C + 1) / 2 > 65535 || B > 65535) {
+      (C + 1) / 2 > 65535 || B > 65535 || kspec == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan p = make_plan(n);
   auto* s = static_cast<float2*>(scratch);
   auto* ks = static_cast<float2*>(kspec);
   auto* us = static_cast<float2*>(uspec);
+  const int log_n = 31 - __builtin_clz(static_cast<unsigned>(n));
+  if (short_path_size(n) && us == nullptr) {  // the saved-spectrum mode keeps the four-step passes
+    if (is_bf16) {
+      using bf = __nv_bfloat16;
+      return launch_short_fwd(static_cast<const bf*>(u), static_cast<const bf*>(k), D,
+                              static_cast<bf*>(y), ks, B, C, L, Lk, log_n, stream);
+    }
+    return launch_short_fwd(static_cast<const float*>(u), static_cast<const float*>(k), D,
+                            static_cast<float*>(y), ks, B, C, L, Lk, log_n, stream);
+  }
+  if (s == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan p = make_plan(n);
   if (is_bf16) {
     return launch_all(static_cast<const __nv_bfloat16*>(u), static_cast<const __nv_bfloat16*>(k), D,
                       static_cast<__nv_bfloat16*>(y), s, ks, us, B, C, L, Lk, p, stream);

@@ -23,8 +23,21 @@
 //     hyena_dna_tpu/ops/pallas_fftconv.py::fftconv_fused_bwd_packed / fftconv_fused_bwd
 //     hyena_dna_tpu/ops/pallas_fftconv_n3.py::fftconv_outer_bwd           (fft 2^17-2^21)
 //
-// What bounds it on the H100: the complex64 scratch between the four-step
-// passes goes through device memory past n = 2^14 (one pair's row of 2^21 is
+// Two paths, as kernel B's:
+//   * the short path (fft_short.cuh) at n <= 2^kShortMaxLogN (2^13) on the
+//     retransform route with k: three launches (K + D once a call; one block
+//     per (channel pair, batch slice) transforming dy's and u's rows whole in
+//     shared memory, writing du and adding DY conj(U) into the slice's dk
+//     partial; one block per pair summing the partials in slice order and
+//     transforming dk back), no scratch between passes in device memory;
+//   * the four-step passes below, above the cut, and at every size for the
+//     two modes no route of the model takes at short n: the spectrum route
+//     (u's spectrum saved by kernel B's save_spectrum, in the four-step
+//     layout) and the dk-spectrum mode (k null, dk's spectrum out in that
+//     layout). Those modes branch to the four-step passes by design.
+//
+// The four-step passes. What bounds them on the H100: the complex64 scratch
+// between them goes through device memory past n = 2^14 (one pair's row of 2^21 is
 // 16 MB, past any block's shared memory): at 1 x 1,000,448 x 256 about 28
 // GB a call through the passes (8.5 ms at 3.35 TB/s), counted per pass by
 // utils/profile_passes.py. Measured there, no pass reaches half that rate:
@@ -76,6 +89,7 @@
 // in fft_grad_common.cuh, which kernel E' runs too.
 #define FFT_NS conv_bwd
 #include "fft_grad_common.cuh"
+#include "fft_short.cuh"
 
 namespace FFT_NS {
 
@@ -130,11 +144,26 @@ int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const f
 // wrapper allocates slabs * n * 8 bytes): dy's column pass (B slabs a
 // channel pair), u's (B more) on the retransform route (retransform != 0),
 // and k's (one) unless in the dk-spectrum mode (with_k == 0). -1 for sizes
-// the kernel refuses.
+// the kernel refuses. The short path uses the first (S + 1) ceil(C/2) of
+// them (K + D, then S <= B dk partials a pair).
 extern "C" int hyena_fftconv_bwd_ws_slabs(int B, int C, int retransform, int with_k) {
   if (B < 1 || C < 1 || B > 65535 || (C + 1) / 2 > 65535) return -1;
   const int64_t slabs = FFT_NS::ws_slabs(B, C, retransform != 0, with_k != 0);
   return slabs > 0x7fffffff ? -1 : static_cast<int>(slabs);
+}
+
+// The number S of dk partials a channel pair that the short path sums at
+// this shape (its batch slices, fixed for a card: the fewest rows a block
+// for which its grid fits the card's resident blocks), 0 where n is above
+// the cut; -1 for sizes the kernel refuses.
+extern "C" int hyena_fftconv_bwd_short_slices(int B, int C, int n, int is_bf16) {
+  using namespace FFT_NS;
+  if (B < 1 || C < 1 || B > 65535 || (C + 1) / 2 > 65535 || !valid_fft_size(n)) return -1;
+  if (!short_path_size(n)) return 0;
+  const int log_n = 31 - __builtin_clz(static_cast<unsigned>(n));
+  const int rows = is_bf16 ? short_grad_rows<__nv_bfloat16>(B, C, log_n)
+                           : short_grad_rows<float>(B, C, log_n);
+  return (B + rows - 1) / rows;
 }
 
 // dy, du (B, C, L), k (C, Lk) contiguous, all float32 (is_bf16 == 0) or all
@@ -159,9 +188,22 @@ extern "C" int hyena_fftconv_bwd(const void* u, const void* uspec, const void* d
       (k != nullptr && (D == nullptr || du == nullptr || dD == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Plan p = make_plan(n);
   auto* us = static_cast<const float2*>(uspec);
   auto* w = static_cast<float2*>(ws);
+  // the spectrum route and the dk-spectrum mode keep the four-step passes
+  if (short_path_size(n) && u != nullptr && k != nullptr) {
+    const int log_n = 31 - __builtin_clz(static_cast<unsigned>(n));
+    if (is_bf16) {
+      using bf = __nv_bfloat16;
+      return launch_short_bwd(static_cast<const bf*>(u), static_cast<const bf*>(dy),
+                              static_cast<const bf*>(k), D, static_cast<bf*>(du), dk, dk_f32 != 0,
+                              dD, w, B, C, L, Lk, log_n, stream);
+    }
+    return launch_short_bwd(static_cast<const float*>(u), static_cast<const float*>(dy),
+                            static_cast<const float*>(k), D, static_cast<float*>(du), dk,
+                            dk_f32 != 0, dD, w, B, C, L, Lk, log_n, stream);
+  }
+  const Plan p = make_plan(n);
   if (is_bf16) {
     using bf = __nv_bfloat16;
     return launch_all(static_cast<const bf*>(u), us, static_cast<const bf*>(dy),

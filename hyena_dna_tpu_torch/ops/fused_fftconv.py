@@ -6,7 +6,22 @@ kernels (`ops/pallas_fftconv.py::fftconv_fused_fwd_packed` and
 C (`csrc/fftconv_bwd.cu`) their backward (`fftconv_fused_bwd_spec_packed`,
 `fftconv_fused_bwd_spec`, `fftconv_fused_bwd_du` + `fftconv_fused_dk_from_specs`,
 `fftconv_fused_bwd_packed`, `fftconv_fused_bwd`, `fftconv_outer_bwd`). One
-kernel each covers every power-of-two FFT size from 16 to 2^21:
+kernel each covers every power-of-two FFT size from 16 to 2^21, on two
+paths chosen inside the C entry:
+
+  * the short path (`csrc/fft_short.cuh`) at n <= 2^kShortMaxLogN (2^13,
+    every shipped Hyena config at L <= 4096): each channel pair's row whole
+    in one block's shared memory, the batch spread over the grid. Kernel B
+    is two launches (the filter's spectrum with D folded in, K + D, once a
+    call; the conv), kernel C three (K + D; one block per (pair, batch
+    slice) writing du and the slice's dk partial; one block per pair
+    summing the partials in a fixed order and transforming dk back);
+  * the four-step passes (`csrc/fft_common.cuh`) above the cut, and at any
+    size for the saved-spectrum modes (B's `save_spectrum`, C's spectrum
+    route, the dk-spectrum mode), whose spectra are in the four-step layout.
+    No route of the model saves a spectrum below 2^16.
+
+The functions:
 
   y[b, c]  = irfft(rfft(u[b, c], n) * rfft(k[c], n), n)[:L] + u[b, c] * D[c]
   du[b, c] = irfft(DY[b, c] * conj(K[c]), n)[:L] + dy[b, c] * D[c]
@@ -91,6 +106,7 @@ KERNEL = _cuda.Kernel("fftconv", {
 KERNEL_BWD = _cuda.Kernel("fftconv_bwd", {
     "hyena_fftconv_bwd": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     "hyena_fftconv_bwd_ws_slabs": [ctypes.c_int] * 4,
+    "hyena_fftconv_bwd_short_slices": [ctypes.c_int] * 4,
 })
 
 
@@ -109,6 +125,32 @@ def _plan_log_n1() -> tuple[int, ...]:
     text = (_cuda.CSRC / "fft_common.cuh").read_text()
     body = re.search(r"kPlanLogN1\[kMaxLogN \+ 1\] = \{([^}]*)\}", text).group(1)
     return tuple(int(v) for v in body.split(","))
+
+
+@functools.cache
+def short_max_log_n() -> int:
+    """log2 of the largest FFT size of the kernels' short path, read from
+    the kernels' own constant (`kShortMaxLogN` in csrc/fft_short.cuh)."""
+    text = (_cuda.CSRC / "fft_short.cuh").read_text()
+    return int(re.search(r"constexpr int kShortMaxLogN = (\d+);", text).group(1))
+
+
+def short_path(n: int, saved_spectrum: bool = False) -> bool:
+    """Whether kernels B and C run a conv of FFT size n on their short path
+    (no device scratch): n at or below the cut, and no saved spectrum
+    written or read (those modes keep the four-step layout)."""
+    return n <= 1 << short_max_log_n() and not saved_spectrum
+
+
+def short_slices(b: int, c: int, n: int, dtype: torch.dtype) -> int:
+    """The dk partials a channel pair that kernel C's short path sums for a
+    (b, c, L) conv at FFT size n (its batch slices; 0 above the cut), from
+    the library (`hyena_fftconv_bwd_short_slices`): a card property."""
+    slices = KERNEL_BWD.lib().hyena_fftconv_bwd_short_slices(b, c, n,
+                                                             int(dtype == torch.bfloat16))
+    if slices < 0:
+        raise ValueError(f"kernel C takes no conv of B={b}, C={c} at fft {n}")
+    return slices
 
 
 def _four_step(n: int):
@@ -209,13 +251,16 @@ def fftconv_fused(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor,
     n = next_fast_fft_size(2 * length)
     pairs = (c + 1) // 2
     y = torch.empty_like(u)
-    # complex64 working space: u's transform per (batch, channel pair) and
-    # k's per channel pair, as interleaved (re, im) float32
-    scratch = torch.empty((b, pairs, n, 2), device=u.device, dtype=torch.float32)
-    kspec = torch.empty((pairs, n, 2), device=u.device, dtype=torch.float32)
-    spec = torch.empty_like(scratch) if save_spectrum else None
-    KERNEL.launch("hyena_fftconv_fwd",
-                  *map(_cuda.ptr, (u, k, D, y, scratch, kspec)), _cuda.ptr_or_null(spec),
+    # complex64 working space, as interleaved (re, im) float32: k's spectrum
+    # per channel pair, and on the four-step passes u's transform per
+    # (batch, channel pair), which the short path does not take
+    f32 = dict(device=u.device, dtype=torch.float32)
+    kspec = torch.empty((pairs, n, 2), **f32)
+    scratch = (None if short_path(n, save_spectrum)
+               else torch.empty((b, pairs, n, 2), **f32))
+    spec = torch.empty((b, pairs, n, 2), **f32) if save_spectrum else None
+    KERNEL.launch("hyena_fftconv_fwd", *map(_cuda.ptr, (u, k, D, y)),
+                  _cuda.ptr_or_null(scratch), _cuda.ptr(kspec), _cuda.ptr_or_null(spec),
                   b, c, length, k.shape[1], n, int(u.dtype == torch.bfloat16),
                   _cuda.stream_handle(u))
     return (y, spec) if save_spectrum else y

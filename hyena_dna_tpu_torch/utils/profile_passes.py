@@ -12,11 +12,14 @@ channels, k as long as u, random inputs from a fixed seed. For each, the
 script warms up, profiles REPS calls with `torch.profiler` (one session a
 call; a session that recorded no device activity is run again), and
 prints one JSON line listing the call's launches in order: the kernel's
-name, its mean device time, its role in the four-step transform and the
-bytes that role must move through device memory (each buffer it reads or
-writes counted once per read or write, from the shapes, see `pass_bytes`),
-and that traffic's share of 3.35 TB/s (H100 SXM data sheet) over the
-launch's time. Prints the card's name and power limit. Needs a card.
+name, its mean device time, its role in the four-step transform (or on
+kernels B and C's short path, FFT sizes up to 2^kShortMaxLogN: `python -m
+hyena_dna_tpu_torch.utils.profile_passes C:32x1024:float32` names its three
+launches) and the bytes that role must move through device memory (each
+buffer it reads or writes counted once per read or write, from the shapes,
+see `pass_bytes`), and that traffic's share of 3.35 TB/s (H100 SXM data
+sheet) over the launch's time. Prints the card's name and power limit.
+Needs a card.
 """
 
 from __future__ import annotations
@@ -41,12 +44,15 @@ ROUTES = {"B": ("forward",), "C": ("retransform", "spectrum"), "E": ("y", "spec"
           "E'": ("specv", "spec", "retransform")}
 # the launch kinds, told apart by the kernel's name
 FWD, ROWS, INV = "forward columns", "rows", "inverse columns"
+SHORT = "short path (rows whole in shared memory)"
 
 
 def launch_kind(name: str) -> str:
     """The kind of a launch from its kernel's name (every library names its
     forward column passes cols_fwd* or cols_in_*, its inverse ones
-    cols_inv*, its row passes rows_*)."""
+    cols_inv*, its row passes rows_*, the short path's kernels short_*)."""
+    if "short_" in name:
+        return SHORT
     if "cols_inv" in name:
         return INV
     if "cols_fwd" in name or "cols_in_" in name:
@@ -56,16 +62,31 @@ def launch_kind(name: str) -> str:
     raise ValueError(f"not a four-step launch: {name}")
 
 
-def pass_bytes(kernel: str, route: str, B: int, C: int, L: int, n: int, size: int):
+def pass_bytes(kernel: str, route: str, B: int, C: int, L: int, n: int, size: int,
+               slices: int | None = None):
     """[(role, kind, bytes read + written)] of one call's launches, in the
     order the call makes them. `slab` is one complex64 scratch of n per
     channel pair, `sig` one (B, C, L) signal and `filt` the (C, L) filter
     in the I/O type (`size` bytes an element). A row pass reads K once per
     batch row, and kernel C's and E''s row pass (`rows_grad_body`) reads dy
-    (dv) and u and writes du per batch row, and dk's rows once."""
+    (dv) and u and writes du per batch row, and dk's rows once. On the short
+    path (kernel B, and kernel C's retransform route, at n <= 2^kShortMaxLogN)
+    K + D is written once and read once (the blocks' later reads of it
+    counted as L2's), and kernel C's grad launch writes `slices` dk partials
+    a pair, which its last launch reads (`slices` is the library's
+    `short_slices`, a card property)."""
     slab = (C + 1) // 2 * n * 8
     sig = B * C * L * size
     filt = C * L * size  # k as long as u
+    if n <= 1 << FB.short_max_log_n() and (kernel, route) in (("B", "forward"),
+                                                              ("C", "retransform")):
+        kspec = [("K + D spectrum", SHORT, filt + slab)]
+        if kernel == "B":
+            return kspec + [("u rows: U (K + D), y", SHORT, 2 * sig + slab)]
+        if slices is None:
+            raise ValueError("kernel C's short path needs its number of dk partials (slices)")
+        return kspec + [("dy, u rows: du, dk partials", SHORT, 3 * sig + slab + slices * slab),
+                        ("dk: partials summed, inverse", SHORT, slices * slab + filt)]
     k_chain = [("k columns", FWD, filt + slab), ("k rows (in place)", ROWS, 2 * slab)]
     grad = [("rows", ROWS, 4 * B * slab + slab), ("du columns", INV, B * slab + sig),
             ("dk columns", INV, slab + filt)]
@@ -135,7 +156,10 @@ def profile(spec: str) -> dict:
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     n = next_fast_fft_size(2 * L)
-    roles = pass_bytes(kernel, route, B, CHANNELS, L, n, getattr(torch, dtype).itemsize)
+    dt = getattr(torch, dtype)
+    short_c = (kernel, route) == ("C", "retransform")
+    slices = FB.short_slices(B, CHANNELS, n, dt) if short_c else None
+    roles = pass_bytes(kernel, route, B, CHANNELS, L, n, dt.itemsize, slices)
     times = defaultdict(float)
     done = 0
     for _ in range(3 * REPS):  # one profiled call at a time: each holds the call's launches alone
@@ -165,7 +189,7 @@ def profile(spec: str) -> dict:
                      "bytes": nbytes,
                      "hbm_share": nbytes / HBM_BYTES_PER_S / (ms / 1e3) if ms else None})
     return {"kernel": kernel, "route": route, "shape": f"B={B} C={CHANNELS} L={L} {dtype}",
-            "fft": n, "call_ms": sum(times.values()), "launches": rows}
+            "fft": n, "slices": slices or None, "call_ms": sum(times.values()), "launches": rows}
 
 
 def main(argv=None):

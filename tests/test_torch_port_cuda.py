@@ -909,7 +909,10 @@ def test_fftconv_every_fft_size(card, log_n, dtype):
     edges: N2 < 16 below 2^8, N1 = 512 from 2^18), odd C at odd log_n,
     against `fftconv_ref`; its saved spectrum against `pair_spectrum_ref`
     and read back through kernel C's spectrum route against
-    `fftconv_bwd_ref`; a second run gives the same bits."""
+    `fftconv_bwd_ref`; a second run gives the same bits. Up to the short
+    path's cut the saved-spectrum call keeps the four-step passes and the
+    plain call takes the short path, so there the second plain call is held
+    to the first."""
     n = 1 << log_n
     B, C, L = (2 if log_n < 18 else 1), (3 if log_n % 2 else 4), n // 2
     g = torch.Generator().manual_seed(log_n)
@@ -922,14 +925,87 @@ def test_fftconv_every_fft_size(card, log_n, dtype):
     before = FB.KERNEL.launches
     y, spec = FB.fftconv_fused(u, k, D, save_spectrum=True)
     again = FB.fftconv_fused(u, k, D)
-    assert FB.KERNEL.launches == before + 2
-    assert torch.equal(y, again)
+    if FB.short_path(n):
+        assert torch.equal(again, FB.fftconv_fused(u, k, D))
+        _close(again, fftconv_ref(u, k, D), *tol)
+    else:
+        assert torch.equal(y, again)
+    assert FB.KERNEL.launches == before + 2 + FB.short_path(n)
     _close(y, fftconv_ref(u, k, D), *tol)
     _close(spec, FB.pair_spectrum_ref(u, n), 1e-5, 1e-4)
     out = FB.fftconv_bwd_spectrum(spec, dy, k, D)
     for got, want, name in zip(out, FB.fftconv_bwd_ref(u, dy, k, D), ("du", "dk", "dD")):
         assert got.dtype == want.dtype and got.shape == want.shape, name
         _close(got, want, *((1e-4, 1e-4) if name == "dD" else tol))
+
+
+# Kernels B and C's short path (csrc/fft_short.cuh): chip_smoke.py's phase-2
+# cases, every FFT size from 2^4 to the cut (read from the header), odd C
+# with k as long as u at L = n / 2, B = 3 with L = n / 2 - 1 and a shorter k
+# in bf16, and the shipped lengths 1023 and 1026 in both dtypes.
+SHORT_LOG_SIZES = range(4, FB.short_max_log_n() + 1)
+SHORT_CASES = ([(1, 5, 1 << (e - 1), 1 << (e - 1), "float32") for e in SHORT_LOG_SIZES]
+               + [(3, 4, (1 << (e - 1)) - 1, max(1, 3 * ((1 << (e - 1)) - 1) // 4), "bfloat16")
+                  for e in SHORT_LOG_SIZES]
+               + [(3, 7, 1023, 1023, "float32"), (3, 7, 1023, 700, "bfloat16"),
+                  (1, 3, 1026, 1026, "bfloat16"), (3, 5, 1026, 900, "float32")])
+
+
+def _short_inputs(card, B, C, L, Lk, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    dt = getattr(torch, dtype)
+    u, dy = (torch.randn(B, C, L, generator=g).to(dt).to(card) for _ in range(2))
+    k = (torch.randn(C, Lk, generator=g) * 0.05
+         * torch.exp(-torch.arange(Lk) / (Lk / 8))).to(dt).to(card)
+    return u, dy, k, torch.randn(C, generator=g).to(card)
+
+
+@pytest.mark.parametrize("B,C,L,Lk,dtype", SHORT_CASES)
+def test_fftconv_short_path_matches_plain(card, B, C, L, Lk, dtype):
+    """Kernel B and kernel C's retransform route on the short path (one
+    launch of each wrapper a call) against `fftconv_ref` and
+    `fftconv_bwd_ref`; C's dk in the I/O dtype and, for bf16, in float32."""
+    u, dy, k, D = _short_inputs(card, B, C, L, Lk, dtype, L + C)
+    assert FB.short_path(next_fast_fft_size(2 * L))
+    tol = (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
+    before = FB.KERNEL.launches
+    y = FB.fftconv_fused(u, k, D)
+    assert FB.KERNEL.launches == before + 1 and y.dtype == u.dtype
+    _close(y, fftconv_ref(u, k, D), *tol)
+    for dk_dtype in ((None, torch.float32) if dtype == "bfloat16" else (None,)):
+        before = FB.KERNEL_BWD.launches
+        out = FB.fftconv_bwd_retransform(u, dy, k, D, dk_dtype=dk_dtype)
+        assert FB.KERNEL_BWD.launches == before + 1
+        ref = FB.fftconv_bwd_ref(u, dy, k, D, dk_dtype=dk_dtype)
+        for got, want, name in zip(out, ref, ("du", "dk", "dD")):
+            assert got.dtype == want.dtype and got.shape == want.shape, name
+            _close(got, want, *((1e-4, 1e-4) if got.dtype == torch.float32 else tol))
+
+
+@pytest.mark.parametrize("B,C,L,dtype", [(32, 128, 1024, "float32"), (3, 7, 1026, "bfloat16"),
+                                         (64, 6, 2048, "float32"), (5, 9, 4096, "bfloat16")])
+def test_fftconv_short_path_same_bits_twice(card, B, C, L, dtype):
+    """Kernel C's short path sums its dk partials in a fixed order (no
+    atomics): a second call gives the same bits in du, dk and dD, and
+    kernel B's y too."""
+    u, dy, k, D = _short_inputs(card, B, C, L, L, dtype, 3)
+    first = (FB.fftconv_fused(u, k, D), *FB.fftconv_bwd_retransform(u, dy, k, D))
+    second = (FB.fftconv_fused(u, k, D), *FB.fftconv_bwd_retransform(u, dy, k, D))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_fftconv_short_path_slices_from_c(card):
+    """The number S of kernel C's dk partials a pair comes from its library:
+    1 <= S <= B up to the cut, 0 above it, -1 for shapes refused."""
+    cut = FB.short_max_log_n()
+    for B, C in ((1, 3), (32, 128), (128, 128), (3, 4096)):
+        for dtype in (torch.float32, torch.bfloat16):
+            assert 1 <= FB.short_slices(B, C, 1 << cut, dtype) <= B
+            assert FB.short_slices(B, C, 16, dtype) <= B
+            assert FB.short_slices(B, C, 2 << cut, dtype) == 0
+    with pytest.raises(ValueError):
+        FB.short_slices(0, 4, 2048, torch.float32)
 
 
 @pytest.mark.parametrize("mode", ["pool", "sum"])

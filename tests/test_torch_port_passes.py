@@ -11,7 +11,7 @@ import pytest
 
 from hyena_dna_tpu_torch.utils import profile_passes as P
 
-B, C, L, N, SIZE = 2, 6, 1024, 2048, 2  # bf16 I/O, fft 2 L
+B, C, L, N, SIZE = 2, 6, 16384, 32768, 2  # bf16 I/O, fft 2 L, above the short path's cut
 SLAB = 3 * N * 8          # one complex64 scratch of n per channel pair (3 pairs)
 SIG = B * C * L * SIZE    # one (B, C, L) signal
 FILT = C * L * SIZE       # the filter, as long as u
@@ -62,6 +62,44 @@ def test_pass_bytes_roles_and_total(kernel, route):
     assert all(nbytes > 0 for _, _, nbytes in roles)
 
 
+# the short path (fft 2^11, at or below the cut): kernel B and kernel C's
+# retransform route; S dk partials a pair
+SL, SN, SLICES = 1024, 2048, 5
+SSLAB, SSIG, SFILT = 3 * SN * 8, B * C * SL * SIZE, C * SL * SIZE
+SHORT = P.SHORT
+SHORT_EXPECTED = {
+    ("B", "forward"): ([("K + D spectrum", SHORT), ("u rows: U (K + D), y", SHORT)],
+                       SFILT + SSLAB + 2 * SSIG + SSLAB),
+    ("C", "retransform"): ([("K + D spectrum", SHORT), ("dy, u rows: du, dk partials", SHORT),
+                            ("dk: partials summed, inverse", SHORT)],
+                           SFILT + SSLAB + 3 * SSIG + SSLAB + SLICES * SSLAB + SLICES * SSLAB
+                           + SFILT),
+}
+
+
+@pytest.mark.parametrize("kernel,route", sorted(SHORT_EXPECTED))
+def test_pass_bytes_short_path_roles_and_total(kernel, route):
+    roles = P.pass_bytes(kernel, route, B, C, SL, SN, SIZE, SLICES)
+    want_roles, want_total = SHORT_EXPECTED[(kernel, route)]
+    assert [(role, kind) for role, kind, _ in roles] == want_roles
+    assert sum(nbytes for _, _, nbytes in roles) == want_total
+
+
+@pytest.mark.parametrize("kernel,route", [("C", "spectrum"), ("E", "specv"), ("E'", "spec")])
+def test_pass_bytes_saved_spectrum_and_gated_routes_stay_four_step_at_short_n(kernel, route):
+    """The saved-spectrum modes and kernels E, E' keep the four-step passes
+    at every size: their roles at fft 2^11 are those above the cut."""
+    kinds = {kind for _, kind, _ in P.pass_bytes(kernel, route, B, C, SL, SN, SIZE, SLICES)}
+    assert SHORT not in kinds and kinds <= {FWD, ROWS, INV}
+
+
+def test_pass_bytes_short_c_needs_its_slices():
+    with pytest.raises(ValueError, match="slices"):
+        P.pass_bytes("C", "retransform", B, C, SL, SN, SIZE)
+    assert P.pass_bytes("B", "forward", B, C, SL, 1 << (P.FB.short_max_log_n() + 1),
+                        SIZE)[0][1] == FWD
+
+
 def test_every_route_has_roles():
     assert {(k, r) for k, routes in P.ROUTES.items() for r in routes} == set(EXPECTED)
 
@@ -77,6 +115,10 @@ def test_every_route_has_roles():
     ("void conv_gbwd::rows_fwd_kernel<16>(float2*, conv_gbwd::Plan)", ROWS),
     ("void conv_gbwd::cols_inv_dx0_kernel<float, 16>(float2 const*)", INV),
     ("void conv_gfwd::cols_inv_gate_kernel<__nv_bfloat16, 16>(float2 const*)", INV),
+    ("void conv_fwd::short_kspec_kernel<float, 11>(float const*, float const*, int)", P.SHORT),
+    ("void conv_fwd::short_conv_kernel<__nv_bfloat16, 0>(__nv_bfloat16 const*)", P.SHORT),
+    ("void conv_bwd::short_grad_kernel<float, 12>(float const*, float const*)", P.SHORT),
+    ("void conv_bwd::short_dk_kernel<float, 10>(float2 const*, int, float*)", P.SHORT),
 ])
 def test_launch_kind_from_name(name, kind):
     assert P.launch_kind(name) == kind
