@@ -17,6 +17,22 @@ line:
             backward), D and D' (the fused residual-add + LN forward and
             backward), E and E' (the gate-fused FFT conv forward and
             backward), F and F' (the fused MLP forward and backward);
+   cold     two processes, started together, each pointing `_cuda.BUILD_DIR`
+            at one fresh directory and building kernel D there with the real
+            nvcc at its first launch (as torchrun's ranks do on a cold
+            `_build/`), wait for each other and build at once; both must
+            load the library and hold D to its plain version at 64 x 256
+            bf16 rows, and one library, its log and no temporary file must
+            be left. The line carries each process's build seconds;
+   device   kernels A, A', B and C on `cuda:1` while the current device is 0
+            (the wrappers launch under their tensors' card), float32 at the
+            trainer's 32 x 1024 x 128 (B and C on their short path) and bf16
+            at 4 x 32768 x 256 (the four-step passes), each held to its
+            plain version at TOL, the current device still 0 after. It
+            needs two cards: on one, the line says so and the phase passes.
+            The line carries the guard's host microseconds a launch
+            (`torch.cuda.device`, which `Kernel.launch` enters, entered and
+            left on the current card);
 2. kernels  `csrc/wgmma.cuh` alone: one 64 x N x 64 bf16 product in each
             layout the bf16 front-end kernels use, and in each layout F and
             F' add (N = 128, 192, 256; MN-major operands across panels),
@@ -3423,6 +3439,136 @@ def mesh_rest_phase(FF, kernels, tmp: Path, seed: int):
     return rows, total
 
 
+COLD_BUILD_CHILD = """
+import json, os, sys, time
+from pathlib import Path
+import torch
+from hyena_dna_tpu_torch import _cuda
+from hyena_dna_tpu_torch.ops import add_ln as AL
+_cuda.BUILD_DIR = Path(sys.argv[1])
+hand = Path(sys.argv[2])
+(hand / f"ready.{os.getpid()}").touch()
+deadline = time.monotonic() + 120
+while len(list(hand.glob("ready.*"))) < 2:  # the other process is there too
+    if time.monotonic() > deadline:
+        sys.exit("the other build process never started")
+    time.sleep(0.01)
+g = torch.Generator(device="cuda").manual_seed(int(sys.argv[3]))
+h, res = (torch.randn(64, 256, device="cuda", generator=g).to(torch.bfloat16) for _ in range(2))
+w, b = torch.randn(256, device="cuda", generator=g), torch.randn(256, device="cuda", generator=g)
+t0 = time.perf_counter()
+y, res_out = AL.add_ln_fwd(h, res, w, b, 1e-5)  # the first launch builds the library
+torch.cuda.synchronize()
+build_s = time.perf_counter() - t0
+errs = []
+for out, ref in zip((y, res_out), AL.add_ln_ref(h, res, w, b, 1e-5)):
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    assert bool((err <= 2e-3 * ref.abs().max() + 2 ** -7 * ref.abs()).all()), err.max()
+    errs.append(err.max().item())
+print(json.dumps({"build_s": build_s, "launches": AL.KERNEL.launches,
+                  "library": AL.KERNEL.library_path.name, "max_abs_err": max(errs)}))
+"""
+
+
+def cold_build_phase(seed: int) -> None:
+    """Two processes build kernel D into one fresh build directory at once
+    (each process's own temporary name, renamed into place); both run it
+    against its plain version, and one library, one log and no temporary
+    file are left."""
+    with tempfile.TemporaryDirectory() as tmp:
+        build, hand = Path(tmp) / "build", Path(tmp) / "handshake"
+        hand.mkdir()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-c", COLD_BUILD_CHILD, str(build), str(hand),
+                                   str(seed + i)], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True) for i in range(2)]
+        outs = []
+        try:
+            for proc in procs:
+                out, err = proc.communicate(timeout=300)
+                if proc.returncode != 0:
+                    raise AssertionError(f"cold build process failed ({proc.returncode}):\n{err}")
+                outs.append(json.loads(out.strip().splitlines()[-1]))
+        finally:
+            for proc in procs:
+                proc.kill()
+                proc.wait()
+        left = sorted(p.name for p in build.iterdir())
+        libraries = [name for name in left if name.endswith(".so")]
+        temporaries = [name for name in left if name.endswith(".tmp")]
+        if len(libraries) != 1 or temporaries or len(left) != 2:
+            raise AssertionError(f"a cold build left {left}")
+        if {o["library"] for o in outs} != set(libraries) or any(o["launches"] != 1 for o in outs):
+            raise AssertionError(f"the cold build processes disagree: {outs}")
+        log({"phase": "cold_build", "processes": 2, "kernel": "add_ln",
+             "build_s": [o["build_s"] for o in outs], "wall_s": time.perf_counter() - t0,
+             "max_abs_err": max(o["max_abs_err"] for o in outs), "left": left,
+             "tmp_left": len(temporaries)})
+
+
+def device_guard_phase(FF, FB, seed: int) -> None:
+    """Kernels A, A', B and C on cuda:1 while the current device is 0,
+    against their plain versions (computed on cuda:1 too); needs two cards."""
+    import torch
+
+    # the guard's host cost a launch (`Kernel.launch`'s), on the current card (no switch)
+    here, reps = torch.device("cuda", torch.cuda.current_device()), 100_000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        with torch.cuda.device(here):
+            pass
+    guard_us = (time.perf_counter() - t0) / reps * 1e6
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log({"phase": "device_guard", "cards": cards, "guard_us": guard_us,
+             "skipped": "needs two cards: kernels on cuda:1 while the current device is 0"})
+        return
+    from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 1)
+    kernels = (FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD)
+    rows = []
+    for i, (B, L, d, dtype) in enumerate(((32, 1024, TRAINER_D, "float32"),
+                                          (4, 32768, D_MODEL, "bfloat16"))):
+        g = torch.Generator(device=dev).manual_seed(seed + i)
+        dt = getattr(torch, dtype)
+        rnd = lambda *shape, scale=1.0: torch.randn(*shape, device=dev, generator=g) * scale
+        uniform = lambda *shape: (torch.rand(*shape, device=dev, generator=g) * 2 - 1) / 3 ** 0.5
+        u = rnd(B, L, d).to(dt)  # the parameters at `front_inputs`' scales
+        params = (rnd(d, 3 * d, scale=0.02), rnd(3 * d, scale=0.02), uniform(3, 3 * d),
+                  uniform(3 * d))
+        cot = (rnd(B, d, L).to(dt), rnd(B, d, L).to(dt))
+        x, dy = rnd(B, d, L).to(dt), rnd(B, d, L).to(dt)
+        k = (rnd(d, L, scale=0.05) * torch.exp(-torch.arange(L, device=dev) / (L / 8))).to(dt)
+        D = rnd(d)
+        before = [kern.launches for kern in kernels]
+        outs = {"fused_front": FF.front_fwd(u, *params),
+                "fused_front_bwd": FF.front_bwd(u, *params, *cot),
+                "fftconv": (FB.fftconv_fused(x, k, D),),
+                "fftconv_bwd": FB.fftconv_bwd_retransform(x, dy, k, D)}
+        torch.cuda.synchronize(dev)
+        if torch.cuda.current_device() != 0:
+            raise AssertionError(f"the current device moved to {torch.cuda.current_device()}")
+        if [kern.launches - b for kern, b in zip(kernels, before)] != [1, 1, 1, 1]:
+            raise AssertionError("a kernel of the device-guard check did not launch once")
+        refs = {"fused_front": FF.reference_fwd(u, *params),
+                "fused_front_bwd": FF.reference_bwd(u, *params, *cot),
+                "fftconv": (fftconv_ref(x, k, D),),
+                "fftconv_bwd": FB.fftconv_bwd_ref(x, dy, k, D)}
+        for name, out in outs.items():
+            errs = []
+            for o, r in zip(out, refs[name]):
+                if o.device != dev:
+                    raise AssertionError(f"{name} wrote to {o.device}, not {dev}")
+                errs.append(compare(o, r, "float32" if o.dtype == torch.float32 else dtype)[0])
+            rows.append({"name": name, "shape": f"B={B} L={L} d={d} {dtype}",
+                         "max_abs_err": max(errs)})
+    log({"phase": "device_guard", "cards": cards, "guard_us": guard_us, "device": str(dev),
+         "current_device": 0, "rows": rows})
+
+
 def port_kernels() -> list:
     """Every hand-written kernel of the port, in the build's order."""
     from hyena_dna_tpu_torch.ops import add_ln as AL
@@ -3464,6 +3610,8 @@ def main() -> int:
     ptxas = kernel_ptxas(kernels)
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "libraries": [k.library_path.name for k in kernels], "ptxas": ptxas})
+    cold_build_phase(130)
+    device_guard_phase(FF, FB, 132)
     log(check_wgmma(FF, 64, "wgmma_probe", 90))
     log(check_wgmma(MF, 256, "mlp_wgmma_probe", 91))
 

@@ -10,7 +10,16 @@ launches; `Kernel.launch` raises on a non-zero code and counts the launch.
 Each build's compiler output, ptxas's register, stack and spill readings
 among it (`-Xptxas -v`), is written beside the library (`<library>.log`)
 and kept on the kernel (`build_log`), read back from that file when the
-library was built before.
+library was built before. Each process compiles to a temporary name of its
+own and renames the result into place, so several processes (torchrun's
+ranks on a cold `_build/`) may build one library at once: libraries of one
+hash have the same contents, and the last rename leaves one of them.
+
+A C entry point's launches, its `cudaFuncSetAttribute` calls and its card
+queries (SM count, occupancy) act on the calling thread's current CUDA
+device. `Kernel.launch` and `Kernel.query` therefore take the card of the
+wrapper's tensors and make it the current device for the C call
+(`torch.cuda.device`, which switches only when it differs).
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on a host with no `nvcc` and no card.
@@ -72,14 +81,9 @@ class Kernel:
         """nvcc's output for the library, beside it."""
         return self.library_path.with_suffix(".log")
 
-    def build_command(self) -> list:
-        """The nvcc command line, writing to a temporary name first."""
-        out = self.library_path
-        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out) + ".tmp", str(self.source)]
-
-    def _finish_build(self) -> None:
-        out = self.library_path
-        os.replace(str(out) + ".tmp", out)
+    def build_command(self, out: Path) -> list:
+        """The nvcc command line writing the library to `out`."""
+        return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(self.source)]
 
     def lib(self) -> ctypes.CDLL:
         if self._lib is None:
@@ -93,12 +97,23 @@ class Kernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, fn: str, *args) -> None:
-        """Call C entry point `fn`; raise on a CUDA error, else count it."""
-        rc = getattr(self.lib(), fn)(*args)
+    def launch(self, fn: str, *args, device) -> None:
+        """Call C entry point `fn` on the CUDA `device` (its tensors'
+        card); raise on a CUDA error, else count it."""
+        import torch
+
+        with torch.cuda.device(device):
+            rc = getattr(self.lib(), fn)(*args)
         if rc != 0:
             raise RuntimeError(f"{self.name}.{fn}: CUDA error {rc}")
         self.launches += 1
+
+    def query(self, fn: str, *args, device) -> int:
+        """C helper `fn`'s answer (a size or a count) for the CUDA `device`."""
+        import torch
+
+        with torch.cuda.device(device):
+            return getattr(self.lib(), fn)(*args)
 
 
 def build_all(kernels: Sequence[Kernel]) -> None:
@@ -111,20 +126,31 @@ def build_all(kernels: Sequence[Kernel]) -> None:
     for k in kernels:
         if k not in todo:
             k.build_log = k.log_path.read_text() if k.log_path.exists() else None
-    procs = [(k, subprocess.Popen(k.build_command(), stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True))
-             for k in todo]
+    procs = []
+    for k in todo:
+        tmp = _own_temporary(k.library_path)
+        procs.append((k, tmp, subprocess.Popen(k.build_command(tmp), stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for k, proc in procs:
+    for k, tmp, proc in procs:
         out, _ = proc.communicate()
         k.build_log = out
         if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
             failed.append(f"{k.source.name}:\n{out}")
-        else:
-            k.log_path.write_text(out)
-            k._finish_build()
+        else:  # the log first: a library in place has its log beside it
+            log = _own_temporary(k.log_path)
+            log.write_text(out)
+            os.replace(log, k.log_path)
+            os.replace(tmp, k.library_path)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
+
+
+def _own_temporary(path: Path) -> Path:
+    """This process's temporary name for `path`, renamed into place when
+    written: no other process writes or renames it."""
+    return path.with_name(f"{path.name}.{os.getpid()}.tmp")
 
 
 def on_card(tensor) -> bool:

@@ -14,8 +14,10 @@ and `ett` (`data/timeseries.py`). `hg38` and `species` rebuild their
 datasets in `init_datasets`, which the seqlen curriculum
 (`train/callbacks.py::SeqlenWarmupReload`) calls at each stage; the JAX
 `SpeciesDataModule` has no `init_datasets`, so there the curriculum changes
-the batch size and not the length. The BPE tokenizer of `tokenizer_name:
-bpe` needs `transformers`, which the port does not use: it raises.
+the batch size and not the length. `hg38` with `tokenizer_name: bpe` loads
+a BPE tokenizer with `transformers` (imported only then) from a local
+snapshot: `bpe_tokenizer_path`, else `$HYENA_BPE_TOKENIZER_PATH`, else the
+reference's hub id, which needs a download.
 """
 
 from __future__ import annotations
@@ -139,11 +141,22 @@ class HG38DataModule(SequenceDataModule):
         self.seed = seed
 
     def setup(self):
-        if self.tokenizer_name != "char":
-            raise NotImplementedError(
-                f"tokenizer {self.tokenizer_name!r} is not ported (it needs transformers)")
-        self.tokenizer = CharacterTokenizer(model_max_length=self.max_length + 2)
-        self.vocab_size = self.tokenizer.vocab_size
+        if self.tokenizer_name == "bpe":
+            # the reference's gena-lm BPE (`genomics.py:102-105`), from a local snapshot
+            try:
+                from transformers import AutoTokenizer
+            except ImportError as err:
+                raise ImportError("tokenizer_name 'bpe' needs the transformers package") from err
+            path = self.bpe_tokenizer_path or os.environ.get(
+                "HYENA_BPE_TOKENIZER_PATH", "AIRI-Institute/gena-lm-bert-base")
+            self.tokenizer = AutoTokenizer.from_pretrained(path)
+            self.vocab_size = len(self.tokenizer)
+        elif self.tokenizer_name == "char":
+            self.tokenizer = CharacterTokenizer(model_max_length=self.max_length + 2)
+            self.vocab_size = self.tokenizer.vocab_size
+        else:
+            raise NotImplementedError(f"tokenizer {self.tokenizer_name!r}: hg38 takes 'char' "
+                                      "or 'bpe'")
         self.init_datasets()
 
     def init_datasets(self):

@@ -3,7 +3,10 @@
   * `HG38Dataset`: the intervals of one split of a bed file (chr, start,
     end, split), sampled from the FASTA by `FastaInterval` (extension to
     `max_length`, optional shift and reverse-complement augmentation),
-    tokenized with an eos when `add_eos`, left-padded;
+    tokenized with an eos when `add_eos` and padded to `max_length` by the
+    tokenizer: the char tokenizer pads on the left, the BPE tokenizer of
+    `HG38DataModule`'s `bpe` route (a `transformers` snapshot) on its own
+    side;
   * `HG38FixedDataset`: non-overlapping `max_length` windows over
     chromosome ranges, upper-cased, for a stable test perplexity;
   * `LMDataset`: a contiguous token array cut into blocks.
@@ -22,7 +25,7 @@ dataset also takes when the library cannot be built or loaded
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -49,7 +52,7 @@ class HG38Dataset:
 
     def __init__(self, split: str, bed_file: str, fasta_file: str, max_length: int,
                  pad_max_length: Optional[int] = None,
-                 tokenizer: Optional[CharacterTokenizer] = None, tokenizer_name: str = "char",
+                 tokenizer: Optional[Any] = None, tokenizer_name: str = "char",
                  add_eos: bool = False, shift_augs: Optional[Tuple[int, int]] = None,
                  rc_aug: bool = False, replace_N_token: bool = False,
                  pad_interval: bool = False):
@@ -129,7 +132,7 @@ class HG38FixedDataset:
 
     def __init__(self, fasta_file: str, chr_ranges: Dict[str, Tuple[int, int]],
                  max_length: int, pad_max_length: Optional[int] = None,
-                 tokenizer: Optional[CharacterTokenizer] = None, add_eos: bool = False):
+                 tokenizer: Optional[Any] = None, add_eos: bool = False):
         self.max_length = max_length
         self.pad_max_length = pad_max_length or max_length
         self.tokenizer = tokenizer or CharacterTokenizer(model_max_length=max_length + 2)

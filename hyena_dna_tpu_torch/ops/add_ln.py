@@ -101,7 +101,7 @@ def add_ln_fwd(h, res, weight, bias, eps: float):
     n, d = h.shape
     y, res_out = torch.empty_like(h), torch.empty_like(h)
     KERNEL.launch("hyena_add_ln_fwd", *map(_cuda.ptr, (h, res, weight, bias, y, res_out)),
-                  n, d, eps, _cuda.stream_handle(h))
+                  n, d, eps, _cuda.stream_handle(h), device=h.device)
     return y, res_out
 
 
@@ -118,7 +118,7 @@ def add_ln_bwd(res_out, dy, dres_up, weight, eps: float):
     dparams, part = new(2, d), new(blocks, 2, d)
     KERNEL_BWD.launch("hyena_add_ln_bwd",
                       *map(_cuda.ptr, (res_out, dy, dres_up, weight, d_total, dparams, part)),
-                      n, d, blocks, eps, _cuda.stream_handle(res_out))
+                      n, d, blocks, eps, _cuda.stream_handle(res_out), device=res_out.device)
     return d_total, dparams[0], dparams[1]
 
 

@@ -142,12 +142,13 @@ def short_path(n: int, saved_spectrum: bool = False) -> bool:
     return n <= 1 << short_max_log_n() and not saved_spectrum
 
 
-def short_slices(b: int, c: int, n: int, dtype: torch.dtype) -> int:
+def short_slices(b: int, c: int, n: int, dtype: torch.dtype, device) -> int:
     """The dk partials a channel pair that kernel C's short path sums for a
-    (b, c, L) conv at FFT size n (its batch slices; 0 above the cut), from
-    the library (`hyena_fftconv_bwd_short_slices`): a card property."""
-    slices = KERNEL_BWD.lib().hyena_fftconv_bwd_short_slices(b, c, n,
-                                                             int(dtype == torch.bfloat16))
+    (b, c, L) conv at FFT size n on the CUDA `device` (its batch slices; 0
+    above the cut), from the library (`hyena_fftconv_bwd_short_slices`): a
+    property of that card."""
+    slices = KERNEL_BWD.query("hyena_fftconv_bwd_short_slices", b, c, n,
+                              int(dtype == torch.bfloat16), device=device)
     if slices < 0:
         raise ValueError(f"kernel C takes no conv of B={b}, C={c} at fft {n}")
     return slices
@@ -262,14 +263,15 @@ def fftconv_fused(u: torch.Tensor, k: torch.Tensor, D: torch.Tensor,
     KERNEL.launch("hyena_fftconv_fwd", *map(_cuda.ptr, (u, k, D, y)),
                   _cuda.ptr_or_null(scratch), _cuda.ptr(kspec), _cuda.ptr_or_null(spec),
                   b, c, length, k.shape[1], n, int(u.dtype == torch.bfloat16),
-                  _cuda.stream_handle(u))
+                  _cuda.stream_handle(u), device=u.device)
     return (y, spec) if save_spectrum else y
 
 
 def _bwd_workspace(b: int, c: int, n: int, retransform: bool, with_k: bool, device):
     """(kernel C's complex64 workspace as (slabs, n, 2) float32, slabs), its
     size from the library's `hyena_fftconv_bwd_ws_slabs`."""
-    slabs = KERNEL_BWD.lib().hyena_fftconv_bwd_ws_slabs(b, c, int(retransform), int(with_k))
+    slabs = KERNEL_BWD.query("hyena_fftconv_bwd_ws_slabs", b, c, int(retransform), int(with_k),
+                             device=device)
     if slabs < 1:
         raise ValueError(f"kernel C takes no workspace for B={b}, C={c}")
     return torch.empty((slabs, n, 2), device=device, dtype=torch.float32), slabs
@@ -288,7 +290,7 @@ def _bwd_kernel(u, spec, dy, k, D, dk_dtype=None):
                       _cuda.ptr_or_null(u), _cuda.ptr_or_null(spec),
                       *map(_cuda.ptr, (dy, k, D, du, dk, dD, ws)), slabs,
                       b, c, length, k.shape[1], n, int(dy.dtype == torch.bfloat16), int(dk_f32),
-                      _cuda.stream_handle(dy))
+                      _cuda.stream_handle(dy), device=dy.device)
     return du, dk, dD
 
 
@@ -583,7 +585,7 @@ def fftconv_fused_dk_spec(u, dy, r: int, m: int, cb: int):
     KERNEL_BWD.launch("hyena_fftconv_bwd", _cuda.ptr(u), null, _cuda.ptr(dy), null, null, null,
                       _cuda.ptr(sdk), null, _cuda.ptr(ws), slabs,
                       b, c, length, length, n, int(u.dtype == torch.bfloat16), 0,
-                      _cuda.stream_handle(u))
+                      _cuda.stream_handle(u), device=u.device)
     spec = _split_pairs(sdk[None], c, n)[0]
     return spec.real.contiguous(), spec.imag.contiguous()
 

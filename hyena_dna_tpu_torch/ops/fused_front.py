@@ -213,7 +213,7 @@ def wgmma_probe(a, b, mode: int):
                          "PROBE_MODES key")
     c = torch.empty(64, PROBE_MODES[mode], device=a.device, dtype=torch.float32)
     KERNEL.launch("hyena_front_wgmma_probe", _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(c), mode,
-                  _cuda.stream_handle(a))
+                  _cuda.stream_handle(a), device=a.device)
     return c
 
 
@@ -259,7 +259,7 @@ def front_fwd(u, w, bp, wc, bc) -> Tuple[torch.Tensor, torch.Tensor]:
     x0 = torch.empty_like(vx)
     KERNEL.launch("hyena_fused_front_fwd" + suffix,
                   *map(_cuda.ptr, (u, w, bp, wc, bc, vx, x0) + _w_split(KERNEL, u, d)),
-                  b, length, d_in, d, _cuda.stream_handle(u))
+                  b, length, d_in, d, _cuda.stream_handle(u), device=u.device)
     return vx, x0
 
 
@@ -275,7 +275,7 @@ def front_bwd(u, w, bp, wc, bc, dvx, dx0):
     dw, dparams, scratch, sizes = _bwd_buffers(KERNEL_BWD, u, d)
     KERNEL_BWD.launch("hyena_fused_front_bwd" + suffix,
                       *map(_cuda.ptr, (u, w, bp, wc, bc, dvx, dx0, du, dw, dparams) + scratch),
-                      b, length, d_in, d, *sizes, _cuda.stream_handle(u))
+                      b, length, d_in, d, *sizes, _cuda.stream_handle(u), device=u.device)
     return du, dw, dparams[0], dparams[1:4], dparams[4]
 
 
@@ -285,7 +285,7 @@ def _w_split(kernel, u, d) -> tuple:
     `csrc/fused_front_tc.cuh`); () for float32 u."""
     if u.dtype != torch.bfloat16:
         return ()
-    numel = kernel.lib().hyena_front_ws_numel(u.shape[-1], d)
+    numel = kernel.query("hyena_front_ws_numel", u.shape[-1], d, device=u.device)
     return (torch.empty(numel, device=u.device, dtype=torch.bfloat16),)
 
 
@@ -299,7 +299,7 @@ def _bwd_buffers(kernel, u, d):
     new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
     dw, dparams = new(d_in, 3 * d), new(5, 3 * d)
     if u.dtype == torch.bfloat16:
-        runs = kernel.lib().hyena_front_bwd_runs(b, length, d_in, d)
+        runs = kernel.query("hyena_front_bwd_runs", b, length, d_in, d, device=u.device)
         scratch = _w_split(kernel, u, d) + (new(runs * 5 * 3 * d), new(runs, d_in, 3 * d))
         return dw, dparams, scratch, (runs,)
     tiles = -(-length // BWD_TILE)
@@ -380,7 +380,7 @@ def front4_fwd(u, w, bp, wc, bc, rows_pad: int, m: int):
     x04 = torch.empty_like(vx4)
     KERNEL4.launch("hyena_fused_front4_fwd" + suffix,
                    *map(_cuda.ptr, (u, w, bp, wc, bc, vx4, x04) + _w_split(KERNEL4, u, d)),
-                   b, length, rows_pad * m, d_in, d, _cuda.stream_handle(u))
+                   b, length, rows_pad * m, d_in, d, _cuda.stream_handle(u), device=u.device)
     return vx4, x04
 
 
@@ -399,7 +399,7 @@ def front4_bwd(u, w, bp, wc, bc, dvx4, dx04):
     dw, dparams, scratch, sizes = _bwd_buffers(KERNEL4_BWD, u, d)
     KERNEL4_BWD.launch("hyena_fused_front4_bwd" + suffix,
                        *map(_cuda.ptr, (u, w, bp, wc, bc, dvx4, dx04, du, dw, dparams) + scratch),
-                       b, length, lp, d_in, d, *sizes, _cuda.stream_handle(u))
+                       b, length, lp, d_in, d, *sizes, _cuda.stream_handle(u), device=u.device)
     return du, dw, dparams[0], dparams[1:4], dparams[4]
 
 

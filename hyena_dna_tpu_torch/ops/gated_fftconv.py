@@ -152,7 +152,7 @@ def fftconv_gated_fused(u: torch.Tensor, x0: torch.Tensor, k: torch.Tensor, D: t
                   *map(_cuda.ptr, (u, x0, k, D, y)), _cuda.ptr_or_null(v),
                   _cuda.ptr(scratch), _cuda.ptr(kspec), _cuda.ptr_or_null(spec),
                   b, c, length, k.shape[1], n, int(u.dtype == torch.bfloat16),
-                  _cuda.stream_handle(u))
+                  _cuda.stream_handle(u), device=u.device)
     out = [y] + ([v] if save_v else []) + ([spec] if save_spectrum else [])
     return out[0] if len(out) == 1 else tuple(out)
 
@@ -161,7 +161,8 @@ def _bwd_workspace(b: int, c: int, n: int, route: str, device):
     """(kernel E''s complex64 workspace as (slabs, n, 2) float32, slabs), its
     size from the library's `hyena_fftconv_gated_bwd_ws_slabs`: dv's
     scratch, u's on the retransform route, and k's slab."""
-    slabs = KERNEL_BWD.lib().hyena_fftconv_gated_bwd_ws_slabs(b, c, ROUTES.index(route))
+    slabs = KERNEL_BWD.query("hyena_fftconv_gated_bwd_ws_slabs", b, c, ROUTES.index(route),
+                             device=device)
     if slabs < 1:
         raise ValueError(f"kernel E' takes no workspace for B={b}, C={c}, route {route}")
     return torch.empty((slabs, n, 2), device=device, dtype=torch.float32), slabs
@@ -178,7 +179,7 @@ def _bwd_kernel(route, u, spec, v, dy, x0, k, D):
                       *map(_cuda.ptr_or_null, (u, spec, v)),
                       *map(_cuda.ptr, (dy, x0, k, D, du, dx0, dk, dD, ws)), slabs,
                       ROUTES.index(route), b, c, length, k.shape[1], n,
-                      int(dy.dtype == torch.bfloat16), _cuda.stream_handle(dy))
+                      int(dy.dtype == torch.bfloat16), _cuda.stream_handle(dy), device=dy.device)
     return du, dx0, dk, dD
 
 

@@ -152,7 +152,7 @@ def wgmma_probe(a, b, mode: int):
                          "and a PROBE_MODES key")
     c = torch.empty(64, PROBE_MODES[mode], device=a.device, dtype=torch.float32)
     KERNEL.launch("hyena_mlp_wgmma_probe", _cuda.ptr(a), _cuda.ptr(b), _cuda.ptr(c), mode,
-                  _cuda.stream_handle(a))
+                  _cuda.stream_handle(a), device=a.device)
     return c
 
 
@@ -171,7 +171,7 @@ def mlp_fused_fwd(x, w1, b1, w2, b2):
     _aligned(x, w1b, w2b, b1f, b2f, y)
     KERNEL.launch("hyena_mlp_fwd", *map(_cuda.ptr, (x, w1b, b1f, w2b, b2f, y)),
                   _cuda.ptr_or_null(_bf16_scratch(x)), n, d, dh, d_out,
-                  int(x.dtype == torch.bfloat16), _cuda.stream_handle(x))
+                  int(x.dtype == torch.bfloat16), _cuda.stream_handle(x), device=x.device)
     return y
 
 
@@ -185,15 +185,15 @@ def mlp_fused_bwd(x, dy, w1, b1, w2):
     n, d = x.shape
     dh, d_out = w1.shape[1], w2.shape[1]
     dx = torch.empty_like(x)
-    part, grads = _workspace(KERNEL_BWD.lib().hyena_mlp_bwd_ws_numel(d, dh, d_out), d, dh, d_out,
-                             x.device)
+    numel = KERNEL_BWD.query("hyena_mlp_bwd_ws_numel", d, dh, d_out, device=x.device)
+    part, grads = _workspace(numel, d, dh, d_out, x.device)
     w1b, w2b = _bf16(w1), _bf16(w2)
     b1f = b1.float().contiguous()
     _aligned(x, dy, w1b, w2b, b1f)
     KERNEL_BWD.launch("hyena_mlp_bwd", *map(_cuda.ptr, (x, dy, w1b, b1f, w2b, dx)),
                       *map(_cuda.ptr_or_null, (_bf16_scratch(x), _bf16_scratch(dy))),
                       _cuda.ptr(part), _cuda.ptr(grads), n, d, dh, d_out,
-                      int(x.dtype == torch.bfloat16), _cuda.stream_handle(x))
+                      int(x.dtype == torch.bfloat16), _cuda.stream_handle(x), device=x.device)
     dw1, dw2, db1 = grads.split((d * dh, dh * d_out, dh))
     # db2 summed in float32 straight from dy, with no float32 copy of a bf16 dy
     return dx, dw1.view(d, dh), db1, dw2.view(dh, d_out), dy.sum(0, dtype=torch.float32)

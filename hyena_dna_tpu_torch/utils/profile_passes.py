@@ -158,7 +158,7 @@ def profile(spec: str) -> dict:
     n = next_fast_fft_size(2 * L)
     dt = getattr(torch, dtype)
     short_c = (kernel, route) == ("C", "retransform")
-    slices = FB.short_slices(B, CHANNELS, n, dt) if short_c else None
+    slices = FB.short_slices(B, CHANNELS, n, dt, torch.device("cuda")) if short_c else None
     roles = pass_bytes(kernel, route, B, CHANNELS, L, n, dt.itemsize, slices)
     times = defaultdict(float)
     done = 0

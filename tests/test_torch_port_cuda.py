@@ -3,7 +3,10 @@
 Marked `cuda`; each test skips where no card is present (the check runs in
 a fixture, not at import, so every test worker collects the same tests).
 On a machine with a card:
-`python -m pytest --noconftest tests/test_torch_port_cuda.py`.
+`python -m pytest --noconftest tests/test_torch_port_cuda.py`. The
+`second_card` tests (kernels and the model on cuda:1 while the current
+device is 0) skip on fewer than two cards: `-k "tensors_card or two_cards
+or second_card"` on a multi-card host.
 Tolerances as in `chip_smoke.py`: float32 sums in another order; bfloat16
 I/O may land one bf16 step apart; parameter gradients are sums over every
 (batch, time) row, taken in another order (1e-3 of the largest |g|; 3e-2
@@ -1001,11 +1004,11 @@ def test_fftconv_short_path_slices_from_c(card):
     cut = FB.short_max_log_n()
     for B, C in ((1, 3), (32, 128), (128, 128), (3, 4096)):
         for dtype in (torch.float32, torch.bfloat16):
-            assert 1 <= FB.short_slices(B, C, 1 << cut, dtype) <= B
-            assert FB.short_slices(B, C, 16, dtype) <= B
-            assert FB.short_slices(B, C, 2 << cut, dtype) == 0
+            assert 1 <= FB.short_slices(B, C, 1 << cut, dtype, card) <= B
+            assert FB.short_slices(B, C, 16, dtype, card) <= B
+            assert FB.short_slices(B, C, 2 << cut, dtype, card) == 0
     with pytest.raises(ValueError):
-        FB.short_slices(0, 4, 2048, torch.float32)
+        FB.short_slices(0, 4, 2048, torch.float32, card)
 
 
 @pytest.mark.parametrize("mode", ["pool", "sum"])
@@ -1057,3 +1060,79 @@ def test_generation_step_launches_a_and_b_per_layer(card):
     out = generate(model, torch.full((2, 100), 7, dtype=torch.long), 5, temperature=0.0)
     assert out.shape == (2, 105) and out.device.type == "cuda"
     assert [k.launches - b for k, b in zip(kernels, before)] == [15, 15, 0, 0]
+
+
+@pytest.fixture
+def second_card():
+    """cuda:1, with cuda:0 the current device; skips on fewer than two cards."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    set_card_numerics()
+    torch.cuda.set_device(0)
+    return torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", [1000, 40000])  # B and C: the short path, the four-step passes
+def test_kernels_run_on_their_tensors_card(second_card, dtype, L):
+    """Kernels A, A', B and C on cuda:1 while the current device is 0: each
+    launches once, on its tensors' card (its outputs there), matches its
+    plain version, and leaves the current device at 0."""
+    g = torch.Generator().manual_seed(L)
+    dt, B, d = getattr(torch, dtype), 2, 64
+    params = [torch.randn(d, 3 * d, generator=g) * 0.05, torch.randn(3 * d, generator=g) * 0.1,
+              torch.randn(3, 3 * d, generator=g), torch.randn(3 * d, generator=g) * 0.1]
+    u, dvx, dx0, x, dy = (torch.randn(*shape, generator=g).to(dt)
+                          for shape in ((B, L, d),) + ((B, d, L),) * 4)
+    k = (torch.randn(d, L, generator=g) * 0.05 * torch.exp(-torch.arange(L) / (L / 8))).to(dt)
+    D = torch.randn(d, generator=g)
+    on = lambda *ts: [t.to(second_card) for t in ts]
+    kernels = (FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD)
+    before = [kern.launches for kern in kernels]
+    outs = [FF.front_fwd(*on(u, *params)), FF.front_bwd(*on(u, *params, dvx, dx0)),
+            (FB.fftconv_fused(*on(x, k, D)),), FB.fftconv_bwd_retransform(*on(x, dy, k, D))]
+    assert [kern.launches - b for kern, b in zip(kernels, before)] == [1, 1, 1, 1]
+    assert torch.cuda.current_device() == 0
+    refs = [FF.reference_fwd(u, *params), FF.reference_bwd(u, *params, dvx, dx0),
+            (fftconv_ref(x, k, D),), FB.fftconv_bwd_ref(x, dy, k, D)]
+    tol = (1e-4, 1e-4) if dtype == "float32" else BF16_TOL
+    for out, ref in zip(outs, refs):
+        for got, want in zip(out, ref):
+            assert got.device == second_card and got.dtype == want.dtype
+            _close(got, want, *((1e-4, 1e-4) if got.dtype == torch.float32 else tol))
+
+
+def test_kernels_refuse_tensors_on_two_cards(second_card):
+    """Inputs split over cuda:0 and cuda:1 raise; nothing is copied across
+    and no kernel launches."""
+    u, w = torch.randn(1, 8, 16, device=second_card), torch.randn(16, 48, device="cuda:0")
+    x, k = torch.randn(1, 4, 64, device=second_card), torch.randn(4, 64, device="cuda:0")
+    before = (FF.KERNEL.launches, FB.KERNEL.launches)
+    with pytest.raises(ValueError, match="is on cuda:0"):
+        FF.front_fwd(u, w, *(torch.zeros(s, device=second_card) for s in (48, (3, 48), 48)))
+    with pytest.raises(ValueError, match="is on cuda:0"):
+        FB.fftconv_fused(x, k, torch.zeros(4, device=second_card))
+    assert (FF.KERNEL.launches, FB.KERNEL.launches) == before
+
+
+def test_model_on_second_card_matches_cpu(second_card):
+    """The whole model moved to cuda:1, the current device 0 (as
+    `hg38_inference --device cuda:1` runs it): its loss and every parameter
+    gradient from the kernels match the CPU's through the plain versions."""
+    model = build_model(64, 2, 1000, generator=torch.Generator().manual_seed(0)).eval()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(7, 12, size=(2, 1001)))
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    loss_cpu = cross_entropy(model(x), y)
+    loss_cpu.backward()
+    cpu = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.to(second_card)
+    counts = [(k, k.launches) for k in (FF.KERNEL, FF.KERNEL_BWD, FB.KERNEL, FB.KERNEL_BWD)]
+    loss = cross_entropy(model(x.to(second_card)), y.to(second_card))
+    loss.backward()
+    assert all(k.launches == n + 2 for k, n in counts)  # one each per layer
+    assert torch.cuda.current_device() == 0
+    _close(loss.detach(), loss_cpu.detach(), 0.0, 1e-5)
+    for name, p in model.named_parameters():
+        assert p.grad is not None and p.grad.device == second_card, name
+        _close(p.grad, cpu[name], 1e-3, 1e-3)

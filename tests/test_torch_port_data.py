@@ -3,10 +3,18 @@ seeds: the tokenizer, FASTA access and interval sampling, the hg38,
 fixed-window, LM-chunk and classification datasets (item by item, with
 augmentation), the resumable loader (order, resume, host split, errors) and
 the datamodules (every batch of every split equal), the downstream ones
-(chromatin profile, species in both tasks, ETT hour and minute) included.
+(chromatin profile, species in both tasks, ETT hour and minute) included,
+and hg38's BPE tokenizer route on a local snapshot (datamodule batches
+against the JAX one, two Trainer steps).
 Both hg38 datasets take their native C++ fetch where their library builds
 (tests/test_torch_port_native.py holds it to the Python path).
 """
+
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +31,8 @@ from hyena_dna_tpu_torch.data import fasta as F
 from hyena_dna_tpu_torch.data import hg38 as H
 from hyena_dna_tpu_torch.data import loader as Ld
 from hyena_dna_tpu_torch.data import tokenizer as Tok
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def assert_same(a, b):
@@ -363,8 +373,131 @@ def test_datamodule_matches_jax(genome, benchmark, downstream, name, kw):
                 assert_same(x, y)
 
 
-def test_bpe_tokenizer_is_refused(genome):
+# ---- the BPE tokenizer route of hg38 ---------------------------------------------
+
+@pytest.fixture
+def bpe_snapshot(tmp_path):
+    """tests/test_datasets2.py::test_bpe_tokenizer_path's files: an 8192-base
+    genome, a bed file with 8 train, 1 valid and 1 test interval, and a
+    64-token BPE trained on random ACGT and saved as a local `transformers`
+    snapshot (the stand-in for the reference's gena-lm download)."""
+    pytest.importorskip("tokenizers")
+    transformers = pytest.importorskip("transformers")
+    from tokenizers import Tokenizer, models, trainers
+
+    rng = np.random.default_rng(0)
+    seq = "".join(rng.choice(list("ACGT"), size=8192))
+    fa = tmp_path / "g.fa"
+    with open(fa, "w") as f:
+        f.write(">chr1\n")
+        for i in range(0, len(seq), 60):
+            f.write(seq[i:i + 60] + "\n")
+    bed = tmp_path / "g.bed"
+    with open(bed, "w") as f:
+        for i in range(8):
+            f.write(f"chr1\t{i * 512}\t{i * 512 + 256}\ttrain\n")
+        f.write("chr1\t4096\t4352\tvalid\n")
+        f.write("chr1\t6000\t6256\ttest\n")
+    tok = Tokenizer(models.BPE(unk_token="[UNK]"))
+    trainer = trainers.BpeTrainer(vocab_size=64, special_tokens=["[PAD]", "[UNK]", "[SEP]"])
+    tok.train_from_iterator(["".join(rng.choice(list("ACGT"), size=512)) for _ in range(16)],
+                            trainer)
+    fast = transformers.PreTrainedTokenizerFast(tokenizer_object=tok, unk_token="[UNK]",
+                                                pad_token="[PAD]", sep_token="[SEP]")
+    snap = tmp_path / "bpe_tok"
+    fast.save_pretrained(str(snap))
+    return fa, bed, snap, len(fast)
+
+
+@pytest.mark.parametrize("kw", [{"add_eos": True, "rc_aug": True},
+                                {"add_eos": False, "shuffle": False, "batch_size_eval": 1}])
+def test_bpe_datamodule_matches_jax(bpe_snapshot, kw):
+    """`tokenizer_name: bpe` from a local snapshot: the same vocab_size
+    (len(tokenizer)) and every train, val and test batch equal to the JAX
+    datamodule's."""
+    fa, bed, snap, n_tokens = bpe_snapshot
+    files = {"bed_file": str(bed), "fasta_file": str(fa), "tokenizer_name": "bpe",
+             "bpe_tokenizer_path": str(snap), "max_length": 64, "batch_size": 4, "seed": 11}
+    ours, ref = DM.HG38DataModule(**files, **kw), JDM.HG38DataModule(**files, **kw)
+    ours.setup()
+    ref.setup()
+    assert ours.vocab_size == ref.vocab_size == n_tokens
+    assert ours.dataset_train.native is None  # the fused fetch is the char tokenizer's
+    batches = _all_batches(ours)
+    for a, b in zip(batches, _all_batches(ref)):
+        assert len(a) == len(b) > 0
+        for x, y in zip(a, b):
+            assert_same(x, y)
+    x, y = batches[0][0]
+    assert x.shape == (4, 63) and int(x.max()) < n_tokens
+    np.testing.assert_array_equal(x[:, 1:], y[:, :-1])
+
+
+def test_bpe_snapshot_path_from_the_environment(bpe_snapshot, monkeypatch):
+    """With no `bpe_tokenizer_path`, `$HYENA_BPE_TOKENIZER_PATH` names the
+    snapshot, as in the JAX datamodule."""
+    fa, bed, snap, n_tokens = bpe_snapshot
+    monkeypatch.setenv("HYENA_BPE_TOKENIZER_PATH", str(snap))
+    dm = DM.HG38DataModule(bed_file=str(bed), fasta_file=str(fa), tokenizer_name="bpe",
+                           max_length=64)
+    dm.setup()
+    assert dm.vocab_size == n_tokens and len(dm.dataset_train) == 8
+
+
+def test_bpe_route_names_transformers_when_it_is_missing(genome, monkeypatch):
     fa, bed, _ = genome
+    monkeypatch.setitem(sys.modules, "transformers", None)  # an import of it raises
     dm = DM.HG38DataModule(bed_file=str(bed), fasta_file=str(fa), tokenizer_name="bpe")
-    with pytest.raises(NotImplementedError, match="transformers"):
+    with pytest.raises(ImportError, match="transformers"):
         dm.setup()
+
+
+def test_hg38_refuses_other_tokenizers(genome):
+    fa, bed, _ = genome
+    dm = DM.HG38DataModule(bed_file=str(bed), fasta_file=str(fa), tokenizer_name="word")
+    with pytest.raises(NotImplementedError, match="'char' or 'bpe'"):
+        dm.setup()
+
+
+def test_port_imports_transformers_only_in_the_bpe_route():
+    """Importing the port's data and training modules imports no
+    `transformers`; the one import line is inside `HG38DataModule.setup`."""
+    code = ("import sys, hyena_dna_tpu_torch.data.datamodules, hyena_dna_tpu_torch.train.trainer;"
+            "print('transformers' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, check=True)
+    assert out.stdout.strip() == "False"
+    lines = [(path.name, line) for path in (ROOT / "hyena_dna_tpu_torch").rglob("*.py")
+             for line in path.read_text().splitlines()
+             if re.match(r"\s*(from|import)\s+transformers\b", line)]
+    assert lines == [("datamodules.py", "                from transformers import AutoTokenizer")]
+
+
+def test_trainer_runs_the_bpe_route(bpe_snapshot, tmp_path):
+    """Two steps of the port's Trainer on `dataset.tokenizer_name=bpe` at d
+    16: the model's vocabulary is len(tokenizer), from the datamodule, and
+    every logged loss is finite."""
+    from hyena_dna_tpu_torch.train.trainer import Trainer
+
+    fa, bed, snap, n_tokens = bpe_snapshot
+    cfg = {"train": {"seed": 1, "run_dir": str(tmp_path / "run")}, "mesh": {"data": 1},
+           "trainer": {"max_epochs": 1, "limit_train_batches": 2, "precision": "32",
+                       "log_every_n_steps": 1},
+           "dataset": {"_name_": "hg38", "bed_file": str(bed), "fasta_file": str(fa),
+                       "tokenizer_name": "bpe", "bpe_tokenizer_path": str(snap),
+                       "batch_size": 4, "max_length": 64},
+           "task": {"_name_": "hg38", "loss": "cross_entropy"},
+           "model": {"_name_": "lm", "d_model": 16, "n_layer": 1, "d_inner": 64,
+                     "pad_vocab_size_multiple": 1, "embed_dropout": 0.0,
+                     "layer": {"_name_": "hyena", "emb_dim": 5, "filter_order": 8,
+                               "l_max": 64}},
+           "optimizer": {"lr": 1e-3}, "callbacks": {}}
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.datamodule.vocab_size == n_tokens
+    assert trainer.model.d_output == n_tokens
+    trainer.fit()
+    trainer.close()
+    records = [json.loads(line) for line in open(tmp_path / "run" / "metrics.jsonl")]
+    losses = [r["train/loss"] for r in records if "train/loss" in r]
+    assert trainer.global_step == 2 and len(losses) == 2
+    assert all(np.isfinite(v) for v in losses)

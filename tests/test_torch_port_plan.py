@@ -95,7 +95,7 @@ def test_short_path_skips_kernel_b_scratch(L, save, scratch, monkeypatch):
     calls = []
     monkeypatch.setattr(_cuda, "on_card", lambda t: True)
     monkeypatch.setattr(_cuda, "stream_handle", lambda t: None)
-    monkeypatch.setattr(FB.KERNEL, "launch", lambda fn, *args: calls.append(args))
+    monkeypatch.setattr(FB.KERNEL, "launch", lambda fn, *args, device: calls.append(args))
     u, k, D = torch.zeros(2, 3, L), torch.zeros(3, L), torch.zeros(3)
     FB.fftconv_fused(u, k, D, save_spectrum=save)
     (args,) = calls
