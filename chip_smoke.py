@@ -16,7 +16,12 @@ line:
             the 4-D conv layout), B and C (the FFT conv forward and
             backward), D and D' (the fused residual-add + LN forward and
             backward), E and E' (the gate-fused FFT conv forward and
-            backward), F and F' (the fused MLP forward and backward);
+            backward), F and F' (the fused MLP forward and backward); a
+            second line holds the readings of the four-step passes' third
+            class (`kSchedLogN1` / `kSchedLogN2` in csrc/fft_common.cuh:
+            the 128-point columns of fft 2^19 and the 4-point passes of 2^4
+            and 2^5, each at its compile-time schedule) beside the build's
+            seconds;
    cold     two processes, started together, each pointing `_cuda.BUILD_DIR`
             at one fresh directory and building kernel D there with the real
             nvcc at its first launch (as torchrun's ranks do on a cold
@@ -43,8 +48,11 @@ line:
             Kernels A and A' in float32 and in bfloat16; D and D' at the
             bf16 model's 4 x 32768 x 256 rows; B and C through the named
             entry of each TPU row with its plan on padded operands, C at
-            the flat 1M step's unpadded 1 x 1,000,448, and B and C at the
-            450k step's 1 x 450,048 (fft 2^20), then the routes no
+            the flat 1M step's unpadded 1 x 1,000,448, B and C at the
+            450k step's 1 x 450,048 (fft 2^20) and through the outer
+            entries at stage 3 of `hg38_large_1m`'s curriculum, 1 x 262,144
+            (fft 2^19, plan (16, 128, 256)), each call of B and C run twice
+            for the same bits, then the routes no
             default path takes: the narrow plan at fft 2^19, the 3-factor
             plans at fft 2^19-2^21, kernel C's dk-spectrum
             mode at 4 x 32768; kernels B and C's short path
@@ -99,7 +107,10 @@ line:
             before; each step's ms is printed beside the composite bf16
             step's of the same run. Then the long-context steps: 1 x
             1,000,448 bf16 with a float32 residual and residual cells (g 2,
-            g 1, g 2 on the 4-D route), and 1 x 450,048 with block cells.
+            g 1, g 2 on the 4-D route), 1 x 450,048 with block cells, and
+            1 x 262,144 with residual cells g 2 and a float32 residual (the
+            singlechip config's cells at stage 3 of `hg38_large_1m`'s
+            curriculum, fft 2^19).
             F and F' never run in a training step (`Block` does not set
             `use_fused`, as in the JAX package).
 6. trainer  the port's trainer (`python -m hyena_dna_tpu_torch.train`,
@@ -297,7 +308,8 @@ before each request of phases 4 and 5, each run of phases 6, 8 and 9 and
 each part of phases 7 and 9, and read just after it; in phases 10-12 on
 each rank before each of its runs.
 
-It then prints the card's name and power limit, one JSON line
+It then prints the whole run's seconds, the card's name and power limit,
+one JSON line
 {"kernels": [...]} with each kernel's launches on those paths, its error,
 times and bound at the main paths' 4 x 32768 shape (kernels A and A' in
 float32, with their bf16 numbers under "bf16"; kernels E and E' on the
@@ -308,7 +320,8 @@ last stage (4 x 32768 x 128 bf16, fft 2^16) under "species"; B and C on
 their short path (the trainer's shape and the curriculum's first three
 stages) under "short"; phase 9's
 launches (9c's mixed stack and 9d's general Hyena path) under
-"models_launches"; B and C at phase 10's channel pencils with the ranks'
+"models_launches"; B and C at phase 10's channel pencils (and at
+`hg38_large_1m` stage 3's 1 x 32 x 262,144 on seq 8) with the ranks'
 launches under "parallel"; A, A', B and C at phase 11's channel slices
 with the ranks' launches under "tensor_parallel"; A4 and A4' at phase
 12a's channel slices and every kernel's launches in phase 12 under
@@ -464,7 +477,7 @@ def check_wgmma(probe, b_cols: int, phase: str, seed: int):
 # the kernels whose ptxas readings the run prints: the tensor-core kernels
 # behind each bf16 front-end entry (csrc/fused_front_tc.cuh) and behind
 # kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels, the
-# passes of kernels C, E and E' (csrc/fftconv_bwd.cu,
+# passes of kernels B, C, E and E' (csrc/fftconv{,_bwd}.cu,
 # csrc/fftconv_gated{,_bwd}.cu), and the short path's kernels of B and C
 # (csrc/fft_short.cuh)
 PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
@@ -476,7 +489,8 @@ PTXAS_KERNELS = {"fused_front": ("split_w_kernel", "front_fwd_tc_kernel"),
                  "mlp_fused": ("mlp_fwd_kernel", "round_bf16_kernel"),
                  "mlp_fused_bwd": ("mlp_bwd_rows_kernel", "mlp_bwd_weights_kernel",
                                    "sum_splits_kernel", "round_bf16_kernel"),
-                 "fftconv": ("short_kspec_kernel", "short_conv_kernel"),
+                 "fftconv": ("cols_fwd_kernel", "rows_fwd_kernel", "rows_conv_kernel",
+                             "cols_inv_kernel", "short_kspec_kernel", "short_conv_kernel"),
                  "fftconv_bwd": ("cols_in_kernel", "rows_fwd_kernel", "rows_grad_kernel",
                                  "rows_grad_cluster_kernel", "cols_inv_kernel",
                                  "short_kspec_kernel", "short_grad_kernel", "short_dk_kernel"),
@@ -567,7 +581,7 @@ def check_front(FF, B, L, seed, dtype="float32", d=D_MODEL, d_c=None):
 def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=(), C=D_MODEL):
     """Kernel B through `entry` (a named TPU-row entry with its plan, on
     operands padded to L; by default the generic `fftconv_fused`) against
-    `fftconv_ref`."""
+    `fftconv_ref`, and a second call the same bits."""
     import torch
 
     from hyena_dna_tpu_torch.ops.fftconv import fftconv_ref, next_fast_fft_size
@@ -583,6 +597,8 @@ def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=(), C=D_MODEL):
     y = entry(u, k, D, *plan)
     torch.cuda.synchronize()
     max_abs, max_rel = compare(y, fftconv_ref(u, k, D), dtype)
+    if not torch.equal(entry(u, k, D, *plan), y):
+        raise AssertionError(f"kernel B: a second call at B={B} C={C} L={L} gave other bits")
     uf, kf = u.float(), k.float()
 
     def library():  # cuFFT through torch.fft
@@ -898,8 +914,9 @@ def check_add_ln(AL, B, L, seed):
 def check_conv_bwd(FB, entry, B, L, dtype, route, seed, plan=(), C=D_MODEL):
     """Kernel C through one TPU row's entry point, with its plan on operands
     padded to L, against `fftconv_bwd_ref` (du in the I/O dtype, dk in it
-    or float32 as the entry returns it, dD float32). A spectrum-route entry
-    gets u's spectrum from kernel B's `save_spectrum`."""
+    or float32 as the entry returns it, dD float32), and a second call the
+    same bits. A spectrum-route entry gets u's spectrum from kernel B's
+    `save_spectrum`."""
     import torch
 
     from hyena_dna_tpu_torch.ops.fftconv import next_fast_fft_size
@@ -916,6 +933,8 @@ def check_conv_bwd(FB, entry, B, L, dtype, route, seed, plan=(), C=D_MODEL):
     x = FB.fftconv_fused(u, k, D, save_spectrum=True)[1] if spectrum else u
     out = entry(x, dy, k, D, *plan)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(entry(x, dy, k, D, *plan), out)):
+        raise AssertionError(f"kernel C: a second call at B={B} C={C} L={L} gave other bits")
     dk_dtype = out[1].dtype
     ref = FB.fftconv_bwd_ref(u, dy, k, D, dk_dtype=dk_dtype)
     errs = {name: compare(o, r, "float32" if o.dtype == torch.float32 else dtype)
@@ -3600,6 +3619,7 @@ def main() -> int:
     from hyena_dna_tpu_torch.tasks.metrics import cross_entropy
     from hyena_dna_tpu_torch.utils.numerics import set_card_numerics
 
+    start = time.perf_counter()
     set_card_numerics()
     kernels = port_kernels()
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
@@ -3607,9 +3627,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _cuda.build_all(kernels)
+    build_seconds = time.perf_counter() - t0
     ptxas = kernel_ptxas(kernels)
-    log({"phase": "build", "seconds": time.perf_counter() - t0,
+    log({"phase": "build", "seconds": build_seconds,
          "libraries": [k.library_path.name for k in kernels], "ptxas": ptxas})
+    # the four-step passes' third class (csrc/fft_common.cuh, kSchedLogN1 /
+    # kSchedLogN2: 2^19's 128-point columns, the 4-point passes of 2^4 and 2^5)
+    log({"phase": "build_sched_class", "build_seconds": build_seconds,
+         "ptxas": {lib: {key: r for key, r in readings.items()
+                         if not key.startswith("short_") and re.search(r"[<,]0(,sum)?>$", key)}
+                   for lib, readings in ptxas.items() if lib.startswith("fftconv")}})
     cold_build_phase(130)
     device_guard_phase(FF, FB, 132)
     log(check_wgmma(FF, 64, "wgmma_probe", 90))
@@ -3632,7 +3659,10 @@ def main() -> int:
                         FB.fftconv_outer_fwd, (16, 128, 128)),
              check_conv(FB, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:413 outer", 7),
              # the 450k training step's own call (fft 2^20, 256 x 4096)
-             check_conv(FB, 1, 450048, "bfloat16", "pallas_fftconv_n3.py:413 450k step", 19)]
+             check_conv(FB, 1, 450048, "bfloat16", "pallas_fftconv_n3.py:413 450k step", 19),
+             # stage 3 of hg38_large_1m's curriculum (fft 2^19, 128 x 4096)
+             check_conv(FB, 1, 1 << 18, "bfloat16", "pallas_fftconv_n3.py:413 outer", 140,
+                        FB.fftconv_outer_fwd, (16, 128, 256))]
     for entry, B, L, dtype, route, seed, plan in (
             (None, 2, 8192, "float32", "XLA FFT on the TPU", 20, ()),
             (FB.fftconv_fused_bwd_spec_packed, 4, 32768, "bfloat16", "pallas_fftconv.py:1344", 21,
@@ -3646,6 +3676,8 @@ def main() -> int:
              (16, 128, 128)),
             (FB.fftconv_outer_bwd, 1, 1 << 20, "bfloat16", "pallas_fftconv_n3.py:629", 27,
              (16, 512, 256)),
+            (FB.fftconv_outer_bwd, 1, 1 << 18, "bfloat16", "pallas_fftconv_n3.py:629", 141,
+             (16, 128, 256)),
             # the flat 1M and the 450k training steps' own calls: unpadded, L < n / 2
             (None, 1, 1000448, "bfloat16", "pallas_fftconv_n3.py:629 flat 1M step", 28, ()),
             (None, 1, 450048, "bfloat16", "pallas_fftconv_n3.py:629 450k step", 29, ())):
@@ -3719,9 +3751,11 @@ def main() -> int:
                        "pallas_fftconv.py:1222 (species stage 6)", 107, C=TRAINER_D)]
     rows += species_rows
     # phase 10's channel pencils: 1 x 64 x 450,000 (10b, fft 2^20) and
-    # 1 x 128 x 131,072 (10d, fft 2^18), each rank's conv in the seq route
+    # 1 x 128 x 131,072 (10d, fft 2^18), each rank's conv in the seq route;
+    # and hg38_large_1m's stage 3 on its seq 8: 1 x 32 x 262,144 (fft 2^19)
     parallel_rows = []
-    for i, (C, L) in enumerate(((D_MODEL // PAR_WORLD, PAR_L), (D_MODEL // 2, 1 << 17))):
+    for i, (C, L) in enumerate(((D_MODEL // PAR_WORLD, PAR_L), (D_MODEL // 2, 1 << 17),
+                                (D_MODEL // 8, 1 << 18))):
         parallel_rows += [
             check_conv(FB, 1, L, "bfloat16", "pallas_fftconv_n3.py:413 seq pencil", 110 + 2 * i,
                        C=C),
@@ -3783,13 +3817,16 @@ def main() -> int:
          "vs_composite_bf16": {k: v / composite for k, v in step_ms.items()
                                if k.startswith("bf16 4x32768")}})
     # single-card long context: hg38_large_1m_singlechip.yaml (residual cells,
-    # group 2, float32 residual), group 1, the 4-D route, and the 450k mode
+    # group 2, float32 residual), group 1, the 4-D route, the 450k mode, and
+    # the singlechip cells at stage 3 of hg38_large_1m's curriculum (262,144
+    # tokens, fft 2^19)
     long_ms = {}
     for length, residual, remat, group, front4, save_filter in (
             (1000448, "fp32", "residual", 2, False, False),
             (1000448, "fp32", "residual", 1, False, False),
             (1000448, "fp32", "residual", 2, True, False),
-            (450048, None, "block", 1, False, True)):
+            (450048, None, "block", 1, False, True),
+            (262144, "fp32", "residual", 2, False, False)):
         launches, ms = train(bench, kernels, 1, length, 17, "bf16", None, residual, remat,
                              group, front4, save_filter, steps=2)
         for name, n in launches.items():
@@ -3825,6 +3862,7 @@ def main() -> int:
         for name, n in mr_launches.items():
             total[name] += n
 
+    log({"phase": "done", "seconds": time.perf_counter() - start})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip()

@@ -44,7 +44,12 @@
 // compiled three times (kRadix): for sub-FFTs of 16, 256 or 4096 points
 // (radix-16 passes only: the main shapes' rows, and their columns at
 // 2^16), of 8, 64 or 512 points (radix 8 only: the columns from 2^18) and
-// of any size, so no class's register allocation pays for another's code.
+// for the plan's sizes of neither class (kSchedLogN1, kSchedLogN2: the
+// 128-point columns of 2^19 and the 4-point passes of 2^4 and 2^5), each
+// at a compile-time schedule of its own (fft_sched), so no class's register
+// allocation pays for another's code. No four-step pass chooses its radices
+// at run time (the short path's any-size transform for 2^4-2^9, fft_any in
+// fft_short.cuh, does).
 //
 // Shared layouts: columns interleaved (element i of column s at
 // TC i + s; with TC = 16 a half-warp touches 16 adjacent float2, no bank
@@ -286,26 +291,67 @@ __device__ __forceinline__ void fft_pass(const In& in, const Out& out, const Map
   if (Out::kShared) __syncthreads();
 }
 
-// The pass of radix 2^lr; a transform of 2^2..2^12 points takes lr 2-4
-// alone, or 3-4 first and in the middle and 2-4 last (the schedule in fft).
-template <bool kInv, int kMinLR, class In, class Out, class Map>
-__device__ __forceinline__ void fft_pass_lr(int lr, const In& in, const Out& out, const Map& map,
-                                            int log_m, int log_ns, int count) {
-  if (kMinLR <= 2 && lr == 2) {
-    fft_pass<2, kInv, false>(in, out, map, log_m, log_ns, count);
-  } else if (lr == 3) {
-    fft_pass<3, kInv, false>(in, out, map, log_m, log_ns, count);
-  } else {
-    fft_pass<4, kInv, false>(in, out, map, log_m, log_ns, count);
-  }
+// Compile-time schedules. A transform of 2^kLogM points whose passes'
+// radices are constants: ceil(kLogM / 4) passes, the bits split as evenly
+// as possible, the larger first (128 = 16 8, 1024 = 16 8 8, 2048 = 16 16 8,
+// 8192 = 16 8 8 8). Radix-16 DFTs take the loops spelling, the others the
+// recursion (see dft).
+__host__ __device__ constexpr int sched_passes(int log_m) { return (log_m + 3) / 4; }
+// log2 of the radix of pass p
+__host__ __device__ constexpr int sched_lr(int log_m, int p) {
+  return log_m / sched_passes(log_m) + (p < log_m % sched_passes(log_m) ? 1 : 0);
+}
+// log2 of pass p's stride Ns, the product of the earlier radices
+__host__ __device__ constexpr int sched_log_ns(int log_m, int p) {
+  int s = 0;
+  for (int i = 0; i < p; ++i) s += sched_lr(log_m, i);
+  return s;
 }
 
-// `count` transforms of size 2^log_m (4 <= 2^log_m <= 4096; natural order
-// in and out) from `in` to `out`, the passes between exchanging through
-// `mid`; blockDim * kElems >= count * 2^log_m. Every thread of the block
-// calls it. kRadix 16 or 8: log_m is a multiple of 4 or 3 and every pass
-// has that radix; 0: any log_m (the kernels of each class are compiled
-// apart, see launch).
+// fft's transform (see fft) at the compile-time schedule of 2^kLogM points.
+template <int kLogM, bool kInv, class In, class Out, class Map, class Layout>
+__device__ __forceinline__ void fft_sched(const In& in, const Out& out, const Map& map,
+                                          const SharedIO<Layout>& mid, int count) {
+  constexpr int kPasses = sched_passes(kLogM);
+  static_for<kPasses>([&](auto pi) {
+    constexpr int p = decltype(pi)::value;
+    constexpr int kLR = sched_lr(kLogM, p);
+    constexpr int kLogNs = sched_log_ns(kLogM, p);
+    constexpr bool kLoops = kLR == 4;
+    if constexpr (kPasses == 1) {
+      fft_pass<kLR, kInv, kLoops>(in, out, map, kLogM, kLogNs, count);
+    } else if constexpr (p == 0) {
+      fft_pass<kLR, kInv, kLoops>(in, mid, map, kLogM, kLogNs, count);
+    } else if constexpr (p == kPasses - 1) {
+      fft_pass<kLR, kInv, kLoops>(mid, out, map, kLogM, kLogNs, count);
+    } else {
+      fft_pass<kLR, kInv, kLoops>(mid, mid, map, kLogM, kLogNs, count);
+    }
+  });
+}
+
+// The plan's sub-FFT sizes 2^log_m of neither radix class (kPlanLogN1
+// below), each transformed at its compile-time schedule (fft_sched): the
+// columns (N1) of 4 points (the passes at 2^4 and 2^5) and of
+// 128 (2^19, 16 8), the rows (N2) of 4 (2^4). tests/test_torch_port_plan.py
+// reads these sizes.
+constexpr int kSchedLogN1[] = {2, 7};
+constexpr int kSchedLogN2[] = {2};
+constexpr int kSchedCountN1 = sizeof(kSchedLogN1) / sizeof(int);
+constexpr int kSchedCountN2 = sizeof(kSchedLogN2) / sizeof(int);
+// entry i of each, for device code (a constant-expression call reads a host
+// constexpr array there)
+__host__ __device__ constexpr int sched_log_n1(int i) { return kSchedLogN1[i]; }
+__host__ __device__ constexpr int sched_log_n2(int i) { return kSchedLogN2[i]; }
+
+// `count` transforms of size 2^log_m (natural order in and out) from `in`
+// to `out`, the passes between exchanging through `mid`; blockDim * kElems
+// >= count * 2^log_m. Every thread of the block calls it. kRadix 16 or 8:
+// log_m is a multiple of 4 or 3 and every pass has that radix; 0: log_m is
+// one of kSchedLogN1 in a column pass (ColMap) or of kSchedLogN2 in a row
+// pass, at its compile-time schedule. The kernels of each class are
+// compiled apart; launch picks the class, and radix_class refuses any
+// other size.
 template <bool kInv, int kRadix, class In, class Out, class Map, class Layout>
 __device__ void fft(const In& in, const Out& out, const Map& map, const SharedIO<Layout>& mid,
                     int log_m, int count) {
@@ -326,24 +372,13 @@ __device__ void fft(const In& in, const Out& out, const Map& map, const SharedIO
         fft_pass<kLR, kInv, kLoops>(mid, mid, map, log_m, log_ns, count);
       }
     }
-    return;
-  }
-  const int passes = (log_m + 3) >> 2;
-  if (passes == 1) {
-    fft_pass_lr<kInv, 2>(log_m, in, out, map, log_m, 0, count);
-    return;
-  }
-  int log_ns = 0;
-  for (int p = 0; p < passes; ++p) {
-    const int lr = log_m / passes + (p < log_m % passes ? 1 : 0);
-    if (p == 0) {
-      fft_pass_lr<kInv, 3>(lr, in, mid, map, log_m, log_ns, count);
-    } else if (p == passes - 1) {
-      fft_pass_lr<kInv, 2>(lr, mid, out, map, log_m, log_ns, count);
-    } else {
-      fft_pass_lr<kInv, 3>(lr, mid, mid, map, log_m, log_ns, count);
-    }
-    log_ns += lr;
+  } else {
+    constexpr bool kCols = std::is_same<Map, ColMap>::value;
+    static_for<kCols ? kSchedCountN1 : kSchedCountN2>([&](auto i) {
+      constexpr int kLogM = kCols ? sched_log_n1(decltype(i)::value)
+                                  : sched_log_n2(decltype(i)::value);
+      if (log_m == kLogM) fft_sched<kLogM, kInv>(in, out, map, mid, count);
+    });
   }
 }
 
@@ -359,13 +394,18 @@ struct Plan {
 
 // log2 N1 at n = 2^log_n (ops/fused_fftconv.py::_four_step reads this
 // table, and tests/test_torch_port_plan.py holds it to the rule). The rule:
-// the most balanced split N1 <= 512, N2 <= 4096 whose two sizes both
-// fall in the radix-16 or radix-8 class (log2 a multiple of 4 or of 3, see
-// radix_class), the smaller N1 on a tie; where none exists (2^4, 2^5,
-// 2^19), N1 = 2^min(log_n / 2, 9) and the any-size class takes the rest.
-// The saved-spectrum sizes 2^16-2^18 split 256 x 256, 256 x 512, 512 x 512.
+// the most balanced split N1 <= 512, N2 <= 4096 whose two sizes both fall
+// in the radix-16 or radix-8 class (log2 a multiple of 4 or of 3, see
+// radix_class), the smaller N1 on a tie. Where none exists the factors of
+// kSchedLogN1 / kSchedLogN2 take the rest: 2^4 and 2^5 split 4 x 4 and
+// 4 x 8, and 2^19 128 x 4096, so that its rows are the radix-16 class's
+// (kernel C's 2-CTA cluster at N2 = 4096, as at 2^20 and 2^21) and only
+// its 128-point columns take a compile-time schedule (512 x 1024, its rows
+// at 16 8 8 or 4 16 16, ran B 25-26% and C 17-18% slower on an NVIDIA H100:
+// PERF.md, scripts/conv_2e19_ab.py). The saved-spectrum sizes 2^16-2^18
+// split 256 x 256, 256 x 512, 512 x 512.
 constexpr int kPlanLogN1[kMaxLogN + 1] = {0, 0, 0, 0, 2, 2, 3, 3, 4, 3, 4,
-                                          3, 6, 4, 6, 6, 8, 8, 9, 9, 8, 9};
+                                          3, 6, 4, 6, 6, 8, 8, 9, 7, 8, 9};
 
 inline Plan make_plan(int n) {
   Plan p;
@@ -386,8 +426,27 @@ inline Plan make_plan(int n) {
   return p;
 }
 
+// The class of the kernels that transform 2^log_m points in the column
+// passes (cols) or the row passes: 16, 8, 0 (see fft), or -1 where none
+// takes that size (launch then launches nothing).
+inline int radix_class(int log_m, bool cols) {
+  if (log_m >= 4 && log_m <= 12 && log_m % 4 == 0) return 16;
+  if (log_m >= 3 && log_m <= 9 && log_m % 3 == 0) return 8;
+  const int* sched = cols ? kSchedLogN1 : kSchedLogN2;
+  for (int i = 0; i < (cols ? kSchedCountN1 : kSchedCountN2); ++i) {
+    if (sched[i] == log_m) return 0;
+  }
+  return -1;
+}
+inline int col_class(const Plan& p) { return radix_class(p.log_n1, true); }
+inline int row_class(const Plan& p) { return radix_class(p.log_n2, false); }
+
+// A power of two from 16 to 2^kMaxLogN whose four-step factors both have a
+// class.
 inline bool valid_fft_size(int n) {
-  return n >= 16 && (n & (n - 1)) == 0 && n <= (1 << kMaxLogN);
+  if (n < 16 || (n & (n - 1)) != 0 || n > (1 << kMaxLogN)) return false;
+  const Plan p = make_plan(n);
+  return col_class(p) >= 0 && row_class(p) >= 0;
 }
 
 // Grids and block sizes (kElems values a thread, at least a warp): column
@@ -405,11 +464,14 @@ inline int pair_threads(const Plan& p) { return threads_for(2 * p.g * p.n2); }
 
 // Every FFT kernel is a template on kRadix, compiled three times: for
 // sub-FFTs of 16, 256 or 4096 points (radix-16 passes only), of 8, 64 or
-// 512 points (radix 8 only), and of any size. launch picks the
-// instantiation for the transform size (`pick` maps
-// std::integral_constant<int, kRadix> to the kernel), sets the dynamic
-// shared memory it needs and launches it on `stream`.
-inline int radix_class(int log_m) { return log_m % 4 == 0 ? 16 : log_m % 3 == 0 ? 8 : 0; }
+// 512 points (radix 8 only), and of the kSchedLogN1 / kSchedLogN2 sizes
+// (columns of 4 and 128 points, rows of 4, each at its compile-time
+// schedule). launch picks the instantiation for the class `radix`
+// (col_class or row_class of the plan;
+// `pick` maps std::integral_constant<int, kRadix> to the kernel), sets the
+// dynamic shared memory it needs and launches it on `stream`. It launches
+// nothing for a size of no class (-1), which the entry points refuse
+// first (valid_fft_size).
 template <class Pick, class... Args>
 inline void launch(Pick pick, int radix, dim3 grid, int threads, size_t smem, cudaStream_t stream,
                    Args... args) {
@@ -422,7 +484,7 @@ inline void launch(Pick pick, int radix, dim3 grid, int threads, size_t smem, cu
     go(pick(std::integral_constant<int, 16>{}));
   } else if (radix == 8) {
     go(pick(std::integral_constant<int, 8>{}));
-  } else {
+  } else if (radix == 0) {
     go(pick(std::integral_constant<int, 0>{}));
   }
 }

@@ -365,7 +365,7 @@ inline void launch_rows_grad(float2* gdy, const float2* gu, const float2* gk, co
                              float2* gdk, int B, int C, int u_is_spectrum, const Plan& p,
                              cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
-  const int wr = radix_class(p.log_n2);
+  const int wr = row_class(p);
   const bool sum = B > 1;
   if (p.n2 == 4096) {  // g = 1: the row pair over a cluster of two blocks
     launch(

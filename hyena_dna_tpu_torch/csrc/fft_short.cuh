@@ -48,9 +48,10 @@
 // the card's resident blocks once (the occupancy API), at most B: twice as many slices measured
 // 5-10% slower, and a register cap for four blocks an SM spilled and lost 40%.
 //
-// Sizes 2^10 .. 2^kShortMaxLogN are compiled each with its own pass schedule (radix 16 passes
-// first, then 8 or 4; the radix-16 DFTs as loops, the others by recursion, as fft_common.cuh's
-// classes), sizes 2^4 .. 2^9 by one kernel of the any-size class (kLogN = 0).
+// Sizes 2^10 .. 2^kShortMaxLogN are compiled each with its own pass schedule (fft_common.cuh's
+// fft_sched, which the four-step passes' 128- and 4-point factors run too: radix 16 passes first,
+// then 8; the radix-16 DFTs as loops, the others by recursion), sizes 2^4 .. 2^9 by one kernel of
+// the any-size transform (fft_any below, kLogN = 0).
 #pragma once
 
 #include "fft_common.cuh"
@@ -77,31 +78,61 @@ __host__ __device__ constexpr int grad_seqs(int log_n) { return log_n <= 12 ? 2 
 template <int kLogN, int kSeqs>
 constexpr int kShortBound = short_threads(kLogN ? kLogN : kShortMinLogN - 1, kSeqs);
 
+// The pass of radix 2^lr; a transform of 2^2..2^12 points takes lr 2-4
+// alone, or 3-4 first and in the middle and 2-4 last (the schedule in
+// fft_any).
+template <bool kInv, int kMinLR, class In, class Out, class Map>
+__device__ __forceinline__ void fft_pass_lr(int lr, const In& in, const Out& out, const Map& map,
+                                            int log_m, int log_ns, int count) {
+  if (kMinLR <= 2 && lr == 2) {
+    fft_pass<2, kInv, false>(in, out, map, log_m, log_ns, count);
+  } else if (lr == 3) {
+    fft_pass<3, kInv, false>(in, out, map, log_m, log_ns, count);
+  } else {
+    fft_pass<4, kInv, false>(in, out, map, log_m, log_ns, count);
+  }
+}
+
+// `count` transforms of size 2^log_m (4 <= 2^log_m <= 4096; natural order
+// in and out) from `in` to `out`, the passes between exchanging through
+// `mid`; blockDim * kElems >= count * 2^log_m. Every thread of the block
+// calls it. Any log_m: ceil(log_m / 4) passes whose radices are chosen at
+// run time, all three spelled in one kernel (which spills around radix 16,
+// see dft). Only the short path's kernel for 2^4-2^9 runs it; the
+// four-step passes take the classes of fft_common.cuh's fft.
+template <bool kInv, class In, class Out, class Map, class Layout>
+__device__ void fft_any(const In& in, const Out& out, const Map& map, const SharedIO<Layout>& mid,
+                        int log_m, int count) {
+  const int passes = (log_m + 3) >> 2;
+  if (passes == 1) {
+    fft_pass_lr<kInv, 2>(log_m, in, out, map, log_m, 0, count);
+    return;
+  }
+  int log_ns = 0;
+  for (int p = 0; p < passes; ++p) {
+    const int lr = log_m / passes + (p < log_m % passes ? 1 : 0);
+    if (p == 0) {
+      fft_pass_lr<kInv, 3>(lr, in, mid, map, log_m, log_ns, count);
+    } else if (p == passes - 1) {
+      fft_pass_lr<kInv, 2>(lr, mid, out, map, log_m, log_ns, count);
+    } else {
+      fft_pass_lr<kInv, 3>(lr, mid, mid, map, log_m, log_ns, count);
+    }
+    log_ns += lr;
+  }
+}
+
 // `count` row transforms of 2^log_n points (natural order in and out), the
-// passes between through `mid`: the compile-time schedule of size 2^kLogN,
-// or fft_common.cuh's any-size transform (kLogN = 0).
+// passes between through `mid`: fft_common.cuh's compile-time schedule of
+// size 2^kLogN (fft_sched, radix 16 passes first, then 8), or the any-size
+// transform above (kLogN = 0).
 template <int kLogN, bool kInv, class In, class Out>
 __device__ __forceinline__ void short_fft(const In& in, const Out& out,
                                           const SharedIO<RowLayout>& mid, int log_n, int count) {
   if constexpr (kLogN == 0) {
-    fft<kInv, 0>(in, out, RowMap{}, mid, log_n, count);
+    fft_any<kInv>(in, out, RowMap{}, mid, log_n, count);
   } else {
-    constexpr int kPasses = (kLogN + 3) / 4;
-    static_for<kPasses>([&](auto pi) {
-      constexpr int p = decltype(pi)::value;
-      constexpr int kLR = kLogN / kPasses + (p < kLogN % kPasses ? 1 : 0);
-      constexpr int kLogNs = p * (kLogN / kPasses) + (p < kLogN % kPasses ? p : kLogN % kPasses);
-      constexpr bool kLoops = kLR == 4;
-      if constexpr (kPasses == 1) {
-        fft_pass<kLR, kInv, kLoops>(in, out, RowMap{}, kLogN, kLogNs, count);
-      } else if constexpr (p == 0) {
-        fft_pass<kLR, kInv, kLoops>(in, mid, RowMap{}, kLogN, kLogNs, count);
-      } else if constexpr (p == kPasses - 1) {
-        fft_pass<kLR, kInv, kLoops>(mid, out, RowMap{}, kLogN, kLogNs, count);
-      } else {
-        fft_pass<kLR, kInv, kLoops>(mid, mid, RowMap{}, kLogN, kLogNs, count);
-      }
-    });
+    fft_sched<kLogN, kInv>(in, out, RowMap{}, mid, count);
   }
 }
 

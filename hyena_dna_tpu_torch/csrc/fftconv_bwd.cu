@@ -108,7 +108,7 @@ int launch_all(const T* u, const float2* uspec, const T* dy, const T* k, const f
   float2* su = uspec == nullptr ? sdy + batch_numel : nullptr;
   float2* sk = (su != nullptr ? su : sdy) + batch_numel;
   const bool with_du = k != nullptr;  // else the dk-spectrum mode
-  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const int wc = col_class(p), wr = row_class(p);
   const dim3 cols_c = cols_grid(p, pairs, 1), cols_b = cols_grid(p, pairs, B);
   const int tc = cols_threads(p);
   const size_t sc = cols_smem_bytes(p);

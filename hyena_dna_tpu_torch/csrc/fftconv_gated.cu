@@ -90,7 +90,7 @@ int launch_all(const T* u, const T* x0, const T* k, const float* D, T* y, T* v, 
                float2* kspec, float2* uspec, int B, int C, int L, int Lk, const Plan& p,
                cudaStream_t stream) {
   const int pairs = (C + 1) / 2;
-  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const int wc = col_class(p), wr = row_class(p);
   const dim3 cols_k = cols_grid(p, pairs, 1), cols_u = cols_grid(p, pairs, B);
   const int tc = cols_threads(p);
   const size_t sc = cols_smem_bytes(p), sr = rows_smem_bytes(p);

@@ -166,7 +166,7 @@ int launch_all(Route route, const T* u, const float2* uspec, const T* v, const T
   float2* sdy = ws;
   float2* su = route == kRetransform ? sdy + batch_numel : nullptr;
   float2* kspec = (su != nullptr ? su : sdy) + batch_numel;
-  const int wc = radix_class(p.log_n1), wr = radix_class(p.log_n2);
+  const int wc = col_class(p), wr = row_class(p);
   const dim3 cols_c = cols_grid(p, pairs, 1), cols_b = cols_grid(p, pairs, B);
   const dim3 rows_b = pair_rows_grid(p, pairs, B);
   const int tc = cols_threads(p);
