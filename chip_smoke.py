@@ -8,8 +8,9 @@ line:
 
 1. build    every hand-written kernel from `hyena_dna_tpu_torch/csrc` (one
             nvcc per source, twelve sources, started together; ptxas's
-            register, stack and spill readings of the bf16 front-end
-            kernels, of F and F' and of the passes of C, E and E' are kept
+            register, stack and spill readings of the front-end kernels
+            (float32 and bf16 u), of F and F' and of the passes of C, E
+            and E' are kept
             for their rows,
             read from the log beside a library built before): kernels A and
             A' (the front end forward and backward), A4 and A4' (the same on
@@ -325,15 +326,18 @@ launches (9c's mixed stack and 9d's general Hyena path) under
 launches under "parallel"; A, A', B and C at phase 11's channel slices
 with the ranks' launches under "tensor_parallel"; A4 and A4' at phase
 12a's channel slices and every kernel's launches in phase 12 under
-"mesh_rest"; the bf16 rows of A,
-A', A4, A4' and the rows of F, F' with their tensor-core kernels' ptxas
+"mesh_rest"; the bf16 rows of A and
+A'; A, A', A4, A4', F and F' with their tensor-core kernels' ptxas
 readings, B, C, E and E' with their passes' readings), and last
 {"ok": true, "device": {...}}. Times come from CUDA events around repeated
 launches after a warm-up. `bound_ms` is the larger of the bytes the function
 must move (inputs read once, outputs written once) at 3.35 TB/s and its
 operations at 67 TFLOP/s for float32 inputs or at the bf16 tensor cores'
 989 TFLOP/s for bf16 inputs and for the bf16 products of F and F' (H100
-SXM data sheet), the least time the card could take.
+SXM data sheet), the least time the card could take. Kernels A, A', A4 and
+A4' run every product on the tensor cores: for float32 u a float32-accurate
+product is counted as three bf16 products (FRONT_PRODUCTS) and their
+float32 rows also carry the CUDA-core bound, `cuda_core_bound_ms`.
 """
 
 from __future__ import annotations
@@ -358,7 +362,6 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_FLOPS = 989e12  # dense tensor-core rate: the least time for bf16-input products
-FLOPS = {"float32": F32_FLOPS, "bfloat16": BF16_FLOPS}
 D_MODEL, N_LAYER = 256, 8
 LN_EPS = 1e-5
 
@@ -431,6 +434,22 @@ def bound(nbytes: float, flops: float, rate: float = F32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# bf16 products per matrix product of kernels A, A', A4, A4': the least
+# time for a float32-accurate product on the tensor cores is three bf16 pair
+# products (csrc/fused_front_tc.cuh's split), whatever the kernel issues
+FRONT_PRODUCTS = {"float32": 3, "bfloat16": 1}
+
+
+def front_bound(nbytes: float, product_flops: float, other_flops: float, dtype: str) -> dict:
+    """`bound_ms`, `bound_by` of a front-end kernel at the tensor cores' rate
+    (FRONT_PRODUCTS), and for float32 u the CUDA-core bound beside them."""
+    ms, by = bound(nbytes, FRONT_PRODUCTS[dtype] * product_flops + other_flops, BF16_FLOPS)
+    out = {"bound_ms": ms, "bound_by": by}
+    if dtype == "float32":
+        out["cuda_core_bound_ms"] = bound(nbytes, product_flops + other_flops)[0]
+    return out
+
+
 def front_inputs(B, L, dtype, seed, d=D_MODEL, d_c=None):
     """u (B, L, d) in `dtype`, float32 parameters at the model's init
     scales for a chunk width d_c (default d; a tensor-parallel rank's
@@ -475,7 +494,8 @@ def check_wgmma(probe, b_cols: int, phase: str, seed: int):
 
 
 # the kernels whose ptxas readings the run prints: the tensor-core kernels
-# behind each bf16 front-end entry (csrc/fused_front_tc.cuh) and behind
+# behind each front-end entry (csrc/fused_front_tc.cuh; each kernel per u
+# type and panel count, `<f32,4>` and `<bf16,4>` at d = 256) and behind
 # kernels F and F' (csrc/mlp_fused*.cu), with their helper kernels, the
 # passes of kernels B, C, E and E' (csrc/fftconv{,_bwd}.cu,
 # csrc/fftconv_gated{,_bwd}.cu), and the short path's kernels of B and C
@@ -569,13 +589,12 @@ def check_front(FF, B, L, seed, dtype="float32", d=D_MODEL, d_c=None):
 
     size = u.element_size()
     nbytes = size * (B * L * d + 2 * B * d_c * L) + 4 * (d * 3 * d_c + 3 * 3 * d_c + 2 * 3 * d_c)
-    flops = B * L * (2 * d * 3 * d_c + 3 * d_c * 7 + d_c)
-    bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
     return {"name": "fused_front", "shape": front_shape(B, L, d, d_c, dtype),
             "max_abs_err": max(e[0] for e in err), "max_rel_err": max(e[1] for e in err),
             "ms": time_ms(lambda: FF.fused_proj_conv_gate(u, w, bp, wc, bc)),
             "plain_ms": time_ms(lambda: FF.reference_fwd(u, w, bp, wc, bc)),
-            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": time_ms(library),
+            **front_bound(nbytes, B * L * 2 * d * 3 * d_c, B * L * (3 * d_c * 7 + d_c), dtype)}
 
 
 def check_conv(FB, B, L, dtype, route, seed, entry=None, plan=(), C=D_MODEL):
@@ -650,15 +669,14 @@ def check_front_bwd(FF, B, L, seed, dtype="float32", d=D_MODEL, d_c=None):
     size = u.element_size()
     nbytes = (size * (2 * B * L * d + 2 * B * d_c * L)
               + 4 * (2 * d * 3 * d_c + 11 * 3 * d_c))
-    flops = 3 * 2 * B * L * d * 3 * d_c + B * L * 3 * d_c * 16
-    bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
     return {"name": "fused_front_bwd", "shape": front_shape(B, L, d, d_c, dtype),
             "route": "pallas_hyena.py:395", "errors": {k: v[0] for k, v in errs.items()},
             "max_abs_err": max(e[0] for e in errs.values()),
             "max_rel_err": max(e[1] for e in errs.values()),
             "ms": time_ms(lambda: FF.front_bwd(*args)),
             "plain_ms": time_ms(lambda: FF.reference_bwd(*args)),
-            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": time_ms(library),
+            **front_bound(nbytes, 3 * 2 * B * L * d * 3 * d_c, B * L * 3 * d_c * 16, dtype)}
 
 
 def front4_plan(L, plan):
@@ -705,8 +723,6 @@ def check_front4(FF, B, L, plan, dtype, seed, d_c=None):
     size, lp = u.element_size(), rows * m
     nbytes = (size * (B * L * d + 2 * B * d_c * lp)
               + 4 * (d * 3 * d_c + 3 * 3 * d_c + 2 * 3 * d_c))
-    flops = B * L * (2 * d * 3 * d_c + 3 * d_c * 7 + d_c)
-    bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
     return {"name": "fused_front4", "shape": front_shape(B, L, d, d_c, dtype),
             "plan": list(plan), "rows_pad": rows, "m": m, "tile_l": tile, "tail_nonzero": tail,
             "route": "pallas_hyena.py:197",
@@ -714,7 +730,7 @@ def check_front4(FF, B, L, plan, dtype, seed, d_c=None):
             "ms": time_ms(lambda: FF.fused_proj_conv_gate4(u, w, bp, wc, bc, rows, m, tile)),
             "plain_ms": time_ms(lambda: FF.reference_fwd4(u, w, bp, wc, bc, rows, m)),
             "library_ms": time_ms(lambda: front4_library(u, w, bp, wc, bc, rows, m)),
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            **front_bound(nbytes, B * L * 2 * d * 3 * d_c, B * L * (3 * d_c * 7 + d_c), dtype)}
 
 
 def check_front4_bwd(FF, B, L, plan, dtype, seed, d_c=None):
@@ -744,8 +760,6 @@ def check_front4_bwd(FF, B, L, plan, dtype, seed, d_c=None):
     size = u.element_size()
     nbytes = (size * (2 * B * L * d + 2 * B * d_c * L)
               + 4 * (2 * d * 3 * d_c + 11 * 3 * d_c))
-    flops = 3 * 2 * B * L * d * 3 * d_c + B * L * 3 * d_c * 16
-    bound_ms, bound_by = bound(nbytes, flops, FLOPS[dtype])
     return {"name": "fused_front4_bwd", "shape": front_shape(B, L, d, d_c, dtype),
             "plan": list(plan), "route": "pallas_hyena.py:448",
             "errors": {k: v[0] for k, v in errs.items()},
@@ -753,7 +767,8 @@ def check_front4_bwd(FF, B, L, plan, dtype, seed, d_c=None):
             "max_rel_err": max(e[1] for e in errs.values()),
             "ms": time_ms(lambda: FF.front4_bwd(*args)),
             "plain_ms": time_ms(lambda: FF.reference_bwd4(*args)),
-            "library_ms": time_ms(library), "bound_ms": bound_ms, "bound_by": bound_by}
+            "library_ms": time_ms(library),
+            **front_bound(nbytes, 3 * 2 * B * L * d * 3 * d_c, B * L * 3 * d_c * 16, dtype)}
 
 
 def check_outer4(FB, B, L, plan, dtype, seed):
@@ -3920,14 +3935,10 @@ def main() -> int:
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     bf16 = {r["name"]: {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}}
             for r in bf16_rows}
-    for name, row in bf16.items():
-        row["ptxas"] = ptxas.get(name, {})
 
-    def route_row(r):  # a "routes" entry; A4 and A4' in bf16 with their ptxas readings
-        extra = ({"ptxas": ptxas.get(r["name"], {})}
-                 if r["name"] in front4 and r["shape"].endswith("bfloat16") else {})
+    def route_row(r):  # a "routes" entry
         return (f"{r['route']} {r['shape']}",
-                {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}, **extra})
+                {"max_abs_err": r["max_abs_err"], **{k: r[k] for k in timing}})
     # the rows at the trainer's shapes (phase 6), with their own numbers
     trainer = {r["name"]: {"shape": r["shape"], "max_abs_err": r["max_abs_err"],
                            **{k: r[k] for k in timing}} for r in trainer_rows}
@@ -3969,9 +3980,7 @@ def main() -> int:
          **{k: row[k] for k in timing}, **({"bf16": bf16[name]} if name in bf16 else {}),
          **({"routes": dict(route_row(r) for r in rows if r["name"] == name)}
             if name in routed else {}),
-         **({"ptxas": ptxas.get(name, {})}
-            if name in ("mlp_fused", "mlp_fused_bwd", "fftconv", "fftconv_bwd",
-                        "fftconv_gated", "fftconv_gated_bwd") else {}),
+         **({"ptxas": ptxas.get(name, {})} if name in PTXAS_KERNELS else {}),
          **({"trainer": trainer[name]} if name in trainer else {}),
          **({"models_launches": models_launches[name]} if models_launches.get(name) else {}),
          **({"short": short[name]} if name in short else {}),

@@ -19,39 +19,42 @@
 // Replaces hyena_dna_tpu/ops/pallas_hyena.py::fused_proj_conv_gate
 // (_kernel / _fwd_pallas), the front end of every order-2 Hyena layer.
 //
-// What bounds it on the H100: float32 u, the projection, 2 * L * d * 3d
-// flops per batch row on the CUDA cores (about 0.8 ms at the card's 67
-// TFLOP/s for B=4, L=32768, d=256), against 16 bytes per (t, channel) of
-// traffic. bfloat16 u: 8 bytes per (t, channel), 0.06 ms at 3.35 TB/s for
-// the same shape, against 0.05 ms of tensor-core time for one product; the
-// kernel issues two (u W_hi + u W_lo, W split into bf16 pairs) on wgmma.
+// What bounds it on the H100: the bytes, 8 (bf16) or 16 (float32) per
+// (t, channel) of u, vx and x0: 0.06 or 0.12 ms at 3.35 TB/s for B=4,
+// L=32768, d=256, against 0.05 ms of tensor-core time for one bf16 product
+// of the projection, 2 * L * d * 3d flops per batch row at 989 TFLOP/s.
+// The kernel issues the projection as two (bf16 u: u W_hi + u W_lo) or
+// three (float32 u: u_hi W_hi + u_hi W_lo + u_lo W_hi) bf16 pair products
+// on wgmma, W split into bf16 pairs once per call and float32 u as its tile
+// is loaded, which keeps the float32 result within the float32 tolerance.
 //
-// The tile bodies (float32 on the CUDA cores, bfloat16 on the tensor
-// cores), their design notes and the launchers are in fused_front_common.cuh
-// and fused_front_tc.cuh, shared with kernel A4 (fused_front4.cu).
+// The tile body, its design notes and the launcher are in
+// fused_front_common.cuh and fused_front_tc.cuh, shared with kernel A4
+// (fused_front4.cu).
 #define FRONT_NS front_fwd
 #include "fused_front_common.cuh"
 
-// All pointers to contiguous float32 device memory. Launches on `stream`,
-// does not synchronise; returns the cudaError_t of the launch.
+// All pointers to contiguous device memory: u (B, L, di), vx and x0 (B, dc,
+// L) float32, the parameters float32; ws: scratch for W's bf16 pairs,
+// hyena_front_ws_numel(di, dc) bf16 values. Launches on `stream`, does not
+// synchronise; returns the cudaError_t of the launches.
 extern "C" int hyena_fused_front_fwd(const float* u, const float* w, const float* bp,
                                      const float* wc, const float* bc, float* vx, float* x0,
-                                     int B, int L, int di, int dc, cudaStream_t stream) {
-  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, B, L, L, di, dc, stream);
+                                     __nv_bfloat16* ws, int B, int L, int di, int dc,
+                                     cudaStream_t stream) {
+  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, ws, B, L, L, di, dc, stream);
 }
 
-// As hyena_fused_front_fwd with u, vx and x0 bfloat16, the parameters
-// float32, on the tensor cores; ws: scratch for W's bf16 pairs,
-// hyena_front_ws_numel(di, dc) bf16 values.
+// As hyena_fused_front_fwd with u, vx and x0 bfloat16.
 extern "C" int hyena_fused_front_fwd_bf16(const __nv_bfloat16* u, const float* w,
                                           const float* bp, const float* wc, const float* bc,
                                           __nv_bfloat16* vx, __nv_bfloat16* x0,
                                           __nv_bfloat16* ws, int B, int L, int di, int dc,
                                           cudaStream_t stream) {
-  return FRONT_NS::launch_bf16(u, w, bp, wc, bc, vx, x0, ws, B, L, L, di, dc, stream);
+  return FRONT_NS::launch(u, w, bp, wc, bc, vx, x0, ws, B, L, L, di, dc, stream);
 }
 
-// bf16 values of the split-W scratch `ws` the bf16 entry takes at widths
+// bf16 values of the split-W scratch `ws` the entries take at widths
 // (di, dc) (-1 if it exceeds an int); the wrapper sizes the scratch by it.
 extern "C" int hyena_front_ws_numel(int di, int dc) { return FRONT_NS::tc::ws_numel(di, dc); }
 

@@ -17,40 +17,34 @@
 // of one output chunk: the whole model runs di == dc (d); a tensor-parallel
 // rank runs di = d and dc = d / M, its channel slice of each chunk.
 //
-// float32 u, fused_front_kernel (CUDA cores):
-//  * One block per (channel group of CB=32 outputs, 64-row time tile, batch
-//    row). The block computes the 64 x 96 projection tile it needs -- the
-//    x0, x1 and v columns of its 32 channels -- as a shared-memory tiled
-//    SGEMM with a 4 x 6 register tile per thread and float32 accumulation.
+// front_fwd_tc_kernel<T, kP> (tensor cores, fused_front_tc.cuh), one body
+// for both types of u:
+//  * W is split once per call into bf16 hi / lo panels (split_w_kernel);
+//    proj is the sum of the pair products of fused_front_tc.cuh (two for
+//    bf16 u, three for float32 u, split as its tile is loaded) on wgmma,
+//    accumulated in float32 registers.
+//  * One block (two warpgroups) per (120-time tile, batch row): the 128 u
+//    rows t0 - 2 .. t0 + 125 are read once into shared memory and stay
+//    there while the block loops over the dc / 16 channel groups. Each
+//    group's W panels (48 KB at di = 256, from L2): bf16 u double-buffers
+//    them, the next group's load overlapping this group's products and
+//    epilogue; float32 u, whose hi and lo u panels take the second buffer's
+//    room, single-buffers them, the next group's load overlapping this
+//    group's epilogue. Shared memory at di = 256: bf16 190,464 bytes (u 64
+//    KB, W 2 x 48 KB, ps 25 KB), float32 206,848 (u 128 KB, W 48 KB, ps 25
+//    KB), of the 232,448 a block may hold.
+//  * Each warpgroup projects 64 rows x the group's 48 columns (m64n48k16,
+//    two or three products per K step) into registers, then the block
+//    writes the tile to shared memory (+ bp), and each thread takes 8
+//    consecutive times of one channel through the conv and gate and stores
+//    them as one 16-byte (bf16) or two 16-byte (float32) vectors along t
+//    (tiles start at multiples of 8 times; scalar stores where ld % 8 != 0).
 //  * The TPU kernels carried the previous tile's last two projected rows in
 //    scratch across a sequential grid. CUDA blocks run in any order, so each
-//    tile recomputes its own 2-row halo: the 64 projected rows cover times
-//    t0 - 2 .. t0 + 61 and the block emits the 62 outputs t0 .. t0 + 61.
-//    Rows before t = 0 are zero (the conv pads the projection, bias
-//    included, with zeros), rows past L are masked, so any L works.
-//  * The grid covers ld; a tile that starts at or past L skips the product
-//    and only stores zeros, so the zero tail costs its bytes and no more.
-//  * Channel groups vary fastest in the grid, so the blocks that share a u
-//    tile run together and read it from L2.
-//  * The conv, gate and the transpose to channel-major happen in shared
-//    memory; stores are coalesced along time.
-//
-// bfloat16 u, front_fwd_tc_kernel (tensor cores, fused_front_tc.cuh):
-//  * W is split once per call into bf16 hi / lo panels (split_w_kernel);
-//    proj = u W_hi + u W_lo on wgmma, accumulated in float32 registers.
-//  * One block (two warpgroups) per (120-time tile, batch row): the 128 u
-//    rows t0 - 2 .. t0 + 125 are read once into shared memory (cp.async)
-//    and stay there while the block loops over the dc / 16 channel groups.
-//    Each group's W panels (48 KB at di = 256, from L2) are double-buffered:
-//    the next group's load overlaps this group's products and epilogue.
-//  * Each warpgroup projects 64 rows x the group's 48 columns (m64n48k16,
-//    two products per K step) into registers, then the block writes the
-//    tile to shared memory (+ bp), and each thread takes 8 consecutive
-//    times of one channel through the conv and gate and stores them as one
-//    16-byte vector along t (tiles start at multiples of 8 times; scalar
-//    stores where ld % 8 != 0).
-//  * The 2-row halo is recomputed per tile, so blocks run in any order; a
-//    tile at or past L only stores zeros.
+//    tile recomputes its own 2-row halo; rows before t = 0 are zero (the
+//    conv pads the projection, bias included, with zeros), rows past L are
+//    masked, so any L works. A tile at or past L only stores zeros, so the
+//    zero tail costs its bytes and no more.
 #pragma once
 
 #include "bf16_io.cuh"
@@ -58,134 +52,6 @@
 
 // FRONT_NS, defined by the including source, names the kernel for profiles.
 namespace FRONT_NS {
-
-constexpr int kRows = 64;           // projected rows per block
-constexpr int kOut = kRows - 2;     // output times per block
-constexpr int kCB = 32;             // output channels per block
-constexpr int kCols = 3 * kCB;      // projected columns per block
-constexpr int kTK = 32;             // reduction chunk
-constexpr int kThreads = 256;       // 16 x 16; thread owns 4 rows x 6 columns
-
-__global__ void __launch_bounds__(kThreads) fused_front_kernel(
-    const float* __restrict__ u, const float* __restrict__ w, const float* __restrict__ bp,
-    const float* __restrict__ wc, const float* __restrict__ bc, float* __restrict__ vx,
-    float* __restrict__ x0, int L, int ld, int di, int dc) {
-  __shared__ float us[kTK][kRows + 1];
-  __shared__ float ws[kTK][kCols];
-  __shared__ float ps[kRows][kCols + 1];
-
-  const int c0 = blockIdx.x * kCB;
-  const int t0 = blockIdx.y * kOut;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int d3 = 3 * dc;
-  const int trow0 = t0 - 2;  // time of projected row 0
-  const float* ub = u + static_cast<int64_t>(b) * L * di;
-
-  if (t0 >= L) {  // wholly in the zero tail (the whole block takes this branch)
-    for (int i = tid; i < kCB * kOut; i += kThreads) {
-      const int c = i / kOut, t = t0 + i % kOut;
-      const int ch = c0 + c;
-      if (t >= ld || ch >= dc) continue;
-      const int64_t o = (static_cast<int64_t>(b) * dc + ch) * ld + t;
-      x0[o] = 0.f;
-      vx[o] = 0.f;
-    }
-    return;
-  }
-
-  float acc[4][6];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int j = 0; j < 6; ++j) acc[r][j] = 0.f;
-
-  for (int k0 = 0; k0 < di; k0 += kTK) {
-    for (int i = tid; i < kRows * kTK; i += kThreads) {
-      const int r = i / kTK, kk = i % kTK;
-      const int t = trow0 + r;
-      us[kk][r] = (t >= 0 && t < L && k0 + kk < di)
-                      ? ub[static_cast<int64_t>(t) * di + k0 + kk]
-                      : 0.f;
-    }
-    for (int i = tid; i < kTK * kCols; i += kThreads) {
-      const int kk = i / kCols, j = i % kCols;
-      const int ch = c0 + j % kCB;
-      ws[kk][j] = (k0 + kk < di && ch < dc)
-                      ? w[static_cast<int64_t>(k0 + kk) * d3 + (j / kCB) * dc + ch]
-                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTK; ++kk) {
-      float a[4], bb[6];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = us[kk][ty * 4 + r];
-#pragma unroll
-      for (int j = 0; j < 6; ++j) bb[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int j = 0; j < 6; ++j) acc[r][j] = fmaf(a[r], bb[j], acc[r][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = ty * 4 + r;
-    const bool live = trow0 + row >= 0;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      const int col = tx + 16 * j;
-      const int ch = c0 + col % kCB;
-      ps[row][col] = (live && ch < dc) ? acc[r][j] + bp[(col / kCB) * dc + ch] : 0.f;
-    }
-  }
-  __syncthreads();
-
-  for (int i = tid; i < kCB * kOut; i += kThreads) {
-    const int c = i / kOut, rr = i % kOut;
-    const int t = t0 + rr;
-    const int ch = c0 + c;
-    if (t >= ld || ch >= dc) continue;
-    const int64_t o = (static_cast<int64_t>(b) * dc + ch) * ld + t;
-    if (t >= L) {  // the zero tail of a tile that straddles L
-      x0[o] = 0.f;
-      vx[o] = 0.f;
-      continue;
-    }
-    const int r = rr + 2;  // row of time t
-    float g[3];
-#pragma unroll
-    for (int grp = 0; grp < 3; ++grp) {
-      const int col = grp * kCB + c;
-      const int gc = grp * dc + ch;
-      g[grp] = ps[r - 2][col] * wc[gc] + ps[r - 1][col] * wc[d3 + gc] +
-               ps[r][col] * wc[2 * d3 + gc] + bc[gc];
-    }
-    x0[o] = g[0];
-    vx[o] = g[2] * g[1];
-  }
-}
-
-// float32 vx, x0 (B, dc, ld) from float32 u (B, L, di) on the CUDA cores; ld
-// == L for kernel A.
-inline int launch(const float* u, const float* w, const float* bp, const float* wc,
-                  const float* bc, float* vx, float* x0, int B, int L, int ld, int di, int dc,
-                  cudaStream_t stream) {
-  const int tiles = (ld + kOut - 1) / kOut;
-  if (B < 1 || L < 1 || di < 1 || dc < 1 || ld < L || tiles > 65535 || B > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((dc + kCB - 1) / kCB, tiles, B);
-  fused_front_kernel<<<grid, kThreads, 0, stream>>>(u, w, bp, wc, bc, vx, x0, L, ld, di, dc);
-  return static_cast<int>(cudaGetLastError());
-}
-
-
 namespace tc {
 
 constexpr int kFwdRows = 128;                 // projected rows per tile
@@ -193,9 +59,15 @@ constexpr int kFwdOut = 120;                  // output times per tile (multiple
 constexpr int kFwdPs = 50;                    // floats per ps row (conflict-free reads)
 constexpr int kUPanelFwd = kFwdRows * wgmma::kRowBytes;
 
+// W buffers of the forward: two for bf16 u, one for float32 u (see above)
+template <typename T>
+constexpr int kFwdWBufs = kUParts<T> == 1 ? 2 : 1;
+
+template <typename T>
 __host__ __device__ inline int fwd_smem_bytes(int di, int dc) {
   const Dims D(di, dc);
-  return 1024 + D.Pm * kUPanelFwd + 2 * D.w_bytes() + kFwdRows * kFwdPs * 4;
+  return 1024 + kUParts<T> * D.Pm * kUPanelFwd + kFwdWBufs<T> * D.w_bytes() +
+         kFwdRows * kFwdPs * 4;
 }
 
 // Stores 8 times t .. t + 7 of one (batch, channel) row at o; vec: ld % 8
@@ -210,15 +82,29 @@ __device__ __forceinline__ void store8(bf16* out, int64_t o, int t, int ld, bool
       if (t + m < ld) out[o + m] = __float2bfloat16_rn(v[m]);
   }
 }
+__device__ __forceinline__ void store8(float* out, int64_t o, int t, int ld, bool vec,
+                                       const float (&v)[8]) {
+  if (vec && t + 8 <= ld) {
+    float4* p = reinterpret_cast<float4*>(out + o);
+    p[0] = make_float4(v[0], v[1], v[2], v[3]);
+    p[1] = make_float4(v[4], v[5], v[6], v[7]);
+  } else {
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (t + m < ld) out[o + m] = v[m];
+  }
+}
 
-template <int kP>
+template <typename T, int kP>
 __global__ void __launch_bounds__(kThreads, 1) front_fwd_tc_kernel(
-    const bf16* __restrict__ u, const bf16* __restrict__ ws, const float* __restrict__ bp,
-    const float* __restrict__ wc, const float* __restrict__ bc, bf16* __restrict__ vx,
-    bf16* __restrict__ x0, int L, int ld, int di, int dc) {
+    const T* __restrict__ u, const bf16* __restrict__ ws, const float* __restrict__ bp,
+    const float* __restrict__ wc, const float* __restrict__ bc, T* __restrict__ vx,
+    T* __restrict__ x0, int L, int ld, int di, int dc) {
   extern __shared__ uint8_t smem_raw[];
   const Dims D(di, dc);
   constexpr int kWBytes = 2 * kP * kWPanelBytes;
+  constexpr int kWBufs = kFwdWBufs<T>;
+  constexpr int kUBytes = kUParts<T> * kP * kUPanelFwd;
   const int t0 = blockIdx.x * kFwdOut, b = blockIdx.y;
   const int tid = threadIdx.x, wg = tid / 128, tw = tid % 128;
   const bool vec_out = ld % 8 == 0;
@@ -237,10 +123,10 @@ __global__ void __launch_bounds__(kThreads, 1) front_fwd_tc_kernel(
 
   uint8_t* sm = aligned_smem(smem_raw);
   const uint32_t U = wgmma::smem_u32(sm);
-  const uint32_t W0 = U + kP * kUPanelFwd;  // W buffer i at W0 + i * kWBytes
-  float* ps = reinterpret_cast<float*>(sm + kP * kUPanelFwd + 2 * kWBytes);
+  const uint32_t W0 = U + kUBytes;  // W buffer i at W0 + i * kWBytes
+  float* ps = reinterpret_cast<float*>(sm + kUBytes + kWBufs * kWBytes);
   const bool vec_u = di % 8 == 0;
-  const int nsteps = D.G * D.nchunk;  // (group, input chunk) steps, W double-buffered
+  const int nsteps = D.G * D.nchunk;  // (group, input chunk) steps
 
   if (D.nchunk == 1) load_u(U, u, b, t0 - 2, kFwdRows, L, di, 0, kP, vec_u);
   load_w<kP>(W0, ws, D, 0, 0);
@@ -255,18 +141,28 @@ __global__ void __launch_bounds__(kThreads, 1) front_fwd_tc_kernel(
         load_u(U, u, b, t0 - 2, kFwdRows, L, di, kChunk * ic, kP, vec_u);
         cp_commit();
       }
-      if (s + 1 < nsteps) {
-        load_w<kP>(W0 + ((s + 1) & 1) * kWBytes, ws, D, (s + 1) / D.nchunk, (s + 1) % D.nchunk);
-        cp_commit();
-        cp_wait<1>();
+      if constexpr (kWBufs == 2) {
+        if (s + 1 < nsteps) {
+          load_w<kP>(W0 + ((s + 1) & 1) * kWBytes, ws, D, (s + 1) / D.nchunk,
+                     (s + 1) % D.nchunk);
+          cp_commit();
+          cp_wait<1>();
+        } else {
+          cp_wait<0>();
+        }
       } else {
+        if (ic > 0) {  // a group's first chunk was loaded during the last epilogue
+          load_w<kP>(W0, ws, D, g, ic);
+          cp_commit();
+        }
         cp_wait<0>();
       }
       wgmma::fence_proxy_async();
       __syncthreads();
       wgmma::fence_operand(acc);
       wgmma::fence();
-      proj_mma<48, kP>(acc, U, kUPanelFwd, 64 * wg, W0 + (s & 1) * kWBytes, 0);
+      proj_mma<48, kP, (kUParts<T> == 2)>(acc, U, kUPanelFwd, 64 * wg,
+                                          kWBufs == 2 ? W0 + (s & 1) * kWBytes : W0, 0);
       wgmma::commit();
       wgmma::wait<0>();
       wgmma::fence_operand(acc);
@@ -274,6 +170,12 @@ __global__ void __launch_bounds__(kThreads, 1) front_fwd_tc_kernel(
 
     store_ps<48>(ps, kFwdPs, acc, tw, 64 * wg, 0, 0, bp, g, dc, t0 - 2, L);
     __syncthreads();
+    if constexpr (kWBufs == 1) {  // both warpgroups' products are done with W
+      if (g + 1 < D.G) {
+        load_w<kP>(W0, ws, D, g + 1, 0);
+        cp_commit();
+      }
+    }
     // conv + gate: thread = (8-time chunk k, channel c); ps row tau + 2 is time t0 + tau
     const int c = tid % kC, k = tid / kC, ch = kC * g + c;
     if (k < kFwdOut / 8 && ch < dc) {
@@ -310,11 +212,13 @@ __global__ void __launch_bounds__(kThreads, 1) front_fwd_tc_kernel(
 
 }  // namespace tc
 
-// bf16 vx, x0 (B, dc, ld) from bf16 u (B, L, di) on the tensor cores; ws: the
-// split-W scratch (tc::ws_numel(di, dc) bf16). ld == L for kernel A.
-inline int launch_bf16(const __nv_bfloat16* u, const float* w, const float* bp, const float* wc,
-                       const float* bc, __nv_bfloat16* vx, __nv_bfloat16* x0, __nv_bfloat16* ws,
-                       int B, int L, int ld, int di, int dc, cudaStream_t stream) {
+// vx, x0 (B, dc, ld) from u (B, L, di), all float32 or all bfloat16, on the
+// tensor cores; ws: the split-W scratch (tc::ws_numel(di, dc) bf16). ld ==
+// L for kernel A.
+template <typename T>
+inline int launch(const T* u, const float* w, const float* bp, const float* wc, const float* bc,
+                  T* vx, T* x0, __nv_bfloat16* ws, int B, int L, int ld, int di, int dc,
+                  cudaStream_t stream) {
   const int tiles = (ld + tc::kFwdOut - 1) / tc::kFwdOut;
   if (B < 1 || L < 1 || di < 1 || dc < 1 || ld < L || tiles > 65535 || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -322,8 +226,8 @@ inline int launch_bf16(const __nv_bfloat16* u, const float* w, const float* bp, 
   const int rc = tc::split_w(w, ws, di, dc, stream);
   if (rc != 0) return rc;
   return tc::with_panels(di, [&](auto kp) {
-    const auto kernel = tc::front_fwd_tc_kernel<decltype(kp)::value>;
-    const int smem = tc::fwd_smem_bytes(di, dc);
+    const auto kernel = tc::front_fwd_tc_kernel<T, decltype(kp)::value>;
+    const int smem = tc::fwd_smem_bytes<T>(di, dc);
     const int err = static_cast<int>(
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     if (err != 0) return err;

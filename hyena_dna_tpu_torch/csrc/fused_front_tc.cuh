@@ -1,23 +1,31 @@
-// The tensor-core pieces of kernels A, A', A4 and A4' for bfloat16 u: the
-// split of W into bf16 pairs, the cp.async tile loads, the projection on
-// wgmma, and the dproj pass of the backward. Included by
+// The tensor-core pieces of kernels A, A', A4 and A4', for float32 and
+// bfloat16 u alike: the split of W into bf16 pairs, the tile loads, the
+// projection on wgmma, and the dproj pass of the backward. Included by
 // fused_front_common.cuh (forward) and fused_front_bwd_common.cuh
-// (backward) inside their FRONT_NS.
+// (backward) inside their FRONT_NS. Each kernel is one template on u's
+// type T (float or __nv_bfloat16) and the panel count.
 //
-// Precision. u, dvx and dx0 are bf16 and enter the products exactly. W and
-// dproj are float32; each is split into hi = bf16(x), lo = bf16(x - hi), so
+// Precision. bf16 u, dvx and dx0 enter the products exactly. W, dproj and
+// float32 u are split into hi = bf16(x), lo = bf16(x - hi), so
 // |x - hi - lo| <= 2^-17 |x|, and a product is the float32 sum of the wgmma
 // products of the pairs:
-//   proj = u W_hi + u W_lo,  du = dproj_hi W_hi^T + dproj_lo W_hi^T +
-//   dproj_hi W_lo^T,  dW = u^T dproj_hi + u^T dproj_lo.
-// A single rounding of W, or of dproj, misses the float32 tolerance of dW
-// by 3-17x; two products for du reach 0.7-0.8 of its bf16 tolerance, three
-// 0.002 (tests/test_torch_port_front_split.py, on ops/fused_front.py's
-// emulation `split_reference_bwd`).
+//   bf16 u:    proj = u W_hi + u W_lo,             dW = u^T dproj_hi + u^T dproj_lo
+//   float32 u: proj = u_hi W_hi + u_hi W_lo + u_lo W_hi,
+//              dW = u_hi^T dproj_hi + u_hi^T dproj_lo + u_lo^T dproj_hi
+//   both:      du = dproj_hi W_hi^T + dproj_lo W_hi^T + dproj_hi W_lo^T.
+// ops/fused_front.py's emulation chose them (tests/test_torch_port_front_split.py):
+// bf16 u: a single rounding of W, or of dproj, misses the float32 tolerance
+// of dW by 3-17x; two products for du reach 0.7-0.8 of its bf16 tolerance,
+// three 0.002. float32 u: the nine products keep every output within 0.06
+// of the float32 tolerance, and leaving out any one of them misses it by
+// 11-18x; so float32 u costs one product more in the projection and in dW.
 //
 // Layouts (wgmma.cuh's 128-byte swizzle panels of 64 values a row):
 //  * u tile: rows = times, panels along the d input channels i; the
-//    projection's A (K-major) and dW's A (MN-major, M = i, K = t).
+//    projection's A (K-major) and dW's A (MN-major, M = i, K = t). float32
+//    u: the hi panels, then the lo panels. bf16 u is copied with cp.async;
+//    float32 u is read into registers, split and stored (cp.async cannot
+//    convert), several 32-byte loads in flight a thread.
 //  * W group: the 48 projected columns j of a group of 16 channels
 //    (x0 | x1 | v) as rows, panels along i, hi panels then lo panels; the
 //    projection's B (K-major, N = j) and du's B (MN-major, K = j, N = i).
@@ -25,6 +33,9 @@
 //    64) bf16, already swizzled, so a block copies it as it is.
 //  * dproj: rows = times, one panel along j (48 of 64 used), hi and lo;
 //    du's A (K-major, K = j) and dW's B (MN-major, K = t, N = j).
+//  * cotangents: bf16 dvx, dx0 are staged in shared memory (cp.async);
+//    float32 ones, whose staging would not fit beside the float32 u tile,
+//    are read by the dproj pass straight from device memory.
 // Two widths: di, u's width (the products' K for the projection, du's N
 // and dW's M), and dc, the width of one output chunk (vx and x0 are
 // (B, dc, L); W is (di, 3 dc), bp, wc and bc 3 dc wide). The whole model
@@ -54,6 +65,10 @@ constexpr int kChunkPanels = 4;                       // panels per input chunk
 constexpr int kChunk = wgmma::kPanelCols * kChunkPanels;  // 256 inputs
 constexpr int kWPanelBytes = kJ * wgmma::kRowBytes;   // 6144
 constexpr int kWPanelElems = kWPanelBytes / 2;
+
+// u panels a tile holds per input panel: bf16 u 1, float32 u 2 (hi, lo)
+template <typename T>
+constexpr int kUParts = std::is_same<T, float>::value ? 2 : 1;
 
 // Sizes that follow from di and dc, the same on host and device.
 struct Dims {
@@ -148,6 +163,61 @@ __device__ __forceinline__ void load_u(uint32_t dst, const bf16* u, int b, int t
   }
 }
 
+// As load_u for float32 u, split into bf16 pairs: the hi panels at dst,
+// the lo panels pc panels after them. Each thread loads kBatch chunks of 8
+// values (two 16-byte reads each when vec) before it splits and stores
+// them, so its loads are in flight together.
+__device__ __forceinline__ void load_u(uint32_t dst, const float* u, int b, int t_base, int rows,
+                                       int L, int di, int i0, int pc, bool vec) {
+  constexpr int kBatch = 4;
+  const int n = rows * pc * 8;
+  const uint32_t lo_off = pc * rows * wgmma::kRowBytes;
+  for (int q0 = threadIdx.x; q0 < n; q0 += kBatch * kThreads) {
+    float v[kBatch][8];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int q = q0 + j * kThreads;
+      const int c = q % 8, r = (q / 8) % rows, p = q / (8 * rows);
+      const int t = t_base + r;
+      const int i = i0 + 64 * p + 8 * c;
+      const bool row_ok = q < n && t >= 0 && t < L;
+      const float* src = u + (static_cast<int64_t>(b) * L + (row_ok ? t : 0)) * di + i;
+      if (vec && row_ok && i < di) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(src));
+        const float4 y = __ldg(reinterpret_cast<const float4*>(src) + 1);
+        v[j][0] = x.x, v[j][1] = x.y, v[j][2] = x.z, v[j][3] = x.w;
+        v[j][4] = y.x, v[j][5] = y.y, v[j][6] = y.z, v[j][7] = y.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[j][e] = (row_ok && i + e < di) ? src[e] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int q = q0 + j * kThreads;
+      if (q >= n) break;
+      const int c = q % 8, r = (q / 8) % rows, p = q / (8 * rows);
+      uint32_t hi[4], lo[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[j][2 * e], v[j][2 * e + 1]);
+        const float2 hf = __bfloat1622float2(h);
+        const __nv_bfloat162 l =
+            __floats2bfloat162_rn(v[j][2 * e] - hf.x, v[j][2 * e + 1] - hf.y);
+        hi[e] = *reinterpret_cast<const uint32_t*>(&h);
+        lo[e] = *reinterpret_cast<const uint32_t*>(&l);
+      }
+      const uint32_t a = dst + p * rows * wgmma::kRowBytes + wgmma::chunk_offset(r, c);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(hi[0]), "r"(hi[1]),
+                   "r"(hi[2]), "r"(hi[3])
+                   : "memory");
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a + lo_off), "r"(lo[0]),
+                   "r"(lo[1]), "r"(lo[2]), "r"(lo[3])
+                   : "memory");
+    }
+  }
+}
+
 // The cotangents of group g's 16 channels at times tb .. tb + ct - 1 (tb a
 // multiple of 8): dvx rows at cs[c * stride], dx0 rows at cs[(16 + c) *
 // stride]; zero past L and past dc. vec: ld % 8 == 0.
@@ -175,9 +245,10 @@ __device__ __forceinline__ void load_cot(bf16* cs, int stride, const bf16* dvx, 
 
 // acc (u rows urow0 .. urow0 + 63, W group rows wrow0 .. wrow0 + N - 1) +=
 // the projection over one input chunk: kP panels of u at ub (panel stride
-// upanel bytes) and of W at wb, hi and lo (zero past di). No branch between
-// the products, so ptxas keeps them asynchronous.
-template <int N, int kP>
+// upanel bytes; with kULo, u's lo panels follow its kP hi panels) and of W
+// at wb, hi and lo (zero past di). No branch between the products, so
+// ptxas keeps them asynchronous.
+template <int N, int kP, bool kULo = false>
 __device__ __forceinline__ void proj_mma(float (&acc)[N / 2], uint32_t ub, int upanel, int urow0,
                                          uint32_t wb, int wrow0) {
 #pragma unroll
@@ -189,6 +260,8 @@ __device__ __forceinline__ void proj_mma(float (&acc)[N / 2], uint32_t ub, int u
       const uint32_t l = h + kP * kWPanelBytes;
       wgmma::Mma<N, 0, 0>::run(acc, wgmma::desc_k(a), wgmma::desc_k(h));
       wgmma::Mma<N, 0, 0>::run(acc, wgmma::desc_k(a), wgmma::desc_k(l));
+      if constexpr (kULo)
+        wgmma::Mma<N, 0, 0>::run(acc, wgmma::desc_k(a + kP * upanel), wgmma::desc_k(h));
     }
   }
 }
@@ -220,6 +293,14 @@ __device__ __forceinline__ void put_split(uint8_t* hi, uint8_t* lo, int row, int
   *reinterpret_cast<bf16*>(lo + off) = __float2bfloat16_rn(x - __bfloat162float(h));
 }
 
+// The cotangent at local row s: bf16 rows from shared memory, which load_cot
+// zero-filled past L; float32 rows straight from device memory, zero from
+// local row s_end (time L) on.
+__device__ __forceinline__ float cot_at(const bf16* p, int s, int) { return to_f32(p[s]); }
+__device__ __forceinline__ float cot_at(const float* p, int s, int s_end) {
+  return s < s_end ? __ldg(p + s) : 0.f;
+}
+
 // One item of the dproj pass: channel c of group g, local rows s0 .. s0 + kR -
 // 1 (local row s is time t0 + s; ps row s + 2 is proj at that time).
 //   conv at s from ps rows s .. s + 2, dconv = [dx0 | dvx v | dvx x1] at s,
@@ -227,13 +308,16 @@ __device__ __forceinline__ void put_split(uint8_t* hi, uint8_t* lo, int row, int
 // into the dproj panels (row dp_row0 + s, column part * 16 + c), split hi /
 // lo. ps columns of channel c: x1 at px1 + c and v at px1 + 16 + c (x0 at
 // px1 - 16 + c when kPartials).
-// cvx / cx0 point at the cotangent rows of channel c at local row 0. With
-// kPartials, sums[] gains this item's dbp, dwc[0..2] and dbc (5 x 3 parts).
-template <int kR, bool kPartials>
-__device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1, const bf16* cvx,
-                                           const bf16* cx0, int s0, const float* wc,
+// cvx / cx0 point at the cotangent rows of channel c at local row 0 (for
+// float32, in device memory, s_end the local row of time L; see cot_at).
+// With kPartials, sums[] gains this item's dbp, dwc[0..2] and dbc (5 x 3
+// parts).
+template <int kR, bool kPartials, typename T>
+__device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1, const T* cvx,
+                                           const T* cx0, int s0, const float* wc,
                                            const float* bc, int dc, int g, int c, uint8_t* dp_hi,
-                                           uint8_t* dp_lo, int dp_row0, float (&sums)[15]) {
+                                           uint8_t* dp_lo, int dp_row0, float (&sums)[15],
+                                           int s_end = 0) {
   const int d3 = 3 * dc, ch = kC * g + c;
   float w0[3], w1[3], w2[3];
 #pragma unroll
@@ -261,13 +345,13 @@ __device__ __forceinline__ void dproj_item(const float* ps, int stride, int px1,
     const float c1 = r1[(s + 2) * stride], cv = rv[(s + 2) * stride];
     const float x1 = a1 * w0[1] + b1 * w1[1] + c1 * w2[1] + bc1;
     const float v = av * w0[2] + bv * w1[2] + cv * w2[2] + bcv;
-    const float gvx = to_f32(cvx[s]);
+    const float gvx = cot_at(cvx, s, s_end);
 #pragma unroll
     for (int p = 0; p < 3; ++p) {
       dg[p][2] = dg[p][1];
       dg[p][1] = dg[p][0];
     }
-    dg[0][0] = to_f32(cx0[s]);
+    dg[0][0] = cot_at(cx0, s, s_end);
     dg[1][0] = gvx * v;   // d x1 = dvx * v
     dg[2][0] = gvx * x1;  // d v  = dvx * x1
     if (kPartials && m < kR) {

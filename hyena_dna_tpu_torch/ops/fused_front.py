@@ -46,13 +46,14 @@ to bf16 (`u @ w.astype(u.dtype)`); `reference_fwd` keeps it float32, the
 math the model runs on both devices, so the card is held to it at the
 tolerance of one bf16 rounding of the outputs.
 
-On bf16 u the kernels run their products on the tensor cores
-(`csrc/wgmma.cuh`, `csrc/fused_front_tc.cuh`) with W and dproj split into
-bf16 pairs, hi + lo, each product the float32 sum of two or three pair
-products; `split_reference_fwd` / `split_reference_bwd` are that scheme in
-plain PyTorch, held to the plain versions on the CPU
-(`tests/test_torch_port_front_split.py`). Kernel A' on bf16 u keeps dproj
-out of device memory; on float32 u it writes it to a scratch.
+On either dtype of u the kernels run their products on the tensor cores
+(`csrc/wgmma.cuh`, `csrc/fused_front_tc.cuh`) with W, dproj and float32 u
+split into bf16 pairs, hi + lo, each product the float32 sum of two or
+three pair products (`PROJ_TERMS`, `DU_TERMS`, `DW_TERMS`);
+`split_reference_fwd` / `split_reference_bwd` are that scheme in plain
+PyTorch, held to the plain versions on the CPU
+(`tests/test_torch_port_front_split.py`). Kernel A' keeps dproj out of
+device memory.
 """
 
 from __future__ import annotations
@@ -67,41 +68,30 @@ from hyena_dna_tpu_torch import _cuda
 from hyena_dna_tpu_torch.ops.short_conv import short_conv_1d
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# float32 u: the CUDA-core bodies; bf16 u: the tensor-core bodies, which take
-# the split-W scratch `ws` and, backward, the dW run count instead of dproj
-# (B, L, d_in, d_c after the pointers)
-_FWD_ARGS = [_P] * 7 + [_I] * 4 + [_P]
-_FWD_BF16_ARGS = [_P] * 8 + [_I] * 4 + [_P]
-_BWD_ARGS = [_P] * 13 + [_I] * 6 + [_P]
-_BWD_BF16_ARGS = [_P] * 13 + [_I] * 5 + [_P]
-# the bf16 entries' scratch sizes, from the C layout (host functions, not
+# each entry, float32 or bf16 u: the pointers (the split-W scratch `ws` among
+# them), B, L, d_in, d_c and, backward, the dW run count; then the stream
+_FWD_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 13 + [_I] * 5 + [_P]
+# the entries' scratch sizes, from the C layout (host functions, not
 # launches): ws_numel(d_in, d_c), bwd_runs(B, L, d_in, d_c)
 _SIZES = {"hyena_front_ws_numel": [_I] * 2}
 _BWD_SIZES = {**_SIZES, "hyena_front_bwd_runs": [_I] * 4}
 KERNEL = _cuda.Kernel("fused_front", {"hyena_fused_front_fwd": _FWD_ARGS,
-                                      "hyena_fused_front_fwd_bf16": _FWD_BF16_ARGS,
+                                      "hyena_fused_front_fwd_bf16": _FWD_ARGS,
                                       "hyena_front_wgmma_probe": [_P] * 3 + [_I, _P], **_SIZES})
 KERNEL_BWD = _cuda.Kernel("fused_front_bwd", {"hyena_fused_front_bwd": _BWD_ARGS,
-                                              "hyena_fused_front_bwd_bf16": _BWD_BF16_ARGS,
+                                              "hyena_fused_front_bwd_bf16": _BWD_ARGS,
                                               **_BWD_SIZES})
 # kernels A4 and A4': kernel A's and A''s arguments plus lp after L
-_FWD4_ARGS = [_P] * 7 + [_I] * 5 + [_P]
-_FWD4_BF16_ARGS = [_P] * 8 + [_I] * 5 + [_P]
-_BWD4_ARGS = [_P] * 13 + [_I] * 7 + [_P]
-_BWD4_BF16_ARGS = [_P] * 13 + [_I] * 6 + [_P]
+_FWD4_ARGS = [_P] * 8 + [_I] * 5 + [_P]
+_BWD4_ARGS = [_P] * 13 + [_I] * 6 + [_P]
 KERNEL4 = _cuda.Kernel("fused_front4", {"hyena_fused_front4_fwd": _FWD4_ARGS,
-                                        "hyena_fused_front4_fwd_bf16": _FWD4_BF16_ARGS,
-                                        **_SIZES})
+                                        "hyena_fused_front4_fwd_bf16": _FWD4_ARGS, **_SIZES})
 KERNEL4_BWD = _cuda.Kernel("fused_front4_bwd", {"hyena_fused_front4_bwd": _BWD4_ARGS,
-                                                "hyena_fused_front4_bwd_bf16": _BWD4_BF16_ARGS,
+                                                "hyena_fused_front4_bwd_bf16": _BWD4_ARGS,
                                                 **_BWD_SIZES})
 # the C entry point's suffix for each activation dtype the kernels take
 _SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
-# output times per length tile of kernel A' on float32 u (`kOut` in
-# csrc/fused_front_bwd_common.cuh)
-BWD_TILE = 60
-# rows of B*L per split-K slice of that kernel's dW product (at most 64 slices)
-BWD_ROWS_PER_SLICE = 2048
 # wgmma_probe's modes and the width N of each one's product
 # (csrc/fused_front.cu::hyena_front_wgmma_probe)
 PROBE_MODES = {0: 48, 1: 32, 2: 24, 3: 64, 4: 48}
@@ -148,40 +138,58 @@ def reference_bwd(u, w, bp, wc, bc, dvx, dx0):
 
 def split_bf16(x):
     """(hi, lo), both bfloat16: hi = bf16(x), lo = bf16(x - hi), so
-    |x - hi - lo| <= 2^-17 |x|. The bf16 kernels split W and dproj so."""
+    |x - hi - lo| <= 2^-17 |x|. The kernels split W, dproj and float32 u so."""
     hi = x.float().to(torch.bfloat16)
     return hi, (x.float() - hi.float()).to(torch.bfloat16)
 
 
+# The pair products the kernels issue, per u dtype (a's part first, as
+# `_pair_mm` names them): bf16 u enters exactly (its hi part), float32 u as
+# a pair. du's products do not involve u.
+PROJ_TERMS = {torch.bfloat16: "hh hl", torch.float32: "hh hl lh"}
+DU_TERMS = "hh lh hl"
+DW_TERMS = {torch.bfloat16: "hh hl", torch.float32: "hh hl lh"}
+
+
+def _u_parts(u):
+    """u as the kernels' products take it: bf16 u whole, float32 u as its
+    bf16 pair."""
+    return u if u.dtype == torch.bfloat16 else split_bf16(u)
+
+
 def _pair_mm(a, b, terms: str):
     """The float32 sum of the products of a's and b's bf16 pair parts named
-    in `terms` ("hh", "lh", "hl": a's part first); a tensor that is not
+    in `terms` ("hh", "lh", "hl", "ll": a's part first); a tensor that is not
     split enters as its hi part."""
     a_parts = dict(zip("hl", a)) if isinstance(a, tuple) else {"h": a}
     b_parts = dict(zip("hl", b)) if isinstance(b, tuple) else {"h": b}
     return sum(a_parts[t[0]].float() @ b_parts[t[1]].float() for t in terms.split())
 
 
-def split_reference_fwd(u, w, bp, wc, bc, proj_terms="hh hl"):
-    """Kernel A's arithmetic on bf16 u in plain PyTorch, unrounded (float32
-    vx, x0): proj as the pair products `proj_terms` of u and W's pair, then
-    `reference_fwd`'s conv and gate. Not called by the kernels."""
-    proj = _pair_mm(u, split_bf16(w), proj_terms) + bp.float()
+def split_reference_fwd(u, w, bp, wc, bc, proj_terms=None):
+    """Kernel A's arithmetic in plain PyTorch, unrounded (float32 vx, x0):
+    proj as the pair products `proj_terms` (default: the kernels', by u's
+    dtype) of u and W's pair, then `reference_fwd`'s conv and gate. Not
+    called by the kernels."""
+    proj_terms = proj_terms or PROJ_TERMS[u.dtype]
+    proj = _pair_mm(_u_parts(u), split_bf16(w), proj_terms) + bp.float()
     conv = short_conv_1d(proj.transpose(-1, -2), wc.float().transpose(0, 1), bc.float())
     d = w.shape[1] // 3
     return conv[:, 2 * d:] * conv[:, d:2 * d], conv[:, :d]
 
 
-def split_reference_bwd(u, w, bp, wc, bc, dvx, dx0, proj_terms="hh hl",
-                        du_terms="hh lh hl", dw_terms="hh hl"):
-    """Kernel A''s arithmetic on bf16 u, dvx, dx0 in plain PyTorch, du
-    unrounded: proj, du = dproj W^T and dW = u^T dproj as the named pair
-    products (W and dproj split, u exact), the rest as `reference_bwd`.
-    Returns (du, dw, dbp, dwc, dbc), all float32. Not called by the
-    kernels."""
+def split_reference_bwd(u, w, bp, wc, bc, dvx, dx0, proj_terms=None, du_terms=DU_TERMS,
+                        dw_terms=None):
+    """Kernel A''s arithmetic in plain PyTorch, du unrounded: proj, du =
+    dproj W^T and dW = u^T dproj as the named pair products (W and dproj
+    split, u split when float32; proj_terms and dw_terms default to the
+    kernels' by u's dtype), the rest as `reference_bwd`. Returns (du, dw,
+    dbp, dwc, dbc), all float32. Not called by the kernels."""
     f32 = torch.float32
-    wp = split_bf16(w)
-    proj = _pair_mm(u, wp, proj_terms) + bp.float()
+    proj_terms = proj_terms or PROJ_TERMS[u.dtype]
+    dw_terms = dw_terms or DW_TERMS[u.dtype]
+    up, wp = _u_parts(u), split_bf16(w)
+    proj = _pair_mm(up, wp, proj_terms) + bp.float()
     proj_t = proj.transpose(1, 2)
     wc = wc.to(f32)
     conv = short_conv_1d(proj_t, wc.t(), bc.to(f32))
@@ -196,8 +204,9 @@ def split_reference_bwd(u, w, bp, wc, bc, dvx, dx0, proj_terms="hh hl",
     dproj = dproj_t.transpose(1, 2)  # (B, L, 3 d_c)
     dp = split_bf16(dproj)
     du = _pair_mm(dp, tuple(t.t() for t in wp), du_terms)
-    rows = lambda t: t.reshape(-1, t.shape[-1])
-    dw = _pair_mm(rows(u).t(), tuple(rows(t) for t in dp), dw_terms)
+    rows_t = lambda t: t.reshape(-1, t.shape[-1]).t()
+    u_rows = tuple(map(rows_t, up)) if isinstance(up, tuple) else rows_t(up)
+    dw = _pair_mm(u_rows, tuple(t.reshape(-1, t.shape[-1]) for t in dp), dw_terms)
     return du, dw, dproj.sum((0, 1)), dwc, dconv.sum((0, 2))
 
 
@@ -280,32 +289,24 @@ def front_bwd(u, w, bp, wc, bc, dvx, dx0):
 
 
 def _w_split(kernel, u, d) -> tuple:
-    """The bf16 kernels' split-W scratch for W (d_in, 3 d), d_in u's
-    width, as a 1-tuple, sized by `kernel`'s C helper (the layout lives in
-    `csrc/fused_front_tc.cuh`); () for float32 u."""
-    if u.dtype != torch.bfloat16:
-        return ()
+    """The kernels' split-W scratch for W (d_in, 3 d), d_in u's width, as a
+    1-tuple, sized by `kernel`'s C helper (the layout lives in
+    `csrc/fused_front_tc.cuh`)."""
     numel = kernel.query("hyena_front_ws_numel", u.shape[-1], d, device=u.device)
     return (torch.empty(numel, device=u.device, dtype=torch.bfloat16),)
 
 
 def _bwd_buffers(kernel, u, d):
     """Kernel A' (A4')'s outputs dw (d_in, 3d) and dparams (5, 3d) for a
-    chunk width d, its scratch in its C entry's order and its trailing
-    sizes: float32 u: (dproj, part, dwpart), (tiles, slices); bf16 u: (ws,
-    part, dwpart), (runs,), runs from `kernel`'s C helper (it depends on B,
-    L, d_in and d alone)."""
+    chunk width d, its scratch in its C entry's order, (ws, part, dwpart),
+    and its trailing sizes, (runs,): runs from `kernel`'s C helper (it
+    depends on B, L, d_in and d alone, not on u's dtype)."""
     b, length, d_in = u.shape
     new = lambda *shape: torch.empty(shape, device=u.device, dtype=torch.float32)
     dw, dparams = new(d_in, 3 * d), new(5, 3 * d)
-    if u.dtype == torch.bfloat16:
-        runs = kernel.query("hyena_front_bwd_runs", b, length, d_in, d, device=u.device)
-        scratch = _w_split(kernel, u, d) + (new(runs * 5 * 3 * d), new(runs, d_in, 3 * d))
-        return dw, dparams, scratch, (runs,)
-    tiles = -(-length // BWD_TILE)
-    slices = max(1, min(64, b * length // BWD_ROWS_PER_SLICE))
-    scratch = (new(b * length * 3 * d), new(b * tiles * 5 * 3 * d), new(slices, d_in, 3 * d))
-    return dw, dparams, scratch, (tiles, slices)
+    runs = kernel.query("hyena_front_bwd_runs", b, length, d_in, d, device=u.device)
+    scratch = _w_split(kernel, u, d) + (new(runs * 5 * 3 * d), new(runs, d_in, 3 * d))
+    return dw, dparams, scratch, (runs,)
 
 
 class FusedProjConvGate(torch.autograd.Function):

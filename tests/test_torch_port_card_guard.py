@@ -56,6 +56,9 @@ ENTRIES = {
                {"fused_front_bwd"}),
     "A'_bf16": (lambda: (FF.front_bwd, front(BF16) + (t(2, 32, 100, dtype=BF16),) * 2),
                 {"fused_front_bwd"}),
+    "A4_f32": (lambda: (lambda *a: FF.front4_fwd(*a, 2, 64), front(F32)), {"fused_front4"}),
+    "A4'_f32": (lambda: (FF.front4_bwd, front(F32) + (t(2, 32, 2, 64),) * 2),
+                {"fused_front4_bwd"}),
     "A4_bf16": (lambda: (lambda *a: FF.front4_fwd(*a, 2, 64), front(BF16)), {"fused_front4"}),
     "A4'_bf16": (lambda: (FF.front4_bwd, front(BF16) + (t(2, 32, 2, 64, dtype=BF16),) * 2),
                  {"fused_front4_bwd"}),

@@ -45,7 +45,8 @@ def _close(out, ref, atol_frac, rtol):
     assert bool(((out - ref).abs() <= tol).all()), (out - ref).abs().max()
 
 
-@pytest.mark.parametrize("B,L,d", [(2, 200, 64), (1, 1, 16), (3, 130, 40), (1, 4096, 256)])
+@pytest.mark.parametrize("B,L,d", [(2, 200, 64), (1, 1, 16), (3, 130, 40), (1, 4096, 256),
+                                   (2, 61, 32), (1, 250, 320)])
 def test_fused_front_matches_plain(card, B, L, d):
     g = torch.Generator().manual_seed(L)
     args = [torch.randn(B, L, d, generator=g), torch.randn(d, 3 * d, generator=g) * 0.05,
@@ -97,7 +98,7 @@ def test_model_on_card_matches_cpu(card):
 
 
 @pytest.mark.parametrize("B,L,d", [(2, 200, 64), (1, 1, 16), (3, 130, 40), (2, 61, 32),
-                                   (1, 4096, 256)])
+                                   (1, 4096, 256), (1, 250, 320)])
 def test_fused_front_bwd_matches_plain(card, B, L, d):
     g = torch.Generator().manual_seed(L + d)
     args = [torch.randn(B, L, d, generator=g), torch.randn(d, 3 * d, generator=g) * 0.05,
@@ -693,50 +694,54 @@ def test_wgmma_probe_matches_matmul(card, mode):
     _close(c, a.float() @ b.float()[:, :n], 1e-6, 1e-5)
 
 
-def _front_bf16_args(B, L, d, seed):
+def _front_bf16_args(B, L, d, seed, dtype=BF16):
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn(B, L, d, generator=g).to(BF16), torch.randn(d, 3 * d, generator=g) * 0.05,
+    return [torch.randn(B, L, d, generator=g).to(dtype), torch.randn(d, 3 * d, generator=g) * 0.05,
             torch.randn(3 * d, generator=g) * 0.1, torch.randn(3, 3 * d, generator=g),
-            torch.randn(3 * d, generator=g) * 0.1, torch.randn(B, d, L, generator=g).to(BF16),
-            torch.randn(B, d, L, generator=g).to(BF16)]
+            torch.randn(3 * d, generator=g) * 0.1, torch.randn(B, d, L, generator=g).to(dtype),
+            torch.randn(B, d, L, generator=g).to(dtype)]
 
 
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("B,L,d", [(2, 200, 64), (1, 4096, 256), (1, 250, 320)])
-def test_fused_front_bwd_bf16_same_bits_twice(card, B, L, d):
-    """Kernel A' on bf16 u twice on the same inputs: the same bits in du and
-    every parameter gradient (fixed-order sums, no atomics)."""
-    args = [a.to(card) for a in _front_bf16_args(B, L, d, 5 + d)]
+def test_fused_front_bwd_bf16_same_bits_twice(card, B, L, d, dtype):
+    """Kernel A' on bf16 (and float32) u twice on the same inputs: the same
+    bits in du and every parameter gradient (fixed-order sums, no atomics)."""
+    args = [a.to(card) for a in _front_bf16_args(B, L, d, 5 + d, dtype)]
     first, second = FF.front_bwd(*args), FF.front_bwd(*args)
     for x, y in zip(first, second):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("B,L,d,rows,m,tile", FRONT4_SHAPES)
-def test_fused_front4_bf16_bits_equal_flat(card, B, L, d, rows, m, tile):
-    """Kernels A4 and A4' against A and A' on the same bf16 values: the flat
-    view of the 4-D outputs is A's outputs bit for bit (zero past L), and
-    A4' gives A''s bits in du and every gradient (its dW runs depend on B, L
-    and d only); the 4-D cotangents are A's padded with noise past L."""
-    u, w, bp, wc, bc, dvx, dx0 = (a.to(card) for a in _front_bf16_args(B, L, d, 11 + L))
+def test_fused_front4_bf16_bits_equal_flat(card, B, L, d, rows, m, tile, dtype):
+    """Kernels A4 and A4' against A and A' on the same bf16 (and float32)
+    values: the flat view of the 4-D outputs is A's outputs bit for bit
+    (zero past L), and A4' gives A''s bits in du and every gradient (its dW
+    runs depend on B, L and d only); the 4-D cotangents are A's padded with
+    noise past L."""
+    u, w, bp, wc, bc, dvx, dx0 = (a.to(card) for a in _front_bf16_args(B, L, d, 11 + L, dtype))
     vx, x0 = FF.front_fwd(u, w, bp, wc, bc)
     vx4, x04 = FF.front4_fwd(u, w, bp, wc, bc, rows, m)
     for flat, four in ((vx, vx4), (x0, x04)):
         four = four.reshape(B, d, -1)
         assert torch.equal(four[..., :L], flat) and not four[..., L:].any()
-    noise = lambda t: torch.cat([t, torch.randn(B, d, rows * m - L, device=card).to(BF16)], -1)
+    noise = lambda t: torch.cat([t, torch.randn(B, d, rows * m - L, device=card).to(dtype)], -1)
     cot4 = [noise(t).reshape(B, d, rows, m).contiguous() for t in (dvx, dx0)]
     for x, y in zip(FF.front_bwd(u, w, bp, wc, bc, dvx, dx0),
                     FF.front4_bwd(u, w, bp, wc, bc, *cot4)):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("dtype", [BF16, torch.float32])
 @pytest.mark.parametrize("B,L,d", [(1, 1, 16), (2, 200, 64), (1, 250, 320), (4, 32768, 256),
                                    (1, 1000448, 256)])
-def test_front_bf16_scratch_sizes_from_c(card, B, L, d, monkeypatch):
-    """The bf16 entries' scratch sizes come from their libraries' C helpers:
-    the four libraries agree on the split-W size and the two backward ones
-    on the dW run count (so A4' takes A''s runs), and kernel A' refuses a
-    run count other than its own, before any launch."""
+def test_front_bf16_scratch_sizes_from_c(card, B, L, d, dtype, monkeypatch):
+    """The entries' scratch sizes (bf16 and float32 u alike) come from their
+    libraries' C helpers: the four libraries agree on the split-W size and
+    the two backward ones on the dW run count (so A4' takes A''s runs), and
+    kernel A' refuses a run count other than its own, before any launch."""
     libs = [k.lib() for k in (FF.KERNEL, FF.KERNEL4, FF.KERNEL_BWD, FF.KERNEL4_BWD)]
     numel = {lib.hyena_front_ws_numel(d, d) for lib in libs}
     runs = {lib.hyena_front_bwd_runs(B, L, d, d) for lib in libs[2:]}
@@ -753,7 +758,7 @@ def test_front_bf16_scratch_sizes_from_c(card, B, L, d, monkeypatch):
     monkeypatch.setattr(FF, "_bwd_buffers", one_run_more)
     before = FF.KERNEL_BWD.launches
     with pytest.raises(RuntimeError, match="CUDA error"):
-        FF.front_bwd(*(a.to(card) for a in _front_bf16_args(B, L, d, 3)))
+        FF.front_bwd(*(a.to(card) for a in _front_bf16_args(B, L, d, 3, dtype)))
     assert FF.KERNEL_BWD.launches == before
 
 

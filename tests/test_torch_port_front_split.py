@@ -1,21 +1,26 @@
-"""The precision scheme of the bf16 front-end kernels (A, A', A4, A4'), on the CPU.
+"""The precision scheme of the front-end kernels (A, A', A4, A4'), on the CPU.
 
-On bf16 u the kernels run every product on the tensor cores with W and
-dproj (float32) split into bf16 pairs hi + lo; `ops/fused_front.py`'s
+The kernels run every product on the tensor cores with W, dproj and float32
+u split into bf16 pairs hi + lo (bf16 u enters whole); `ops/fused_front.py`'s
 `split_reference_fwd` / `split_reference_bwd` are that arithmetic in plain
 PyTorch. Here it is held to the plain versions `reference_fwd` /
 `reference_bwd` at the tolerances `chip_smoke.py` holds the kernels to (TOL:
-vx, x0 and du at the bf16 one, dW, dbp, dwc and dbc at the float32 one), on
+bf16 u: vx, x0 and du at the bf16 one, dW, dbp, dwc and dbc at the float32
+one; float32 u: every output at the float32 one), on
 `chip_smoke.py::front_inputs`' scales. The bf16 outputs are compared before
 their final rounding, which both sides share. The chosen products must pass
 with margin; fewer products must not, which is why the kernels issue them.
+The float32 scheme is also held to the JAX Pallas kernel in interpret mode.
 """
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from hyena_dna_tpu.ops.pallas_hyena import fused_proj_conv_gate as jax_front
 
 from hyena_dna_tpu_torch.ops import fused_front as FF
 
@@ -25,10 +30,11 @@ F32_TOL = (1e-4, 1e-4)
 SHAPES = [(2, 1024, 64), (1, 2048, 256)]  # (B, L, d): B * L up to a few thousand rows
 
 
-def _inputs(B, L, d, seed):
-    """bf16 u, dvx, dx0 and float32 parameters at chip_smoke.py's scales."""
+def _inputs(B, L, d, seed, dtype=torch.bfloat16):
+    """u, dvx, dx0 in `dtype` and float32 parameters at chip_smoke.py's
+    scales."""
     r = np.random.default_rng(seed)
-    bf = lambda *s: torch.from_numpy(r.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+    bf = lambda *s: torch.from_numpy(r.standard_normal(s, dtype=np.float32)).to(dtype)
     f = lambda a: torch.from_numpy(np.asarray(a, dtype=np.float32))
     u = bf(B, L, d)
     w = f(r.standard_normal((d, 3 * d)) * 0.02)
@@ -111,3 +117,59 @@ def test_single_rounding_of_dproj_fails_the_dw_tolerance(B, L, d):
     _, ref = _plain(*args)
     out = FF.split_reference_bwd(*args, dw_terms="hh")
     assert _share(out[1], ref[1], F32_TOL) > 5.0
+
+
+# float32 u: u enters as a pair too; every output is held to the float32
+# tolerance, du included
+F32_PRODUCTS = [("proj_terms", FF.PROJ_TERMS[torch.float32]), ("du_terms", FF.DU_TERMS),
+                ("dw_terms", FF.DW_TERMS[torch.float32])]
+
+
+@pytest.mark.parametrize("B,L,d", SHAPES)
+def test_float32_pair_products_pass_with_margin(B, L, d):
+    """proj = u_hi W_hi + u_hi W_lo + u_lo W_hi, du from three pair
+    products, dW = u_hi^T dproj_hi + u_hi^T dproj_lo + u_lo^T dproj_hi: vx,
+    x0, du, dW, dbp, dwc and dbc within half the float32 budget."""
+    args = _inputs(B, L, d, d + 4, torch.float32)
+    ref_fwd, ref_bwd = _plain(*args)
+    for got, want in zip(FF.split_reference_fwd(*args[:5]), ref_fwd):
+        assert _share(got, want, F32_TOL) < 0.5
+    for got, want in zip(FF.split_reference_bwd(*args), ref_bwd):
+        assert got.shape == want.shape
+        assert _share(got, want, F32_TOL) < 0.5
+
+
+@pytest.mark.parametrize("B,L,d", SHAPES)
+def test_float32_forward_without_u_lo_fails(B, L, d):
+    """proj = u_hi W_hi + u_hi W_lo (u rounded once): vx and x0 miss the
+    float32 tolerance."""
+    args = _inputs(B, L, d, d + 5, torch.float32)
+    ref, _ = _plain(*args)
+    out = FF.split_reference_fwd(*args[:5], proj_terms="hh hl")
+    assert max(_share(got, want, F32_TOL) for got, want in zip(out, ref)) > 1.0
+
+
+@pytest.mark.parametrize("which,drop", [(k, t) for k, terms in F32_PRODUCTS
+                                        for t in terms.split()])
+@pytest.mark.parametrize("B,L,d", SHAPES)
+def test_float32_each_product_is_needed(B, L, d, which, drop):
+    """Any one of the nine pair products left out (u_lo from the projection
+    or from dW among them) puts some output of A' past the float32
+    tolerance: the kernels issue all nine and no fourth of a kind (ll)."""
+    args = _inputs(B, L, d, d + 6, torch.float32)
+    _, ref = _plain(*args)
+    terms = " ".join(t for t in dict(F32_PRODUCTS)[which].split() if t != drop)
+    out = FF.split_reference_bwd(*args, **{which: terms})
+    assert max(_share(got, want, F32_TOL) for got, want in zip(out, ref)) > 1.0
+
+
+def test_float32_scheme_matches_pallas_interpret():
+    """The float32 pair scheme against the JAX `fused_proj_conv_gate` (the
+    Pallas kernel in interpret mode, several length tiles) at 2e-4."""
+    B, L, d, tile = 2, 128, 32, 32
+    u, w, bp, wc, bc = _inputs(B, L, d, 9, torch.float32)[:5]
+    vx_ref, x0_ref = jax_front(*(jnp.asarray(t.numpy()) for t in (u, w, bp, wc, bc)), tile,
+                               True)
+    vx, x0 = FF.split_reference_fwd(u, w, bp, wc, bc)
+    np.testing.assert_allclose(vx.numpy(), np.asarray(vx_ref), atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(x0.numpy(), np.asarray(x0_ref), atol=2e-4, rtol=2e-4)
