@@ -1,0 +1,7 @@
+"""front_roofline.train (%, kernels): the traced calls of kernels A and A', the sum of their bounds (counts/roofline.py) over their device time."""
+
+from benchmark.harness import readers
+
+
+def read(ctx):
+    return readers.roofline_pct(ctx, ("kernel_a", "kernel_a_bwd"))
